@@ -1,0 +1,39 @@
+"""State carried across from the JAX package.
+
+The error-diffusion path has no learned weights. Its state is the palette
+and the diffusion weight tables, both numpy data in the JAX package; these
+functions return them as the port's tensors on a given device, unchanged
+bit for bit. ``ops.wavefront.scan_geometry`` takes the scan's weight table
+from ``entries_to_torch``; the tests use ``palette_to_torch`` to feed both
+packages one palette (their k-means streams differ, see core/palette.py).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from dither_pie_tpu_torch.api.runtime import DeviceLike, resolve_device
+
+
+def palette_to_torch(palette, device: DeviceLike) -> torch.Tensor:
+    """(P, 3) palette (array or list of RGB tuples) -> (P, 3) float32 tensor.
+    Kept float32, never rounded: the gamma path's palettes are not
+    integers."""
+    arr = np.asarray(palette, dtype=np.float32)
+    if arr.ndim != 2 or arr.shape[1] != 3:
+        raise ValueError(f"palette must be (P, 3), got {arr.shape}")
+    return torch.as_tensor(arr, device=resolve_device(device))
+
+
+def entries_to_torch(entries: Sequence[Tuple[int, int, float]],
+                     device: DeviceLike) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fixed-kernel entries [(dx, dy, w), ...] (``_fixed_entries(variant)``
+    of either package) -> ((n, 2) int32 offsets, (n,) float32 weights), the
+    pre-divided float32 weights bit for bit."""
+    dev = resolve_device(device)
+    offs = np.array([(dx, dy) for dx, dy, _ in entries], dtype=np.int32)
+    wts = np.array([w for _, _, w in entries], dtype=np.float32)
+    return torch.as_tensor(offs, device=dev), torch.as_tensor(wts, device=dev)

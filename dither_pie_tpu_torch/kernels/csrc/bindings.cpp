@@ -1,0 +1,173 @@
+// PyTorch binding of the wavefront kernels (the only source that includes
+// PyTorch's headers). Each function checks device, dtype, shape and
+// contiguity, launches on PyTorch's current stream of the tensor's device,
+// and raises if the launch is refused. Outputs and scratch are allocated
+// by the Python wrappers in dither_pie_tpu_torch/ops/wavefront.py.
+
+#include <torch/extension.h>
+
+#include <c10/cuda/CUDAGuard.h>
+#include <c10/cuda/CUDAStream.h>
+#include <cuda_runtime_api.h>
+
+#include "launchers.h"
+
+namespace {
+
+void check_tensor(const torch::Tensor& t, const char* name,
+                  const torch::Tensor& like) {
+    TORCH_CHECK(t.is_cuda(), name, " must be a CUDA tensor");
+    TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
+    TORCH_CHECK(t.device() == like.device(), name, " is on ", t.device(),
+                ", expected ", like.device());
+}
+
+void check_launch(int rc, const char* what) {
+    TORCH_CHECK(rc == 0, what, " kernel launch failed: ",
+                cudaGetErrorString(static_cast<cudaError_t>(rc)));
+}
+
+void* current_stream(const torch::Tensor& t) {
+    return (void*)c10::cuda::getCurrentCUDAStream(t.get_device()).stream();
+}
+
+int as_int(int64_t v, const char* name) {
+    TORCH_CHECK(v >= 0 && v < (int64_t(1) << 31), name, " out of int range");
+    return (int)v;
+}
+
+}  // namespace
+
+void skew(torch::Tensor images, torch::Tensor out, int64_t s) {
+    check_tensor(images, "images", images);
+    check_tensor(out, "out", images);
+    TORCH_CHECK(images.dim() == 4 && images.size(3) == 3,
+                "images must be (B, H, W, 3)");
+    TORCH_CHECK(out.scalar_type() == images.scalar_type(),
+                "out must have the images' dtype");
+    TORCH_CHECK(s >= 1, "skew s must be >= 1");
+    const int B = as_int(images.size(0), "B");
+    const int H = as_int(images.size(1), "H");
+    const int W = as_int(images.size(2), "W");
+    const int D = as_int(W + s * (H - 1), "D");
+    TORCH_CHECK(out.dim() == 3 && out.size(0) == D && out.size(1) == 3 * B &&
+                    out.size(2) == H,
+                "out must be (W + s*(H-1), 3B, H)");
+    const c10::cuda::CUDAGuard guard(images.device());
+    int rc;
+    if (images.scalar_type() == torch::kUInt8) {
+        rc = dpt_skew_u8(images.data_ptr<uint8_t>(), out.data_ptr<uint8_t>(),
+                         B, H, W, D, (int)s, current_stream(images));
+    } else {
+        TORCH_CHECK(images.scalar_type() == torch::kFloat32,
+                    "images must be uint8 or float32");
+        rc = dpt_skew_f32(images.data_ptr<float>(), out.data_ptr<float>(), B,
+                          H, W, D, (int)s, current_stream(images));
+    }
+    check_launch(rc, "skew");
+}
+
+void ed_scan_fixed(torch::Tensor img, torch::Tensor palette,
+                   torch::Tensor hist, torch::Tensor out,
+                   torch::Tensor offsets, torch::Tensor weights, int64_t s,
+                   int64_t width) {
+    check_tensor(img, "img", img);
+    check_tensor(palette, "palette", img);
+    check_tensor(hist, "hist", img);
+    check_tensor(out, "out", img);
+    TORCH_CHECK(img.dim() == 3 && img.size(1) % 3 == 0,
+                "img must be the (D, 3B, H) skewed stream");
+    const int D = as_int(img.size(0), "D");
+    const int B = as_int(img.size(1) / 3, "B");
+    const int H = as_int(img.size(2), "H");
+    const int W = as_int(width, "W");
+    TORCH_CHECK(s >= 1 && D == W + s * (H - 1),
+                "stream length must be W + s*(H-1)");
+    TORCH_CHECK(palette.scalar_type() == torch::kFloat32 &&
+                    palette.dim() == 2 && palette.size(1) == 3,
+                "palette must be (P, 3) float32");
+    const int P = as_int(palette.size(0), "P");
+    TORCH_CHECK(P >= 1 && P <= DPT_MAX_PALETTE, "palette size ", P,
+                " outside 1..", DPT_MAX_PALETTE);
+    TORCH_CHECK(hist.scalar_type() == torch::kFloat32 && hist.dim() == 4 &&
+                    hist.size(0) == B && hist.size(2) == 3 &&
+                    hist.size(3) == H,
+                "hist must be (B, ring, 3, H) float32");
+    const int ring = as_int(hist.size(1), "ring");
+    TORCH_CHECK(ring >= 1 && (ring & (ring - 1)) == 0,
+                "ring must be a power of two");
+    TORCH_CHECK(out.scalar_type() == torch::kInt32 && out.dim() == 3 &&
+                    out.size(0) == D && out.size(1) == B && out.size(2) == H,
+                "out must be (D, B, H) int32");
+    // The weight table stays on the host: it travels to the kernel by
+    // value, in its launch parameters.
+    TORCH_CHECK(offsets.device().is_cpu() && weights.device().is_cpu(),
+                "offsets and weights must be CPU tensors");
+    TORCH_CHECK(offsets.scalar_type() == torch::kInt32 && offsets.dim() == 2 &&
+                    offsets.size(1) == 2 && offsets.is_contiguous(),
+                "offsets must be a contiguous (n, 2) int32 tensor");
+    TORCH_CHECK(weights.scalar_type() == torch::kFloat32 &&
+                    weights.dim() == 1 && weights.is_contiguous(),
+                "weights must be a contiguous (n,) float32 tensor");
+    const int64_t n = offsets.size(0);
+    TORCH_CHECK(n >= 1 && n <= DPT_MAX_ENTRIES && weights.size(0) == n,
+                "entries must be 1..", DPT_MAX_ENTRIES, " (dx, dy, w)");
+    const int32_t* off = offsets.data_ptr<int32_t>();
+    const float* wts = weights.data_ptr<float>();
+    DptScanEntries e{};
+    e.n = (int)n;
+    for (int64_t k = 0; k < n; ++k) {
+        const int64_t dx = off[2 * k], dy = off[2 * k + 1];
+        TORCH_CHECK(dy >= 0 && dx + s * dy >= 1 && dx + s * dy < ring,
+                    "entry ", k, " violates the skew or ring bound");
+        e.dx[k] = (int)dx;
+        e.dy[k] = (int)dy;
+        e.w[k] = wts[k];
+    }
+    const c10::cuda::CUDAGuard guard(img.device());
+    int rc;
+    if (img.scalar_type() == torch::kUInt8) {
+        rc = dpt_ed_scan_fixed_u8(img.data_ptr<uint8_t>(),
+                                  palette.data_ptr<float>(), P, e, (int)s,
+                                  ring, B, H, W, D, hist.data_ptr<float>(),
+                                  out.data_ptr<int32_t>(), current_stream(img));
+    } else {
+        TORCH_CHECK(img.scalar_type() == torch::kFloat32,
+                    "img must be uint8 or float32");
+        rc = dpt_ed_scan_fixed_f32(img.data_ptr<float>(),
+                                   palette.data_ptr<float>(), P, e, (int)s,
+                                   ring, B, H, W, D, hist.data_ptr<float>(),
+                                   out.data_ptr<int32_t>(),
+                                   current_stream(img));
+    }
+    check_launch(rc, "ed_scan_fixed");
+}
+
+void unskew_unpack(torch::Tensor col, torch::Tensor out, int64_t s) {
+    check_tensor(col, "col", col);
+    check_tensor(out, "out", col);
+    TORCH_CHECK(col.scalar_type() == torch::kInt32 && col.dim() == 3,
+                "col must be (D, B, H) int32");
+    TORCH_CHECK(out.scalar_type() == torch::kUInt8 && out.dim() == 4 &&
+                    out.size(3) == 3,
+                "out must be (B, H, W, 3) uint8");
+    const int B = as_int(out.size(0), "B");
+    const int H = as_int(out.size(1), "H");
+    const int W = as_int(out.size(2), "W");
+    TORCH_CHECK(s >= 1 && col.size(0) >= W + s * (H - 1) &&
+                    col.size(1) == B && col.size(2) == H,
+                "col must be (>= W + s*(H-1), B, H)");
+    const c10::cuda::CUDAGuard guard(col.device());
+    check_launch(dpt_unskew_unpack(col.data_ptr<int32_t>(),
+                                   out.data_ptr<uint8_t>(), B, H, W, (int)s,
+                                   current_stream(col)),
+                 "unskew_unpack");
+}
+
+PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+    m.def("skew", &skew, "K1: (B,H,W,3) -> (D,3B,H) skewed stream");
+    m.def("ed_scan_fixed", &ed_scan_fixed,
+          "K2: fixed-weight wavefront scan -> (D,B,H) packed colours");
+    m.def("unskew_unpack", &unskew_unpack,
+          "K3: (D,B,H) packed colours -> (B,H,W,3) uint8");
+}

@@ -1,0 +1,143 @@
+"""The port's public surface (dither_pie_tpu_torch.ImageDitherer) against
+the JAX package's, on the CPU, for the slice: fixed-weight error diffusion.
+
+* apply_dithering_batch: bitwise equal to the JAX package's for the same
+  palette, gamma off and on (the JAX package runs its batch through the
+  golden engine's f32 twin on the CPU);
+* apply_dithering (single image): perceptual (identity >= 0.98, 4x4 block
+  mean <= 8, max <= 48), because the JAX package's single-image CPU path
+  searches the palette in float64 and the port in float32;
+* failure behaviour: CUDA without a GPU raises, unported modes and options
+  raise NotImplementedError naming their ROADMAP item, and importing the
+  port loads no jax.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+import bench
+import dither_pie_tpu as jdpt
+import dither_pie_tpu_torch as tdpt
+from dither_pie_tpu.core.fidelity import assert_perceptually_matched
+from dither_pie_tpu_torch.core import palette as tpal
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture()
+def golden_engine_batches(monkeypatch):
+    """Pin the JAX package's batch path to the golden engine on the CPU."""
+    monkeypatch.setenv("DITHER_PIE_TPU_ED_BACKEND", "native")
+    monkeypatch.setenv("DITHER_PIE_TPU_INDEX_TRANSFER", "0")
+
+
+def _frames(b=3, h=36, w=52):
+    return np.stack([bench.synth_image(h, w, 30 + i) for i in range(b)])
+
+
+@pytest.mark.parametrize("use_gamma", [False, True], ids=["srgb", "gamma"])
+@pytest.mark.parametrize("variant", ["floyd_steinberg", "stucki"])
+def test_apply_dithering_batch_bitwise_vs_jax(variant, use_gamma,
+                                              golden_engine_batches):
+    frames = _frames()
+    palette = tpal.median_cut_palette(frames[0], 32)
+    kw = dict(num_colors=32, palette=palette, use_gamma=use_gamma,
+              dither_params={"variant": variant})
+    ref = jdpt.ImageDitherer(dither_mode=jdpt.DitherMode.ERROR_DIFFUSION,
+                             **kw).apply_dithering_batch(frames)
+    out = tdpt.ImageDitherer(dither_mode=tdpt.DitherMode.ERROR_DIFFUSION,
+                             device="cpu", **kw).apply_dithering_batch(frames)
+    assert out.dtype == np.uint8 and out.shape == frames.shape
+    np.testing.assert_array_equal(out, ref)
+
+
+def test_apply_dithering_single_image_perceptual_vs_jax(golden_engine_batches):
+    img = Image.fromarray(bench.synth_image(45, 64, 5))
+    kw = dict(num_colors=16, dither_params={"variant": "floyd_steinberg"})
+    jd = jdpt.ImageDitherer(dither_mode=jdpt.DitherMode.ERROR_DIFFUSION, **kw)
+    td = tdpt.ImageDitherer(dither_mode=tdpt.DitherMode.ERROR_DIFFUSION,
+                            device="cpu", **kw)
+    ref = np.asarray(jd.apply_dithering(img))
+    out = np.asarray(td.apply_dithering(img))
+    assert td.palette == jd.palette  # median-cut palette cached on both
+    assert out.shape == ref.shape and out.dtype == np.uint8
+    assert_perceptually_matched(out, ref, min_identical=0.98, block=4,
+                                max_block_mean=8.0, max_block_max=48.0)
+
+
+def test_kmeans_palette_drives_the_batch():
+    """The main path in miniature: k-means palette, then the batch; every
+    output pixel is a palette colour."""
+    frames = _frames(2, 24, 40)
+    palette = tdpt.ColorReducer.generate_kmeans_palette(
+        Image.fromarray(frames[0]), 32, device="cpu")
+    out = tdpt.ImageDitherer(
+        num_colors=32, dither_mode=tdpt.DitherMode.ERROR_DIFFUSION,
+        palette=palette, dither_params={"variant": "floyd_steinberg"},
+        device="cpu").apply_dithering_batch(frames)
+    assert set(map(tuple, out.reshape(-1, 3).tolist())) <= set(palette)
+
+
+def test_cuda_without_gpu_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU; the check is for machines without")
+    with pytest.raises(RuntimeError, match="cuda"):
+        tdpt.resolve_device("cuda")
+    with pytest.raises(RuntimeError):
+        tdpt.ImageDitherer(dither_mode=tdpt.DitherMode.ERROR_DIFFUSION)
+    with pytest.raises(RuntimeError):
+        tpal.kmeans_palette(np.zeros((4, 4, 3), np.uint8), 2, device="cuda")
+    with pytest.raises(ValueError):
+        tdpt.resolve_device("meta")
+    assert tdpt.resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("mode", [m for m in tdpt.DitherMode
+                                  if m is not tdpt.DitherMode.ERROR_DIFFUSION])
+def test_unported_modes_raise(mode):
+    d = tdpt.ImageDitherer(dither_mode=mode, palette=[(0, 0, 0), (255, 255, 255)],
+                           device="cpu")
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A[457]"):
+        d.apply_dithering_batch(np.zeros((1, 4, 4, 3), np.uint8))
+
+
+def test_unported_options_raise():
+    frames = np.zeros((1, 4, 4, 3), np.uint8)
+    pal = [(0, 0, 0), (255, 255, 255)]
+    ed = tdpt.DitherMode.ERROR_DIFFUSION
+    serp = tdpt.ImageDitherer(dither_mode=ed, palette=pal, device="cpu",
+                              dither_params={"serpentine": "true"})
+    with pytest.raises(NotImplementedError, match="A5"):
+        serp.apply_dithering_batch(frames)
+    plain = tdpt.ImageDitherer(dither_mode=ed, palette=pal, device="cpu")
+    with pytest.raises(NotImplementedError, match="A5"):
+        plain.apply_dithering_batch(frames, planar=True)
+    with pytest.raises(ValueError, match="palette"):
+        tdpt.ImageDitherer(dither_mode=ed, device="cpu").apply_dithering_batch(frames)
+
+
+def test_import_loads_no_jax():
+    code = ("import sys, dither_pie_tpu_torch; "
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+            "or m.startswith('dither_pie_tpu.') or m == 'dither_pie_tpu']; "
+            "assert not bad, bad")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_chip_smoke_refuses_without_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU; the check is for machines without")
+    res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         cwd=ROOT, capture_output=True, text=True, timeout=120,
+                         env={**os.environ})
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
