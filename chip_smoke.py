@@ -31,8 +31,23 @@ a non-zero exit code and no result line:
    the three kernels and of their plain versions on the batch of 16 (CUDA
    events; each kernel's output must equal its plain version's, bitwise),
    and one apply_dithering_batch call traced with torch.profiler for the
-   device's busy and idle shares; each number is printed beside the
-   card's name and power limit.
+   device's busy and idle shares (read only from a trace that holds the
+   frames' host-to-device copy); each number is printed beside the card's
+   name and power limit;
+7. the ordered path on the pico8 palette: K4 held to its plain version
+   bitwise (colours, and indices where P <= 256) at B=3 37x53 with
+   P in {2, 16, 33, 300}, on flat frames of exact ties, at 16 x 1080p
+   with Bayer 8x8 and at 100 x 1080p with blue noise (64, seed 42) and
+   IGN (seed 42); K4's output on 2 synthetic 1080p frames held to a numpy
+   twin of the ordered pick (identity 1.0, Bayer 8x8 and IGN); then the
+   main path ImageDitherer(BAYER 8x8).apply_dithering_batch on the 16
+   frames of phase 5 and apply_dithering on one 512x512 PIL image, and one
+   batch each through NONE, BLUE_NOISE, IGN and POLKA_DOT, each checked
+   for shape, dtype, palette-only colours and equality with the plain
+   version, with K4 launched, and NONE's single image held to the numpy
+   twin; then one traced Bayer batch, the batch wall, K4's and its plain
+   version's device times (16 x 1080p Bayer, 100 x 1080p blue noise and
+   IGN) and the 512x512 latency.
 
 The lines before the last are a JSON object {"kernels": [...]} and the
 card's name and power limit; the last line is
@@ -45,6 +60,7 @@ import concurrent.futures
 import ctypes
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -61,6 +77,8 @@ GOLDEN_FLAGS = ["-O3", "-march=native", "-fPIC", "-shared",
 
 FULL_H, FULL_W = 1080, 1920
 BATCH = 16
+BIG_BATCH = 100  # BASELINE.md config 3: 100 x 1080p blue noise and IGN
+LATENCY_HW = 512  # BASELINE.md config 1: one 512x512 image, Bayer 8x8
 SMALL = (3, 37, 53)  # odd batch and odd sizes
 N_COLORS = 32
 
@@ -72,6 +90,8 @@ KERNELS = [  # (launch-count key, source, replaced TPU kernel)
     ("unskew_unpack", "dither_pie_tpu_torch/kernels/csrc/unskew_unpack.cu",
      "dither_pie_tpu/ops/wavefront.py:1772"),
 ]
+ORDERED_KERNEL = ("ordered_fused", "dither_pie_tpu_torch/kernels/csrc/ordered.cu",
+                  "dither_pie_tpu/ops/ordered_pallas.py:96")
 
 
 def synth_image(h, w, seed=0):
@@ -206,11 +226,15 @@ def cuda_ms(torch, fn, reps):
     return statistics.median(times), out
 
 
-def traced_call(torch, fn):
-    """Run fn() once under torch.profiler (CPU and CUDA activities).
-    Returns (wall ms of the call, device busy ms as the union of all device
-    intervals, {device event name: summed ms})."""
-    from torch.autograd import DeviceType
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def traced_call(torch, fn, trace_path: Path):
+    """Run fn() once under torch.profiler (CPU and CUDA activities) and
+    read the device events of its chrome trace, written to trace_path (the
+    trace carries each copy's size). Returns (wall ms of the call, device
+    busy ms as the union of all device intervals, {device event name:
+    summed ms}, bytes of the host-to-device copies, host copy calls)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -218,16 +242,272 @@ def traced_call(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    by_name = {}
+    trace_path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace_path))
+    trace = json.loads(trace_path.read_text())["traceEvents"]
+    events = [e for e in trace if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+    copy_calls = sum(e.get("cat") == "cuda_runtime" and "Memcpy" in e.get("name", "")
+                     for e in trace)
+    by_name, h2d_bytes = {}, 0
     busy_us, edge = 0.0, float("-inf")
-    for start, end, name in spans:
-        by_name[name] = by_name.get(name, 0.0) + (end - start) / 1e3
-        if end > edge:
-            busy_us += end - max(start, edge)
-            edge = end
-    return wall_ms, busy_us / 1e3, by_name
+    for e in sorted(events, key=lambda e: float(e["ts"])):
+        start, dur = float(e["ts"]), float(e["dur"])
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + dur / 1e3
+        if "HtoD" in e["name"]:
+            h2d_bytes += int(e.get("args", {}).get("bytes", 0))
+        if start + dur > edge:
+            busy_us += start + dur - max(start, edge)
+            edge = start + dur
+    return wall_ms, busy_us / 1e3, by_name, h2d_bytes, copy_calls
+
+
+def report_trace(torch, tag, what, fn, frame_bytes, card):
+    """Trace fn() once and log its device busy time and idle share. The
+    idle share is read only from a trace that holds the frames'
+    host-to-device copy (frame_bytes or more); otherwise it is reported as
+    not measured. A measurement only: a profiler fault fails nothing."""
+    from dither_pie_tpu_torch.kernels import build
+
+    try:
+        t_wall, t_busy, by_name, h2d_bytes, copy_calls = traced_call(
+            torch, fn, build.BUILD_DIR / "traces" / f"phase{tag}.json")
+    except (RuntimeError, OSError, KeyError, ValueError) as e:
+        log(f"[{tag}] torch.profiler trace failed ({e}); idle share not measured")
+        return
+    # Every device event, its name cut to 48 characters.
+    events = "; ".join(f"{n[:48]} {v:.3f} ms" for n, v in
+                       sorted(by_name.items(), key=lambda kv: -kv[1]))
+    if h2d_bytes < frame_bytes:
+        log(f"[{tag}] traced {what} (torch.profiler): wall {t_wall:.3f} ms; the trace "
+            f"holds {h2d_bytes} H2D bytes of the frames' {frame_bytes} ({copy_calls} host "
+            f"copy calls): idle share not measured (no H2D event); device time by name: "
+            f"{events} [{card}]")
+        return
+    log(f"[{tag}] traced {what} (torch.profiler): wall {t_wall:.3f} ms, device busy "
+        f"{t_busy:.3f} ms (union of kernel and copy intervals), idle share "
+        f"{1 - t_busy / t_wall:.4f}, H2D {h2d_bytes} bytes; device time by name: "
+        f"{events} [{card}]")
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the ordered path
+# ---------------------------------------------------------------------------
+
+
+def pico8_palette():
+    """pico8 as RGB tuples, from the port's copy of the built-in palettes."""
+    from dither_pie_tpu_torch.core.builtin_palettes import BUILTIN_PALETTES
+
+    return [tuple(int(c[i:i + 2], 16) for i in (0, 2, 4))
+            for c in BUILTIN_PALETTES["pico8_palette"]]
+
+
+def ordered_twin(frames, pal, screen):
+    """numpy twin of the ordered pick: direct float32 differences, first
+    minimum wins (then the first of the rest), d1/(d1+d2) <= screen."""
+    out = np.empty(frames.shape, np.uint8)
+    thr = screen.reshape(-1)
+    for k, frame in enumerate(frames):
+        px = frame.reshape(-1, 3).astype(np.float32)
+        dr = px[:, 0:1] - pal[None, :, 0]
+        dg = px[:, 1:2] - pal[None, :, 1]
+        db = px[:, 2:3] - pal[None, :, 2]
+        d = (dr * dr + dg * dg) + db * db
+        rows = np.arange(len(d))
+        i1 = d.argmin(1)
+        d1 = d[rows, i1]
+        d[rows, i1] = np.inf
+        i2 = d.argmin(1)
+        d2 = d[rows, i2]
+        tot = d1 + d2
+        with np.errstate(divide="ignore", invalid="ignore"):
+            factor = np.where(tot == 0, np.float32(0), d1 / tot)
+        idx = np.where(factor <= thr, i1, i2)
+        out[k] = pal[idx].astype(np.int32).astype(np.uint8).reshape(frame.shape)
+    return out
+
+
+def palette_only(arr, pal_np) -> bool:
+    keys = np.array([1 << 16, 1 << 8, 1])
+    pal_keys = pal_np.astype(np.int64) @ keys
+    return bool(np.isin(np.unique(arr.reshape(-1, 3).astype(np.int64) @ keys),
+                        pal_keys).all())
+
+
+def compare_ordered(torch, tof, frames, pal, screen, errs, what, indices=(False, True)):
+    """K4 against its plain version on the same inputs, bitwise."""
+    for ind in indices:
+        got = tof.ordered_dither_fused(frames, pal, screen, return_indices=ind)
+        want = tof.ordered_dither_fused_plain(frames, pal, screen, return_indices=ind)
+        same = torch.equal(got, want)
+        err = 0.0 if same else float(
+            (got.to(torch.int16) - want.to(torch.int16)).abs().max())
+        errs["ordered_fused"] = max(errs.get("ordered_fused", 0.0), err)
+        check(same, f"ordered_fused kernel != plain version ({what}, "
+                    f"indices={ind}, max abs err {err})")
+
+
+def ordered_phase(torch, dev, card, frames16, anchor_frames):
+    """Phase 7; returns the kernels-line row of K4."""
+    from PIL import Image
+
+    import dither_pie_tpu_torch as dpt
+    from dither_pie_tpu_torch.core import thresholds as thr
+    from dither_pie_tpu_torch.kernels import build
+    from dither_pie_tpu_torch.ops import ordered as tord
+    from dither_pie_tpu_torch.ops import ordered_fused as tof
+
+    errs = {}
+    pico8 = pico8_palette()
+    pal_np = np.asarray(pico8, np.float32)
+    pal_t = torch.from_numpy(pal_np).to(dev)
+    bayer = tord.screen_for_matrix(thr.bayer_matrix("8x8"), FULL_H, FULL_W, dev)
+    blue = tord.screen_for_matrix(thr.blue_noise_cached(64, 42), FULL_H, FULL_W, dev)
+    ign = thr.ign_thresholds(FULL_H, FULL_W, 1.0, 42, dev)
+
+    # Kernel against plain version, bitwise: small odd shapes.
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(7)
+    b, h, w = SMALL
+    small = torch.from_numpy(rng.randint(0, 256, (b, h, w, 3)).astype(np.uint8)).to(dev)
+    small_screens = {"bayer8x8": tord.screen_for_matrix(thr.bayer_matrix("8x8"), h, w, dev),
+                     "ign": thr.ign_thresholds(h, w, 1.7, 5, dev)}
+    for p in (2, 16, 33, 300):
+        pal = torch.from_numpy(rng.randint(0, 256, (p, 3)).astype(np.float32)).to(dev)
+        for name, screen in small_screens.items():
+            compare_ordered(torch, tof, small, pal, screen, errs, f"B={b} {h}x{w} P={p} {name}",
+                            (False, True) if p <= 256 else (False,))
+    compare_ordered(torch, tof, small.to(torch.float32), pal_t,
+                    small_screens["bayer8x8"], errs, "float32 frames, pico8")
+    # Exact ties: a flat frame midway between two colours, and one on a
+    # duplicated colour (d1 + d2 == 0), against flat screens 0, 0.5, 1.
+    for colour, pal_rows in (((101, 100, 100), [[100, 100, 100], [102, 100, 100], [0, 0, 0]]),
+                             ((40, 50, 60), [[0, 0, 0], [40, 50, 60], [40, 50, 60]])):
+        flat = torch.tensor(colour, dtype=torch.uint8, device=dev).expand(b, h, w, 3).contiguous()
+        pal = torch.tensor(pal_rows, dtype=torch.float32, device=dev)
+        for level in (0.0, 0.5, 1.0):
+            compare_ordered(torch, tof, flat, pal,
+                            torch.full((h, w), level, dtype=torch.float32, device=dev),
+                            errs, f"exact ties {colour} screen {level}")
+    log(f"[7] ordered_fused == plain, bitwise: B={b} {h}x{w} P in (2, 16, 33, 300) "
+        f"x (Bayer 8x8, IGN), colours and indices (P <= 256), float32 frames, "
+        f"exact ties ({time.perf_counter() - t0:.1f} s)")
+
+    # Full size: the main path's batch of 16 (Bayer 8x8), and BASELINE
+    # config 3's 100 x 1080p (blue noise, IGN), made on the card from the
+    # 16 frames rolled along x so that every frame differs.
+    t0 = time.perf_counter()
+    batch_t = torch.from_numpy(frames16).to(dev)
+    compare_ordered(torch, tof, batch_t, pal_t, bayer, errs,
+                    f"{BATCH}x{FULL_H}x{FULL_W} pico8 Bayer 8x8")
+    reps = -(-BIG_BATCH // len(frames16))
+    big = torch.cat([batch_t.roll(37 * k, dims=2) for k in range(reps)])[:BIG_BATCH]
+    for name, screen in (("blue noise 64/42", blue), ("IGN seed 42", ign)):
+        compare_ordered(torch, tof, big, pal_t, screen, errs,
+                        f"{BIG_BATCH}x{FULL_H}x{FULL_W} pico8 {name}", (False,))
+    log(f"[7] ordered_fused == plain, bitwise: {BATCH}x{FULL_H}x{FULL_W} pico8 "
+        f"Bayer 8x8 (colours, indices), {BIG_BATCH}x{FULL_H}x{FULL_W} pico8 blue "
+        f"noise and IGN ({time.perf_counter() - t0:.1f} s)")
+
+    # Host anchor: K4 against a numpy twin on 2 synthetic 1080p frames.
+    ign_np = thr.ign_thresholds_np(FULL_H, FULL_W, 1.0, 42)
+    check(torch.equal(ign.cpu(), torch.from_numpy(ign_np)),
+          "IGN screen on the card != ign_thresholds_np")
+    anchor_t = torch.from_numpy(np.stack(anchor_frames)).to(dev)
+    for name, screen, screen_np in (
+            ("Bayer 8x8", bayer, thr.tile_threshold_map(thr.bayer_matrix("8x8"), FULL_H, FULL_W)),
+            ("IGN seed 42", ign, ign_np)):
+        got = tof.ordered_dither_fused(anchor_t, pal_t, screen).cpu().numpy()
+        twin = ordered_twin(np.stack(anchor_frames), pal_np, screen_np)
+        idents = [identity(g, t) for g, t in zip(got, twin)]
+        log(f"[7] numpy anchor (pico8, {name}, 2 x {FULL_H}x{FULL_W}): identity {idents}")
+        check(all(v == 1.0 for v in idents), f"ordered anchor identity {idents} ({name})")
+
+    # The main path through the public entry points.
+    ditherer = dpt.ImageDitherer(dither_mode=dpt.DitherMode.BAYER, palette=pico8,
+                                 dither_params={"size": "8x8"}, device=dev)
+    lat_img = synth_image(LATENCY_HW, LATENCY_HW, 7)
+    pil = Image.fromarray(lat_img)
+    others = [(dpt.DitherMode.NONE, {}, torch.ones((FULL_H, FULL_W), device=dev)),
+              (dpt.DitherMode.BLUE_NOISE, {"size": 64, "seed": 42}, blue),
+              (dpt.DitherMode.INTERLEAVED_GRADIENT_NOISE, {"seed": 42}, ign),
+              (dpt.DitherMode.POLKA_DOT, {}, tord.screen_for_matrix(
+                  thr.polka_dot_matrix(8, 1.5), FULL_H, FULL_W, dev))]
+    other_ditherers = [dpt.ImageDitherer(dither_mode=m, palette=pico8, dither_params=prm,
+                                         device=dev) for m, prm, _ in others]
+    build.reset_launch_counts()
+    out16 = ditherer.apply_dithering_batch(frames16)
+    out_pil = np.asarray(ditherer.apply_dithering(pil))
+    outs = [d.apply_dithering_batch(frames16) for d in other_ditherers]
+    sync(torch, dev)
+    launches = build.LAUNCHES["ordered_fused"]
+    log(f"[7] main path launches: ordered_fused {launches}")
+    check(launches >= 1, "kernel ordered_fused not launched on the main path")
+    results = [("BAYER 8x8", out16, bayer)] + [
+        (m.name, o, screen) for (m, _, screen), o in zip(others, outs)]
+    for name, out, screen in results:
+        check(out.shape == frames16.shape and out.dtype == np.uint8,
+              f"{name} batch output {out.shape} {out.dtype}")
+        check(palette_only(out, pal_np), f"{name} batch holds colours outside pico8")
+        want = tof.ordered_dither_fused_plain(batch_t, pal_t, screen).cpu().numpy()
+        check(np.array_equal(out, want), f"{name} batch != plain version")
+    check(out_pil.shape == lat_img.shape and out_pil.dtype == np.uint8,
+          f"apply_dithering output {out_pil.shape}")
+    # NONE's single image runs K4 with a screen of ones: the nearest
+    # colour, the twin with a screen of ones.
+    near = np.asarray(other_ditherers[0].apply_dithering(pil))
+    ident_near = identity(near, ordered_twin(lat_img[None], pal_np,
+                                             np.ones(lat_img.shape[:2], np.float32))[0])
+    check(ident_near == 1.0, f"NONE apply_dithering: numpy anchor identity {ident_near}")
+    lat_screen = thr.tile_threshold_map(thr.bayer_matrix("8x8"), LATENCY_HW, LATENCY_HW)
+    ident_pil = identity(out_pil, ordered_twin(lat_img[None], pal_np, lat_screen)[0])
+    check(palette_only(out_pil, pal_np) and ident_pil == 1.0,
+          f"apply_dithering {LATENCY_HW}x{LATENCY_HW}: numpy anchor identity {ident_pil}")
+    log(f"[7] apply_dithering_batch (BAYER 8x8, NONE, BLUE_NOISE, IGN, POLKA_DOT): "
+        f"{out16.shape} uint8, palette-only, equal to the plain version; "
+        f"apply_dithering(PIL {LATENCY_HW}x{LATENCY_HW}): numpy anchor identity "
+        f"{ident_pil} (BAYER 8x8), {ident_near} (NONE)")
+
+    # Times, each beside the card; the trace first, right after the main
+    # path.
+    report_trace(torch, 7, "apply_dithering_batch BAYER 8x8",
+                 lambda: ditherer.apply_dithering_batch(frames16), frames16.nbytes, card)
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        ditherer.apply_dithering_batch(frames16)
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    log(f"[7] apply_dithering_batch wall, BAYER 8x8 pico8 (numpy u8 in/out): median "
+        f"{wall * 1e3:.3f} ms/batch{BATCH} -> {BATCH / wall:.2f} fps (5 runs: "
+        f"{', '.join(f'{t * 1e3:.3f}' for t in walls)}) [{card}]")
+    lats = []
+    for _ in range(11):
+        t0 = time.perf_counter()
+        ditherer.apply_dithering(pil)
+        lats.append(time.perf_counter() - t0)
+    log(f"[7] apply_dithering latency, {LATENCY_HW}x{LATENCY_HW} Bayer 8x8 pico8 (PIL "
+        f"in/out): median {statistics.median(lats) * 1e3:.3f} ms of 11 (min "
+        f"{min(lats) * 1e3:.3f}) [{card}]")
+    row = {"name": ORDERED_KERNEL[0], "route": "cuda", "source": ORDERED_KERNEL[1],
+           "replaces": ORDERED_KERNEL[2], "launches": launches}
+    for name, frames, screen in ((f"{BATCH}x{FULL_H}x{FULL_W} Bayer 8x8", batch_t, bayer),
+                                 (f"{BIG_BATCH}x{FULL_H}x{FULL_W} blue noise", big, blue),
+                                 (f"{BIG_BATCH}x{FULL_H}x{FULL_W} IGN", big, ign)):
+        ms, got = cuda_ms(torch, lambda: tof.ordered_dither_fused(frames, pal_t, screen), 5)
+        plain_ms, want = cuda_ms(
+            torch, lambda: tof.ordered_dither_fused_plain(frames, pal_t, screen),
+            3 if frames is batch_t else 1)
+        check(torch.equal(got, want), f"ordered_fused != plain on the timed {name} run")
+        gpix = frames.shape[0] * FULL_H * FULL_W / 1e9
+        log(f"[7] ordered_fused, {name} pico8: kernel {ms:.3f} ms = {gpix / ms * 1e3:.2f} "
+            f"GPix/s, plain PyTorch {plain_ms:.3f} ms = {gpix / plain_ms * 1e3:.2f} "
+            f"GPix/s, outputs equal bitwise [{card}]")
+        if frames is batch_t:
+            row.update(ms=ms, plain_ms=plain_ms)
+    row["max_abs_err"] = errs["ordered_fused"]
+
+    return row
 
 
 def main() -> int:
@@ -250,7 +530,7 @@ def sync(torch, dev):
 
 
 def run(torch, dev, card) -> int:
-    """Phases 1-6 on ``dev``; prints the result lines and returns 0, or
+    """Phases 1-7 on ``dev``; prints the result lines and returns 0, or
     raises on the first failure."""
     from PIL import Image
 
@@ -346,11 +626,11 @@ def run(torch, dev, card) -> int:
         palette=palette, dither_params={"variant": "floyd_steinberg"},
         device=dev)
     pil = Image.fromarray(frame0)
-    twf.reset_launch_counts()
+    build.reset_launch_counts()
     out16 = ditherer.apply_dithering_batch(frames16)
     out_pil = ditherer.apply_dithering(pil)
     sync(torch, dev)
-    launches = dict(twf.LAUNCHES)
+    launches = dict(build.LAUNCHES)
     log(f"[5] main path launches: {launches}")
     for key, _, _ in KERNELS:
         check(launches.get(key, 0) >= 1, f"kernel {key} not launched")
@@ -445,24 +725,12 @@ def run(torch, dev, card) -> int:
                      "max_abs_err": errs[key], "ms": ms,
                      "plain_ms": plain_ms})
 
-    # One traced call: how much of the wall time the device is busy. A
-    # measurement only; a profiler that records nothing is reported so.
-    try:
-        t_wall, t_busy, by_name = traced_call(
-            torch, lambda: ditherer.apply_dithering_batch(frames16))
-    except RuntimeError as e:
-        log(f"[6] torch.profiler trace failed ({e}); idle share not measured")
-    else:
-        if t_busy > 0:
-            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-            log(f"[6] traced apply_dithering_batch (torch.profiler): wall "
-                f"{t_wall:.3f} ms, device busy {t_busy:.3f} ms (union of "
-                f"kernel and copy intervals), idle share "
-                f"{1 - t_busy / t_wall:.4f}; device time by name: "
-                + "; ".join(f"{n} {v:.3f} ms" for n, v in top) + f" [{card}]")
-        else:
-            log("[6] torch.profiler recorded no device activity; idle share "
-                "not measured")
+    # One traced call: how much of the wall time the device is busy.
+    report_trace(torch, 6, "apply_dithering_batch FS",
+                 lambda: ditherer.apply_dithering_batch(frames16), frames16.nbytes, card)
+
+    # 7. The ordered path.
+    rows.append(ordered_phase(torch, dev, card, frames16, gold_frames))
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -1,14 +1,16 @@
-"""Public dithering API of the port: enums, the error-diffusion strategy,
-palette building and the ImageDitherer facade.
+"""Public dithering API of the port: enums, the ordered and
+error-diffusion strategies, palette building and the ImageDitherer facade.
 
-Mirrors ``dither_pie_tpu/api/ditherer.py`` for the slice it ports:
-``ImageDitherer(dither_mode=DitherMode.ERROR_DIFFUSION)`` with
-``apply_dithering``, ``apply_dithering_array`` and ``apply_dithering_batch``
-(the RGB path), and ``ColorReducer``'s palettes. Frames are numpy uint8 in
-and out, as in the JAX package; the work runs on the ditherer's explicit
-``device`` ("cuda" by default: the hand-written kernels; "cpu": their plain
-PyTorch versions). The gamma path converts frames and palette on the host
-exactly as the JAX package does.
+Mirrors ``dither_pie_tpu/api/ditherer.py`` for the modes it ports: NONE,
+BAYER (the default), BLUE_NOISE, INTERLEAVED_GRADIENT_NOISE and POLKA_DOT
+on the ordered kernel K4, and ERROR_DIFFUSION on the wavefront kernels
+K1-K3; ``ImageDitherer`` with ``apply_dithering``,
+``apply_dithering_array`` and ``apply_dithering_batch`` (the RGB path);
+``ColorReducer``'s palettes; and every mode's parameter metadata. Frames
+are numpy uint8 in and out, as in the JAX package; the work runs on the
+ditherer's explicit ``device`` ("cuda" by default: the hand-written
+kernels; "cpu": their plain PyTorch versions). The gamma path converts
+frames and palette on the host exactly as the JAX package does.
 """
 
 from __future__ import annotations
@@ -22,16 +24,20 @@ import torch
 from PIL import Image
 
 from dither_pie_tpu_torch import convert
+from dither_pie_tpu_torch.api import parameters as _parameters
 from dither_pie_tpu_torch.api.runtime import DeviceLike, resolve_device
 from dither_pie_tpu_torch.core import colors as _colors
 from dither_pie_tpu_torch.core import palette as _palette
+from dither_pie_tpu_torch.core import thresholds as _thresholds
 from dither_pie_tpu_torch.ops import ed_kernels as _ed_kernels
+from dither_pie_tpu_torch.ops import ordered as _ordered
 from dither_pie_tpu_torch.ops import wavefront as _wf
 
 
 class DitherMode(Enum):
     """Dithering algorithms (names are the config-file vocabulary). The
-    port serves ERROR_DIFFUSION; the others raise NotImplementedError."""
+    port serves NONE, BAYER, BLUE_NOISE, INTERLEAVED_GRADIENT_NOISE,
+    POLKA_DOT and ERROR_DIFFUSION; the others raise NotImplementedError."""
 
     NONE = "none"
     BAYER = "bayer"
@@ -77,6 +83,32 @@ class ErrorDiffusionKernel:
         return list(_ed_kernels.KERNEL_NAMES)
 
 
+class DitherUtils:
+    """Threshold matrices + gamma transfer helpers (host-side NumPy)."""
+
+    BAYER2x2 = _thresholds.BAYER2x2
+    BAYER4x4 = _thresholds.BAYER4x4
+    BAYER8x8 = _thresholds.BAYER8x8
+    BAYER16x16 = _thresholds.BAYER16x16
+    PSX4x4 = _thresholds.PSX4x4
+
+    @staticmethod
+    def get_threshold_matrix(mode: DitherMode, size: str = "4x4") -> np.ndarray:
+        if mode == DitherMode.NONE:
+            return np.ones((1, 1), dtype=np.float32)
+        elif mode == DitherMode.BAYER:
+            return _thresholds.bayer_matrix(size)
+        raise ValueError(f"Unsupported matrix mode: {mode}")
+
+    @staticmethod
+    def srgb_to_linear(c: np.ndarray) -> np.ndarray:
+        return _colors.srgb_to_linear_np(c)
+
+    @staticmethod
+    def linear_to_srgb(c: np.ndarray) -> np.ndarray:
+        return _colors.linear_to_srgb_np(c)
+
+
 class BaseDitherStrategy:
     """Interface: ``dither(pixels (N,3) f32, palette (P,3) f32, (h, w)) ->
     (N,3) f32`` and ``dither_batch(images (B,H,W,3), palette) -> (B,H,W,3)
@@ -95,6 +127,207 @@ class BaseDitherStrategy:
 
     def get_current_parameters(self) -> Dict[str, Any]:
         return {}
+
+
+def _palette_tensor(palette_arr, device: torch.device) -> torch.Tensor:
+    """(P, 3) float32 palette on ``device``, a singleton padded by
+    duplicating its colour (as the JAX package's ``as_palette_array``)."""
+    pal = _palette.as_palette_array([tuple(c) for c in np.asarray(palette_arr)])
+    return convert.palette_to_torch(pal, device)
+
+
+def _frames_tensor(images, device: torch.device) -> torch.Tensor:
+    """(B, H, W, 3) frames on ``device``: uint8 stays uint8, anything else
+    becomes float32."""
+    arr = np.asarray(images)
+    if arr.dtype != np.uint8:
+        arr = arr.astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+
+class _ScreenDitherStrategy(BaseDitherStrategy):
+    """Ordered dithering against an (H, W) screen on ``self.device``: every
+    frame goes through K4 (its plain version on the CPU)."""
+
+    device: torch.device
+
+    def _screen(self, h: int, w: int) -> torch.Tensor:
+        raise NotImplementedError
+
+    def dither(self, pixels, palette_arr, image_size):
+        # The pixels are integer-valued: cast to uint8 here (truncating, as
+        # K4 does) so the card gets a quarter of the bytes.
+        h, w = image_size
+        img = np.asarray(pixels).astype(np.uint8).reshape(1, h, w, 3)
+        return self.dither_batch(img, palette_arr).astype(np.float32).reshape(-1, 3)
+
+    def dither_batch(self, images, palette_arr):
+        _, h, w, _ = np.shape(images)
+        frames = _frames_tensor(images, self.device)
+        out = _ordered.dispatch_ordered_batch(
+            frames, _palette_tensor(palette_arr, self.device), self._screen(h, w))
+        return out.cpu().numpy()
+
+
+class NoDitherStrategy(_ScreenDitherStrategy):
+    """Nearest palette colour per pixel (argmin over exact distances)."""
+
+    def __init__(self, device: DeviceLike = "cuda"):
+        self.device = resolve_device(device)
+
+    def _screen(self, h: int, w: int) -> torch.Tensor:
+        # Nearest colour IS an ordered dither with a saturated screen: the
+        # factor d1/(d1+d2) is at most 0.5, so screen = 1 always picks the
+        # nearest (lowest index on ties, as the JAX package's
+        # map_to_palette), and single images and batches both run on K4
+        # without an (N, P) distance matrix.
+        return torch.ones((h, w), dtype=torch.float32, device=self.device)
+
+
+class MatrixDitherStrategy(_ScreenDitherStrategy):
+    """Distance-ratio ordered dithering against a tiled threshold matrix.
+
+    Note: this is the reference's distance-ratio form (factor = d1^2 /
+    (d1^2 + d2^2) compared against the screen), not the textbook
+    add-threshold-then-quantize form; reproducing it is required for output
+    parity.
+    """
+
+    def __init__(self, threshold_matrix: np.ndarray, device: DeviceLike = "cuda"):
+        self.threshold_matrix = np.asarray(threshold_matrix, dtype=np.float32)
+        self.device = resolve_device(device)
+
+    def _screen(self, h: int, w: int) -> torch.Tensor:
+        return _ordered.screen_for_matrix(self.threshold_matrix, h, w, self.device)
+
+
+class BayerDitherStrategy(MatrixDitherStrategy):
+    """Bayer ordered dithering with configurable matrix size."""
+
+    @staticmethod
+    def get_parameter_info() -> Dict[str, Any]:
+        return {
+            "size": {
+                "type": "choice",
+                "default": "4x4",
+                "choices": ["2x2", "4x4", "8x8", "16x16", "psx4x4"],
+                "label": "Matrix",
+                "description": "Bayer matrix size or PSX 4x4 variant (larger = finer patterns)",
+            }
+        }
+
+    def __init__(self, size: str = "4x4", device: DeviceLike = "cuda"):
+        self.size = size
+        super().__init__(_thresholds.bayer_matrix(size), device)
+
+    def get_current_parameters(self) -> Dict[str, Any]:
+        return {"size": self.size}
+
+
+class BlueNoiseDitherStrategy(MatrixDitherStrategy):
+    """Blue-noise ordered dithering (cached generated matrices)."""
+
+    _cache = _thresholds._BLUE_NOISE_CACHE  # shared per-process cache
+
+    @staticmethod
+    def get_parameter_info() -> Dict[str, Any]:
+        return {
+            "size": {
+                "type": "int",
+                "default": 64,
+                "min": 32,
+                "max": 128,
+                "label": "Matrix Size",
+                "description": "Size of the blue noise matrix (larger = more detail but slower)",
+            },
+            "seed": {
+                "type": "int",
+                "default": 42,
+                "min": 0,
+                "max": 9999,
+                "label": "Random Seed",
+                "description": "Seed for noise generation (different seeds = different patterns)",
+            },
+        }
+
+    def __init__(self, size: int = 64, seed: int = 42, device: DeviceLike = "cuda"):
+        self.size = int(size)
+        self.seed = int(seed)
+        super().__init__(_thresholds.blue_noise_cached(self.size, self.seed), device)
+
+    def get_current_parameters(self) -> Dict[str, Any]:
+        return {"size": self.size, "seed": self.seed}
+
+
+class InterleavedGradientNoiseDitherStrategy(_ScreenDitherStrategy):
+    """IGN per-pixel threshold dithering (computed screen, no tile)."""
+
+    @staticmethod
+    def get_parameter_info() -> Dict[str, Any]:
+        return {
+            "scale": {
+                "type": "float",
+                "default": 1.0,
+                "min": 0.1,
+                "max": 10.0,
+                "step": 0.1,
+                "label": "Scale",
+                "description": "Noise frequency (lower = larger pattern, higher = finer grain)",
+            },
+            "seed": {
+                "type": "int",
+                "default": 0,
+                "min": 0,
+                "max": 9999,
+                "label": "Seed",
+                "description": "Deterministic offset to shift the pattern",
+            },
+        }
+
+    def __init__(self, scale: float = 1.0, seed: int = 0, device: DeviceLike = "cuda"):
+        self.scale = float(scale)
+        self.seed = int(seed)
+        self.device = resolve_device(device)
+
+    def _screen(self, h: int, w: int) -> torch.Tensor:
+        return _thresholds.ign_thresholds(h, w, self.scale, self.seed, self.device)
+
+    def get_current_parameters(self) -> Dict[str, Any]:
+        return {"scale": self.scale, "seed": self.seed}
+
+
+class PolkaDotDitherStrategy(MatrixDitherStrategy):
+    """Polka-dot radial threshold tiles."""
+
+    @staticmethod
+    def get_parameter_info() -> Dict[str, Any]:
+        return {
+            "tile_size": {
+                "type": "int",
+                "default": 8,
+                "min": 4,
+                "max": 32,
+                "label": "Tile Size",
+                "description": "Size of the repeating dot pattern",
+            },
+            "gamma": {
+                "type": "float",
+                "default": 1.5,
+                "min": 0.5,
+                "max": 3.0,
+                "step": 0.1,
+                "label": "Gamma",
+                "description": "Controls dot shape curve (higher = sharper edges)",
+            },
+        }
+
+    def __init__(self, tile_size: int = 8, gamma: float = 1.5, device: DeviceLike = "cuda"):
+        self.tile_size = int(tile_size)
+        self.gamma = float(gamma)
+        super().__init__(_thresholds.polka_dot_matrix(self.tile_size, self.gamma), device)
+
+    def get_current_parameters(self) -> Dict[str, Any]:
+        return {"tile_size": self.tile_size, "gamma": self.gamma}
 
 
 class ErrorDiffusionDitherStrategy(BaseDitherStrategy):
@@ -134,23 +367,17 @@ class ErrorDiffusionDitherStrategy(BaseDitherStrategy):
     def get_current_parameters(self) -> Dict[str, Any]:
         return {"variant": self.variant, "serpentine": "false"}
 
-    def _palette(self, palette_arr) -> torch.Tensor:
-        pal = _palette.as_palette_array([tuple(c) for c in np.asarray(palette_arr)])
-        return convert.palette_to_torch(pal, self.device)
-
     def dither(self, pixels, palette_arr, image_size):
         h, w = image_size
         img = np.asarray(pixels, dtype=np.float32).reshape(h, w, 3)
         out = _wf.ed_fixed_wavefront(torch.from_numpy(img).to(self.device),
-                                     self._palette(palette_arr), self.variant)
+                                     _palette_tensor(palette_arr, self.device),
+                                     self.variant)
         return out.cpu().numpy().astype(np.float32).reshape(-1, 3)
 
     def dither_batch(self, images, palette_arr):
-        arr = np.asarray(images)
-        if arr.dtype != np.uint8:
-            arr = arr.astype(np.float32)
-        frames = torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
-        out = _wf.ed_batch_wavefront(frames, self._palette(palette_arr),
+        out = _wf.ed_batch_wavefront(_frames_tensor(images, self.device),
+                                     _palette_tensor(palette_arr, self.device),
                                      "fixed", self.variant)
         return out.cpu().numpy()
 
@@ -185,16 +412,33 @@ class ColorReducer:
 
 
 _STRATEGY_CLASSES = {
+    DitherMode.NONE: NoDitherStrategy,
+    DitherMode.BAYER: BayerDitherStrategy,
+    DitherMode.BLUE_NOISE: BlueNoiseDitherStrategy,
+    DitherMode.INTERLEAVED_GRADIENT_NOISE: InterleavedGradientNoiseDitherStrategy,
+    DitherMode.POLKA_DOT: PolkaDotDitherStrategy,
     DitherMode.ERROR_DIFFUSION: ErrorDiffusionDitherStrategy,
+}
+
+# Parameter metadata of the modes that expose parameters (NONE, RIEMERSMA
+# and PERCEPTUAL do not), as the JAX package's table; the modes not ported
+# yet take theirs from api/parameters.py.
+_PARAM_MODES = {
+    DitherMode.BAYER: BayerDitherStrategy.get_parameter_info,
+    DitherMode.HALFTONE: _parameters.halftone,
+    DitherMode.POLKA_DOT: PolkaDotDitherStrategy.get_parameter_info,
+    DitherMode.BLUE_NOISE: BlueNoiseDitherStrategy.get_parameter_info,
+    DitherMode.INTERLEAVED_GRADIENT_NOISE:
+        InterleavedGradientNoiseDitherStrategy.get_parameter_info,
+    DitherMode.WAVELET: _parameters.wavelet,
+    DitherMode.ADAPTIVE_VARIANCE: _parameters.adaptive_variance,
+    DitherMode.HYBRID: _parameters.hybrid,
+    DitherMode.ERROR_DIFFUSION: ErrorDiffusionDitherStrategy.get_parameter_info,
+    DitherMode.OSTROMOUKHOV: _parameters.ostromoukhov,
 }
 
 # Where each mode that the port does not serve yet sits in ROADMAP Queue A.
 _NOT_PORTED = {
-    DitherMode.NONE: "A4",
-    DitherMode.BAYER: "A4",
-    DitherMode.BLUE_NOISE: "A4",
-    DitherMode.INTERLEAVED_GRADIENT_NOISE: "A4",
-    DitherMode.POLKA_DOT: "A4",
     DitherMode.RIEMERSMA: "A5",
     DitherMode.ADAPTIVE_VARIANCE: "A5",
     DitherMode.PERCEPTUAL: "A5",
@@ -235,6 +479,15 @@ class ImageDitherer:
                 "DITHER_PIE_TPU_AUTO_MESH=1: multi-GPU sharding is not ported "
                 "yet (ROADMAP A11)")
 
+    @staticmethod
+    def get_mode_parameters(mode: DitherMode) -> Optional[Dict[str, Any]]:
+        info = _PARAM_MODES.get(mode)
+        return info() if info else None
+
+    @staticmethod
+    def mode_has_parameters(mode: DitherMode) -> bool:
+        return ImageDitherer.get_mode_parameters(mode) is not None
+
     def _get_dither_strategy(self, mode: DitherMode) -> BaseDitherStrategy:
         strategy_class = _STRATEGY_CLASSES.get(mode)
         if strategy_class is None:
@@ -243,10 +496,12 @@ class ImageDitherer:
                     f"dither mode {mode.value!r} is not ported yet "
                     f"(ROADMAP {_NOT_PORTED[mode]})")
             raise ValueError(f"Unrecognized DitherMode: {mode}")
-        settings = {key: info["default"]
-                    for key, info in strategy_class.get_parameter_info().items()}
-        settings.update(self.dither_params)
-        return strategy_class(**settings, device=self.device)
+        param_info = strategy_class.get_parameter_info()
+        if param_info:
+            settings = {key: info["default"] for key, info in param_info.items()}
+            settings.update(self.dither_params)
+            return strategy_class(**settings, device=self.device)
+        return strategy_class(device=self.device)
 
     def apply_dithering_array(self, arr_srgb_8: np.ndarray) -> np.ndarray:
         """(H, W, 3) uint8 in, (H, W, 3) uint8 out. Core of apply_dithering."""

@@ -10,18 +10,27 @@ this file (listed in ``.gitignore``); ninja rebuilds only what changed.
 
 Nothing here falls back: a failed build raises, and the caller sees it.
 Importing this module builds nothing and needs no CUDA.
+
+``LAUNCHES`` counts the CUDA launches of every kernel in this process, by
+name; each wrapper adds one where it launches its kernel and nowhere else
+(plain-version calls are not counted). ``on_cuda`` is the one rule that
+picks kernel or plain version: the tensor's device.
 """
 
 from __future__ import annotations
 
 import threading
+from collections import Counter
 from pathlib import Path
 from types import ModuleType
 from typing import Optional
 
+import torch
+
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-SOURCES = ("bindings.cpp", "skew.cu", "ed_scan.cu", "unskew_unpack.cu")
+SOURCES = ("bindings.cpp", "skew.cu", "ed_scan.cu", "unskew_unpack.cu",
+           "ordered.cu")
 EXT_NAME = "dither_pie_tpu_torch_kernels"
 NVCC_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "--fmad=false"]
 CXX_FLAGS = ["-O3"]
@@ -29,10 +38,26 @@ CXX_FLAGS = ["-O3"]
 _lock = threading.Lock()
 _ext: Optional[ModuleType] = None
 
+LAUNCHES: Counter = Counter()
+
+
+def reset_launch_counts() -> None:
+    LAUNCHES.clear()
+
+
+def on_cuda(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU one (run
+    the plain version); raises for any other device."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"tensors on {t.device} are not supported: use cuda or cpu")
+
 
 def extension() -> ModuleType:
     """The compiled kernel module (``skew``, ``ed_scan_fixed``,
-    ``unskew_unpack``), built on the first call."""
+    ``unskew_unpack``, ``ordered_fused``), built on the first call."""
     global _ext
     with _lock:
         if _ext is None:

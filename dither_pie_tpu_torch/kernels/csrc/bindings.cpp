@@ -1,8 +1,9 @@
-// PyTorch binding of the wavefront kernels (the only source that includes
+// PyTorch binding of the port's kernels (the only source that includes
 // PyTorch's headers). Each function checks device, dtype, shape and
 // contiguity, launches on PyTorch's current stream of the tensor's device,
 // and raises if the launch is refused. Outputs and scratch are allocated
-// by the Python wrappers in dither_pie_tpu_torch/ops/wavefront.py.
+// by the Python wrappers in dither_pie_tpu_torch/ops/wavefront.py (K1-K3)
+// and dither_pie_tpu_torch/ops/ordered_fused.py (K4).
 
 #include <torch/extension.h>
 
@@ -164,10 +165,52 @@ void unskew_unpack(torch::Tensor col, torch::Tensor out, int64_t s) {
                  "unskew_unpack");
 }
 
+void ordered_fused(torch::Tensor images, torch::Tensor palette,
+                   torch::Tensor screen, torch::Tensor out,
+                   bool return_indices) {
+    check_tensor(images, "images", images);
+    check_tensor(palette, "palette", images);
+    check_tensor(screen, "screen", images);
+    check_tensor(out, "out", images);
+    TORCH_CHECK(images.scalar_type() == torch::kUInt8 && images.dim() == 4 &&
+                    images.size(3) == 3,
+                "images must be (B, H, W, 3) uint8");
+    const int64_t B = images.size(0), H = images.size(1), W = images.size(2);
+    TORCH_CHECK(palette.scalar_type() == torch::kFloat32 &&
+                    palette.dim() == 2 && palette.size(1) == 3,
+                "palette must be (P, 3) float32");
+    const int max_p = return_indices ? 256 : DPT_ORDERED_MAX_PALETTE;
+    const int P = as_int(palette.size(0), "P");
+    TORCH_CHECK(P >= 1 && P <= max_p, "palette size ", P, " outside 1..",
+                max_p);
+    TORCH_CHECK(screen.scalar_type() == torch::kFloat32 && screen.dim() == 2 &&
+                    screen.size(0) == H && screen.size(1) == W,
+                "screen must be (H, W) float32");
+    TORCH_CHECK(out.scalar_type() == torch::kUInt8, "out must be uint8");
+    if (return_indices) {
+        TORCH_CHECK(out.dim() == 3 && out.size(0) == B && out.size(1) == H &&
+                        out.size(2) == W,
+                    "out must be (B, H, W) for indices");
+    } else {
+        TORCH_CHECK(out.sizes() == images.sizes(),
+                    "out must be (B, H, W, 3) for colours");
+    }
+    const c10::cuda::CUDAGuard guard(images.device());
+    check_launch(dpt_ordered_fused(images.data_ptr<uint8_t>(),
+                                   palette.data_ptr<float>(), P,
+                                   screen.data_ptr<float>(), B * H * W, H * W,
+                                   out.data_ptr<uint8_t>(),
+                                   return_indices ? 1 : 0,
+                                   current_stream(images)),
+                 "ordered_fused");
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
     m.def("skew", &skew, "K1: (B,H,W,3) -> (D,3B,H) skewed stream");
     m.def("ed_scan_fixed", &ed_scan_fixed,
           "K2: fixed-weight wavefront scan -> (D,B,H) packed colours");
     m.def("unskew_unpack", &unskew_unpack,
           "K3: (D,B,H) packed colours -> (B,H,W,3) uint8");
+    m.def("ordered_fused", &ordered_fused,
+          "K4: ordered dither (B,H,W,3) uint8 -> colours or indices");
 }

@@ -1,4 +1,5 @@
-// Launch functions of the wavefront error-diffusion kernels.
+// Launch functions of the port's kernels: the wavefront error-diffusion
+// kernels K1-K3 and the ordered-dither kernel K4.
 //
 // The .cu files that define them include no PyTorch header, so nvcc
 // compiles them in seconds; bindings.cpp (the only file with
@@ -13,6 +14,9 @@
 // Largest palette the scan kernel's running-min search serves (the slice's
 // bound: palettes of <= 64 colours; larger ones belong to the dense search).
 constexpr int DPT_MAX_PALETTE = 64;
+// Largest palette of the ordered kernel: three float32 planes of 4096
+// entries fill the 48 KB of dynamic shared memory a block gets by default.
+constexpr int DPT_ORDERED_MAX_PALETTE = 4096;
 // Most diffusion entries of any fixed kernel (jjn and stucki have 12).
 constexpr int DPT_MAX_ENTRIES = 12;
 
@@ -49,6 +53,13 @@ int dpt_ed_scan_fixed_f32(const float* img, const float* pal, int P,
 // out[b, y, x, c] = (col[x + s*y, b, y] >> (16 - 8c)) & 255.
 int dpt_unskew_unpack(const int32_t* col, uint8_t* out, int B, int H, int W,
                       int s, void* stream);
+
+// K4: ordered dither of n = B*H*W NHWC u8 pixels against a (H, W) float32
+// screen (hw = H*W, read at i mod hw); out is n*3 u8 palette colours, or n
+// u8 indices when emit_idx != 0 (P <= 256). pal: (P, 3) float32.
+int dpt_ordered_fused(const uint8_t* img, const float* pal, int P,
+                      const float* screen, int64_t n, int64_t hw, uint8_t* out,
+                      int emit_idx, void* stream);
 
 // Blocks for a grid-stride loop over n elements: enough to fill the card's
 // 132 SMs many times over, never 0.

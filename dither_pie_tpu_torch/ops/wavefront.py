@@ -15,9 +15,9 @@ with a plain PyTorch version of the same function beside it here:
 * K3 ``unskew_unpack``: (D, B, H) packed colours -> (B, H, W, 3) uint8.
 
 Which implementation runs is a pure function of the tensor's device: a
-CUDA tensor launches the kernel (and counts the launch in ``LAUNCHES``), a
-CPU tensor runs the plain version, anything else raises. There is no
-fallback between them.
+CUDA tensor launches the kernel (and counts the launch in
+``kernels.build.LAUNCHES``), a CPU tensor runs the plain version, anything
+else raises. There is no fallback between them.
 
 Geometry: the stream has D = W + s*(H-1) steps and H lanes per frame. The
 JAX package's dead rows, 128-lane rounding and 256-step bucketing are TPU
@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import functools
 import math
-from collections import Counter
 from dataclasses import dataclass
 from typing import Callable, Optional, Sequence, Tuple
 
@@ -48,15 +47,6 @@ from dither_pie_tpu_torch.ops.ed_kernels import get_kernel
 # Largest palette the scan serves: the running-min search. Larger palettes
 # need the tournament search (ROADMAP A5).
 SCAN_PALETTE_MAX = 64
-
-# CUDA launches per kernel in this process, counted by the wrappers below
-# where they launch and nowhere else. Plain-version calls are not counted.
-LAUNCHES: Counter = Counter()
-
-
-def reset_launch_counts() -> None:
-    LAUNCHES.clear()
-
 
 # ---------------------------------------------------------------------------
 # Geometry
@@ -135,15 +125,6 @@ def stream_length(h: int, w: int, s: int) -> int:
     return w + s * (h - 1)
 
 
-def _on_cuda(t: torch.Tensor) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
-    if t.device.type == "cuda":
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"tensors on {t.device} are not supported: use cuda or cpu")
-
-
 # ---------------------------------------------------------------------------
 # K1: skew
 # ---------------------------------------------------------------------------
@@ -163,13 +144,13 @@ def skew_plain(images: torch.Tensor, s: int) -> torch.Tensor:
 
 def skew(images: torch.Tensor, s: int) -> torch.Tensor:
     """K1 on CUDA tensors, its plain version on CPU tensors."""
-    if not _on_cuda(images):
+    if not build.on_cuda(images):
         return skew_plain(images, s)
     b, h, w, _ = images.shape
     out = torch.empty((stream_length(h, w, s), 3 * b, h), dtype=images.dtype,
                       device=images.device)
     build.extension().skew(images, out, s)
-    LAUNCHES["skew"] += 1
+    build.LAUNCHES["skew"] += 1
     return out
 
 
@@ -233,7 +214,7 @@ def scan(stream: torch.Tensor, palette: torch.Tensor, geom: ScanGeometry,
     """K2 on CUDA tensors, its plain version on CPU tensors. ``palette`` is
     (P, 3) float32 on the stream's device, P <= SCAN_PALETTE_MAX."""
     _check_palette_size(palette.shape[0])
-    if not _on_cuda(stream):
+    if not build.on_cuda(stream):
         return scan_plain(stream, palette, geom, width)
     d_total, rows, h = stream.shape
     b = rows // 3
@@ -242,7 +223,7 @@ def scan(stream: torch.Tensor, palette: torch.Tensor, geom: ScanGeometry,
     out = torch.empty((d_total, b, h), dtype=torch.int32, device=stream.device)
     build.extension().ed_scan_fixed(stream, palette, hist, out, geom.offsets,
                                     geom.weights, geom.s, width)
-    LAUNCHES["ed_scan_fixed"] += 1
+    build.LAUNCHES["ed_scan_fixed"] += 1
     return out
 
 
@@ -265,12 +246,12 @@ def unskew_unpack_plain(col: torch.Tensor, s: int, h: int, w: int) -> torch.Tens
 
 def unskew_unpack(col: torch.Tensor, s: int, h: int, w: int) -> torch.Tensor:
     """K3 on CUDA tensors, its plain version on CPU tensors."""
-    if not _on_cuda(col):
+    if not build.on_cuda(col):
         return unskew_unpack_plain(col, s, h, w)
     out = torch.empty((col.shape[1], h, w, 3), dtype=torch.uint8,
                       device=col.device)
     build.extension().unskew_unpack(col, out, s)
-    LAUNCHES["unskew_unpack"] += 1
+    build.LAUNCHES["unskew_unpack"] += 1
     return out
 
 

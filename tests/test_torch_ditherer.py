@@ -1,12 +1,19 @@
 """The port's public surface (dither_pie_tpu_torch.ImageDitherer) against
-the JAX package's, on the CPU, for the slice: fixed-weight error diffusion.
+the JAX package's, on the CPU, for the modes it serves: fixed-weight error
+diffusion and the ordered family (none, Bayer, blue noise, IGN, polka dot).
 
-* apply_dithering_batch: bitwise equal to the JAX package's for the same
-  palette, gamma off and on (the JAX package runs its batch through the
-  golden engine's f32 twin on the CPU);
-* apply_dithering (single image): perceptual (identity >= 0.98, 4x4 block
-  mean <= 8, max <= 48), because the JAX package's single-image CPU path
-  searches the palette in float64 and the port in float32;
+* error diffusion, apply_dithering_batch: bitwise equal to the JAX
+  package's for the same palette, gamma off and on (the JAX package runs
+  its batch through the golden engine's f32 twin on the CPU);
+* error diffusion, apply_dithering (single image): perceptual (identity
+  >= 0.98, 4x4 block mean <= 8, max <= 48), because the JAX package's
+  single-image CPU path searches the palette in float64 and the port in
+  float32;
+* the ordered family, apply_dithering_batch and apply_dithering: bitwise
+  equal to the JAX package's, gamma off and on (the gamma path's palettes
+  are not integers, and still every pixel agrees);
+* parameter metadata: get_mode_parameters equals the JAX package's for
+  every mode;
 * failure behaviour: CUDA without a GPU raises, unported modes and options
   raise NotImplementedError naming their ROADMAP item, and importing the
   port loads no jax.
@@ -85,6 +92,107 @@ def test_kmeans_palette_drives_the_batch():
     assert set(map(tuple, out.reshape(-1, 3).tolist())) <= set(palette)
 
 
+# The ordered family: (mode, dither_params), every Bayer size included.
+ORDERED_CASES = [
+    ("none", {}),
+    ("bayer", {"size": "2x2"}),
+    ("bayer", {"size": "4x4"}),
+    ("bayer", {"size": "8x8"}),
+    ("bayer", {"size": "16x16"}),
+    ("bayer", {"size": "psx4x4"}),
+    ("blue_noise", {"size": 32, "seed": 42}),
+    ("IGN", {"scale": 2.5, "seed": 7}),
+    ("polka_dot", {"tile_size": 6, "gamma": 2.0}),
+]
+ORDERED_IDS = [f"{m}-{p.get('size', '')}".rstrip("-") for m, p in ORDERED_CASES]
+ORDERED_MODES = {tdpt.DitherMode(m) for m, _ in ORDERED_CASES}
+
+
+@pytest.fixture()
+def rgb_batches(monkeypatch):
+    """Pin the JAX package's batch path to its RGB output (no index
+    stream: that is ROADMAP A6 in the port)."""
+    monkeypatch.setenv("DITHER_PIE_TPU_INDEX_TRANSFER", "0")
+
+
+def _ordered_pair(mode, params, use_gamma, palette):
+    kw = dict(num_colors=len(palette), palette=palette, use_gamma=use_gamma,
+              dither_params=dict(params))
+    return (jdpt.ImageDitherer(dither_mode=jdpt.DitherMode(mode), **kw),
+            tdpt.ImageDitherer(dither_mode=tdpt.DitherMode(mode), device="cpu", **kw))
+
+
+@pytest.mark.parametrize("use_gamma", [False, True], ids=["srgb", "gamma"])
+@pytest.mark.parametrize("mode,params", ORDERED_CASES, ids=ORDERED_IDS)
+def test_ordered_batch_bitwise_vs_jax(mode, params, use_gamma, rgb_batches):
+    frames = _frames(2, 30, 44)
+    palette = tpal.median_cut_palette(frames[0], 16)
+    jd, td = _ordered_pair(mode, params, use_gamma, palette)
+    ref = jd.apply_dithering_batch(frames)
+    out = td.apply_dithering_batch(frames)
+    assert out.dtype == np.uint8 and out.shape == frames.shape
+    np.testing.assert_array_equal(out, ref)
+
+
+@pytest.mark.parametrize("use_gamma", [False, True], ids=["srgb", "gamma"])
+@pytest.mark.parametrize("mode,params", ORDERED_CASES, ids=ORDERED_IDS)
+def test_ordered_single_image_bitwise_vs_jax(mode, params, use_gamma):
+    img = Image.fromarray(bench.synth_image(27, 41, 8))
+    palette = tpal.median_cut_palette(np.asarray(img), 8)
+    jd, td = _ordered_pair(mode, params, use_gamma, palette)
+    ref = np.asarray(jd.apply_dithering(img))
+    out = np.asarray(td.apply_dithering(img))
+    assert out.shape == ref.shape and out.dtype == np.uint8
+    np.testing.assert_array_equal(out, ref)
+
+
+def test_default_ditherer_dithers_bayer_4x4():
+    """ImageDitherer() with default arguments (BAYER, 16 colours, median-cut
+    palette) dithers, as the JAX package's does."""
+    img = Image.fromarray(bench.synth_image(33, 47, 9))
+    td = tdpt.ImageDitherer(device="cpu")
+    assert td.dither_mode is tdpt.DitherMode.BAYER
+    out = np.asarray(td.apply_dithering(img))
+    jd = jdpt.ImageDitherer()
+    np.testing.assert_array_equal(out, np.asarray(jd.apply_dithering(img)))
+    assert td.palette == jd.palette and len(td.palette) == 16
+    strategy = td._get_dither_strategy(td.dither_mode)
+    assert isinstance(strategy, tdpt.BayerDitherStrategy)
+    assert strategy.get_current_parameters() == {"size": "4x4"}
+    explicit = tdpt.ImageDitherer(dither_mode=tdpt.DitherMode.BAYER, palette=td.palette,
+                                  dither_params={"size": "4x4"}, device="cpu")
+    np.testing.assert_array_equal(out, np.asarray(explicit.apply_dithering(img)))
+
+
+def test_parameterless_strategy_built_with_device_only():
+    """NONE has no parameters (get_parameter_info() is None): it is built
+    with the device alone and ignores dither_params, as in the JAX package."""
+    assert tdpt.NoDitherStrategy.get_parameter_info() is None
+    d = tdpt.ImageDitherer(dither_mode=tdpt.DitherMode.NONE, palette=[(0, 0, 0), (255, 255, 255)],
+                           dither_params={"size": "8x8"}, device="cpu")
+    strategy = d._get_dither_strategy(tdpt.DitherMode.NONE)
+    assert isinstance(strategy, tdpt.NoDitherStrategy)
+    assert strategy.device == torch.device("cpu")
+    out = d.apply_dithering_batch(np.full((1, 2, 3, 3), 200, np.uint8))
+    np.testing.assert_array_equal(out, np.full((1, 2, 3, 3), 255, np.uint8))
+
+
+@pytest.mark.parametrize("mode", list(tdpt.DitherMode), ids=lambda m: m.value)
+def test_get_mode_parameters_equals_jax(mode):
+    jmode = jdpt.DitherMode(mode.value)
+    ours = tdpt.ImageDitherer.get_mode_parameters(mode)
+    ref = jdpt.ImageDitherer.get_mode_parameters(jmode)
+    assert ours == ref
+    assert (tdpt.ImageDitherer.mode_has_parameters(mode)
+            == jdpt.ImageDitherer.mode_has_parameters(jmode))
+    if ours is not None:
+        def types(info):
+            return {k: type(v["default"]) for k, v in info.items()}
+        assert types(ours) == types(ref)  # 1 == 1.0, so compare types too
+        ours["mutated"] = {}  # a fresh dict each call
+        assert "mutated" not in tdpt.ImageDitherer.get_mode_parameters(mode)
+
+
 def test_cuda_without_gpu_raises():
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU; the check is for machines without")
@@ -93,6 +201,10 @@ def test_cuda_without_gpu_raises():
     with pytest.raises(RuntimeError):
         tdpt.ImageDitherer(dither_mode=tdpt.DitherMode.ERROR_DIFFUSION)
     with pytest.raises(RuntimeError):
+        tdpt.ImageDitherer()
+    with pytest.raises(RuntimeError):
+        tdpt.BayerDitherStrategy(device="cuda")
+    with pytest.raises(RuntimeError):
         tpal.kmeans_palette(np.zeros((4, 4, 3), np.uint8), 2, device="cuda")
     with pytest.raises(ValueError):
         tdpt.resolve_device("meta")
@@ -100,7 +212,8 @@ def test_cuda_without_gpu_raises():
 
 
 @pytest.mark.parametrize("mode", [m for m in tdpt.DitherMode
-                                  if m is not tdpt.DitherMode.ERROR_DIFFUSION])
+                                  if m is not tdpt.DitherMode.ERROR_DIFFUSION
+                                  and m not in ORDERED_MODES])
 def test_unported_modes_raise(mode):
     d = tdpt.ImageDitherer(dither_mode=mode, palette=[(0, 0, 0), (255, 255, 255)],
                            device="cpu")
