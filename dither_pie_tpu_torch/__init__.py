@@ -12,8 +12,10 @@ hand-written Hopper kernels (``kernels/csrc``):
 * the ordered family (none, Bayer 2x2/4x4/8x8/16x16/PSX, blue noise, IGN,
   polka dot; Bayer 4x4 is ``ImageDitherer()``'s default) on K4, palettes of
   up to 4096 colours;
-* k-means palettes and fixed-weight error diffusion (8 variants, palettes
-  of <= 64 colours) on K1-K3.
+* k-means palettes and the error-diffusion family (8 fixed-weight variants,
+  Ostromoukhov, hybrid, perceptual, adaptive variance; row-major scans) on
+  the wavefront kernels: K1-K3 for palettes of up to 1024 colours, K1, K8
+  and K9 above.
 
 Every mode's parameter metadata is served (``get_mode_parameters``); the
 modes not ported yet raise NotImplementedError naming their ROADMAP item.
@@ -23,6 +25,7 @@ versions.
 """
 
 from dither_pie_tpu_torch.api.ditherer import (
+    AdaptiveVarianceDitherStrategy,
     BaseDitherStrategy,
     BayerDitherStrategy,
     BlueNoiseDitherStrategy,
@@ -31,16 +34,20 @@ from dither_pie_tpu_torch.api.ditherer import (
     DitherUtils,
     ErrorDiffusionDitherStrategy,
     ErrorDiffusionKernel,
+    HybridDitherStrategy,
     ImageDitherer,
     InterleavedGradientNoiseDitherStrategy,
     MatrixDitherStrategy,
     NoDitherStrategy,
+    OstromoukhovDitherStrategy,
     PaletteSource,
+    PerceptualDitherStrategy,
     PolkaDotDitherStrategy,
 )
 from dither_pie_tpu_torch.api.runtime import resolve_device
 
 __all__ = [
+    "AdaptiveVarianceDitherStrategy",
     "BaseDitherStrategy",
     "BayerDitherStrategy",
     "BlueNoiseDitherStrategy",
@@ -49,11 +56,14 @@ __all__ = [
     "DitherUtils",
     "ErrorDiffusionDitherStrategy",
     "ErrorDiffusionKernel",
+    "HybridDitherStrategy",
     "ImageDitherer",
     "InterleavedGradientNoiseDitherStrategy",
     "MatrixDitherStrategy",
     "NoDitherStrategy",
+    "OstromoukhovDitherStrategy",
     "PaletteSource",
+    "PerceptualDitherStrategy",
     "PolkaDotDitherStrategy",
     "resolve_device",
 ]

@@ -3,8 +3,9 @@ error-diffusion strategies, palette building and the ImageDitherer facade.
 
 Mirrors ``dither_pie_tpu/api/ditherer.py`` for the modes it ports: NONE,
 BAYER (the default), BLUE_NOISE, INTERLEAVED_GRADIENT_NOISE and POLKA_DOT
-on the ordered kernel K4, and ERROR_DIFFUSION on the wavefront kernels
-K1-K3; ``ImageDitherer`` with ``apply_dithering``,
+on the ordered kernel K4, and ERROR_DIFFUSION, OSTROMOUKHOV, HYBRID,
+PERCEPTUAL and ADAPTIVE_VARIANCE on the wavefront kernels (K1-K3 for
+palettes of up to 1024 colours, K1, K8 and K9 above); ``ImageDitherer`` with ``apply_dithering``,
 ``apply_dithering_array`` and ``apply_dithering_batch`` (the RGB path);
 ``ColorReducer``'s palettes; and every mode's parameter metadata. Frames
 are numpy uint8 in and out, as in the JAX package; the work runs on the
@@ -29,6 +30,7 @@ from dither_pie_tpu_torch.api.runtime import DeviceLike, resolve_device
 from dither_pie_tpu_torch.core import colors as _colors
 from dither_pie_tpu_torch.core import palette as _palette
 from dither_pie_tpu_torch.core import thresholds as _thresholds
+from dither_pie_tpu_torch.ops import adaptive as _adaptive
 from dither_pie_tpu_torch.ops import ed_kernels as _ed_kernels
 from dither_pie_tpu_torch.ops import ordered as _ordered
 from dither_pie_tpu_torch.ops import wavefront as _wf
@@ -36,8 +38,8 @@ from dither_pie_tpu_torch.ops import wavefront as _wf
 
 class DitherMode(Enum):
     """Dithering algorithms (names are the config-file vocabulary). The
-    port serves NONE, BAYER, BLUE_NOISE, INTERLEAVED_GRADIENT_NOISE,
-    POLKA_DOT and ERROR_DIFFUSION; the others raise NotImplementedError."""
+    port serves all but RIEMERSMA, WAVELET and HALFTONE, which raise
+    NotImplementedError."""
 
     NONE = "none"
     BAYER = "bayer"
@@ -330,9 +332,55 @@ class PolkaDotDitherStrategy(MatrixDitherStrategy):
         return {"tile_size": self.tile_size, "gamma": self.gamma}
 
 
-class ErrorDiffusionDitherStrategy(BaseDitherStrategy):
+def _serpentine_choice() -> Dict[str, Any]:
+    return {
+        "type": "choice",
+        "default": "false",
+        "choices": ["true", "false"],
+        "label": "Serpentine Scan",
+        "description": "Alternates direction each row to reduce artifacts",
+    }
+
+
+def _refuse_serpentine(serpentine: str) -> None:
+    if serpentine == "true":
+        # A reversed row depends on the LAST pixel of the row above, so no
+        # wavefront exists; the JAX package runs it on its host engine,
+        # which the port does not bind yet.
+        raise NotImplementedError(
+            "serpentine error diffusion is not ported yet (ROADMAP A5)")
+
+
+class _WavefrontDitherStrategy(BaseDitherStrategy):
+    """Error diffusion of one wavefront mode on ``self.device``: single
+    images go to the card as one float32 frame, batches as they are."""
+
+    device: torch.device
+    mode: str
+
+    def _mode_args(self, images: np.ndarray) -> Dict[str, Any]:
+        """Keyword arguments of ``ed_batch_wavefront`` beyond the mode, for
+        a (B, H, W, 3) numpy batch."""
+        return {}
+
+    def dither(self, pixels, palette_arr, image_size):
+        h, w = image_size
+        img = np.asarray(pixels, dtype=np.float32).reshape(1, h, w, 3)
+        return self.dither_batch(img, palette_arr)[0].astype(np.float32).reshape(-1, 3)
+
+    def dither_batch(self, images, palette_arr):
+        images = np.asarray(images)
+        out = _wf.ed_batch_wavefront(_frames_tensor(images, self.device),
+                                     _palette_tensor(palette_arr, self.device),
+                                     self.mode, **self._mode_args(images))
+        return out.cpu().numpy()
+
+
+class ErrorDiffusionDitherStrategy(_WavefrontDitherStrategy):
     """Unified 8-variant fixed-weight error diffusion on the wavefront
     kernels of ``device``."""
+
+    mode = "fixed"
 
     @staticmethod
     def get_parameter_info() -> Dict[str, Any]:
@@ -344,42 +392,140 @@ class ErrorDiffusionDitherStrategy(BaseDitherStrategy):
                 "label": "Algorithm",
                 "description": "Error diffusion algorithm variant",
             },
-            "serpentine": {
-                "type": "choice",
-                "default": "false",
-                "choices": ["true", "false"],
-                "label": "Serpentine Scan",
-                "description": "Alternates direction each row to reduce artifacts",
-            },
+            "serpentine": _serpentine_choice(),
         }
 
     def __init__(self, variant: str = "atkinson", serpentine: str = "false",
                  device: DeviceLike = "cuda"):
-        if serpentine == "true":
-            # A reversed row depends on the LAST pixel of the row above, so
-            # no wavefront exists; the JAX package runs it on its host
-            # engine, which the port does not bind yet.
-            raise NotImplementedError(
-                "serpentine error diffusion is not ported yet (ROADMAP A5)")
+        _refuse_serpentine(serpentine)
         self.variant = variant
         self.device = resolve_device(device)
 
     def get_current_parameters(self) -> Dict[str, Any]:
         return {"variant": self.variant, "serpentine": "false"}
 
-    def dither(self, pixels, palette_arr, image_size):
-        h, w = image_size
-        img = np.asarray(pixels, dtype=np.float32).reshape(h, w, 3)
-        out = _wf.ed_fixed_wavefront(torch.from_numpy(img).to(self.device),
-                                     _palette_tensor(palette_arr, self.device),
-                                     self.variant)
-        return out.cpu().numpy().astype(np.float32).reshape(-1, 3)
+    def _mode_args(self, images):
+        return {"variant": self.variant}
 
-    def dither_batch(self, images, palette_arr):
-        out = _wf.ed_batch_wavefront(_frames_tensor(images, self.device),
-                                     _palette_tensor(palette_arr, self.device),
-                                     "fixed", self.variant)
-        return out.cpu().numpy()
+
+class OstromoukhovDitherStrategy(_WavefrontDitherStrategy):
+    """Ostromoukhov variable-coefficient error diffusion (SIGGRAPH 2001)."""
+
+    COEFFS_TABLE = _ed_kernels.OSTROMOUKHOV_TABLE
+    mode = "ostromoukhov"
+
+    @staticmethod
+    def get_parameter_info() -> Dict[str, Any]:
+        return {"serpentine": _serpentine_choice()}
+
+    def __init__(self, serpentine: str = "false", device: DeviceLike = "cuda"):
+        _refuse_serpentine(serpentine)
+        self.device = resolve_device(device)
+
+    def get_current_parameters(self) -> Dict[str, Any]:
+        return {"serpentine": "false"}
+
+
+class HybridDitherStrategy(_WavefrontDitherStrategy):
+    """Luminance/chroma-split Floyd-Steinberg diffusion."""
+
+    mode = "hybrid"
+
+    @staticmethod
+    def get_parameter_info() -> Dict[str, Any]:
+        return {
+            "lum_factor": {
+                "type": "float",
+                "default": 1.0,
+                "min": 0.0,
+                "max": 2.0,
+                "step": 0.1,
+                "label": "Luminance Factor",
+                "description": "Strength of luminance error diffusion (1.0 = full, 0.0 = none)",
+            },
+            "col_factor": {
+                "type": "float",
+                "default": 0.2,
+                "min": 0.0,
+                "max": 2.0,
+                "step": 0.1,
+                "label": "Color Factor",
+                "description": "Strength of color error diffusion (lower = less color noise)",
+            },
+        }
+
+    def __init__(self, lum_factor: float = 1.0, col_factor: float = 0.2,
+                 device: DeviceLike = "cuda"):
+        self.lum_factor = float(lum_factor)
+        self.col_factor = float(col_factor)
+        self.device = resolve_device(device)
+
+    def get_current_parameters(self) -> Dict[str, Any]:
+        return {"lum_factor": self.lum_factor, "col_factor": self.col_factor}
+
+    def _mode_args(self, images):
+        return {"lum_factor": self.lum_factor, "col_factor": self.col_factor}
+
+
+class PerceptualDitherStrategy(_WavefrontDitherStrategy):
+    """FS diffusion with luminance-scaled error weights (no parameters);
+    the sensitivity map is built on the device from the frames."""
+
+    mode = "perceptual"
+
+    def __init__(self, device: DeviceLike = "cuda"):
+        self.device = resolve_device(device)
+
+
+class AdaptiveVarianceDitherStrategy(_WavefrontDitherStrategy):
+    """FS diffusion gated by local grayscale variance. The gates are
+    computed on the host (scipy's uniform filter), as the JAX package
+    computes them, and go to the device as one byte per pixel."""
+
+    mode = "adaptive"
+
+    @staticmethod
+    def get_parameter_info() -> Dict[str, Any]:
+        return {
+            "var_threshold": {
+                "type": "float",
+                "default": 300.0,
+                "min": 0.0,
+                "max": 1000.0,
+                "step": 10.0,
+                "label": "Variance Threshold",
+                "description": "Threshold for local variance to trigger error diffusion",
+            },
+            "window_radius": {
+                "type": "int",
+                "default": 1,
+                "min": 1,
+                "max": 5,
+                "label": "Window Radius",
+                "description": "Radius of window for computing local variance",
+            },
+        }
+
+    def __init__(self, var_threshold: float = 300.0, window_radius: int = 1,
+                 device: DeviceLike = "cuda"):
+        self.var_threshold = float(var_threshold)
+        self.window_radius = int(window_radius)
+        self.device = resolve_device(device)
+
+    def get_current_parameters(self) -> Dict[str, Any]:
+        return {"var_threshold": self.var_threshold, "window_radius": self.window_radius}
+
+    def _gates(self, images: np.ndarray) -> np.ndarray:
+        """(B, H, W) bool: where the local variance reaches the threshold."""
+        gray = (np.float32(0.299) * images[..., 0] + np.float32(0.587) * images[..., 1]
+                + np.float32(0.114) * images[..., 2])
+        return np.stack([
+            _adaptive.variance_map_np(g, self.window_radius) >= self.var_threshold
+            for g in gray])
+
+    def _mode_args(self, images):
+        gates = torch.from_numpy(self._gates(images).astype(np.uint8))
+        return {"aux": gates.to(self.device).to(torch.float32)}
 
 
 class ColorReducer:
@@ -418,6 +564,10 @@ _STRATEGY_CLASSES = {
     DitherMode.INTERLEAVED_GRADIENT_NOISE: InterleavedGradientNoiseDitherStrategy,
     DitherMode.POLKA_DOT: PolkaDotDitherStrategy,
     DitherMode.ERROR_DIFFUSION: ErrorDiffusionDitherStrategy,
+    DitherMode.OSTROMOUKHOV: OstromoukhovDitherStrategy,
+    DitherMode.HYBRID: HybridDitherStrategy,
+    DitherMode.PERCEPTUAL: PerceptualDitherStrategy,
+    DitherMode.ADAPTIVE_VARIANCE: AdaptiveVarianceDitherStrategy,
 }
 
 # Parameter metadata of the modes that expose parameters (NONE, RIEMERSMA
@@ -431,19 +581,15 @@ _PARAM_MODES = {
     DitherMode.INTERLEAVED_GRADIENT_NOISE:
         InterleavedGradientNoiseDitherStrategy.get_parameter_info,
     DitherMode.WAVELET: _parameters.wavelet,
-    DitherMode.ADAPTIVE_VARIANCE: _parameters.adaptive_variance,
-    DitherMode.HYBRID: _parameters.hybrid,
+    DitherMode.ADAPTIVE_VARIANCE: AdaptiveVarianceDitherStrategy.get_parameter_info,
+    DitherMode.HYBRID: HybridDitherStrategy.get_parameter_info,
     DitherMode.ERROR_DIFFUSION: ErrorDiffusionDitherStrategy.get_parameter_info,
-    DitherMode.OSTROMOUKHOV: _parameters.ostromoukhov,
+    DitherMode.OSTROMOUKHOV: OstromoukhovDitherStrategy.get_parameter_info,
 }
 
 # Where each mode that the port does not serve yet sits in ROADMAP Queue A.
 _NOT_PORTED = {
     DitherMode.RIEMERSMA: "A5",
-    DitherMode.ADAPTIVE_VARIANCE: "A5",
-    DitherMode.PERCEPTUAL: "A5",
-    DitherMode.HYBRID: "A5",
-    DitherMode.OSTROMOUKHOV: "A5",
     DitherMode.WAVELET: "A7",
     DitherMode.HALFTONE: "A7",
 }

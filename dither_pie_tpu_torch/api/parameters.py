@@ -13,63 +13,6 @@ from __future__ import annotations
 from typing import Any, Dict
 
 
-def ostromoukhov() -> Dict[str, Any]:
-    return {
-        "serpentine": {
-            "type": "choice",
-            "default": "false",
-            "choices": ["true", "false"],
-            "label": "Serpentine Scan",
-            "description": "Alternates direction each row to reduce artifacts",
-        }
-    }
-
-
-def hybrid() -> Dict[str, Any]:
-    return {
-        "lum_factor": {
-            "type": "float",
-            "default": 1.0,
-            "min": 0.0,
-            "max": 2.0,
-            "step": 0.1,
-            "label": "Luminance Factor",
-            "description": "Strength of luminance error diffusion (1.0 = full, 0.0 = none)",
-        },
-        "col_factor": {
-            "type": "float",
-            "default": 0.2,
-            "min": 0.0,
-            "max": 2.0,
-            "step": 0.1,
-            "label": "Color Factor",
-            "description": "Strength of color error diffusion (lower = less color noise)",
-        },
-    }
-
-
-def adaptive_variance() -> Dict[str, Any]:
-    return {
-        "var_threshold": {
-            "type": "float",
-            "default": 300.0,
-            "min": 0.0,
-            "max": 1000.0,
-            "step": 10.0,
-            "label": "Variance Threshold",
-            "description": "Threshold for local variance to trigger error diffusion",
-        },
-        "window_radius": {
-            "type": "int",
-            "default": 1,
-            "min": 1,
-            "max": 5,
-            "label": "Window Radius",
-            "description": "Radius of window for computing local variance",
-        },
-    }
-
-
 def wavelet() -> Dict[str, Any]:
     return {
         "wavelet": {

@@ -1,10 +1,14 @@
 """State carried across from the JAX package.
 
-The error-diffusion path has no learned weights. Its state is the palette
-and the diffusion weight tables, both numpy data in the JAX package; these
-functions return them as the port's tensors on a given device, unchanged
-bit for bit. ``ops.wavefront.scan_geometry`` takes the scan's weight table
-from ``entries_to_torch``; the tests use ``palette_to_torch`` to feed both
+The error-diffusion path has no learned weights. Its state is the palette,
+the diffusion weight tables and Ostromoukhov's pre-divided weight table,
+all numpy data in the JAX package; these functions return them as the
+port's tensors on a given device, unchanged bit for bit.
+``ops.wavefront.scan_geometry`` takes the scan's weight table from
+``entries_to_torch`` (every mode's entries: the fixed variants, and the
+Floyd-Steinberg entries of hybrid, perceptual and adaptive) and
+``ops.wavefront.ostro_lut`` the Ostromoukhov table from
+``weight_table_to_torch``; the tests use ``palette_to_torch`` to feed both
 packages one palette (their k-means streams differ, see core/palette.py).
 """
 
@@ -37,3 +41,15 @@ def entries_to_torch(entries: Sequence[Tuple[int, int, float]],
     offs = np.array([(dx, dy) for dx, dy, _ in entries], dtype=np.int32)
     wts = np.array([w for _, _, w in entries], dtype=np.float32)
     return torch.as_tensor(offs, device=dev), torch.as_tensor(wts, device=dev)
+
+
+def weight_table_to_torch(table, device: DeviceLike) -> torch.Tensor:
+    """Ostromoukhov's pre-divided (256, 3) float32 weight table (the result
+    of ``_ostro_weight_table()`` of either package) -> the same bits as a
+    (256, 3) float32 tensor: row = truncated luminance, column = entry
+    (x+1, y), (x-1, y+1), (x, y+1)."""
+    arr = np.ascontiguousarray(table)
+    if arr.dtype != np.float32 or arr.shape != (256, 3):
+        raise ValueError(f"weight table must be (256, 3) float32, got "
+                         f"{arr.shape} {arr.dtype}")
+    return torch.as_tensor(arr, device=resolve_device(device))

@@ -30,7 +30,7 @@ import torch
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("bindings.cpp", "skew.cu", "ed_scan.cu", "unskew_unpack.cu",
-           "ordered.cu")
+           "unskew_select.cu", "ordered.cu")
 EXT_NAME = "dither_pie_tpu_torch_kernels"
 NVCC_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "--fmad=false"]
 CXX_FLAGS = ["-O3"]
@@ -56,8 +56,8 @@ def on_cuda(t: torch.Tensor) -> bool:
 
 
 def extension() -> ModuleType:
-    """The compiled kernel module (``skew``, ``ed_scan_fixed``,
-    ``unskew_unpack``, ``ordered_fused``), built on the first call."""
+    """The compiled kernel module (``skew``, ``ed_scan``, ``unskew_unpack``,
+    ``unskew_select``, ``ordered_fused``), built on the first call."""
     global _ext
     with _lock:
         if _ext is None:

@@ -2,8 +2,8 @@
 // PyTorch's headers). Each function checks device, dtype, shape and
 // contiguity, launches on PyTorch's current stream of the tensor's device,
 // and raises if the launch is refused. Outputs and scratch are allocated
-// by the Python wrappers in dither_pie_tpu_torch/ops/wavefront.py (K1-K3)
-// and dither_pie_tpu_torch/ops/ordered_fused.py (K4).
+// by the Python wrappers in dither_pie_tpu_torch/ops/wavefront.py (K1-K3,
+// K8, K9) and dither_pie_tpu_torch/ops/ordered_fused.py (K4).
 
 #include <torch/extension.h>
 
@@ -68,14 +68,19 @@ void skew(torch::Tensor images, torch::Tensor out, int64_t s) {
     check_launch(rc, "skew");
 }
 
-void ed_scan_fixed(torch::Tensor img, torch::Tensor palette,
-                   torch::Tensor hist, torch::Tensor out,
-                   torch::Tensor offsets, torch::Tensor weights, int64_t s,
-                   int64_t width) {
+void ed_scan(torch::Tensor img, torch::Tensor palette, torch::Tensor aux,
+             torch::Tensor lut, torch::Tensor hist, torch::Tensor out,
+             torch::Tensor offsets, torch::Tensor weights,
+             torch::Tensor columns, int64_t mode, int64_t s, int64_t width,
+             double lum_factor, double col_factor, bool emit_idx) {
     check_tensor(img, "img", img);
     check_tensor(palette, "palette", img);
     check_tensor(hist, "hist", img);
     check_tensor(out, "out", img);
+    TORCH_CHECK(mode >= 0 && mode < DPT_SCAN_MODES, "mode ", mode,
+                " outside 0..", DPT_SCAN_MODES - 1);
+    const bool ostromoukhov = mode == 1;
+    const bool has_aux = mode == 3 || mode == 4;
     TORCH_CHECK(img.dim() == 3 && img.size(1) % 3 == 0,
                 "img must be the (D, 3B, H) skewed stream");
     const int D = as_int(img.size(0), "D");
@@ -88,60 +93,100 @@ void ed_scan_fixed(torch::Tensor img, torch::Tensor palette,
                     palette.dim() == 2 && palette.size(1) == 3,
                 "palette must be (P, 3) float32");
     const int P = as_int(palette.size(0), "P");
-    TORCH_CHECK(P >= 1 && P <= DPT_MAX_PALETTE, "palette size ", P,
-                " outside 1..", DPT_MAX_PALETTE);
+    TORCH_CHECK(P >= 1, "palette is empty");
+    TORCH_CHECK(emit_idx || P <= DPT_MAX_PALETTE, "palette size ", P,
+                " above ", DPT_MAX_PALETTE, ": the packed-colour scan does "
+                "not serve it, the index scan does");
+    TORCH_CHECK(P <= DPT_IDX_MAX_PALETTE, "palette size ", P, " above ",
+                DPT_IDX_MAX_PALETTE, ": the index scan keeps its palette in "
+                "shared memory");
+    const int C = (ostromoukhov || mode == 3) ? 4 : 3;
     TORCH_CHECK(hist.scalar_type() == torch::kFloat32 && hist.dim() == 4 &&
-                    hist.size(0) == B && hist.size(2) == 3 &&
+                    hist.size(0) == B && hist.size(2) == C &&
                     hist.size(3) == H,
-                "hist must be (B, ring, 3, H) float32");
+                "hist must be (B, ring, ", C, ", H) float32");
     const int ring = as_int(hist.size(1), "ring");
     TORCH_CHECK(ring >= 1 && (ring & (ring - 1)) == 0,
                 "ring must be a power of two");
     TORCH_CHECK(out.scalar_type() == torch::kInt32 && out.dim() == 3 &&
                     out.size(0) == D && out.size(1) == B && out.size(2) == H,
                 "out must be (D, B, H) int32");
+    if (has_aux) {
+        check_tensor(aux, "aux", img);
+        TORCH_CHECK(aux.scalar_type() == torch::kFloat32 && aux.dim() == 3 &&
+                        aux.size(0) == B && aux.size(1) == H &&
+                        aux.size(2) == W,
+                    "aux must be (B, H, W) float32");
+    } else {
+        TORCH_CHECK(aux.numel() == 0, "this mode takes no aux map");
+    }
+    if (ostromoukhov) {
+        check_tensor(lut, "lut", img);
+        TORCH_CHECK(lut.scalar_type() == torch::kFloat32 && lut.dim() == 2 &&
+                        lut.size(0) == 256 && lut.size(1) == 3,
+                    "lut must be (256, 3) float32");
+    } else {
+        TORCH_CHECK(lut.numel() == 0, "this mode takes no weight table");
+    }
     // The weight table stays on the host: it travels to the kernel by
     // value, in its launch parameters.
-    TORCH_CHECK(offsets.device().is_cpu() && weights.device().is_cpu(),
-                "offsets and weights must be CPU tensors");
+    TORCH_CHECK(offsets.device().is_cpu() && weights.device().is_cpu() &&
+                    columns.device().is_cpu(),
+                "offsets, weights and columns must be CPU tensors");
     TORCH_CHECK(offsets.scalar_type() == torch::kInt32 && offsets.dim() == 2 &&
                     offsets.size(1) == 2 && offsets.is_contiguous(),
                 "offsets must be a contiguous (n, 2) int32 tensor");
     TORCH_CHECK(weights.scalar_type() == torch::kFloat32 &&
                     weights.dim() == 1 && weights.is_contiguous(),
                 "weights must be a contiguous (n,) float32 tensor");
+    TORCH_CHECK(columns.scalar_type() == torch::kInt32 &&
+                    columns.dim() == 1 && columns.is_contiguous(),
+                "columns must be a contiguous (n,) int32 tensor");
     const int64_t n = offsets.size(0);
-    TORCH_CHECK(n >= 1 && n <= DPT_MAX_ENTRIES && weights.size(0) == n,
-                "entries must be 1..", DPT_MAX_ENTRIES, " (dx, dy, w)");
+    TORCH_CHECK(n >= 1 && n <= DPT_MAX_ENTRIES && weights.size(0) == n &&
+                    columns.size(0) == n,
+                "entries must be 1..", DPT_MAX_ENTRIES, " (dx, dy, w, column)");
+    TORCH_CHECK(!ostromoukhov || n == 3, "ostromoukhov has 3 entries");
     const int32_t* off = offsets.data_ptr<int32_t>();
     const float* wts = weights.data_ptr<float>();
-    DptScanEntries e{};
-    e.n = (int)n;
+    const int32_t* cols = columns.data_ptr<int32_t>();
+    DptScanArgs a{};
+    a.e.n = (int)n;
     for (int64_t k = 0; k < n; ++k) {
         const int64_t dx = off[2 * k], dy = off[2 * k + 1];
         TORCH_CHECK(dy >= 0 && dx + s * dy >= 1 && dx + s * dy < ring,
                     "entry ", k, " violates the skew or ring bound");
-        e.dx[k] = (int)dx;
-        e.dy[k] = (int)dy;
-        e.w[k] = wts[k];
+        TORCH_CHECK(cols[k] >= 0 && cols[k] < n, "entry ", k,
+                    " has column ", cols[k], " outside 0..", n - 1);
+        a.e.dx[k] = (int)dx;
+        a.e.dy[k] = (int)dy;
+        a.e.w[k] = wts[k];
+        a.e.col[k] = cols[k];
     }
+    TORCH_CHECK(img.scalar_type() == torch::kUInt8 ||
+                    img.scalar_type() == torch::kFloat32,
+                "img must be uint8 or float32");
+    a.img = img.data_ptr();
+    a.img_is_f32 = img.scalar_type() == torch::kFloat32;
+    a.pal = palette.data_ptr<float>();
+    a.P = P;
+    a.mode = (int)mode;
+    a.aux = has_aux ? aux.data_ptr<float>() : nullptr;
+    a.lut = ostromoukhov ? lut.data_ptr<float>() : nullptr;
+    a.lum_factor = (float)lum_factor;
+    a.col_factor = (float)col_factor;
+    a.s = (int)s;
+    a.ring = ring;
+    a.B = B;
+    a.H = H;
+    a.W = W;
+    a.D = D;
+    a.hist = hist.data_ptr<float>();
+    a.out = out.data_ptr<int32_t>();
+    a.emit_idx = emit_idx ? 1 : 0;
     const c10::cuda::CUDAGuard guard(img.device());
-    int rc;
-    if (img.scalar_type() == torch::kUInt8) {
-        rc = dpt_ed_scan_fixed_u8(img.data_ptr<uint8_t>(),
-                                  palette.data_ptr<float>(), P, e, (int)s,
-                                  ring, B, H, W, D, hist.data_ptr<float>(),
-                                  out.data_ptr<int32_t>(), current_stream(img));
-    } else {
-        TORCH_CHECK(img.scalar_type() == torch::kFloat32,
-                    "img must be uint8 or float32");
-        rc = dpt_ed_scan_fixed_f32(img.data_ptr<float>(),
-                                   palette.data_ptr<float>(), P, e, (int)s,
-                                   ring, B, H, W, D, hist.data_ptr<float>(),
-                                   out.data_ptr<int32_t>(),
-                                   current_stream(img));
-    }
-    check_launch(rc, "ed_scan_fixed");
+    check_launch(dpt_ed_scan(a, current_stream(img)),
+                 emit_idx ? "ed_scan_idx" : "ed_scan");
 }
 
 void unskew_unpack(torch::Tensor col, torch::Tensor out, int64_t s) {
@@ -163,6 +208,34 @@ void unskew_unpack(torch::Tensor col, torch::Tensor out, int64_t s) {
                                    out.data_ptr<uint8_t>(), B, H, W, (int)s,
                                    current_stream(col)),
                  "unskew_unpack");
+}
+
+void unskew_select(torch::Tensor idx, torch::Tensor palette,
+                   torch::Tensor out, int64_t s) {
+    check_tensor(idx, "idx", idx);
+    check_tensor(palette, "palette", idx);
+    check_tensor(out, "out", idx);
+    TORCH_CHECK(idx.scalar_type() == torch::kInt32 && idx.dim() == 3,
+                "idx must be (D, B, H) int32");
+    TORCH_CHECK(palette.scalar_type() == torch::kFloat32 &&
+                    palette.dim() == 2 && palette.size(1) == 3 &&
+                    palette.size(0) >= 1,
+                "palette must be (P, 3) float32");
+    TORCH_CHECK(out.scalar_type() == torch::kUInt8 && out.dim() == 4 &&
+                    out.size(3) == 3,
+                "out must be (B, H, W, 3) uint8");
+    const int B = as_int(out.size(0), "B");
+    const int H = as_int(out.size(1), "H");
+    const int W = as_int(out.size(2), "W");
+    TORCH_CHECK(s >= 1 && idx.size(0) >= W + s * (H - 1) &&
+                    idx.size(1) == B && idx.size(2) == H,
+                "idx must be (>= W + s*(H-1), B, H)");
+    const c10::cuda::CUDAGuard guard(idx.device());
+    check_launch(dpt_unskew_select(idx.data_ptr<int32_t>(),
+                                   palette.data_ptr<float>(),
+                                   out.data_ptr<uint8_t>(), B, H, W, (int)s,
+                                   current_stream(idx)),
+                 "unskew_select");
 }
 
 void ordered_fused(torch::Tensor images, torch::Tensor palette,
@@ -207,10 +280,13 @@ void ordered_fused(torch::Tensor images, torch::Tensor palette,
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
     m.def("skew", &skew, "K1: (B,H,W,3) -> (D,3B,H) skewed stream");
-    m.def("ed_scan_fixed", &ed_scan_fixed,
-          "K2: fixed-weight wavefront scan -> (D,B,H) packed colours");
+    m.def("ed_scan", &ed_scan,
+          "K2 / K8: wavefront scan, every mode -> (D,B,H) packed colours or "
+          "palette indices");
     m.def("unskew_unpack", &unskew_unpack,
           "K3: (D,B,H) packed colours -> (B,H,W,3) uint8");
+    m.def("unskew_select", &unskew_select,
+          "K9: (D,B,H) palette indices + palette -> (B,H,W,3) uint8");
     m.def("ordered_fused", &ordered_fused,
           "K4: ordered dither (B,H,W,3) uint8 -> colours or indices");
 }

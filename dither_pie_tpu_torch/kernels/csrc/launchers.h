@@ -1,5 +1,5 @@
 // Launch functions of the port's kernels: the wavefront error-diffusion
-// kernels K1-K3 and the ordered-dither kernel K4.
+// kernels K1-K3, K8 and K9 and the ordered-dither kernel K4.
 //
 // The .cu files that define them include no PyTorch header, so nvcc
 // compiles them in seconds; bindings.cpp (the only file with
@@ -11,23 +11,52 @@
 
 #include <cstdint>
 
-// Largest palette the scan kernel's running-min search serves (the slice's
-// bound: palettes of <= 64 colours; larger ones belong to the dense search).
-constexpr int DPT_MAX_PALETTE = 64;
+// Largest palette of the packed-colour scan K2 (12 KB of shared memory);
+// larger ones run the index scan K8.
+constexpr int DPT_MAX_PALETTE = 1024;
+// Largest palette of the index scan K8: 192 KB of dynamic shared memory,
+// which with Ostromoukhov's 3 KB weight table fits the 227 KB a block may
+// have. The golden engine stops at 4096 colours.
+constexpr int DPT_IDX_MAX_PALETTE = 16384;
 // Largest palette of the ordered kernel: three float32 planes of 4096
 // entries fill the 48 KB of dynamic shared memory a block gets by default.
 constexpr int DPT_ORDERED_MAX_PALETTE = 4096;
 // Most diffusion entries of any fixed kernel (jjn and stucki have 12).
 constexpr int DPT_MAX_ENTRIES = 12;
+// The scan's modes, as dither_pie_tpu_torch.ops.wavefront.MODES orders them:
+// 0 fixed, 1 ostromoukhov, 2 hybrid, 3 perceptual, 4 adaptive.
+constexpr int DPT_SCAN_MODES = 5;
 
-// The fixed kernel's entries in consume order (source row dy descending,
-// then dx descending): the order the golden row-major scan adds them into
-// a pixel. Weights are the pre-divided float32 values.
+// A mode's entries in consume order (source row dy descending, then dx
+// descending): the order the golden row-major scan adds them into a pixel.
+// Weights are the pre-divided float32 values; col is the entry's column of
+// Ostromoukhov's weight table (its weights are per pixel, w is unused).
 struct DptScanEntries {
     int n;
     int dx[DPT_MAX_ENTRIES];
     int dy[DPT_MAX_ENTRIES];
     float w[DPT_MAX_ENTRIES];
+    int col[DPT_MAX_ENTRIES];
+};
+
+// One launch of the scan (K2, or K8 with emit_idx).
+struct DptScanArgs {
+    const void* img;   // (D, 3B, H) skewed stream, uint8 or float32
+    int img_is_f32;
+    const float* pal;  // (P, 3)
+    int P;
+    DptScanEntries e;
+    int mode;
+    const float* aux;  // (B, H, W) sensitivity or gate (perceptual, adaptive)
+    const float* lut;  // (256, 3) weight table (ostromoukhov)
+    float lum_factor;  // hybrid
+    float col_factor;
+    int s, ring, B, H, W, D;
+    float* hist;   // (B, ring, C, H) scratch, C = 4 for perceptual and
+                   // ostromoukhov, else 3; ring a power of two >= n_slots
+    int32_t* out;  // (D, B, H)
+    int emit_idx;  // 0: packed colours (K2, P <= DPT_MAX_PALETTE); 1: indices
+                   // (K8, P <= DPT_IDX_MAX_PALETTE)
 };
 
 // K1: (B, H, W, 3) frames -> (D, 3B, H) skewed stream,
@@ -37,22 +66,20 @@ int dpt_skew_u8(const uint8_t* in, uint8_t* out, int B, int H, int W, int D,
 int dpt_skew_f32(const float* in, float* out, int B, int H, int W, int D,
                  int s, void* stream);
 
-// K2: fixed-weight wavefront scan over the skewed stream; out (D, B, H)
-// int32 packed colours (r << 16 | g << 8 | b), 0 outside the image.
-// hist: (B, ring, 3, H) float32 scratch, ring a power of two >= n_slots.
-int dpt_ed_scan_fixed_u8(const uint8_t* img, const float* pal, int P,
-                         DptScanEntries e, int s, int ring, int B, int H,
-                         int W, int D, float* hist, int32_t* out,
-                         void* stream);
-int dpt_ed_scan_fixed_f32(const float* img, const float* pal, int P,
-                          DptScanEntries e, int s, int ring, int B, int H,
-                          int W, int D, float* hist, int32_t* out,
-                          void* stream);
+// K2 and K8: the wavefront scan over the skewed stream, every mode; out
+// (D, B, H) int32, 0 outside the image: packed colours
+// (r << 16 | g << 8 | b) for K2, palette indices for K8.
+int dpt_ed_scan(const DptScanArgs& a, void* stream);
 
 // K3: (D, B, H) packed colours -> (B, H, W, 3) uint8,
 // out[b, y, x, c] = (col[x + s*y, b, y] >> (16 - 8c)) & 255.
 int dpt_unskew_unpack(const int32_t* col, uint8_t* out, int B, int H, int W,
                       int s, void* stream);
+
+// K9: (D, B, H) palette indices in 0..P-1 + (P, 3) float32 palette ->
+// (B, H, W, 3) uint8, out[b, y, x, c] = (int)pal[idx[x + s*y, b, y], c].
+int dpt_unskew_select(const int32_t* idx, const float* pal, uint8_t* out,
+                      int B, int H, int W, int s, void* stream);
 
 // K4: ordered dither of n = B*H*W NHWC u8 pixels against a (H, W) float32
 // screen (hw = H*W, read at i mod hw); out is n*3 u8 palette colours, or n

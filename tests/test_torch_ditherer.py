@@ -1,6 +1,7 @@
 """The port's public surface (dither_pie_tpu_torch.ImageDitherer) against
-the JAX package's, on the CPU, for the modes it serves: fixed-weight error
-diffusion and the ordered family (none, Bayer, blue noise, IGN, polka dot).
+the JAX package's, on the CPU, for the modes it serves: the error-diffusion
+family (fixed-weight, Ostromoukhov, hybrid, perceptual, adaptive variance)
+and the ordered family (none, Bayer, blue noise, IGN, polka dot).
 
 * error diffusion, apply_dithering_batch: bitwise equal to the JAX
   package's for the same palette, gamma off and on (the JAX package runs
@@ -8,7 +9,7 @@ diffusion and the ordered family (none, Bayer, blue noise, IGN, polka dot).
 * error diffusion, apply_dithering (single image): perceptual (identity
   >= 0.98, 4x4 block mean <= 8, max <= 48), because the JAX package's
   single-image CPU path searches the palette in float64 and the port in
-  float32;
+  float32; and bitwise against the golden engine's f32 twin of the mode;
 * the ordered family, apply_dithering_batch and apply_dithering: bitwise
   equal to the JAX package's, gamma off and on (the gamma path's palettes
   are not integers, and still every pixel agrees);
@@ -79,6 +80,77 @@ def test_apply_dithering_single_image_perceptual_vs_jax(golden_engine_batches):
                                 max_block_mean=8.0, max_block_max=48.0)
 
 
+# The rest of the error-diffusion family: (mode, dither_params).
+ED_MODE_CASES = [
+    ("ostromoukhov", {}),
+    ("hybrid", {"lum_factor": 0.8, "col_factor": 0.35}),
+    ("perceptual", {}),
+    ("adaptive_variance", {"var_threshold": 250.0, "window_radius": 2}),
+]
+ED_MODE_IDS = [m for m, _ in ED_MODE_CASES]
+
+
+@pytest.mark.parametrize("use_gamma", [False, True], ids=["srgb", "gamma"])
+@pytest.mark.parametrize("mode,params", ED_MODE_CASES, ids=ED_MODE_IDS)
+def test_ed_modes_batch_bitwise_vs_jax(mode, params, use_gamma, golden_engine_batches):
+    """The JAX package's batch runs the golden engine's f32 twin of the
+    mode; the port's equals it bit for bit, gamma off and on."""
+    frames = _frames()
+    palette = tpal.median_cut_palette(frames[0], 32)
+    kw = dict(num_colors=32, palette=palette, use_gamma=use_gamma,
+              dither_params=dict(params))
+    ref = jdpt.ImageDitherer(dither_mode=jdpt.DitherMode(mode),
+                             **kw).apply_dithering_batch(frames)
+    out = tdpt.ImageDitherer(dither_mode=tdpt.DitherMode(mode), device="cpu",
+                             **kw).apply_dithering_batch(frames)
+    assert out.dtype == np.uint8 and out.shape == frames.shape
+    np.testing.assert_array_equal(out, ref)
+
+
+@pytest.mark.parametrize("mode,params", ED_MODE_CASES, ids=ED_MODE_IDS)
+def test_ed_modes_single_image_vs_jax_and_twin(mode, params, golden_engine_batches):
+    """apply_dithering: the JAX package's single image runs its exact
+    float64 engine, so it is held perceptually; the f32 twin (which the JAX
+    package's one-frame batch runs) bitwise."""
+    arr = bench.synth_image(45, 64, 5)
+    img = Image.fromarray(arr)
+    kw = dict(num_colors=16, dither_params=dict(params))
+    jd = jdpt.ImageDitherer(dither_mode=jdpt.DitherMode(mode), **kw)
+    td = tdpt.ImageDitherer(dither_mode=tdpt.DitherMode(mode), device="cpu", **kw)
+    ref = np.asarray(jd.apply_dithering(img))
+    out = np.asarray(td.apply_dithering(img))
+    assert td.palette == jd.palette
+    assert out.shape == ref.shape and out.dtype == np.uint8
+    assert_perceptually_matched(out, ref, min_identical=0.98, block=4,
+                                max_block_mean=8.0, max_block_max=48.0)
+    np.testing.assert_array_equal(out, jd.apply_dithering_batch(arr[None])[0])
+    strategy = td._get_dither_strategy(td.dither_mode)
+    assert strategy.device == torch.device("cpu")
+    jstrategy = jd._get_dither_strategy(jd.dither_mode)
+    assert strategy.get_current_parameters() == jstrategy.get_current_parameters()
+
+
+@pytest.mark.parametrize("num_colors", [256, 2048])
+def test_large_palette_batch_bitwise_vs_jax(num_colors, golden_engine_batches):
+    """ERROR_DIFFUSION with a 256-colour k-means palette (K2's route) and a
+    2048-colour palette (K8 -> K9's route)."""
+    frames = _frames(2, 24, 40)
+    if num_colors == 256:
+        palette = tdpt.ColorReducer.generate_kmeans_palette(
+            Image.fromarray(frames[0]), 256, device="cpu")
+    else:
+        cols = np.unique(np.random.RandomState(3).randint(0, 256, (9000, 3)), axis=0)
+        palette = [tuple(int(v) for v in c) for c in cols[:2048]]
+    assert len(palette) == num_colors
+    kw = dict(num_colors=num_colors, palette=palette,
+              dither_params={"variant": "floyd_steinberg"})
+    ref = jdpt.ImageDitherer(dither_mode=jdpt.DitherMode.ERROR_DIFFUSION,
+                             **kw).apply_dithering_batch(frames)
+    out = tdpt.ImageDitherer(dither_mode=tdpt.DitherMode.ERROR_DIFFUSION,
+                             device="cpu", **kw).apply_dithering_batch(frames)
+    np.testing.assert_array_equal(out, ref)
+
+
 def test_kmeans_palette_drives_the_batch():
     """The main path in miniature: k-means palette, then the batch; every
     output pixel is a palette colour."""
@@ -106,6 +178,7 @@ ORDERED_CASES = [
 ]
 ORDERED_IDS = [f"{m}-{p.get('size', '')}".rstrip("-") for m, p in ORDERED_CASES]
 ORDERED_MODES = {tdpt.DitherMode(m) for m, _ in ORDERED_CASES}
+ED_MODES = {tdpt.DitherMode.ERROR_DIFFUSION} | {tdpt.DitherMode(m) for m, _ in ED_MODE_CASES}
 
 
 @pytest.fixture()
@@ -212,8 +285,7 @@ def test_cuda_without_gpu_raises():
 
 
 @pytest.mark.parametrize("mode", [m for m in tdpt.DitherMode
-                                  if m is not tdpt.DitherMode.ERROR_DIFFUSION
-                                  and m not in ORDERED_MODES])
+                                  if m not in ED_MODES and m not in ORDERED_MODES])
 def test_unported_modes_raise(mode):
     d = tdpt.ImageDitherer(dither_mode=mode, palette=[(0, 0, 0), (255, 255, 255)],
                            device="cpu")
@@ -227,6 +299,10 @@ def test_unported_options_raise():
     ed = tdpt.DitherMode.ERROR_DIFFUSION
     serp = tdpt.ImageDitherer(dither_mode=ed, palette=pal, device="cpu",
                               dither_params={"serpentine": "true"})
+    with pytest.raises(NotImplementedError, match="A5"):
+        serp.apply_dithering_batch(frames)
+    serp = tdpt.ImageDitherer(dither_mode=tdpt.DitherMode.OSTROMOUKHOV, palette=pal,
+                              device="cpu", dither_params={"serpentine": "true"})
     with pytest.raises(NotImplementedError, match="A5"):
         serp.apply_dithering_batch(frames)
     plain = tdpt.ImageDitherer(dither_mode=ed, palette=pal, device="cpu")

@@ -8,7 +8,8 @@ holds the kernels to the same plain versions on the card.
 Tolerances:
 * geometry, weights, K1, K3: exact (integer data and bit patterns);
 * the scan against the golden engine's f32 twin (ed_host.ed_fixed_fast):
-  bitwise, for all 8 variants, u8 and non-integer f32 input;
+  bitwise, for all 8 variants, u8 and non-integer f32 input (the other
+  modes and the larger palettes: tests/test_torch_ed_modes.py);
 * the scan against the JAX scan in interpret mode: perceptual (identity
   >= 0.98, 4x4 block mean <= 8, max <= 48 — tests/test_wavefront.py's
   gate), because XLA:CPU contracts multiply-add into FMA and flips near
@@ -59,6 +60,7 @@ def test_geometry_matches_jax(variant):
     g = twf.scan_geometry(variant)
     assert (g.s, g.n_slots) == jwf._scan_params("fixed", variant)
     assert g.ring >= g.n_slots and g.ring & (g.ring - 1) == 0
+    assert g.mode == "fixed" and g.clamp_before and g.hist_channels == 3
 
     jent, tent = jwf._fixed_entries(variant), twf._fixed_entries(variant)
     assert [e[:2] for e in jent] == [e[:2] for e in tent]
@@ -169,12 +171,87 @@ def test_scan_plain_exact_ties_first_index_wins(variant):
         np.testing.assert_array_equal(out[0], gold)
 
 
+@pytest.mark.parametrize("p", [65, 130])
+def test_scan_plain_exact_ties_first_index_wins_large_palette(p):
+    """The same flat frame with the two tied colours behind p - 3 far ones
+    and a duplicate of each planted at the end: the search must not depend
+    on how a reduction over P splits, the first index wins."""
+    frames = np.zeros((1, 11, 17, 3), np.uint8)
+    frames[...] = (101, 100, 100)
+    far = np.full((p - 4, 3), 255, np.float32)
+    far[:, 2] = np.arange(p - 4) % 7  # distinct enough, all far away
+    pal = np.concatenate([far[:p - 10], [[100, 100, 100], [102, 100, 100]], far[p - 10:],
+                          [[102, 100, 100], [100, 100, 100]]]).astype(np.float32)
+    assert pal.shape[0] == p
+    out = twf.ed_batch_wavefront(torch.from_numpy(frames), torch.from_numpy(pal),
+                                 "fixed", "floyd_steinberg").numpy()
+    np.testing.assert_array_equal(out[0, 0, 0], (100, 100, 100))
+    gold = ed_host.ed_fixed_fast(frames[0].astype(np.float32).copy(), pal,
+                                 "floyd_steinberg").astype(np.uint8)
+    np.testing.assert_array_equal(out[0], gold)
+    geom = twf.scan_geometry("floyd_steinberg")
+    idx = twf.scan_idx(twf.skew(torch.from_numpy(frames), geom.s),
+                       torch.from_numpy(pal), geom, 17).numpy()
+    assert idx[0, 0, 0] == p - 10 and not np.isin(idx, [p - 2, p - 1]).any()
+
+
+def _summed_buffer_scan(img, pal, variant, hybrid):
+    """The row-major scan with ONE summed error buffer, cur = img + (c1 + c2
+    + ...): the wrong association, which a scan with a single error
+    accumulator computes."""
+    offs, wts = jek.kernel_arrays(variant)
+    h, w, _ = img.shape
+    acc = np.zeros_like(img)
+    out = np.empty_like(img)
+    coef = np.array([0.299, 0.587, 0.114], np.float32)
+    for y in range(h):
+        for x in range(w):
+            cur = np.clip(img[y, x] + acc[y, x], np.float32(0), np.float32(255))
+            sq = (pal - cur) * (pal - cur)
+            bi = int(np.argmin((sq[:, 0] + sq[:, 1]) + sq[:, 2]))
+            out[y, x] = pal[bi]
+            err = cur - pal[bi]
+            if hybrid:
+                lum = coef * ((coef[0] * err[0] + coef[1] * err[1]) + coef[2] * err[2])
+                err = np.float32(1.0) * lum + np.float32(0.2) * (err - lum)
+            for (dx, dy), wq in zip(offs, wts):
+                if 0 <= x + dx < w and 0 <= y + dy < h:
+                    acc[y + dy, x + dx] += err * wq
+    return out.astype(np.uint8)
+
+
+@pytest.mark.parametrize("seed,frame,mode,variant", [
+    (99, 2, "fixed", "atkinson"), (170, 7, "fixed", "stucki"),
+    (252, 5, "fixed", "stucki"), (278, 7, "hybrid", "floyd_steinberg"),
+])
+def test_fold_order_is_observable(seed, frame, mode, variant):
+    """Continuous float32 64x96 frames on which the fold order shows: the
+    golden engine's left fold (((img + c1) + c2) + ...) and a single summed
+    error buffer img + (c1 + c2 + ...) choose different colours somewhere,
+    and the port's scan equals the golden engine bit for bit. The frames
+    were found by a search over seeds (about one frame in a thousand at
+    this size discriminates)."""
+    rng = np.random.RandomState(seed)
+    img = rng.uniform(0, 255, (8, 64, 96, 3)).astype(np.float32)[frame]
+    pal = rng.randint(0, 256, (4, 3)).astype(np.float32)
+    if mode == "hybrid":
+        gold = ed_host.ed_hybrid_fast(img.copy(), pal)
+    else:
+        gold = ed_host.ed_fixed_fast(img.copy(), pal, variant)
+    gold = gold.astype(np.uint8)
+    out = twf.ed_batch_wavefront(torch.from_numpy(img[None]), torch.from_numpy(pal),
+                                 mode, variant).numpy()[0]
+    np.testing.assert_array_equal(out, gold)
+    wrong = _summed_buffer_scan(img, pal, variant, mode == "hybrid")
+    assert not np.array_equal(wrong, gold)  # the test discriminates
+
+
 def test_scan_plain_perceptual_vs_jax_interpret():
     frames = _frames(1, 37, 53, 3, np.uint8)
     pal = _palette(32, 4)
     ref = np.asarray(jwf.ed_fixed_wavefront(frames[0], pal, "floyd_steinberg"))
-    out = twf.ed_fixed_wavefront(torch.from_numpy(frames[0]), torch.from_numpy(pal),
-                                 "floyd_steinberg").numpy()
+    out = twf.ed_batch_wavefront(torch.from_numpy(frames), torch.from_numpy(pal),
+                                 "fixed", "floyd_steinberg").numpy()[0]
     assert_perceptually_matched(out, ref, min_identical=0.98, block=4,
                                 max_block_mean=8.0, max_block_max=48.0)
 
@@ -185,8 +262,8 @@ def test_scan_batch_equals_single_frames():
     pal = torch.from_numpy(_palette(16, 8))
     batch = twf.ed_batch_wavefront(frames, pal, variant="stucki")
     for i in range(5):
-        single = twf.ed_fixed_wavefront(frames[i], pal, "stucki")
-        assert torch.equal(batch[i], single)
+        single = twf.ed_batch_wavefront(frames[i:i + 1], pal, variant="stucki")
+        assert torch.equal(batch[i], single[0])
 
 
 def test_device_fn_checks_shapes():
@@ -205,8 +282,6 @@ def test_device_fn_checks_shapes():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"mode": "hybrid"}, "A5"),
-    ({"mode": "ostromoukhov"}, "A5"),
     ({"planar": True}, "A5"),
     ({"return_indices": True}, "A6"),
     ({"dense_search": "mxu"}, "A5"),
@@ -220,10 +295,12 @@ def test_unported_options_raise(kw, item):
 
 def test_large_palette_and_auto_mesh_raise(monkeypatch):
     frames = torch.zeros((1, 4, 5, 3), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="A5"):
-        twf.ed_batch_wavefront(frames, torch.zeros((65, 3)))
-    with pytest.raises(NotImplementedError, match="A5"):
-        twf.wavefront_device_fn("fixed", "jjn", 4, 5, 65, 1)
+    # Palettes above 64 colours are served: the packed-colour scan to 1024,
+    # the index scan above.
+    for p in (65, 1025):
+        out = twf.wavefront_device_fn("fixed", "jjn", 4, 5, p, 1)(
+            frames, torch.zeros((p, 3)))
+        assert out.shape == frames.shape and not out.any()
     monkeypatch.setenv("DITHER_PIE_TPU_AUTO_MESH", "1")
     with pytest.raises(NotImplementedError, match="A11"):
         tdpt.ImageDitherer(dither_mode=tdpt.DitherMode.ERROR_DIFFUSION,
