@@ -72,10 +72,41 @@ a non-zero exit code and no result line:
    image; then the times, each timed kernel's output held bitwise to its
    plain version's on the same batch of 16: K2 per mode at 16 x 1080p
    P=32, K2 at P = 64, 256, 1024 (FS), K8 and K9 at 16 x 480p P=2048, and
-   the k-means-256 batch wall (its traced call is phase 6's second trace).
+   the k-means-256 batch wall (its traced call is phase 6's second trace);
+9. the video pipeline's two transfer shapes, the index stream and planar
+   batches: K5 (unskew of the index stream, u8 and u16), K6 (skew of
+   compact planes) and K3's planar layout held to their plain versions
+   bitwise at B=3 37x53 (s = 2 and 3; P in {32, 256, 257, 1024}; random
+   indices and the scan's own; u8 and f32 planes) and at 16 x 1080p, K6's
+   stream held to K1's for the same frames, K3's planes to its NHWC output
+   transposed, and the index pack on the card to its CPU result (1, 2 and
+   4 bits, W = 1920 and 53); then the main paths, each with the launch
+   counts set to 0 before it and read after it and each checked for shape,
+   dtype and palette-only colours: FS k-means-32 with the index stream
+   forced on (== phase 5's output on all 16 frames; skew, ed_scan_idx and
+   unskew_idx launched, unskew_unpack not), k-means-16 (the 4-bit packed
+   stream, pack on and off, 2 frames held to the golden engine),
+   k-means-256 at 1080p (u8) and k-means-300 at 480p (u16), Bayer 8x8 pico8
+   through K4's indices (== phase 7's output), perceptual k-means-32, and
+   apply_dithering_batch(planes, planar=True) without and with the index
+   stream (== the NHWC result transposed; skew_planar launched, skew not);
+   supports_planar_batch for ED, Bayer and 2048 colours; with
+   DITHER_PIE_TPU_INDEX_TRANSFER unset, the link probe's MB/s, the host
+   gather's ns a pixel, the verdict and the path the facade then takes; then
+   the times: K5, K6 and K3's planar layout beside their plain versions (K5
+   also beside the one PyTorch call that computes it, its library_ms), the
+   batch walls of the index
+   and planar paths beside their RGB and NHWC walls, and inside the index
+   walls the device-to-host copy, the host unpack and the host palette
+   gather. Two index-stream calls (k-means-32, k-means-16 packed) are
+   traced in phase 6, right after its other traces.
+
+Phases 1-8 run with DITHER_PIE_TPU_INDEX_TRANSFER=0 (the RGB path, whatever
+the link probe would say); phase 9 sets it as each check needs.
 
 Every row of the kernels line carries the kernel's bound: the larger of its
-bytes (inputs read once, outputs written once) over 3.35 TB/s and its
+bytes (inputs read once, outputs written once; of the (D, B, H) stream an
+unskew needs only the B*H*W entries inside the image) over 3.35 TB/s and its
 float32 operations over 67 TFLOP/s, the card's published peaks. The rows of
 the scans K2 and K8, and each entry of K2's ``modes_ms`` and ``palette_ms``,
 carry ``chain_bound_ms`` beside it: the serial chain of D wavefront steps
@@ -165,6 +196,12 @@ IDX_KERNELS = [  # the path of palettes above 1024 colours, with K1
      "dither_pie_tpu/ops/wavefront.py:144"),
     ("unskew_select", "dither_pie_tpu_torch/kernels/csrc/unskew_select.cu",
      "dither_pie_tpu/ops/wavefront.py:1709"),
+]
+TRANSFER_KERNELS = [  # the index stream and the planar layout
+    ("unskew_idx", "dither_pie_tpu_torch/kernels/csrc/unskew_idx.cu",
+     "dither_pie_tpu/ops/wavefront.py:1636"),
+    ("skew_planar", "dither_pie_tpu_torch/kernels/csrc/skew_planar.cu",
+     "dither_pie_tpu/ops/wavefront.py:1352"),
 ]
 ORDERED_KERNEL = ("ordered_fused", "dither_pie_tpu_torch/kernels/csrc/ordered.cu",
                   "dither_pie_tpu/ops/ordered_pallas.py:96")
@@ -350,7 +387,8 @@ def traced_call(torch, fn, trace_path: Path):
     read the device events of its chrome trace, written to trace_path (the
     trace carries each copy's size). Returns (wall ms of the call, device
     busy ms as the union of all device intervals, {device event name:
-    summed ms}, bytes of the host-to-device copies, host copy calls)."""
+    summed ms}, bytes of the host-to-device copies, bytes of the
+    device-to-host copies, host copy calls)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -364,17 +402,19 @@ def traced_call(torch, fn, trace_path: Path):
     events = [e for e in trace if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
     copy_calls = sum(e.get("cat") == "cuda_runtime" and "Memcpy" in e.get("name", "")
                      for e in trace)
-    by_name, h2d_bytes = {}, 0
+    by_name, h2d_bytes, d2h_bytes = {}, 0, 0
     busy_us, edge = 0.0, float("-inf")
     for e in sorted(events, key=lambda e: float(e["ts"])):
         start, dur = float(e["ts"]), float(e["dur"])
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + dur / 1e3
         if "HtoD" in e["name"]:
             h2d_bytes += int(e.get("args", {}).get("bytes", 0))
+        if "DtoH" in e["name"]:
+            d2h_bytes += int(e.get("args", {}).get("bytes", 0))
         if start + dur > edge:
             busy_us += start + dur - max(start, edge)
             edge = start + dur
-    return wall_ms, busy_us / 1e3, by_name, h2d_bytes, copy_calls
+    return wall_ms, busy_us / 1e3, by_name, h2d_bytes, d2h_bytes, copy_calls
 
 
 def report_trace(torch, tag, what, fn, frame_bytes, card):
@@ -385,7 +425,7 @@ def report_trace(torch, tag, what, fn, frame_bytes, card):
     from dither_pie_tpu_torch.kernels import build
 
     try:
-        t_wall, t_busy, by_name, h2d_bytes, copy_calls = traced_call(
+        t_wall, t_busy, by_name, h2d_bytes, d2h_bytes, copy_calls = traced_call(
             torch, fn, build.BUILD_DIR / "traces" / f"phase{tag}.json")
     except (RuntimeError, OSError, KeyError, ValueError) as e:
         log(f"[{tag}] torch.profiler trace failed ({e}); idle share not measured")
@@ -396,12 +436,14 @@ def report_trace(torch, tag, what, fn, frame_bytes, card):
     if h2d_bytes < frame_bytes:
         log(f"[{tag}] traced {what} (torch.profiler): wall {t_wall:.3f} ms; the trace "
             f"holds {h2d_bytes} H2D bytes of the frames' {frame_bytes} ({copy_calls} host "
-            f"copy calls): idle share not measured (no H2D event); device time by name: "
+            f"copy calls) and {d2h_bytes} D2H bytes: idle share not measured (no H2D "
+            f"event); device time by name: "
             f"{events} [{card}]")
         return
     log(f"[{tag}] traced {what} (torch.profiler): wall {t_wall:.3f} ms, device busy "
         f"{t_busy:.3f} ms (union of kernel and copy intervals), idle share "
-        f"{1 - t_busy / t_wall:.4f}, H2D {h2d_bytes} bytes; device time by name: "
+        f"{1 - t_busy / t_wall:.4f}, H2D {h2d_bytes} bytes, D2H {d2h_bytes} bytes; device "
+        f"time by name: "
         f"{events} [{card}]")
 
 
@@ -464,7 +506,8 @@ def compare_ordered(torch, tof, frames, pal, screen, errs, what, indices=(False,
 
 
 def ordered_phase(torch, dev, card, frames16, anchor_frames):
-    """Phase 7; returns the kernels-line row of K4."""
+    """Phase 7; returns the kernels-line row of K4 and the Bayer 8x8 main
+    path's output."""
     from PIL import Image
 
     import dither_pie_tpu_torch as dpt
@@ -627,7 +670,7 @@ def ordered_phase(torch, dev, card, frames16, anchor_frames):
                                n * 8 * len(pico8)))
     row["max_abs_err"] = errs["ordered_fused"]
 
-    return row
+    return row, out16
 
 
 # ---------------------------------------------------------------------------
@@ -939,10 +982,10 @@ def ed_modes_phase(torch, dev, card, lib, frames16, frame0, palette32, palette25
                           lambda: twf.unskew_select_plain(sd_idx, pals_t[2048], fs.s, SD_H,
                                                           SD_W)),
     }
-    d_sd = twf.stream_length(SD_H, SD_W, fs.s)
     n_sd = BATCH * SD_H * SD_W
     bounds = {"ed_scan_idx": scan_bound(BATCH, SD_H, SD_W, fs.s, 2048, len(fs.weights)),
-              "unskew_select": bound(d_sd * BATCH * SD_H * 4 + 2048 * 12 + n_sd * 3, 0)}
+              # The unskews read only the stream's B*H*W valid entries.
+              "unskew_select": bound(n_sd * 4 + 2048 * 12 + n_sd * 3, 0)}
     new_rows = []
     for key, source, replaces in IDX_KERNELS:
         kern, plain = timed[key]
@@ -972,6 +1015,413 @@ def ed_modes_phase(torch, dev, card, lib, frames16, frame0, palette32, palette25
     return new_rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the index stream and planar batches
+# ---------------------------------------------------------------------------
+
+
+class env_var:
+    """Set (or, with None, unset) one environment variable for a block."""
+
+    def __init__(self, name, value):
+        self.name, self.value = name, value
+
+    def __enter__(self):
+        self.old = os.environ.get(self.name)
+        if self.value is None:
+            os.environ.pop(self.name, None)
+        else:
+            os.environ[self.name] = self.value
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            os.environ.pop(self.name, None)
+        else:
+            os.environ[self.name] = self.old
+
+
+def index_transfer(value):
+    return env_var("DITHER_PIE_TPU_INDEX_TRANSFER", value)
+
+
+def as_int32(torch, t):
+    """Any integer tensor as int32 values (uint16 has few operators)."""
+    if t.dtype == torch.uint16:
+        return t.view(torch.int16).to(torch.int32) & 0xFFFF
+    return t.to(torch.int32)
+
+
+def hold(torch, key, got, want, errs, what):
+    """Require got == want bitwise; record the max abs error under ``key``."""
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{key}: {got.dtype} {tuple(got.shape)} against plain {want.dtype} "
+          f"{tuple(want.shape)} ({what})")
+    if got.dtype == torch.float32:
+        same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        err = (got.to(torch.float64) - want.to(torch.float64)).abs().max().item()
+    else:
+        a, b = as_int32(torch, got), as_int32(torch, want)
+        same = torch.equal(a, b)
+        err = float((a - b).abs().max().item())
+    errs[key] = max(errs.get(key, 0.0), err)
+    check(same, f"{key} kernel != plain version ({what}, max abs err {err})")
+
+
+def median_wall(fn, reps=5):
+    """(median seconds, all seconds) of fn() on the host's clock."""
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        walls.append(time.perf_counter() - t0)
+    return statistics.median(walls), walls
+
+
+def transfer_phase(torch, dev, card, lib, frames16, frame0, palette32, palette16,
+                   palette256, out16_rgb, out_bayer_rgb, rows, errs):
+    """Phase 9; adds its main paths' launches to ``rows``, K3's planar times
+    to its row, and returns the kernels-line rows of K5 and K6."""
+    from PIL import Image
+
+    import dither_pie_tpu_torch as dpt
+    from dither_pie_tpu_torch.api import linkspeed
+    from dither_pie_tpu_torch.kernels import build
+    from dither_pie_tpu_torch.ops import ed_kernels, idxpack, wavefront as twf
+
+    def on_card(arr):
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+
+    def planes_of(frames_np):
+        return np.ascontiguousarray(np.moveaxis(frames_np, -1, 0))
+
+    fs = twf.scan_geometry("floyd_steinberg")
+    jjn = twf.scan_geometry("jjn")
+
+    # --- kernel == plain, bitwise, small odd shapes ---------------------
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(9)
+    b, h, w = SMALL
+    small_u8 = rng.randint(0, 256, (b, h, w, 3)).astype(np.uint8)
+    small_f32 = rng.uniform(-8.0, 263.0, (b, h, w, 3)).astype(np.float32)
+    small_t = on_card(small_u8)
+    for geom in (fs, jjn):
+        d_small = twf.stream_length(h, w, geom.s)
+        stream = twf.skew(small_t, geom.s)
+        for p in (32, 256, 257, 1024):
+            dtype = twf.index_dtype(p)
+            what = f"B={b} {h}x{w} s={geom.s} P={p}"
+            rand = on_card(rng.randint(0, p, (d_small, b, h)).astype(np.int32))
+            own = twf.scan_idx(stream, on_card(unique_palette(rng, p)), geom, w)
+            for name, idx in (("random indices", rand), ("the scan's indices", own)):
+                got = twf.unskew_idx(idx, geom.s, h, w, dtype)
+                check(got.dtype == dtype, f"unskew_idx gave {got.dtype} at P={p}")
+                hold(torch, "unskew_idx", got, twf.unskew_idx_plain(idx, geom.s, h, w, dtype),
+                     errs, f"{what}, {name}")
+        for name, arr in (("u8", small_u8), ("f32", small_f32)):
+            planes = on_card(planes_of(arr)).view(3 * b, h, w)
+            got = twf.skew_planar(planes, geom.s)
+            hold(torch, "skew_planar", got, twf.skew_planar_plain(planes, geom.s), errs,
+                 f"B={b} {h}x{w} s={geom.s} {name}")
+            hold(torch, "skew_planar", got, twf.skew(on_card(arr), geom.s), errs,
+                 f"against K1's stream, B={b} {h}x{w} s={geom.s} {name}")
+        five = on_card(rng.randint(0, 256, (5, h, w)).astype(np.uint8))  # any R
+        hold(torch, "skew_planar", twf.skew_planar(five, geom.s),
+             twf.skew_planar_plain(five, geom.s), errs, f"R=5 {h}x{w} s={geom.s}")
+        col = twf.scan(stream, on_card(unique_palette(rng, 32)), geom, w)
+        planar = twf.unskew_unpack(col, geom.s, h, w, planar_out=True)
+        hold(torch, "unskew_unpack", planar,
+             twf.unskew_unpack_plain(col, geom.s, h, w, planar_out=True), errs,
+             f"planar layout, B={b} {h}x{w} s={geom.s}")
+        hold(torch, "unskew_unpack", planar,
+             twf.unskew_unpack(col, geom.s, h, w).permute(3, 0, 1, 2).contiguous(), errs,
+             f"planar layout against NHWC transposed, B={b} {h}x{w} s={geom.s}")
+    # The index pack: the card's shift/or ops against the CPU's.
+    for bpp, p in ((1, 2), (2, 4), (4, 16)):
+        for width in (FULL_W, w):
+            idx_np = rng.randint(0, p, (2, 9, width)).astype(np.uint8)
+            packed = idxpack.pack_indices_device(on_card(idx_np), bpp)
+            check(packed.device.type == dev.type and packed.dtype == torch.uint8,
+                  f"pack_indices_device gave {packed.dtype} on {packed.device}")
+            packed_cpu = idxpack.pack_indices_device(torch.from_numpy(idx_np), bpp)
+            check(torch.equal(packed.cpu(), packed_cpu),
+                  f"index pack on the card != on the CPU ({bpp} bits, W={width})")
+            check(np.array_equal(idxpack.unpack_indices_host(packed.cpu().numpy(), bpp, width),
+                                 idx_np), f"index pack round trip ({bpp} bits, W={width})")
+    log(f"[9] kernel == plain, bitwise, B={b} {h}x{w}, s = 2 and 3: K5 at P in (32, 256: u8; "
+        f"257, 1024: u16) on random indices and the scan's own; K6 (u8, f32; R=5) and K6 == "
+        f"K1's stream; K3 planar == plain == NHWC transposed; index pack on the card == CPU "
+        f"for 1, 2, 4 bits at W={FULL_W} and {w}, exact round trip "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # --- kernel == plain at full size, and the times ---------------------
+    pal32_np = np.asarray(palette32, np.float32)
+    pal32_t = on_card(pal32_np)
+    batch_t = on_card(frames16)
+    planes16 = planes_of(frames16)
+    planes_t = on_card(planes16)
+    stream = twf.skew(batch_t, fs.s)
+    idx_stream = twf.scan_idx(stream, pal32_t, fs, FULL_W)
+    col_stream = twf.scan(stream, pal32_t, fs, FULL_W)
+    one_f32 = on_card(planes_of(frame0[None].astype(np.float32)))
+    hold(torch, "skew_planar", twf.skew_planar(one_f32.view(3, FULL_H, FULL_W), fs.s),
+         twf.skew_planar_plain(one_f32.view(3, FULL_H, FULL_W), fs.s), errs,
+         f"one float32 {FULL_H}x{FULL_W} frame")
+    d_fs = twf.stream_length(FULL_H, FULL_W, fs.s)
+    n_px = BATCH * FULL_H * FULL_W
+    rows3 = planes_t.view(3 * BATCH, FULL_H, FULL_W)
+    timed = {
+        "unskew_idx": (lambda: twf.unskew_idx(idx_stream, fs.s, FULL_H, FULL_W),
+                       lambda: twf.unskew_idx_plain(idx_stream, fs.s, FULL_H, FULL_W),
+                       bound(n_px * 4 + n_px, 0)),  # the valid entries in, u8 out
+        "skew_planar": (lambda: twf.skew_planar(rows3, fs.s),
+                        lambda: twf.skew_planar_plain(rows3, fs.s),
+                        bound(n_px * 3 + d_fs * 3 * BATCH * FULL_H, 0)),
+        "unskew_unpack": (
+            lambda: twf.unskew_unpack(col_stream, fs.s, FULL_H, FULL_W, planar_out=True),
+            lambda: twf.unskew_unpack_plain(col_stream, fs.s, FULL_H, FULL_W, planar_out=True),
+            bound(n_px * 4 + n_px * 3, 0)),
+    }
+    measured = {}
+    for key, (kern, plain, bnd) in timed.items():
+        ms, got = cuda_ms(torch, kern, 5)
+        plain_ms, want = cuda_ms(torch, plain, 3)
+        hold(torch, key, got, want, errs, f"the timed {BATCH}x{FULL_H}x{FULL_W} batch")
+        measured[key] = (ms, plain_ms, bnd, got)
+        layout = " (planar layout)" if key == "unskew_unpack" else ""
+        log(f"[9] {key}{layout}: kernel {ms:.3f} ms, plain PyTorch {plain_ms:.3f} ms per "
+            f"{BATCH}x{FULL_H}x{FULL_W} FS k-means-32 batch, bound {bnd['bound_ms']:.4f} ms by "
+            f"{bnd['bound_by']}, outputs equal bitwise [{card}]")
+    # One PyTorch call computes K5 (and none K3 or K6, for their shifts and
+    # zero fill): a strided view of the stream and its narrowing copy. Timed
+    # here, used nowhere in the port.
+    check(idx_stream.is_contiguous(), "the index stream is not contiguous")
+    bh = BATCH * FULL_H
+    lib_ms, lib_out = cuda_ms(
+        torch, lambda: idx_stream.as_strided(
+            (BATCH, FULL_H, FULL_W), (FULL_H, fs.s * bh + 1, bh)).to(torch.uint8), 5)
+    check(torch.equal(lib_out, measured["unskew_idx"][3]),
+          "as_strided(...).to(uint8) of the index stream != unskew_idx")
+    measured["unskew_idx"][2]["library_ms"] = lib_ms
+    log(f"[9] unskew_idx as one PyTorch call, idx.as_strided((B, H, W), (H, s*B*H + 1, "
+        f"B*H)).to(uint8): {lib_ms:.3f} ms, equal to the kernel bitwise [{card}]")
+    del lib_out
+    hold(torch, "skew_planar", measured["skew_planar"][3], stream, errs,
+         f"against K1's stream, {BATCH}x{FULL_H}x{FULL_W}")
+    hold(torch, "unskew_unpack", measured["unskew_unpack"][3],
+         twf.unskew_unpack(col_stream, fs.s, FULL_H, FULL_W).permute(3, 0, 1, 2).contiguous(),
+         errs, f"planar layout against NHWC transposed, {BATCH}x{FULL_H}x{FULL_W}")
+    ms_u16, got_u16 = cuda_ms(
+        torch, lambda: twf.unskew_idx(idx_stream, fs.s, FULL_H, FULL_W, torch.uint16), 5)
+    hold(torch, "unskew_idx", got_u16,
+         twf.unskew_idx_plain(idx_stream, fs.s, FULL_H, FULL_W, torch.uint16), errs,
+         f"uint16, {BATCH}x{FULL_H}x{FULL_W}")
+    log(f"[9] unskew_idx, uint16 output, {BATCH}x{FULL_H}x{FULL_W}: {ms_u16:.3f} ms, equal to "
+        f"its plain version bitwise [{card}]")
+    k6_times = measured.pop("skew_planar")[:3]  # drop the held stream
+    del got_u16
+
+    # --- the main paths, each with its own launch counts -----------------
+    ed = dpt.DitherMode.ERROR_DIFFUSION
+    fs_params = {"variant": "floyd_steinberg"}
+    totals = {}
+
+    def drive(name, ditherer, frames, index, expect, pal_np, planar=False, pack=None):
+        """One apply_dithering_batch call with the counts set to 0 before it
+        and read after it; checks the kernels launched, shape, dtype and
+        palette-only colours. Returns the output in NHWC."""
+        with index_transfer(index), env_var("DITHER_PIE_TPU_INDEX_PACK", pack):
+            build.reset_launch_counts()
+            out = ditherer.apply_dithering_batch(frames, planar=planar)
+            sync(torch, dev)
+            launches = dict(build.LAUNCHES)
+        check(set(launches) == set(expect) and all(v >= 1 for v in launches.values()),
+              f"{name} path launched {launches}, expected {sorted(expect)}")
+        for key, n in launches.items():
+            totals[key] = totals.get(key, 0) + n
+        check(out.shape == frames.shape and out.dtype == np.uint8,
+              f"{name} output {out.shape} {out.dtype}")
+        nhwc = np.moveaxis(out, 0, -1) if planar else out
+        check(palette_only(nhwc, pal_np), f"{name} output holds colours outside the palette")
+        log(f"[9] main path {name}: launches {launches}; {out.shape} uint8, palette-only")
+        return nhwc
+
+    rgb_path = ("skew", "ed_scan", "unskew_unpack")
+    idx_path = ("skew", "ed_scan_idx", "unskew_idx")
+
+    def ed_ditherer(palette, mode=ed, params=fs_params):
+        return dpt.ImageDitherer(num_colors=len(palette), dither_mode=mode, palette=palette,
+                                 dither_params=params, device=dev)
+
+    # (a) FS k-means-32, the index stream forced on, against phase 5's output.
+    d32 = ed_ditherer(palette32)
+    out_a = drive("(a) FS k-means-32, index stream", d32, frames16, "1", idx_path, pal32_np)
+    idents = [identity(o, g) for o, g in zip(out_a, out16_rgb)]
+    check(np.array_equal(out_a, out16_rgb),
+          f"(a) index-stream output != phase 5's RGB output (identity {idents})")
+    log(f"[9] (a) == phase 5's RGB-path output on all {BATCH} frames (identity {idents}), "
+        f"which phase 5 held to the golden engine")
+
+    # (b) k-means-16: the 4-bit packed stream, pack on and off.
+    pal16_np = np.asarray(palette16, np.float32)
+    d16 = ed_ditherer(palette16)
+    rgb16 = drive("(b) FS k-means-16, RGB", d16, frames16, "0", rgb_path, pal16_np)
+    for pack in (None, "0"):
+        out_b = drive(f"(b) FS k-means-16, index stream, pack {'on' if pack is None else 'off'}",
+                      d16, frames16, "1", idx_path, pal16_np, pack=pack)
+        check(np.array_equal(out_b, rgb16), f"(b) index stream (pack {pack}) != RGB path")
+    golds = [golden_frame(lib, ed_kernels.kernel_arrays, f, pal16_np, "floyd_steinberg")
+             for f in frames16[:2]]
+    idents = [identity(o, g) for o, g in zip(rgb16, golds)]
+    check(all(v == 1.0 for v in idents), f"(b) k-means-16 golden identity {idents}")
+    log(f"[9] (b) packed == unpacked == RGB path on all {BATCH} frames; golden identity of "
+        f"frames 0-1 {idents}")
+
+    # (c) k-means-256 at 1080p (u8) and k-means-300 at 480p (u16).
+    pal256_np = np.asarray(palette256, np.float32)
+    d256 = ed_ditherer(palette256)
+    rgb256 = drive("(c) FS k-means-256, RGB", d256, frames16, "0", rgb_path, pal256_np)
+    out_c = drive("(c) FS k-means-256, index stream (u8)", d256, frames16, "1", idx_path,
+                  pal256_np)
+    check(np.array_equal(out_c, rgb256), "(c) k-means-256 index stream != RGB path")
+    sd16 = np.stack([synth_image(SD_H, SD_W, 200 + i) for i in range(BATCH)])
+    palette300 = dpt.ColorReducer.generate_kmeans_palette(Image.fromarray(sd16[0]), 300,
+                                                          device=dev)
+    pal300_np = np.asarray(palette300, np.float32)
+    d300 = ed_ditherer(palette300)
+    rgb300 = drive("(c) FS k-means-300 480p, RGB", d300, sd16, "0", rgb_path, pal300_np)
+    out_c = drive("(c) FS k-means-300 480p, index stream (u16)", d300, sd16, "1", idx_path,
+                  pal300_np)
+    check(np.array_equal(out_c, rgb300), "(c) k-means-300 index stream != RGB path")
+    with index_transfer("1"):
+        idx300 = d300._get_dither_strategy(ed).dither_batch_indices(sd16[:1], pal300_np)
+    check(idx300.dtype == np.uint16, f"(c) k-means-300 stream is {idx300.dtype}")
+    log("[9] (c) index stream == RGB path: k-means-256 1080p (u8), k-means-300 480p (u16)")
+
+    # (d) Bayer 8x8 pico8 through K4's indices, against phase 7's output.
+    pico8 = pico8_palette()
+    bayer = dpt.ImageDitherer(dither_mode=dpt.DitherMode.BAYER, palette=pico8,
+                              dither_params={"size": "8x8"}, device=dev)
+    out_d = drive("(d) BAYER 8x8 pico8, index stream", bayer, frames16, "1",
+                  ("ordered_fused",), np.asarray(pico8, np.float32))
+    check(np.array_equal(out_d, out_bayer_rgb), "(d) Bayer index stream != phase 7's output")
+    log("[9] (d) == phase 7's RGB-path output")
+
+    # (e) one non-fixed mode through the index stream.
+    perc = ed_ditherer(palette32, dpt.DitherMode.PERCEPTUAL, {})
+    rgb_e = drive("(e) PERCEPTUAL k-means-32, RGB", perc, frames16, "0", rgb_path, pal32_np)
+    out_e = drive("(e) PERCEPTUAL k-means-32, index stream", perc, frames16, "1", idx_path,
+                  pal32_np)
+    check(np.array_equal(out_e, rgb_e), "(e) perceptual index stream != RGB path")
+    log("[9] (e) index stream == RGB path")
+
+    # (f) planar batches, without and with the index stream.
+    out_f = drive("(f) FS k-means-32, planar", d32, planes16, "0",
+                  ("skew_planar", "ed_scan", "unskew_unpack"), pal32_np, planar=True)
+    check(np.array_equal(out_f, out16_rgb), "(f) planar output != the NHWC output transposed")
+    out_f = drive("(f) FS k-means-32, planar, index stream", d32, planes16, "1",
+                  ("skew_planar", "ed_scan_idx", "unskew_idx"), pal32_np, planar=True)
+    check(np.array_equal(out_f, out16_rgb),
+          "(f) planar index-stream output != the NHWC output transposed")
+    pal2048 = [tuple(int(v) for v in c) for c in unique_palette(rng, 2048)]
+    answers = (d32.supports_planar_batch(), bayer.supports_planar_batch(),
+               ed_ditherer(pal2048).supports_planar_batch())
+    check(answers == (True, False, False), f"supports_planar_batch: {answers}")
+    log(f"[9] (f) planar == NHWC transposed, bitwise, both ways; supports_planar_batch: ED "
+        f"{answers[0]}, Bayer {answers[1]}, 2048 colours {answers[2]}")
+
+    # (g) the environment unset: the probe decides.
+    with index_transfer(None):
+        mb_s = linkspeed.d2h_bandwidth_mb_s(dev)
+        verdict = linkspeed.index_transfer_wins(dev)
+    gather_ns, even = linkspeed.host_gather_ns_per_px(), linkspeed.break_even_mb_s()
+    check(mb_s is not None and mb_s > 0 and gather_ns > 0 and verdict == (mb_s < even),
+          f"probe {mb_s} MB/s, host gather {gather_ns} ns a pixel, verdict {verdict}")
+    out_g = drive("(g) FS k-means-32, environment unset", d32, frames16, None,
+                  idx_path if verdict else rgb_path, pal32_np)
+    check(np.array_equal(out_g, out16_rgb), "(g) output != phase 5's")
+    log(f"[9] (g) link probe (pageable 16 MB copies, best of 2): {mb_s:.1f} MB/s -> index "
+        f"stream {'on' if verdict else 'off'} by default (host gather pal_u8[idx] of one "
+        f"1080x1920 frame, best of 2: {gather_ns:.3f} ns a pixel, so 2 bytes a pixel "
+        f"saved break even at {even:.1f} MB/s); the facade "
+        f"took the {'index' if verdict else 'RGB'} path [{card}]")
+
+    for row in rows:
+        row["launches"] += totals.get(row["name"], 0)
+
+    # --- walls, each pair in this run, each beside the card --------------
+    def wall_line(name, ditherer, cases):
+        parts = []
+        for label, frames, index, pack, planar in cases:
+            with index_transfer(index), env_var("DITHER_PIE_TPU_INDEX_PACK", pack):
+                med, walls = median_wall(
+                    lambda: ditherer.apply_dithering_batch(frames, planar=planar))
+            parts.append(f"{label} median {med * 1e3:.3f} ms -> {BATCH / med:.2f} fps (5 runs: "
+                         f"{', '.join(f'{t * 1e3:.3f}' for t in walls)})")
+        log(f"[9] apply_dithering_batch wall, {name}, {BATCH}x{FULL_H}x{FULL_W} (numpy u8 in/"
+            f"out): {'; '.join(parts)} [{card}]")
+
+    three = [("RGB", frames16, "0", None, False),
+             ("index stream u8", frames16, "1", "0", False),
+             ("index stream 4-bit packed", frames16, "1", None, False)]
+    wall_line("FS k-means-32", d32, three[:2])
+    wall_line("FS k-means-16", d16, three)
+    wall_line("BAYER 8x8 pico8", bayer, three)
+    wall_line("FS k-means-32, NHWC against planar", d32,
+              [("NHWC RGB", frames16, "0", None, False),
+               ("planar RGB", planes16, "0", None, True),
+               ("planar index stream u8", planes16, "1", None, True)])
+
+    # Inside the index walls: the copy, the unpack and the gather.
+    def host_ms(fn, reps=3):
+        times = []
+        for _ in range(reps):
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    idx8 = measured["unskew_idx"][3]  # (16, 1080, 1920) u8 on the card
+    idx4 = idx8 & 15
+    packed = idxpack.pack_indices_device(idx4, 4)
+    packed_np = packed.cpu().numpy()
+    idx_np = idx8.cpu().numpy()
+    pal_u8 = pal32_np.astype(np.uint8)
+    parts = {
+        f"D2H of the RGB batch ({batch_t.numel() / 1e6:.1f} MB)":
+            host_ms(lambda: batch_t.cpu().numpy()),
+        f"D2H of the u8 index stream ({idx8.numel() / 1e6:.1f} MB)":
+            host_ms(lambda: idx8.cpu().numpy()),
+        f"device pack to 4 bits + D2H ({packed.numel() / 1e6:.1f} MB)":
+            host_ms(lambda: idxpack.pack_indices_device(idx4, 4).cpu().numpy()),
+        "host unpack of the 4-bit stream": host_ms(
+            lambda: idxpack.unpack_indices_host(packed_np, 4, FULL_W)),
+        f"host gather pal_u8[idx] (writes {batch_t.numel() / 1e6:.1f} MB)":
+            host_ms(lambda: pal_u8[idx_np]),
+        "host planar gather pal_u8.T[:, idx]": host_ms(lambda: pal_u8.T[:, idx_np]),
+        # Not the facade's form: timed for the open question in PERF.md.
+        "np.take(pal_u8, idx, axis=0)": host_ms(lambda: np.take(pal_u8, idx_np, axis=0)),
+    }
+    check(np.array_equal(np.take(pal_u8, idx_np[:1], axis=0), pal_u8[idx_np[:1]]),
+          "np.take(pal_u8, idx, axis=0) != pal_u8[idx]")
+    log(f"[9] inside the index walls, {BATCH}x{FULL_H}x{FULL_W}, medians of 3 on the host's "
+        f"clock: {'; '.join(f'{k} {v:.3f} ms' for k, v in parts.items())} [{card}]")
+
+    k3 = next(row for row in rows if row["name"] == "unskew_unpack")
+    ms, plain_ms, _, _ = measured["unskew_unpack"]
+    k3.update(planar_ms=ms, planar_plain_ms=plain_ms, max_abs_err=errs["unskew_unpack"])
+    ms, plain_ms, bnd, _ = measured["unskew_idx"]
+    new_rows = [{"name": "unskew_idx", "route": "cuda", "source": TRANSFER_KERNELS[0][1],
+                 "replaces": TRANSFER_KERNELS[0][2], "launches": totals["unskew_idx"],
+                 "max_abs_err": errs["unskew_idx"], "ms": ms, "plain_ms": plain_ms,
+                 "u16_ms": ms_u16, **bnd}]
+    ms, plain_ms, bnd = k6_times
+    new_rows.append({"name": "skew_planar", "route": "cuda", "source": TRANSFER_KERNELS[1][1],
+                     "replaces": TRANSFER_KERNELS[1][2], "launches": totals["skew_planar"],
+                     "max_abs_err": errs["skew_planar"], "ms": ms, "plain_ms": plain_ms, **bnd})
+    return new_rows
+
+
 def main() -> int:
     import torch
 
@@ -992,7 +1442,7 @@ def sync(torch, dev):
 
 
 def run(torch, dev, card) -> int:
-    """Phases 1-8 on ``dev``; prints the result lines and returns 0, or
+    """Phases 1-9 on ``dev``; prints the result lines and returns 0, or
     raises on the first failure."""
     from PIL import Image
 
@@ -1004,6 +1454,8 @@ def run(torch, dev, card) -> int:
           "jax was imported")
     check("dither_pie_tpu" not in sys.modules, "dither_pie_tpu was imported")
     variants = ed_kernels.KERNEL_NAMES
+    # Phases 1-8 hold the RGB path, whatever the link probe would say.
+    os.environ["DITHER_PIE_TPU_INDEX_TRANSFER"] = "0"
 
     # 1. The card.
     log(f"[1] card: {card}; torch {torch.__version__}, CUDA "
@@ -1172,11 +1624,12 @@ def run(torch, dev, card) -> int:
     }
     d_fs = twf.stream_length(FULL_H, FULL_W, geom.s)
     n_px = BATCH * FULL_H * FULL_W
-    bounds = {  # bytes: inputs read once, outputs written once
+    bounds = {  # bytes: inputs read once, outputs written once; of the (D, B, H)
+        # stream an unskew needs only the B*H*W entries inside the image
         "skew": bound(n_px * 3 + d_fs * 3 * BATCH * FULL_H, 0),
         "ed_scan": scan_bound(BATCH, FULL_H, FULL_W, geom.s, N_COLORS,
                               len(geom.weights)),
-        "unskew_unpack": bound(d_fs * BATCH * FULL_H * 4 + n_px * 3, 0),
+        "unskew_unpack": bound(n_px * 4 + n_px * 3, 0),
     }
     rows = []
     for key, source, replaces in KERNELS:
@@ -1212,13 +1665,32 @@ def run(torch, dev, card) -> int:
     ditherer256.apply_dithering_batch(frames16)
     report_trace(torch, "6-256", "apply_dithering_batch FS k-means-256",
                  lambda: ditherer256.apply_dithering_batch(frames16), frames16.nbytes, card)
+    # Phase 9's index-stream calls are traced here for the same reason:
+    # k-means-32 (one byte a pixel) and k-means-16 (4-bit packed).
+    palette16 = dpt.ColorReducer.generate_kmeans_palette(
+        Image.fromarray(frame0), 16, device=dev)
+    ditherer16 = dpt.ImageDitherer(
+        num_colors=16, dither_mode=dpt.DitherMode.ERROR_DIFFUSION,
+        palette=palette16, dither_params={"variant": "floyd_steinberg"}, device=dev)
+    with index_transfer("1"):
+        for tag, what, d in (("6-idx", "FS k-means-32, index stream u8", ditherer),
+                             ("6-idx4", "FS k-means-16, index stream 4-bit packed",
+                              ditherer16)):
+            d.apply_dithering_batch(frames16)
+            report_trace(torch, tag, f"apply_dithering_batch {what}",
+                         lambda: d.apply_dithering_batch(frames16), frames16.nbytes, card)
 
     # 7. The ordered path.
-    rows.append(ordered_phase(torch, dev, card, frames16, gold_frames))
+    ordered_row, out_bayer = ordered_phase(torch, dev, card, frames16, gold_frames)
+    rows.append(ordered_row)
 
     # 8. The rest of the error-diffusion family.
     rows.extend(ed_modes_phase(torch, dev, card, lib, frames16, frame0, palette,
                                palette256, gold_frames, rows, errs))
+
+    # 9. The index stream and planar batches.
+    rows.extend(transfer_phase(torch, dev, card, lib, frames16, frame0, palette, palette16,
+                               palette256, out16, out_bayer, rows, errs))
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

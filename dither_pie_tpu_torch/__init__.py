@@ -6,7 +6,7 @@ mirrors its layout (``core/palette.py``, ``ops/wavefront.py``,
 ``api/ditherer.py``, ...). It imports torch, numpy and PIL, never jax and
 never ``dither_pie_tpu``.
 
-It serves two paths on NHWC uint8 batches and single images, through
+It serves two families on NHWC uint8 batches and single images, through
 hand-written Hopper kernels (``kernels/csrc``):
 
 * the ordered family (none, Bayer 2x2/4x4/8x8/16x16/PSX, blue noise, IGN,
@@ -16,6 +16,13 @@ hand-written Hopper kernels (``kernels/csrc``):
   Ostromoukhov, hybrid, perceptual, adaptive variance; row-major scans) on
   the wavefront kernels: K1-K3 for palettes of up to 1024 colours, K1, K8
   and K9 above.
+
+Up to 1024 colours ``apply_dithering_batch`` also speaks the video
+pipeline's two transfer shapes: planar (3, B, H, W) batches in and out
+(K6, K2, K3's planar layout) and the index stream, which leaves the device
+as (B, H, W) palette indices (K5, or K4's index output; bit-packed up to
+16 colours) where the device-to-host link is slow or
+``DITHER_PIE_TPU_INDEX_TRANSFER=1`` asks for it.
 
 Every mode's parameter metadata is served (``get_mode_parameters``); the
 modes not ported yet raise NotImplementedError naming their ROADMAP item.

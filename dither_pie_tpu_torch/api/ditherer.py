@@ -6,12 +6,21 @@ BAYER (the default), BLUE_NOISE, INTERLEAVED_GRADIENT_NOISE and POLKA_DOT
 on the ordered kernel K4, and ERROR_DIFFUSION, OSTROMOUKHOV, HYBRID,
 PERCEPTUAL and ADAPTIVE_VARIANCE on the wavefront kernels (K1-K3 for
 palettes of up to 1024 colours, K1, K8 and K9 above); ``ImageDitherer`` with ``apply_dithering``,
-``apply_dithering_array`` and ``apply_dithering_batch`` (the RGB path);
+``apply_dithering_array`` and ``apply_dithering_batch``;
 ``ColorReducer``'s palettes; and every mode's parameter metadata. Frames
 are numpy uint8 in and out, as in the JAX package; the work runs on the
 ditherer's explicit ``device`` ("cuda" by default: the hand-written
 kernels; "cpu": their plain PyTorch versions). The gamma path converts
 frames and palette on the host exactly as the JAX package does.
+
+``apply_dithering_batch`` talks to the video pipeline in the JAX
+package's two transfer shapes: ``planar=True`` takes and returns
+(3, B, H, W) planes (the error-diffusion strategies, K6 -> K2 -> K3's
+planar layout), and on a slow device-to-host link (``api/linkspeed.py``)
+the batch leaves the device as palette indices (K4's index output, or K5's
+stream; bit-packed up to 16 colours, ``ops/idxpack.py``) and one exact
+palette gather on the host rebuilds the colours. Nothing falls back: a
+failing index path raises.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ import torch
 from PIL import Image
 
 from dither_pie_tpu_torch import convert
+from dither_pie_tpu_torch.api import linkspeed as _linkspeed
 from dither_pie_tpu_torch.api import parameters as _parameters
 from dither_pie_tpu_torch.api.runtime import DeviceLike, resolve_device
 from dither_pie_tpu_torch.core import colors as _colors
@@ -32,6 +42,7 @@ from dither_pie_tpu_torch.core import palette as _palette
 from dither_pie_tpu_torch.core import thresholds as _thresholds
 from dither_pie_tpu_torch.ops import adaptive as _adaptive
 from dither_pie_tpu_torch.ops import ed_kernels as _ed_kernels
+from dither_pie_tpu_torch.ops import idxpack as _idxpack
 from dither_pie_tpu_torch.ops import ordered as _ordered
 from dither_pie_tpu_torch.ops import wavefront as _wf
 
@@ -114,7 +125,9 @@ class DitherUtils:
 class BaseDitherStrategy:
     """Interface: ``dither(pixels (N,3) f32, palette (P,3) f32, (h, w)) ->
     (N,3) f32`` and ``dither_batch(images (B,H,W,3), palette) -> (B,H,W,3)
-    uint8``; parameter metadata drives settings UIs and the CLI."""
+    uint8``; parameter metadata drives settings UIs and the CLI. A strategy
+    with a planar path adds ``dither_batch_planar(planes (3,B,H,W),
+    palette) -> (3,B,H,W) uint8``; the facade asks with ``hasattr``."""
 
     def dither(self, pixels: np.ndarray, palette_arr: np.ndarray,
                image_size: Tuple[int, int]) -> np.ndarray:
@@ -122,6 +135,13 @@ class BaseDitherStrategy:
 
     def dither_batch(self, images: np.ndarray, palette_arr: np.ndarray) -> np.ndarray:
         raise NotImplementedError
+
+    def dither_batch_indices(self, images: np.ndarray, palette_arr: np.ndarray,
+                             planar: bool = False) -> Optional[np.ndarray]:
+        """Host (B, H, W) palette indices whose ``palette.astype(uint8)[idx]``
+        is ``dither_batch``'s output, or ``None`` where the strategy has no
+        index output for this batch."""
+        return None
 
     @staticmethod
     def get_parameter_info() -> Optional[Dict[str, Any]]:
@@ -169,6 +189,19 @@ class _ScreenDitherStrategy(BaseDitherStrategy):
         out = _ordered.dispatch_ordered_batch(
             frames, _palette_tensor(palette_arr, self.device), self._screen(h, w))
         return out.cpu().numpy()
+
+    def dither_batch_indices(self, images, palette_arr, planar=False):
+        """Host (B, H, W) uint8 palette indices from K4's index output, or
+        ``None`` for planar batches and more than 256 colours. Palettes of
+        up to 16 colours cross the link bit-packed."""
+        if planar or len(palette_arr) > 256:
+            return None
+        _, h, w, _ = np.shape(images)
+        pal = _palette_tensor(palette_arr, self.device)
+        idx = _ordered.dispatch_ordered_batch(
+            _frames_tensor(images, self.device), pal, self._screen(h, w),
+            return_indices=True)
+        return _idxpack.packed_transfer(idx, pal.shape[0], w)
 
 
 class NoDitherStrategy(_ScreenDitherStrategy):
@@ -353,15 +386,23 @@ def _refuse_serpentine(serpentine: str) -> None:
 
 class _WavefrontDitherStrategy(BaseDitherStrategy):
     """Error diffusion of one wavefront mode on ``self.device``: single
-    images go to the card as one float32 frame, batches as they are."""
+    images go to the card as one float32 frame, batches as they are,
+    (B, H, W, 3) or planar (3, B, H, W)."""
 
     device: torch.device
     mode: str
 
-    def _mode_args(self, images: np.ndarray) -> Dict[str, Any]:
-        """Keyword arguments of ``ed_batch_wavefront`` beyond the mode, for
-        a (B, H, W, 3) numpy batch."""
+    def _mode_args(self, images: np.ndarray, planar: bool = False) -> Dict[str, Any]:
+        """Keyword arguments of ``ed_batch_wavefront`` beyond the mode and
+        the layout, for a (B, H, W, 3) or planar (3, B, H, W) numpy batch."""
         return {}
+
+    def _on_device(self, images, pal: torch.Tensor, planar: bool = False,
+                   return_indices: bool = False) -> torch.Tensor:
+        images = np.asarray(images)
+        return _wf.ed_batch_wavefront(
+            _frames_tensor(images, self.device), pal, self.mode, planar=planar,
+            return_indices=return_indices, **self._mode_args(images, planar))
 
     def dither(self, pixels, palette_arr, image_size):
         h, w = image_size
@@ -369,11 +410,25 @@ class _WavefrontDitherStrategy(BaseDitherStrategy):
         return self.dither_batch(img, palette_arr)[0].astype(np.float32).reshape(-1, 3)
 
     def dither_batch(self, images, palette_arr):
-        images = np.asarray(images)
-        out = _wf.ed_batch_wavefront(_frames_tensor(images, self.device),
-                                     _palette_tensor(palette_arr, self.device),
-                                     self.mode, **self._mode_args(images))
-        return out.cpu().numpy()
+        pal = _palette_tensor(palette_arr, self.device)
+        return self._on_device(images, pal).cpu().numpy()
+
+    def dither_batch_planar(self, planes, palette_arr):
+        """(3, B, H, W) channel-major planes in, planes out: the layout of
+        the video pipeline's zero-copy flow."""
+        pal = _palette_tensor(palette_arr, self.device)
+        return self._on_device(planes, pal, planar=True).cpu().numpy()
+
+    def dither_batch_indices(self, images, palette_arr, planar=False):
+        """Host (B, H, W) palette indices, uint8 up to 256 colours and
+        uint16 up to 1024: a third (two thirds) of the RGB path's
+        device-to-host bytes, less when bit-packed (up to 16 colours).
+        ``None`` above ``PACKED_PALETTE_MAX`` colours."""
+        pal = _palette_tensor(palette_arr, self.device)
+        if pal.shape[0] > _wf.PACKED_PALETTE_MAX:
+            return None
+        idx = self._on_device(images, pal, planar, return_indices=True)
+        return _idxpack.packed_transfer(idx, pal.shape[0], idx.shape[2])
 
 
 class ErrorDiffusionDitherStrategy(_WavefrontDitherStrategy):
@@ -404,7 +459,7 @@ class ErrorDiffusionDitherStrategy(_WavefrontDitherStrategy):
     def get_current_parameters(self) -> Dict[str, Any]:
         return {"variant": self.variant, "serpentine": "false"}
 
-    def _mode_args(self, images):
+    def _mode_args(self, images, planar=False):
         return {"variant": self.variant}
 
 
@@ -463,7 +518,7 @@ class HybridDitherStrategy(_WavefrontDitherStrategy):
     def get_current_parameters(self) -> Dict[str, Any]:
         return {"lum_factor": self.lum_factor, "col_factor": self.col_factor}
 
-    def _mode_args(self, images):
+    def _mode_args(self, images, planar=False):
         return {"lum_factor": self.lum_factor, "col_factor": self.col_factor}
 
 
@@ -515,16 +570,17 @@ class AdaptiveVarianceDitherStrategy(_WavefrontDitherStrategy):
     def get_current_parameters(self) -> Dict[str, Any]:
         return {"var_threshold": self.var_threshold, "window_radius": self.window_radius}
 
-    def _gates(self, images: np.ndarray) -> np.ndarray:
-        """(B, H, W) bool: where the local variance reaches the threshold."""
-        gray = (np.float32(0.299) * images[..., 0] + np.float32(0.587) * images[..., 1]
-                + np.float32(0.114) * images[..., 2])
+    def _gates(self, images: np.ndarray, planar: bool = False) -> np.ndarray:
+        """(B, H, W) bool: where the local variance reaches the threshold;
+        ``images`` is (B, H, W, 3), or with ``planar`` (3, B, H, W)."""
+        r, g, b = images if planar else np.moveaxis(images, -1, 0)
+        gray = np.float32(0.299) * r + np.float32(0.587) * g + np.float32(0.114) * b
         return np.stack([
             _adaptive.variance_map_np(g, self.window_radius) >= self.var_threshold
             for g in gray])
 
-    def _mode_args(self, images):
-        gates = torch.from_numpy(self._gates(images).astype(np.uint8))
+    def _mode_args(self, images, planar=False):
+        gates = torch.from_numpy(self._gates(images, planar).astype(np.uint8))
         return {"aux": gates.to(self.device).to(torch.float32)}
 
 
@@ -672,15 +728,42 @@ class ImageDitherer:
         dithered_flat = strategy.dither(flat_pixels, palette_arr, (h, w))
         return self._from_dither(dithered_flat.reshape(h, w, 3).astype(np.uint8))
 
+    def supports_planar_batch(self) -> bool:
+        """True when ``apply_dithering_batch(..., planar=True)`` is
+        available: an error-diffusion strategy (row-major) with a palette
+        within the planar path's cap. The video pipeline asks this to pick
+        zero-copy planar ingestion."""
+        if self.palette is not None and len(self.palette) > _wf.PACKED_PALETTE_MAX:
+            return False
+        strategy_class = _STRATEGY_CLASSES.get(self.dither_mode or DitherMode.NONE)
+        if strategy_class is None or not hasattr(strategy_class, "dither_batch_planar"):
+            return False
+        param_info = strategy_class.get_parameter_info()
+        if param_info is None:
+            return True  # a strategy without parameters ignores dither_params
+        if set(self.dither_params) - set(param_info):
+            return False  # the strategy cannot be built with these parameters
+        return self.dither_params.get("serpentine") != "true"
+
     def apply_dithering_batch(self, arrs_srgb_8: np.ndarray,
                               planar: bool = False) -> np.ndarray:
         """Batched device path: (B, H, W, 3) uint8 -> (B, H, W, 3) uint8.
 
         Requires an explicit palette (the video pipeline computes one from
-        the first frame, matching reference semantics)."""
-        if planar:
-            raise NotImplementedError(
-                "planar (3, B, H, W) batches are not ported yet (ROADMAP A5)")
+        the first frame, matching reference semantics).
+
+        ``planar=True``: frames are (3, B, H, W) channel-major planes, in
+        and out; only strategies with a planar path accept it
+        (``supports_planar_batch``).
+
+        Index transfer: where the device-to-host link is slow (measured
+        once per device, ``api/linkspeed.py``;
+        ``DITHER_PIE_TPU_INDEX_TRANSFER=1/0`` forces it) a strategy with an
+        index output returns (B, H, W) palette indices, a third of the
+        bytes or less, and one palette gather on the host rebuilds the
+        colour output bit for bit. Gamma folds into the palette: output
+        pixels only ever take palette values, so the per-entry
+        linear-to-sRGB map equals the per-pixel map exactly."""
         if self.palette is None:
             raise ValueError("apply_dithering_batch requires a palette; "
                              "compute one from the first frame first")
@@ -691,7 +774,22 @@ class ImageDitherer:
             work = arrs_srgb_8
         palette_arr = self._palette_for_dither()
         strategy = self._get_dither_strategy(self.dither_mode or DitherMode.NONE)
-        out = strategy.dither_batch(work, palette_arr)
+        if _linkspeed.index_transfer_wins(self.device):
+            idx = strategy.dither_batch_indices(work, palette_arr, planar=planar)
+            if idx is not None:
+                # Truncation, as the device epilogue's float32 -> int cast.
+                pal_u8 = self._from_dither(palette_arr.astype(np.uint8))
+                if planar:
+                    return pal_u8.T[:, idx]  # (3, B, H, W)
+                return pal_u8[idx]  # (B, H, W, 3)
+        if planar:
+            if not hasattr(strategy, "dither_batch_planar"):
+                raise ValueError(
+                    f"{type(strategy).__name__} has no planar batch path: ask "
+                    "supports_planar_batch() first")
+            out = strategy.dither_batch_planar(work, palette_arr)
+        else:
+            out = strategy.dither_batch(work, palette_arr)
         return self._from_dither(out.astype(np.uint8))
 
     def apply_dithering(self, image: Image.Image) -> Image.Image:

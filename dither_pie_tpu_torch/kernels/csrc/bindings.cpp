@@ -3,7 +3,7 @@
 // contiguity, launches on PyTorch's current stream of the tensor's device,
 // and raises if the launch is refused. Outputs and scratch are allocated
 // by the Python wrappers in dither_pie_tpu_torch/ops/wavefront.py (K1-K3,
-// K8, K9) and dither_pie_tpu_torch/ops/ordered_fused.py (K4).
+// K5, K6, K8, K9) and dither_pie_tpu_torch/ops/ordered_fused.py (K4).
 
 #include <torch/extension.h>
 
@@ -189,25 +189,85 @@ void ed_scan(torch::Tensor img, torch::Tensor palette, torch::Tensor aux,
                  emit_idx ? "ed_scan_idx" : "ed_scan");
 }
 
-void unskew_unpack(torch::Tensor col, torch::Tensor out, int64_t s) {
+void unskew_unpack(torch::Tensor col, torch::Tensor out, int64_t s,
+                   bool planar) {
     check_tensor(col, "col", col);
     check_tensor(out, "out", col);
     TORCH_CHECK(col.scalar_type() == torch::kInt32 && col.dim() == 3,
                 "col must be (D, B, H) int32");
     TORCH_CHECK(out.scalar_type() == torch::kUInt8 && out.dim() == 4 &&
-                    out.size(3) == 3,
-                "out must be (B, H, W, 3) uint8");
-    const int B = as_int(out.size(0), "B");
-    const int H = as_int(out.size(1), "H");
-    const int W = as_int(out.size(2), "W");
+                    out.size(planar ? 0 : 3) == 3,
+                planar ? "out must be (3, B, H, W) uint8"
+                       : "out must be (B, H, W, 3) uint8");
+    const int B = as_int(out.size(planar ? 1 : 0), "B");
+    const int H = as_int(out.size(planar ? 2 : 1), "H");
+    const int W = as_int(out.size(planar ? 3 : 2), "W");
     TORCH_CHECK(s >= 1 && col.size(0) >= W + s * (H - 1) &&
                     col.size(1) == B && col.size(2) == H,
                 "col must be (>= W + s*(H-1), B, H)");
     const c10::cuda::CUDAGuard guard(col.device());
     check_launch(dpt_unskew_unpack(col.data_ptr<int32_t>(),
                                    out.data_ptr<uint8_t>(), B, H, W, (int)s,
-                                   current_stream(col)),
+                                   planar ? 1 : 0, current_stream(col)),
                  "unskew_unpack");
+}
+
+void unskew_idx(torch::Tensor idx, torch::Tensor out, int64_t s) {
+    check_tensor(idx, "idx", idx);
+    check_tensor(out, "out", idx);
+    TORCH_CHECK(idx.scalar_type() == torch::kInt32 && idx.dim() == 3,
+                "idx must be (D, B, H) int32");
+    TORCH_CHECK(out.dim() == 3, "out must be (B, H, W)");
+    const int B = as_int(out.size(0), "B");
+    const int H = as_int(out.size(1), "H");
+    const int W = as_int(out.size(2), "W");
+    TORCH_CHECK(s >= 1 && idx.size(0) >= W + s * (H - 1) &&
+                    idx.size(1) == B && idx.size(2) == H,
+                "idx must be (>= W + s*(H-1), B, H)");
+    const c10::cuda::CUDAGuard guard(idx.device());
+    int rc;
+    if (out.scalar_type() == torch::kUInt8) {
+        rc = dpt_unskew_idx_u8(idx.data_ptr<int32_t>(),
+                               out.data_ptr<uint8_t>(), B, H, W, (int)s,
+                               current_stream(idx));
+    } else {
+        TORCH_CHECK(out.scalar_type() == c10::ScalarType::UInt16,
+                    "out must be uint8 or uint16");
+        rc = dpt_unskew_idx_u16(idx.data_ptr<int32_t>(),
+                                static_cast<uint16_t*>(out.data_ptr()), B, H,
+                                W, (int)s, current_stream(idx));
+    }
+    check_launch(rc, "unskew_idx");
+}
+
+void skew_planar(torch::Tensor planes, torch::Tensor out, int64_t s) {
+    check_tensor(planes, "planes", planes);
+    check_tensor(out, "out", planes);
+    TORCH_CHECK(planes.dim() == 3, "planes must be (R, H, W)");
+    TORCH_CHECK(out.scalar_type() == planes.scalar_type(),
+                "out must have the planes' dtype");
+    TORCH_CHECK(s >= 1, "skew s must be >= 1");
+    const int R = as_int(planes.size(0), "R");
+    const int H = as_int(planes.size(1), "H");
+    const int W = as_int(planes.size(2), "W");
+    const int D = as_int(W + s * (H - 1), "D");
+    TORCH_CHECK(out.dim() == 3 && out.size(0) == D && out.size(1) == R &&
+                    out.size(2) == H,
+                "out must be (W + s*(H-1), R, H)");
+    const c10::cuda::CUDAGuard guard(planes.device());
+    int rc;
+    if (planes.scalar_type() == torch::kUInt8) {
+        rc = dpt_skew_planar_u8(planes.data_ptr<uint8_t>(),
+                                out.data_ptr<uint8_t>(), R, H, W, D, (int)s,
+                                current_stream(planes));
+    } else {
+        TORCH_CHECK(planes.scalar_type() == torch::kFloat32,
+                    "planes must be uint8 or float32");
+        rc = dpt_skew_planar_f32(planes.data_ptr<float>(),
+                                 out.data_ptr<float>(), R, H, W, D, (int)s,
+                                 current_stream(planes));
+    }
+    check_launch(rc, "skew_planar");
 }
 
 void unskew_select(torch::Tensor idx, torch::Tensor palette,
@@ -284,7 +344,11 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
           "K2 / K8: wavefront scan, every mode -> (D,B,H) packed colours or "
           "palette indices");
     m.def("unskew_unpack", &unskew_unpack,
-          "K3: (D,B,H) packed colours -> (B,H,W,3) uint8");
+          "K3: (D,B,H) packed colours -> (B,H,W,3) or planar (3,B,H,W) uint8");
+    m.def("unskew_idx", &unskew_idx,
+          "K5: (D,B,H) palette indices -> (B,H,W) uint8 or uint16");
+    m.def("skew_planar", &skew_planar,
+          "K6: compact planes (R,H,W) -> (D,R,H) skewed stream");
     m.def("unskew_select", &unskew_select,
           "K9: (D,B,H) palette indices + palette -> (B,H,W,3) uint8");
     m.def("ordered_fused", &ordered_fused,

@@ -1,5 +1,5 @@
 // Launch functions of the port's kernels: the wavefront error-diffusion
-// kernels K1-K3, K8 and K9 and the ordered-dither kernel K4.
+// kernels K1-K3, K5, K6, K8 and K9 and the ordered-dither kernel K4.
 //
 // The .cu files that define them include no PyTorch header, so nvcc
 // compiles them in seconds; bindings.cpp (the only file with
@@ -71,10 +71,27 @@ int dpt_skew_f32(const float* in, float* out, int B, int H, int W, int D,
 // (r << 16 | g << 8 | b) for K2, palette indices for K8.
 int dpt_ed_scan(const DptScanArgs& a, void* stream);
 
-// K3: (D, B, H) packed colours -> (B, H, W, 3) uint8,
-// out[b, y, x, c] = (col[x + s*y, b, y] >> (16 - 8c)) & 255.
+// K3: (D, B, H) packed colours -> uint8 colours v = (col[x + s*y, b, y] >>
+// (16 - 8c)) & 255: NHWC out[b, y, x, c], or with planar != 0 the planes
+// out[c, b, y, x].
 int dpt_unskew_unpack(const int32_t* col, uint8_t* out, int B, int H, int W,
+                      int s, int planar, void* stream);
+
+// K5: (D, B, H) palette indices -> the (B, H, W) index stream,
+// out[b, y, x] = idx[x + s*y, b, y], narrowed to uint8 (palettes of up to
+// 256 colours) or uint16.
+int dpt_unskew_idx_u8(const int32_t* idx, uint8_t* out, int B, int H, int W,
                       int s, void* stream);
+int dpt_unskew_idx_u16(const int32_t* idx, uint16_t* out, int B, int H, int W,
+                       int s, void* stream);
+
+// K6: compact planes (R, H, W) -> (D, R, H) skewed stream,
+// out[d, r, y] = in[r, y, d - s*y], 0 outside the image; R = 3B rows in the
+// order c*B + b give K1's stream.
+int dpt_skew_planar_u8(const uint8_t* in, uint8_t* out, int R, int H, int W,
+                       int D, int s, void* stream);
+int dpt_skew_planar_f32(const float* in, float* out, int R, int H, int W,
+                        int D, int s, void* stream);
 
 // K9: (D, B, H) palette indices in 0..P-1 + (P, 3) float32 palette ->
 // (B, H, W, 3) uint8, out[b, y, x, c] = (int)pal[idx[x + s*y, b, y], c].

@@ -10,17 +10,28 @@ plain PyTorch version of the same function beside it here:
 
 * K1 ``skew``: (B, H, W, 3) frames -> (D, 3B, H) stream,
   ``out[d, c*B + b, y] = x[b, y, d - s*y, c]`` (0 outside the image).
+* K6 ``skew_planar``: compact planes (R, H, W) -> (D, R, H) stream,
+  ``out[d, r, y] = x[r, y, d - s*y]``; the planes of a (3, B, H, W) batch
+  (rows c*B + b) give K1's stream bit for bit.
 * K2 ``scan``: the wavefront scan -> (D, B, H) int32 packed colours
   ``r << 16 | g << 8 | b`` (0 outside the image), palettes of up to
   ``PACKED_PALETTE_MAX`` colours.
-* K3 ``unskew_unpack``: (D, B, H) packed colours -> (B, H, W, 3) uint8.
+* K3 ``unskew_unpack``: (D, B, H) packed colours -> (B, H, W, 3) uint8, or
+  the planes (3, B, H, W) with ``planar_out``.
 * K8 ``scan_idx``: the same scan for palettes of up to
   ``INDEX_PALETTE_MAX`` colours -> (D, B, H) int32 palette indices (0
-  outside the image).
+  outside the image). It is also K2's ``emit_idx`` stream of the JAX
+  package: the same body with the index as its output.
+* K5 ``unskew_idx``: (D, B, H) indices -> the (B, H, W) index stream, uint8
+  for palettes of up to 256 colours, uint16 above.
 * K9 ``unskew_select``: (D, B, H) indices + palette -> (B, H, W, 3) uint8.
 
 Palettes of up to 1024 colours run K1 -> K2 -> K3, larger ones K1 -> K8 ->
-K9. The modes are "fixed" (8 variants), "ostromoukhov" (per-pixel weights
+K9. ``planar`` batches (3, B, H, W), the layout of the video pipeline's
+zero-copy flow, run K6 -> K2 -> K3 and stay planar; ``return_indices``
+(either layout) runs the skew -> K8 -> K5 and returns the index stream,
+whose ``palette.astype(uint8)[idx]`` is the colour output exactly. Both
+stop at ``PACKED_PALETTE_MAX`` colours, as in the JAX package. The modes are "fixed" (8 variants), "ostromoukhov" (per-pixel weights
 from a luminance-indexed table), "hybrid" (the error projected onto luma
 and chroma), "perceptual" (weights scaled by a per-pixel sensitivity) and
 "adaptive" (the error gated per pixel); the last two take an ``aux``
@@ -239,20 +250,39 @@ def skew(images: torch.Tensor, s: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# K2 and K8: the scan
+# K6: skew of compact planes
 # ---------------------------------------------------------------------------
 
 
-def _skew_aux_plain(aux: torch.Tensor, s: int) -> torch.Tensor:
-    """(B, H, W) per-pixel map -> (D, B, H), ``out[d, b, y] = aux[b, y,
-    d - s*y]`` (0 outside the image)."""
-    b, h, w = aux.shape
-    dev = aux.device
-    out = torch.zeros((stream_length(h, w, s), b, h), dtype=aux.dtype, device=dev)
+def skew_planar_plain(planes: torch.Tensor, s: int) -> torch.Tensor:
+    """Plain PyTorch K6: (R, H, W) -> (D, R, H), same dtype, ``out[d, r, y]
+    = planes[r, y, d - s*y]`` (0 outside the image)."""
+    r, h, w = planes.shape
+    dev = planes.device
+    out = torch.zeros((stream_length(h, w, s), r, h), dtype=planes.dtype, device=dev)
     yy = torch.arange(h, device=dev)[:, None]
     xx = torch.arange(w, device=dev)[None, :]
-    out[xx + s * yy, :, yy] = aux.permute(1, 2, 0)
+    out[xx + s * yy, :, yy] = planes.permute(1, 2, 0)
     return out
+
+
+def skew_planar(planes: torch.Tensor, s: int) -> torch.Tensor:
+    """K6 on CUDA tensors, its plain version on CPU tensors. ``planes`` is
+    (R, H, W) uint8 or float32, contiguous; a (3, B, H, W) batch viewed as
+    (3B, H, W) gives the stream K1 gives for the same frames."""
+    if not build.on_cuda(planes):
+        return skew_planar_plain(planes, s)
+    r, h, w = planes.shape
+    out = torch.empty((stream_length(h, w, s), r, h), dtype=planes.dtype,
+                      device=planes.device)
+    build.extension().skew_planar(planes, out, s)
+    build.LAUNCHES["skew_planar"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K2 and K8: the scan
+# ---------------------------------------------------------------------------
 
 
 def _scan_core(stream: torch.Tensor, palette: torch.Tensor, geom: ScanGeometry,
@@ -279,7 +309,7 @@ def _scan_core(stream: torch.Tensor, palette: torch.Tensor, geom: ScanGeometry,
     luma = torch.tensor(_LUMA, dtype=torch.float32, device=dev).unbind()
     lum_f = torch.tensor(geom.lum_factor, dtype=torch.float32, device=dev)
     col_f = torch.tensor(geom.col_factor, dtype=torch.float32, device=dev)
-    aux_sk = _skew_aux_plain(aux, s) if geom.needs_aux else None  # (D, B, H)
+    aux_sk = skew_planar_plain(aux, s) if geom.needs_aux else None  # (D, B, H)
     lut = ostro_lut(dev) if mode == "ostromoukhov" else None
     ring = torch.zeros((len(offsets), n_slots, 3, b, h),
                        dtype=torch.float32, device=dev)
@@ -415,24 +445,66 @@ def scan_idx(stream: torch.Tensor, palette: torch.Tensor, geom: ScanGeometry,
 _SHIFTS = (16, 8, 0)
 
 
-def unskew_unpack_plain(col: torch.Tensor, s: int, h: int, w: int) -> torch.Tensor:
-    """Plain PyTorch K3: (D, B, H) int32 -> (B, H, W, 3) uint8."""
-    dev = col.device
+def _unskew_plain(stream: torch.Tensor, s: int, h: int, w: int) -> torch.Tensor:
+    """(D, B, H) -> (B, H, W): ``out[b, y, x] = stream[x + s*y, b, y]``."""
+    dev = stream.device
     yy = torch.arange(h, device=dev)[:, None]
     xx = torch.arange(w, device=dev)[None, :]
-    v = col[xx + s * yy, :, yy].permute(2, 0, 1)  # (B, H, W)
-    shifts = torch.tensor(_SHIFTS, dtype=torch.int32, device=dev)
+    return stream[xx + s * yy, :, yy].permute(2, 0, 1)
+
+
+def unskew_unpack_plain(col: torch.Tensor, s: int, h: int, w: int,
+                        planar_out: bool = False) -> torch.Tensor:
+    """Plain PyTorch K3: (D, B, H) int32 -> (B, H, W, 3) uint8, or the
+    planes (3, B, H, W) with ``planar_out``."""
+    v = _unskew_plain(col, s, h, w)
+    shifts = torch.tensor(_SHIFTS, dtype=torch.int32, device=col.device)
+    if planar_out:
+        return ((v[None] >> shifts[:, None, None, None]) & 255).to(torch.uint8)
     return ((v[..., None] >> shifts) & 255).to(torch.uint8)
 
 
-def unskew_unpack(col: torch.Tensor, s: int, h: int, w: int) -> torch.Tensor:
+def unskew_unpack(col: torch.Tensor, s: int, h: int, w: int,
+                  planar_out: bool = False) -> torch.Tensor:
     """K3 on CUDA tensors, its plain version on CPU tensors."""
     if not build.on_cuda(col):
-        return unskew_unpack_plain(col, s, h, w)
-    out = torch.empty((col.shape[1], h, w, 3), dtype=torch.uint8,
-                      device=col.device)
-    build.extension().unskew_unpack(col, out, s)
+        return unskew_unpack_plain(col, s, h, w, planar_out)
+    b = col.shape[1]
+    out = torch.empty((3, b, h, w) if planar_out else (b, h, w, 3),
+                      dtype=torch.uint8, device=col.device)
+    build.extension().unskew_unpack(col, out, s, planar_out)
     build.LAUNCHES["unskew_unpack"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K5: unskew of the index stream
+# ---------------------------------------------------------------------------
+
+
+def index_dtype(p: int) -> torch.dtype:
+    """The index stream's type for a P-colour palette: one byte a pixel up
+    to 256 colours, two above."""
+    return torch.uint8 if p <= 256 else torch.uint16
+
+
+def unskew_idx_plain(idx: torch.Tensor, s: int, h: int, w: int,
+                     dtype: torch.dtype = torch.uint8) -> torch.Tensor:
+    """Plain PyTorch K5: (D, B, H) int32 indices -> (B, H, W) ``dtype``
+    (uint8 or uint16; the indices must fit it)."""
+    return _unskew_plain(idx, s, h, w).to(dtype).contiguous()
+
+
+def unskew_idx(idx: torch.Tensor, s: int, h: int, w: int,
+               dtype: torch.dtype = torch.uint8) -> torch.Tensor:
+    """K5 on CUDA tensors, its plain version on CPU tensors."""
+    if dtype not in (torch.uint8, torch.uint16):
+        raise TypeError(f"the index stream is uint8 or uint16, got {dtype}")
+    if not build.on_cuda(idx):
+        return unskew_idx_plain(idx, s, h, w, dtype)
+    out = torch.empty((idx.shape[1], h, w), dtype=dtype, device=idx.device)
+    build.extension().unskew_idx(idx, out, s)
+    build.LAUNCHES["unskew_idx"] += 1
     return out
 
 
@@ -445,10 +517,7 @@ def unskew_select_plain(idx: torch.Tensor, palette: torch.Tensor, s: int,
                         h: int, w: int) -> torch.Tensor:
     """Plain PyTorch K9: (D, B, H) int32 indices + (P, 3) float32 palette ->
     (B, H, W, 3) uint8; the palette's float32 -> int32 cast truncates."""
-    dev = idx.device
-    yy = torch.arange(h, device=dev)[:, None]
-    xx = torch.arange(w, device=dev)[None, :]
-    v = idx[xx + s * yy, :, yy].permute(2, 0, 1)  # (B, H, W)
+    v = _unskew_plain(idx, s, h, w)
     return palette.to(torch.int32)[v.to(torch.int64)].to(torch.uint8)
 
 
@@ -469,8 +538,9 @@ def unskew_select(idx: torch.Tensor, palette: torch.Tensor, s: int, h: int,
 # ---------------------------------------------------------------------------
 
 
-def perceptual_sensitivity(images: torch.Tensor) -> torch.Tensor:
-    """(..., 3) uint8 or float32 frames -> (...) float32 sensitivity map
+def perceptual_sensitivity(images: torch.Tensor, planar: bool = False) -> torch.Tensor:
+    """(..., 3) uint8 or float32 frames, or with ``planar`` the planes
+    (3, ...), -> (...) float32 sensitivity map
     ``0.5 + 0.5 * (gray / 255)`` with ``gray = (0.299 r + 0.587 g) + 0.114
     b``, on the frames' device. One eager float32 op per numpy op of the JAX
     package's map and every constant a tensor on the device (a division by
@@ -479,50 +549,69 @@ def perceptual_sensitivity(images: torch.Tensor) -> torch.Tensor:
     dev = images.device
     c0, c1, c2, full, half = torch.tensor(
         _LUMA + (255.0, 0.5), dtype=torch.float32, device=dev).unbind()
-    r, g, b = (images[..., c].to(torch.float32) for c in range(3))
+    r, g, b = (ch.to(torch.float32) for ch in images.unbind(0 if planar else -1))
     gray = (c0 * r + c1 * g) + c2 * b
     return half + half * (gray / full)
 
 
 def _run(mode: str, images: torch.Tensor, palette: torch.Tensor,
          variant: str = "", aux: Optional[torch.Tensor] = None,
-         lum_factor: float = 1.0, col_factor: float = 0.2) -> torch.Tensor:
+         lum_factor: float = 1.0, col_factor: float = 0.2,
+         planar: bool = False, return_indices: bool = False) -> torch.Tensor:
     """(B, H, W, 3) uint8 or float32 frames + (P, 3) float32 palette on the
     same device -> (B, H, W, 3) uint8 palette colours. Any B, P from 1 to
     INDEX_PALETTE_MAX: up to PACKED_PALETTE_MAX colours through K1 -> K2 ->
-    K3, more through K1 -> K8 -> K9."""
-    if images.dim() != 4 or images.shape[-1] != 3:
-        raise ValueError(f"images must be (B, H, W, 3), got {tuple(images.shape)}")
-    if images.dtype not in (torch.uint8, torch.float32):
-        raise TypeError(f"images must be uint8 or float32, got {images.dtype}")
+    K3, more through K1 -> K8 -> K9.
+
+    ``planar``: the frames are (3, B, H, W) channel-major planes and so is
+    the output (K6 -> K2 -> K3's planar layout). ``return_indices``: the
+    result is the (B, H, W) index stream, uint8 up to 256 colours and
+    uint16 above (skew -> K8 -> K5), whatever the frames' layout. Both
+    serve up to PACKED_PALETTE_MAX colours, as the JAX package does."""
     if palette.dtype != torch.float32 or palette.dim() != 2 or palette.shape[1] != 3:
         raise ValueError("palette must be a (P, 3) float32 tensor")
+    p = palette.shape[0]
+    if return_indices and p > PACKED_PALETTE_MAX:
+        raise ValueError("return_indices requires a palette <= "
+                         f"{PACKED_PALETTE_MAX} colors (the packed kernel)")
+    if planar and p > PACKED_PALETTE_MAX:
+        raise ValueError(
+            "planar layout requires a palette <= "
+            f"{PACKED_PALETTE_MAX} colors (the packed kernel path)")
+    if images.dim() != 4 or images.shape[0 if planar else -1] != 3:
+        raise ValueError(
+            f"images must be {'(3, B, H, W)' if planar else '(B, H, W, 3)'}, "
+            f"got {tuple(images.shape)}")
+    if images.dtype not in (torch.uint8, torch.float32):
+        raise TypeError(f"images must be uint8 or float32, got {images.dtype}")
     if palette.device != images.device:
         raise ValueError(f"palette on {palette.device}, images on {images.device}")
     geom = scan_geometry(variant if mode == "fixed" else "", mode,
                          float(lum_factor), float(col_factor))
-    _, h, w, _ = images.shape
-    stream = skew(images.contiguous(), geom.s)
+    if planar:
+        # (3, B, H, W) -> (3B, H, W) is a free view: the planar layout is
+        # the stream's row order c*B + b.
+        _, b, h, w = images.shape
+        stream = skew_planar(images.contiguous().view(3 * b, h, w), geom.s)
+    else:
+        _, h, w, _ = images.shape
+        stream = skew(images.contiguous(), geom.s)
     palette = palette.contiguous()
     if aux is not None:
         aux = aux.contiguous()
-    if palette.shape[0] <= PACKED_PALETTE_MAX:
+    if return_indices:
+        idx = scan_idx(stream, palette, geom, w, aux)
+        return unskew_idx(idx, geom.s, h, w, index_dtype(p))
+    if p <= PACKED_PALETTE_MAX:
         col = scan(stream, palette, geom, w, aux)
-        return unskew_unpack(col, geom.s, h, w)
+        return unskew_unpack(col, geom.s, h, w, planar_out=planar)
     idx = scan_idx(stream, palette, geom, w, aux)
     return unskew_select(idx, palette, geom.s, h, w)
 
 
-def _check_slice(mode: str, planar: bool, return_indices: bool,
-                 dense_search: Optional[str]) -> None:
-    """Raise for the options not ported yet, naming the ROADMAP item."""
+def _check_slice(mode: str, dense_search: Optional[str]) -> None:
+    """Raise for the option not ported yet, naming the ROADMAP item."""
     _check_mode(mode)
-    if planar:
-        raise NotImplementedError(
-            "planar (3, B, H, W) batches are not ported yet (ROADMAP A5)")
-    if return_indices:
-        raise NotImplementedError(
-            "the index stream is not ported yet (ROADMAP A5, A6)")
     if dense_search not in (None, "exact"):
         raise NotImplementedError(
             f"dense_search={dense_search!r}: the matrix-unit dense search is "
@@ -535,13 +624,16 @@ def ed_batch_wavefront(images: torch.Tensor, palette: torch.Tensor,
                        lum_factor: float = 1.0, col_factor: float = 0.2,
                        planar: bool = False, return_indices: bool = False,
                        dense_search: Optional[str] = None) -> torch.Tensor:
-    """Batched entry of the video path: (B, H, W, 3) frames in one scan.
-    ``aux``: adaptive's (B, H, W) float32 gates; perceptual's sensitivity
-    map is built here from the frames."""
-    _check_slice(mode, planar, return_indices, dense_search)
+    """Batched entry of the video path: (B, H, W, 3) frames in one scan,
+    or with ``planar`` (3, B, H, W) planes in and out; with
+    ``return_indices`` the (B, H, W) index stream comes back instead of
+    colours. ``aux``: adaptive's (B, H, W) float32 gates; perceptual's
+    sensitivity map is built here from the frames."""
+    _check_slice(mode, dense_search)
     if mode == "perceptual":
-        aux = perceptual_sensitivity(images)
-    return _run(mode, images, palette, variant, aux, lum_factor, col_factor)
+        aux = perceptual_sensitivity(images, planar)
+    return _run(mode, images, palette, variant, aux, lum_factor, col_factor,
+                planar, return_indices)
 
 
 def wavefront_device_fn(mode: str, variant: str, h: int, w: int, p: int,
@@ -551,10 +643,16 @@ def wavefront_device_fn(mode: str, variant: str, h: int, w: int, p: int,
     """``fn(frames (batch, h, w, 3), palette (p, 3) f32, aux=None) ->
     (batch, h, w, 3) uint8``: the shape-checked device function of one
     configuration, as the JAX package's benchmark builds it (``aux``: the
-    (batch, h, w) float32 map of perceptual and adaptive). Raises at
-    construction for what is not ported."""
-    _check_slice(mode, planar, False, dense_search)
-    shape = (batch, h, w, 3)
+    (batch, h, w) float32 map of perceptual and adaptive); with ``planar``
+    the frames and the result are (3, batch, h, w) planes. Raises at
+    construction for what is not ported and for a planar configuration
+    above PACKED_PALETTE_MAX colours."""
+    _check_slice(mode, dense_search)
+    if planar and p > PACKED_PALETTE_MAX:
+        raise ValueError(
+            "planar layout requires a palette <= "
+            f"{PACKED_PALETTE_MAX} colors (the packed kernel path)")
+    shape = (3, batch, h, w) if planar else (batch, h, w, 3)
 
     def fn(frames: torch.Tensor, palette: torch.Tensor,
            aux: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -562,6 +660,7 @@ def wavefront_device_fn(mode: str, variant: str, h: int, w: int, p: int,
             raise ValueError(
                 f"expected frames {shape} and palette ({p}, 3), got "
                 f"{tuple(frames.shape)} and {tuple(palette.shape)}")
-        return _run(mode, frames, palette, variant, aux, lum_factor, col_factor)
+        return _run(mode, frames, palette, variant, aux, lum_factor, col_factor,
+                    planar)
 
     return fn

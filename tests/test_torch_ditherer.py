@@ -13,6 +13,11 @@ and the ordered family (none, Bayer, blue noise, IGN, polka dot).
 * the ordered family, apply_dithering_batch and apply_dithering: bitwise
   equal to the JAX package's, gamma off and on (the gamma path's palettes
   are not integers, and still every pixel agrees);
+* the index stream (DITHER_PIE_TPU_INDEX_TRANSFER=1) and planar batches:
+  bitwise equal to the RGB NHWC path, gamma off and on, every served mode;
+  the ordered modes' index stream also bitwise equal to the JAX package's;
+  supports_planar_batch and the link probe's verdict equal to the JAX
+  package's rules;
 * parameter metadata: get_mode_parameters equals the JAX package's for
   every mode;
 * failure behaviour: CUDA without a GPU raises, unported modes and options
@@ -34,7 +39,9 @@ import bench
 import dither_pie_tpu as jdpt
 import dither_pie_tpu_torch as tdpt
 from dither_pie_tpu.core.fidelity import assert_perceptually_matched
+from dither_pie_tpu_torch.api import linkspeed as tlink
 from dither_pie_tpu_torch.core import palette as tpal
+from dither_pie_tpu_torch.ops import idxpack as tpack
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -183,8 +190,8 @@ ED_MODES = {tdpt.DitherMode.ERROR_DIFFUSION} | {tdpt.DitherMode(m) for m, _ in E
 
 @pytest.fixture()
 def rgb_batches(monkeypatch):
-    """Pin the JAX package's batch path to its RGB output (no index
-    stream: that is ROADMAP A6 in the port)."""
+    """Pin both packages' batch paths to their RGB output (the index
+    stream has tests of its own below)."""
     monkeypatch.setenv("DITHER_PIE_TPU_INDEX_TRANSFER", "0")
 
 
@@ -305,11 +312,213 @@ def test_unported_options_raise():
                               device="cpu", dither_params={"serpentine": "true"})
     with pytest.raises(NotImplementedError, match="A5"):
         serp.apply_dithering_batch(frames)
-    plain = tdpt.ImageDitherer(dither_mode=ed, palette=pal, device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
-        plain.apply_dithering_batch(frames, planar=True)
+    # Planar batches are served by the error-diffusion strategies only.
+    bayer = tdpt.ImageDitherer(dither_mode=tdpt.DitherMode.BAYER, palette=pal, device="cpu")
+    with pytest.raises(ValueError, match="supports_planar_batch"):
+        bayer.apply_dithering_batch(np.zeros((3, 1, 4, 4), np.uint8), planar=True)
     with pytest.raises(ValueError, match="palette"):
         tdpt.ImageDitherer(dither_mode=ed, device="cpu").apply_dithering_batch(frames)
+
+
+# ---------------------------------------------------------------------------
+# The index stream and planar batches
+# ---------------------------------------------------------------------------
+
+ALL_ED_CASES = [("error_diffusion", {"variant": "floyd_steinberg"})] + ED_MODE_CASES
+INDEX_ORDERED_CASES = [
+    ("none", {}),
+    ("bayer", {"size": "4x4"}),
+    ("blue_noise", {"size": 32, "seed": 42}),
+    ("IGN", {"scale": 2.5, "seed": 7}),
+    ("polka_dot", {"tile_size": 6, "gamma": 2.0}),
+]
+INDEX_CASES = ALL_ED_CASES + INDEX_ORDERED_CASES
+INDEX_IDS = [m for m, _ in INDEX_CASES]
+
+
+def _unique_palette(p, seed):
+    rng = np.random.RandomState(seed)
+    pal = np.unique(rng.randint(0, 256, (8 * p + 64, 3)), axis=0)
+    return [tuple(int(v) for v in c) for c in pal[rng.permutation(len(pal))[:p]]]
+
+
+def _spy_indices(monkeypatch, strategy_class):
+    """Count the index-output calls of a strategy class that return indices."""
+    calls = []
+    real = strategy_class.dither_batch_indices
+
+    def spy(self, images, palette_arr, planar=False):
+        idx = real(self, images, palette_arr, planar=planar)
+        calls.append(None if idx is None else idx.dtype)
+        return idx
+
+    monkeypatch.setattr(strategy_class, "dither_batch_indices", spy)
+    return calls
+
+
+@pytest.mark.parametrize("use_gamma", [False, True], ids=["srgb", "gamma"])
+@pytest.mark.parametrize("p", [2, 4, 16, 32, 256])
+@pytest.mark.parametrize("mode,params", INDEX_CASES, ids=INDEX_IDS)
+def test_index_stream_equals_rgb_path(mode, params, p, use_gamma, monkeypatch):
+    """apply_dithering_batch with the index stream forced on equals the RGB
+    path bit for bit (gamma folds into the palette), bit-packed (P <= 16),
+    packing switched off, and plain u8 alike."""
+    frames = _frames(2, 12, 18)
+    d = tdpt.ImageDitherer(num_colors=p, dither_mode=tdpt.DitherMode(mode),
+                           palette=_unique_palette(p, p), use_gamma=use_gamma,
+                           dither_params=dict(params), device="cpu")
+    monkeypatch.setenv("DITHER_PIE_TPU_INDEX_TRANSFER", "0")
+    rgb = d.apply_dithering_batch(frames)
+    calls = _spy_indices(monkeypatch, type(d._get_dither_strategy(d.dither_mode)))
+    assert d.apply_dithering_batch(frames) is not None and calls == []
+    monkeypatch.setenv("DITHER_PIE_TPU_INDEX_TRANSFER", "1")
+    out = d.apply_dithering_batch(frames)
+    assert calls == [np.uint8]  # the index branch ran and returned indices
+    assert out.dtype == np.uint8 and out.shape == frames.shape
+    np.testing.assert_array_equal(out, rgb)
+    monkeypatch.setenv("DITHER_PIE_TPU_INDEX_PACK", "0")
+    np.testing.assert_array_equal(d.apply_dithering_batch(frames), rgb)
+
+
+@pytest.mark.parametrize("use_gamma", [False, True], ids=["srgb", "gamma"])
+@pytest.mark.parametrize("p", [2, 16, 256])
+@pytest.mark.parametrize("mode,params", INDEX_ORDERED_CASES,
+                         ids=[m for m, _ in INDEX_ORDERED_CASES])
+def test_ordered_index_stream_bitwise_vs_jax(mode, params, p, use_gamma, monkeypatch):
+    """The JAX package's ordered index path is exact on the CPU: both
+    facades with the index stream forced on give the same bytes."""
+    monkeypatch.setenv("DITHER_PIE_TPU_INDEX_TRANSFER", "1")
+    frames = _frames(2, 12, 18)
+    jd, td = _ordered_pair(mode, params, use_gamma, _unique_palette(p, p))
+    np.testing.assert_array_equal(td.apply_dithering_batch(frames),
+                                  jd.apply_dithering_batch(frames))
+
+
+@pytest.mark.parametrize("p,dtype", [(300, np.uint16), (1024, np.uint16), (1025, None)])
+def test_index_stream_wide_palettes(p, dtype, monkeypatch):
+    """257-1024 colours ride a uint16 stream; above, the error-diffusion
+    strategy has no index output and the RGB path answers. Ordered
+    strategies stop at 256."""
+    frames = _frames(1, 10, 14)
+    palette = _unique_palette(p, 3)
+    d = tdpt.ImageDitherer(num_colors=p, dither_mode=tdpt.DitherMode.ERROR_DIFFUSION,
+                           palette=palette, dither_params={"variant": "floyd_steinberg"},
+                           device="cpu")
+    monkeypatch.setenv("DITHER_PIE_TPU_INDEX_TRANSFER", "0")
+    rgb = d.apply_dithering_batch(frames)
+    monkeypatch.setenv("DITHER_PIE_TPU_INDEX_TRANSFER", "1")
+    strategy = d._get_dither_strategy(d.dither_mode)
+    idx = strategy.dither_batch_indices(frames, np.array(palette, np.float32))
+    assert (idx is None) if dtype is None else (idx.dtype == dtype)
+    np.testing.assert_array_equal(d.apply_dithering_batch(frames), rgb)
+    bayer = tdpt.BayerDitherStrategy(device="cpu")
+    assert (bayer.dither_batch_indices(frames, np.array(palette, np.float32)) is None)
+    assert bayer.dither_batch_indices(frames, np.array(palette[:256], np.float32),
+                                      planar=True) is None
+
+
+def test_index_stream_failure_raises(monkeypatch):
+    """No fallback to RGB: a failing index path is the caller's to see."""
+    def boom(idx, p, w):
+        raise RuntimeError("index copy failed")
+
+    monkeypatch.setenv("DITHER_PIE_TPU_INDEX_TRANSFER", "1")
+    monkeypatch.setattr(tpack, "packed_transfer", boom)
+    for mode in (tdpt.DitherMode.ERROR_DIFFUSION, tdpt.DitherMode.BAYER):
+        d = tdpt.ImageDitherer(dither_mode=mode, palette=_unique_palette(8, 1), device="cpu")
+        with pytest.raises(RuntimeError, match="index copy failed"):
+            d.apply_dithering_batch(_frames(1, 8, 8))
+
+
+@pytest.mark.parametrize("index", ["0", "1"], ids=["rgb", "index"])
+@pytest.mark.parametrize("use_gamma", [False, True], ids=["srgb", "gamma"])
+@pytest.mark.parametrize("mode,params", ALL_ED_CASES, ids=[m for m, _ in ALL_ED_CASES])
+def test_planar_batch_equals_nhwc(mode, params, use_gamma, index, monkeypatch):
+    """apply_dithering_batch(planar=True): (3, B, H, W) planes in and out,
+    the NHWC result transposed, with and without the index stream."""
+    frames = _frames(3, 14, 20)
+    planes = np.ascontiguousarray(np.moveaxis(frames, -1, 0))
+    d = tdpt.ImageDitherer(num_colors=16, dither_mode=tdpt.DitherMode(mode),
+                           palette=_unique_palette(16, 5), use_gamma=use_gamma,
+                           dither_params=dict(params), device="cpu")
+    assert d.supports_planar_batch()
+    monkeypatch.setenv("DITHER_PIE_TPU_INDEX_TRANSFER", "0")
+    nhwc = d.apply_dithering_batch(frames)
+    monkeypatch.setenv("DITHER_PIE_TPU_INDEX_TRANSFER", index)
+    out = d.apply_dithering_batch(planes, planar=True)
+    assert out.dtype == np.uint8 and out.shape == planes.shape
+    np.testing.assert_array_equal(np.moveaxis(out, 0, -1), nhwc)
+
+
+@pytest.mark.parametrize("mode", list(tdpt.DitherMode), ids=lambda m: m.value)
+def test_supports_planar_batch_equals_jax(mode, monkeypatch):
+    """The JAX package's answer when its wavefront backend serves error
+    diffusion, for every mode, serpentine scans and an oversized palette."""
+    monkeypatch.setenv("DITHER_PIE_TPU_ED_BACKEND", "wavefront")
+    jmode = jdpt.DitherMode(mode.value)
+    serp = {"serpentine": "true"}
+    for kw in ({"palette": None}, {"palette": _unique_palette(16, 1)},
+               {"palette": _unique_palette(1024, 2)}, {"palette": _unique_palette(2048, 3)},
+               {"palette": _unique_palette(16, 1), "dither_params": serp}):
+        ours = tdpt.ImageDitherer(dither_mode=mode, device="cpu", **kw).supports_planar_batch()
+        assert ours == jdpt.ImageDitherer(dither_mode=jmode, **kw).supports_planar_batch(), kw
+        if ours:
+            assert mode in ED_MODES and len(kw["palette"] or []) <= 1024
+
+
+def test_link_probe_verdict(monkeypatch):
+    assert tlink.d2h_bandwidth_mb_s("cpu") is None
+    monkeypatch.delenv("DITHER_PIE_TPU_INDEX_TRANSFER", raising=False)
+    assert tlink.index_transfer_wins("cpu") is False  # no link to relieve
+    for env, want in (("1", True), ("0", False)):
+        monkeypatch.setenv("DITHER_PIE_TPU_INDEX_TRANSFER", env)
+        assert tlink.index_transfer_wins("cpu") is want
+    # The measured side of the rule: 2 bytes a pixel saved on the link
+    # against the host gather's measured time a pixel. A gather of 2 ns a
+    # pixel puts the break-even at the JAX package's 1000 MB/s, one of 16 ns
+    # at 125 MB/s; a forced choice never probes.
+    ns = tlink.host_gather_ns_per_px()
+    assert 0.0 < ns < 1e4 and tlink.host_gather_ns_per_px() == ns  # measured once
+    assert tlink.break_even_mb_s() == 2e3 / ns
+    monkeypatch.delenv("DITHER_PIE_TPU_INDEX_TRANSFER")
+    monkeypatch.setattr(tlink, "host_gather_ns_per_px", lambda: 16.0)
+    monkeypatch.setattr(tlink, "d2h_bandwidth_mb_s", lambda device: 124.9)
+    assert tlink.break_even_mb_s() == 125.0 and tlink.index_transfer_wins("cpu") is True
+    monkeypatch.setattr(tlink, "d2h_bandwidth_mb_s", lambda device: 125.0)
+    assert tlink.index_transfer_wins("cpu") is False
+    monkeypatch.setattr(tlink, "host_gather_ns_per_px", lambda: 2.0)
+    asked = []
+    for mb_s, want in ((999.9, True), (1000.0, False), (2400.0, False), (40.0, True)):
+        monkeypatch.setattr(tlink, "d2h_bandwidth_mb_s",
+                            lambda device, v=mb_s: asked.append(device) or v)
+        monkeypatch.delenv("DITHER_PIE_TPU_INDEX_TRANSFER", raising=False)
+        assert tlink.index_transfer_wins("cpu") is want
+        monkeypatch.setenv("DITHER_PIE_TPU_INDEX_TRANSFER", "0" if want else "1")
+        assert tlink.index_transfer_wins("cpu") is (not want)
+    assert asked == ["cpu"] * 4
+    if not torch.cuda.is_available():
+        monkeypatch.undo()
+        with pytest.raises(RuntimeError, match="cuda"):
+            tlink.d2h_bandwidth_mb_s("cuda")  # an absent card raises, no None
+
+
+def test_facade_follows_the_probe(monkeypatch):
+    """With the environment unset the facade takes the path the probe's
+    verdict names."""
+    monkeypatch.delenv("DITHER_PIE_TPU_INDEX_TRANSFER", raising=False)
+    frames = _frames(1, 10, 12)
+    d = tdpt.ImageDitherer(dither_mode=tdpt.DitherMode.ERROR_DIFFUSION,
+                           palette=_unique_palette(16, 4), device="cpu")
+    calls = _spy_indices(monkeypatch, tdpt.ErrorDiffusionDitherStrategy)
+    rgb = d.apply_dithering_batch(frames)
+    assert calls == []  # a CPU device has no link: RGB
+    monkeypatch.setattr(tlink, "host_gather_ns_per_px", lambda: 16.0)  # even at 125 MB/s
+    monkeypatch.setattr(tlink, "d2h_bandwidth_mb_s", lambda device: 40.0)
+    np.testing.assert_array_equal(d.apply_dithering_batch(frames), rgb)
+    assert calls == [np.uint8]
+    monkeypatch.setattr(tlink, "d2h_bandwidth_mb_s", lambda device: 2400.0)
+    d.apply_dithering_batch(frames)
+    assert calls == [np.uint8]
 
 
 def test_import_loads_no_jax():

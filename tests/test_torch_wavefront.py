@@ -282,9 +282,9 @@ def test_device_fn_checks_shapes():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"planar": True}, "A5"),
-    ({"return_indices": True}, "A6"),
     ({"dense_search": "mxu"}, "A5"),
+    ({"dense_search": "mxu", "return_indices": True}, "A5"),
+    ({"dense_search": "auto"}, "A5"),
 ])
 def test_unported_options_raise(kw, item):
     frames = torch.zeros((1, 4, 5, 3), dtype=torch.uint8)
