@@ -99,10 +99,43 @@ a non-zero exit code and no result line:
    and planar paths beside their RGB and NHWC walls, and inside the index
    walls the device-to-host copy, the host unpack and the host palette
    gather. Two index-stream calls (k-means-32, k-means-16 packed) are
-   traced in phase 6, right after its other traces.
+   traced in phase 6, right after its other traces;
+10. the dense-search path and the transposing skew: K7 (skew_transpose)
+   held to its plain version and to K1's and K6's streams bitwise and
+   everywhere (B=3 37x53, s = 2 and 3, u8 and f32, NHWC and planes, R = 5,
+   widths W <= s, u8 -> f32, one float32 1080p frame, the u8 and float32
+   16 x 1080p batches), with the times of K7, K1, K6 and the
+   permute(2, 0, 1).contiguous() call of the padded stride-lemma form from
+   the same run; K2's and K8's score branch (dense_search="mxu") held to
+   scan_plain / scan_idx_plain bitwise in the five modes at B=3 37x53 with
+   P in {65, 100, 256, 1024}, u8 and f32, on planted duplicate colours and
+   flat frames, P = 64 and P = 2048 equal to the exact output (the branch
+   is not taken), one 1080p frame at k-means-256, and the timed 16 x 1080p
+   k-means-256 and -1024 launches held to one plain run each beside the
+   exact search's time; the main path ImageDitherer(ERROR_DIFFUSION),
+   k-means-256, 16 x 1080p u8, numpy in and out, with
+   DITHER_PIE_TPU_DENSE_SEARCH=mxu and then auto (the first call runs both
+   searches, the second one), each with its launch counts, its wall beside
+   the exact wall, the score output's identity and 4x4 block-mean error
+   against the exact output (the gate's two block thresholds must hold;
+   the identity is a measurement, and the gate's verdict must follow from
+   the three numbers) and its golden identity on 2 frames (printed; the
+   exact output's must be 1.0), the gate's other verdict on small random
+   frames,
+   the same through the index stream and planar (== the RGB NHWC score
+   output), and one PIL image through apply_dithering (one float32 frame:
+   skew_transpose launched, skew not; golden identity 1.0 in exact mode);
+   T2, the search probe: both kernels held to their plain versions bitwise
+   at 256 and 1024 colours, their microseconds per row-step and the flip
+   fraction of score against exact. The k-means-256 call in score mode is
+   traced in phase 6, right after the exact one.
 
 Phases 1-8 run with DITHER_PIE_TPU_INDEX_TRANSFER=0 (the RGB path, whatever
-the link probe would say); phase 9 sets it as each check needs.
+the link probe would say); phases 9 and 10 set it as each check needs.
+DITHER_PIE_TPU_DENSE_SEARCH is unset (the exact search) outside phase 10's
+main paths and phase 6's one score-mode trace. Phases 3-9 hold K1 and K6
+themselves (``skew_gather``, ``skew_planar_gather``) where they hold a skew
+to its plain version; ``skew`` and ``skew_planar`` send float32 frames to K7.
 
 Every row of the kernels line carries the kernel's bound: the larger of its
 bytes (inputs read once, outputs written once; of the (D, B, H) stream an
@@ -170,16 +203,20 @@ def bound(n_bytes, n_flops):
             "library_ms": None}
 
 
-def scan_bound(b, h, w, s, p, n_entries, in_bytes=1, aux=False):
+def scan_bound(b, h, w, s, p, n_entries, in_bytes=1, aux=False, score=False):
     """Bound of K2 / K8: the stream and the palette (and the aux map) read
     once, the (D, B, H) int32 output written once; per pixel the fold (a
     multiply and an add per channel and entry), the search (3 subtracts, 3
-    multiplies, 2 adds per colour) and the error (3 subtracts). Beside it
+    multiplies, 2 adds per colour; with ``score`` 3 multiplies and 3 adds
+    over an augmented palette of 16 bytes a colour) and the error (3
+    subtracts). Beside it
     ``chain_bound_ms``: the D steps follow one another, each at least
     CHAIN_STEP_US long."""
     d = w + s * (h - 1)
-    n_bytes = d * 3 * b * h * in_bytes + p * 12 + d * b * h * 4 + (b * h * w * 4 if aux else 0)
-    return {**bound(n_bytes, b * h * w * (6 * n_entries + 8 * p + 3)),
+    n_bytes = (d * 3 * b * h * in_bytes + p * (16 if score else 12) + d * b * h * 4
+               + (b * h * w * 4 if aux else 0))
+    per_colour = 6 if score else 8
+    return {**bound(n_bytes, b * h * w * (6 * n_entries + per_colour * p + 3)),
             "chain_bound_ms": d * CHAIN_STEP_US * 1e-3}
 
 
@@ -202,6 +239,12 @@ TRANSFER_KERNELS = [  # the index stream and the planar layout
      "dither_pie_tpu/ops/wavefront.py:1636"),
     ("skew_planar", "dither_pie_tpu_torch/kernels/csrc/skew_planar.cu",
      "dither_pie_tpu/ops/wavefront.py:1352"),
+]
+DENSE_KERNELS = [  # the transposing skew and the search probe
+    ("skew_transpose", "dither_pie_tpu_torch/kernels/csrc/skew_transpose.cu",
+     "dither_pie_tpu/ops/wavefront.py:371"),
+    ("search_probe", "dither_pie_tpu_torch/kernels/csrc/search_probe.cu",
+     "tools/proto_mxu_search.py:78"),
 ]
 ORDERED_KERNEL = ("ordered_fused", "dither_pie_tpu_torch/kernels/csrc/ordered.cu",
                   "dither_pie_tpu/ops/ordered_pallas.py:96")
@@ -264,7 +307,7 @@ def compare_kernels(torch, twf, dev, frames, pal, variants, errs):
     h, w = frames.shape[1:3]
     for variant in variants:
         geom = twf.scan_geometry(variant)
-        stream = twf.skew(frames, geom.s)
+        stream = twf.skew_gather(frames, geom.s)
         stream_ref = twf.skew_plain(frames, geom.s)
         col = twf.scan(stream, pal, geom, w)
         col_ref = twf.scan_plain(stream, pal, geom, w)
@@ -689,7 +732,7 @@ def compare_scan(torch, twf, frames, pal, geom, aux, errs, what, indexed=False):
     """K2 (or, ``indexed``, K8 and K9) against the plain versions on the
     same inputs, bitwise. Returns the scan kernel's (D, B, H) output."""
     h, w = frames.shape[1:3]
-    stream = twf.skew(frames, geom.s)
+    stream = twf.skew_gather(frames, geom.s)
     if indexed:
         got = twf.scan_idx(stream, pal, geom, w, aux)
         want = twf.scan_idx_plain(stream, pal, geom, w, aux)
@@ -903,7 +946,9 @@ def ed_modes_phase(torch, dev, card, lib, frames16, frame0, palette32, palette25
         for key, _, _ in kernels:
             check(launches.get(key, 0) >= 1, f"kernel {key} not launched on the {name} path")
             totals[key] = totals.get(key, 0) + launches[key]
-        check(set(launches) == {k for k, _, _ in kernels},
+        # The batch of u8 frames takes K1; apply_dithering's one float32
+        # frame takes K7 (held in phase 10).
+        check(set(launches) == {k for k, _, _ in kernels} | {"skew_transpose"},
               f"{name} path launched {launches}")
         check(out.shape == frames.shape and out.dtype == np.uint8,
               f"{name} batch output {out.shape} {out.dtype}")
@@ -1052,7 +1097,8 @@ def as_int32(torch, t):
 
 
 def hold(torch, key, got, want, errs, what):
-    """Require got == want bitwise; record the max abs error under ``key``."""
+    """Require got == want bitwise; record the max abs error under ``key``
+    and return this comparison's."""
     check(got.dtype == want.dtype and got.shape == want.shape,
           f"{key}: {got.dtype} {tuple(got.shape)} against plain {want.dtype} "
           f"{tuple(want.shape)} ({what})")
@@ -1065,6 +1111,7 @@ def hold(torch, key, got, want, errs, what):
         err = float((a - b).abs().max().item())
     errs[key] = max(errs.get(key, 0.0), err)
     check(same, f"{key} kernel != plain version ({what}, max abs err {err})")
+    return err
 
 
 def median_wall(fn, reps=5):
@@ -1119,10 +1166,10 @@ def transfer_phase(torch, dev, card, lib, frames16, frame0, palette32, palette16
                      errs, f"{what}, {name}")
         for name, arr in (("u8", small_u8), ("f32", small_f32)):
             planes = on_card(planes_of(arr)).view(3 * b, h, w)
-            got = twf.skew_planar(planes, geom.s)
+            got = twf.skew_planar_gather(planes, geom.s)
             hold(torch, "skew_planar", got, twf.skew_planar_plain(planes, geom.s), errs,
                  f"B={b} {h}x{w} s={geom.s} {name}")
-            hold(torch, "skew_planar", got, twf.skew(on_card(arr), geom.s), errs,
+            hold(torch, "skew_planar", got, twf.skew_gather(on_card(arr), geom.s), errs,
                  f"against K1's stream, B={b} {h}x{w} s={geom.s} {name}")
         five = on_card(rng.randint(0, 256, (5, h, w)).astype(np.uint8))  # any R
         hold(torch, "skew_planar", twf.skew_planar(five, geom.s),
@@ -1163,7 +1210,7 @@ def transfer_phase(torch, dev, card, lib, frames16, frame0, palette32, palette16
     idx_stream = twf.scan_idx(stream, pal32_t, fs, FULL_W)
     col_stream = twf.scan(stream, pal32_t, fs, FULL_W)
     one_f32 = on_card(planes_of(frame0[None].astype(np.float32)))
-    hold(torch, "skew_planar", twf.skew_planar(one_f32.view(3, FULL_H, FULL_W), fs.s),
+    hold(torch, "skew_planar", twf.skew_planar_gather(one_f32.view(3, FULL_H, FULL_W), fs.s),
          twf.skew_planar_plain(one_f32.view(3, FULL_H, FULL_W), fs.s), errs,
          f"one float32 {FULL_H}x{FULL_W} frame")
     d_fs = twf.stream_length(FULL_H, FULL_W, fs.s)
@@ -1422,6 +1469,467 @@ def transfer_phase(torch, dev, card, lib, frames16, frame0, palette32, palette16
     return new_rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the dense-search path, the transposing skew, the search probe
+# ---------------------------------------------------------------------------
+
+
+def dense_search_env(value):
+    return env_var("DITHER_PIE_TPU_DENSE_SEARCH", value)
+
+
+def dense_search_phase(torch, dev, card, lib, frames16, frame0, palette256, rows, errs):
+    """Phase 10; adds its main paths' launches to ``rows`` and the score
+    search's times to K2's row, and returns the kernels-line rows of K7 and
+    the search probe."""
+    from PIL import Image
+
+    import dither_pie_tpu_torch as dpt
+    from dither_pie_tpu_torch import convert
+    from dither_pie_tpu_torch.core import fidelity
+    from dither_pie_tpu_torch.kernels import build
+    from dither_pie_tpu_torch.ops import ed_kernels, wavefront as twf
+    from dither_pie_tpu_torch.tools import proto_mxu_search as probe
+
+    def on_card(arr):
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+
+    def planes_of(frames_np):
+        return np.ascontiguousarray(np.moveaxis(frames_np, -1, 0))
+
+    fs = twf.scan_geometry("floyd_steinberg")
+    jjn = twf.scan_geometry("jjn")
+    rng = np.random.RandomState(10)
+    b, h, w = SMALL
+    small = {"u8": rng.randint(0, 256, (b, h, w, 3)).astype(np.uint8),
+             "f32": rng.uniform(-8.0, 263.0, (b, h, w, 3)).astype(np.float32)}
+
+    # --- K7 == plain == K1's and K6's streams, bitwise and everywhere -----
+    t0 = time.perf_counter()
+
+    def hold_k7(frames_np, s, what):
+        """K7 on NHWC frames and on their planes against its plain version
+        and against K1's and K6's streams."""
+        nhwc = on_card(frames_np)
+        planes = on_card(planes_of(frames_np)).view(-1, *frames_np.shape[1:3])
+        k1 = twf.skew_gather(nhwc, s)
+        for layout, x, other, name in (("NHWC", nhwc, k1, "K1"),
+                                       ("planes", planes, twf.skew_planar_gather(planes, s),
+                                        "K6")):
+            got = twf.skew_transpose(x, s)
+            hold(torch, "skew_transpose", got, twf.skew_transpose_plain(x, s), errs,
+                 f"{what}, {layout}")
+            hold(torch, "skew_transpose", got, other, errs,
+                 f"against {name}'s stream, {what}, {layout}")
+            hold(torch, "skew_transpose", got, k1, errs, f"against K1's stream, {what}, {layout}")
+
+    for geom in (fs, jjn):
+        for name, arr in small.items():
+            hold_k7(arr, geom.s, f"B={b} {h}x{w} s={geom.s} {name}")
+        for x in (on_card(small["u8"]), on_card(planes_of(small["u8"])).view(3 * b, h, w)):
+            hold(torch, "skew_transpose", twf.skew_transpose(x, geom.s, torch.float32),
+                 twf.skew_transpose_plain(x, geom.s).to(torch.float32), errs,
+                 f"u8 -> f32, B={b} {h}x{w} s={geom.s}")
+        five = on_card(rng.randint(0, 256, (5, h, w)).astype(np.uint8))  # any R
+        hold(torch, "skew_transpose", twf.skew_transpose(five, geom.s),
+             twf.skew_transpose_plain(five, geom.s), errs, f"R=5 {h}x{w} s={geom.s}")
+        # Widths W <= s: the frames are padded to W = s + 1 before the view.
+        for narrow in range(1, geom.s + 1):
+            for name, dtype in (("u8", np.uint8), ("f32", np.float32)):
+                arr = rng.randint(0, 256, (2, 6, narrow, 3)).astype(dtype)
+                hold_k7(arr, geom.s, f"B=2 6x{narrow} (W <= s) s={geom.s} {name}")
+    # float32 frames take K7 from the dispatching wrappers, uint8 ones K1 and K6.
+    build.reset_launch_counts()
+    twf.skew(on_card(small["f32"]), fs.s)
+    twf.skew_planar(on_card(planes_of(small["f32"])).view(3 * b, h, w), fs.s)
+    check(dict(build.LAUNCHES) == {"skew_transpose": 2},
+          f"float32 frames launched {dict(build.LAUNCHES)}, expected skew_transpose twice")
+    build.reset_launch_counts()
+    twf.skew(on_card(small["u8"]), fs.s)
+    twf.skew_planar(on_card(planes_of(small["u8"])).view(3 * b, h, w), fs.s)
+    check(dict(build.LAUNCHES) == {"skew": 1, "skew_planar": 1},
+          f"uint8 frames launched {dict(build.LAUNCHES)}, expected skew and skew_planar")
+    hold_k7(frame0[None].astype(np.float32), fs.s, f"one float32 {FULL_H}x{FULL_W} frame")
+    log(f"[10] kernel == plain, bitwise: K7 skew_transpose at B={b} {h}x{w}, s = 2 and 3, u8 "
+        f"and f32, NHWC and planes, == K1's and K6's streams everywhere; u8 -> f32 == the "
+        f"plain stream cast; R=5; widths W <= s (1..s) padded first; float32 frames "
+        f"dispatch to K7, uint8 to K1 and K6; one float32 {FULL_H}x{FULL_W} frame (B=1) "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # --- K7's times beside K1, K6 and the library call, one run -----------
+    batch_t = on_card(frames16)
+    planes_t = on_card(planes_of(frames16)).view(3 * BATCH, FULL_H, FULL_W)
+    d_fs = twf.stream_length(FULL_H, FULL_W, fs.s)
+    n_px = BATCH * FULL_H * FULL_W
+    k7_bound = bound(n_px * 3 + d_fs * 3 * BATCH * FULL_H, 0)
+    k1_ms, k1_stream = cuda_ms(torch, lambda: twf.skew_gather(batch_t, fs.s), 5)
+    k6_ms, k6_stream = cuda_ms(torch, lambda: twf.skew_planar_gather(planes_t, fs.s), 5)
+    hold(torch, "skew_planar", k6_stream, k1_stream, errs, f"{BATCH}x{FULL_H}x{FULL_W}")
+    del k6_stream
+    k7_ms, k7_stream = cuda_ms(torch, lambda: twf.skew_transpose(batch_t, fs.s), 5)
+    hold(torch, "skew_transpose", k7_stream, k1_stream, errs,
+         f"against K1's stream, the timed {BATCH}x{FULL_H}x{FULL_W} u8 batch, NHWC")
+    k7p_ms, k7p_stream = cuda_ms(torch, lambda: twf.skew_transpose(planes_t, fs.s), 5)
+    hold(torch, "skew_transpose", k7p_stream, k1_stream, errs,
+         f"against K1's stream, the timed {BATCH}x{FULL_H}x{FULL_W} u8 batch, planes")
+    del k7p_stream
+    k7_plain_ms, plain_stream = cuda_ms(
+        torch, lambda: twf.skew_transpose_plain(batch_t, fs.s), 3)
+    hold(torch, "skew_transpose", k7_stream, plain_stream, errs,
+         f"the timed {BATCH}x{FULL_H}x{FULL_W} u8 batch")
+    del plain_stream, k7_stream
+    # One PyTorch call computes K7 from the padded stride-lemma form of the
+    # planes: permute(2, 0, 1).contiguous(). Timed here, used nowhere in the
+    # port (the plain version, which CPU tensors take, is built on it).
+    padded = torch.nn.functional.pad(planes_t, (0, d_fs + fs.s - FULL_W))
+    lemma = padded.reshape(3 * BATCH, FULL_H * (d_fs + fs.s))[:, : FULL_H * d_fs].reshape(
+        3 * BATCH, FULL_H, d_fs)
+    lib_ms, lib_stream = cuda_ms(torch, lambda: lemma.permute(2, 0, 1).contiguous(), 5)
+    hold(torch, "skew_transpose", lib_stream, k1_stream, errs,
+         "permute(2, 0, 1).contiguous() of the padded stride-lemma form against K1's stream")
+    del lib_stream, lemma, padded, k1_stream
+    k7_bound["library_ms"] = lib_ms
+    log(f"[10] skew_transpose (K7), {BATCH}x{FULL_H}x{FULL_W} u8, all streams equal bitwise: "
+        f"NHWC {k7_ms:.3f} ms, planes {k7p_ms:.3f} ms; K1 skew {k1_ms:.3f} ms, K6 skew_planar "
+        f"{k6_ms:.3f} ms; plain PyTorch {k7_plain_ms:.3f} ms; the library call permute(2, 0, 1)"
+        f".contiguous() {lib_ms:.3f} ms; bound {k7_bound['bound_ms']:.4f} ms by "
+        f"{k7_bound['bound_by']} [{card}]")
+    # The float32 batch, the shape K7 is routed for.
+    batch_f32 = batch_t.to(torch.float32)
+    f32_bound = bound(n_px * 3 * 4 + d_fs * 3 * BATCH * FULL_H * 4, 0)
+    k1f_ms, k1f_stream = cuda_ms(torch, lambda: twf.skew_gather(batch_f32, fs.s), 3)
+    k7f_ms, k7f_stream = cuda_ms(torch, lambda: twf.skew_transpose(batch_f32, fs.s), 3)
+    hold(torch, "skew_transpose", k7f_stream, k1f_stream, errs,
+         f"against K1's stream, the timed {BATCH}x{FULL_H}x{FULL_W} float32 batch")
+    del k1f_stream, k7f_stream, batch_f32
+    log(f"[10] skew_transpose (K7), {BATCH}x{FULL_H}x{FULL_W} float32, equal to K1's stream "
+        f"bitwise: {k7f_ms:.3f} ms; K1 skew on the same batch {k1f_ms:.3f} ms; bound "
+        f"{f32_bound['bound_ms']:.4f} ms by {f32_bound['bound_by']} [{card}]")
+
+    # --- the score branch of K2 and K8 == plain, bitwise ------------------
+    t0 = time.perf_counter()
+    adaptive_gates = on_card((rng.rand(b, h, w) < 0.5).astype(np.float32))
+
+    def hold_score(frames_t, pal_t, geom, aux, what, outputs=("ed_scan", "ed_scan_idx")):
+        stream = twf.skew(frames_t, geom.s)
+        pairs = {"ed_scan": (twf.scan, twf.scan_plain),
+                 "ed_scan_idx": (twf.scan_idx, twf.scan_idx_plain)}
+        got = {}
+        for key in outputs:
+            kern, plain = pairs[key]
+            got[key] = kern(stream, pal_t, geom, frames_t.shape[2], aux, dense_search="mxu")
+            hold(torch, key, got[key],
+                 plain(stream, pal_t, geom, frames_t.shape[2], aux, dense_search="mxu"), errs,
+                 f"score search, {what}")
+        return got
+
+    score_palettes = {p: on_card(unique_palette(rng, p)) for p in (65, 100, 256, 1024)}
+    for mode in twf.MODES:
+        lum, col = (0.7, 0.45) if mode == "hybrid" else (1.0, 0.2)
+        geom = twf.scan_geometry("floyd_steinberg" if mode == "fixed" else "", mode, lum, col)
+        for name, arr in small.items():
+            frames_t = on_card(arr)
+            aux = None
+            if mode == "perceptual":
+                aux = twf.perceptual_sensitivity(frames_t)
+            elif mode == "adaptive":
+                aux = adaptive_gates
+            for p, pal_t in score_palettes.items():
+                hold_score(frames_t, pal_t, geom, aux, f"{mode} {name} P={p}")
+    hold_score(on_card(small["u8"]), score_palettes[256], jjn, None, "fixed jjn u8 P=256")
+    # Planted duplicates and flat frames: the first index wins.
+    p = 600
+    dups = ((3, 100), (3, 550), (7, 299))
+    pal_np = unique_palette(rng, p)
+    for src, dst in dups:
+        pal_np[dst] = pal_np[src]
+    ties = rng.randint(0, 256, (b, h, w, 3)).astype(np.uint8)
+    ties[0] = pal_np[3].astype(np.uint8)
+    ties[1] = pal_np[7].astype(np.uint8)
+    idx = hold_score(on_card(ties), on_card(pal_np), fs, None,
+                     f"planted ties P={p}")["ed_scan_idx"].cpu().numpy()
+    check(not np.isin(idx, [dst for _, dst in dups]).any(),
+          f"score search: a later duplicate's index was emitted (P={p})")
+    check(np.isin(idx[:, 0], [0, 3]).all() and np.isin(idx[:, 1], [0, 7]).all(),
+          f"score search: flat frames did not resolve to the first copy (P={p})")
+    # Outside 64 < P <= 1024 "mxu" runs the exact search: the same output.
+    small_u8 = on_card(small["u8"])
+    stream = twf.skew(small_u8, fs.s)
+    pal64, pal2048 = on_card(unique_palette(rng, 64)), on_card(unique_palette(rng, 2048))
+    for key, kern, pal_t in (("ed_scan", twf.scan, pal64), ("ed_scan_idx", twf.scan_idx, pal64),
+                             ("ed_scan_idx", twf.scan_idx, pal2048)):
+        hold(torch, key, kern(stream, pal_t, fs, w, dense_search="mxu"),
+             kern(stream, pal_t, fs, w), errs, f"mxu == exact at P={pal_t.shape[0]}")
+    for pal_t in (pal64, pal2048):
+        check(torch.equal(twf.ed_batch_wavefront(small_u8, pal_t, dense_search="mxu"),
+                          twf.ed_batch_wavefront(small_u8, pal_t)),
+              f"dense_search='mxu' changed the output at P={pal_t.shape[0]}")
+    log(f"[10] kernel == plain, bitwise: the score branch of K2 and K8 in 5 modes x (u8, f32) "
+        f"x P in (65, 100, 256, 1024) at B={b} {h}x{w}, jjn at P=256, planted duplicates and "
+        f"flat frames at P={p} (no later index emitted); 'mxu' at P=64 and P=2048 == the "
+        f"exact output ({time.perf_counter() - t0:.1f} s)")
+
+    # --- the score branch at full size, and its times ---------------------
+    pal256_np = np.asarray(palette256, np.float32)
+    palette1024 = dpt.ColorReducer.generate_kmeans_palette(Image.fromarray(frame0), 1024,
+                                                           device=dev)
+    pals_t = {256: on_card(pal256_np), 1024: on_card(np.asarray(palette1024, np.float32))}
+    t0 = time.perf_counter()
+    hold_score(batch_t[:1], pals_t[256], fs, None, f"FS k-means-256, B=1 {FULL_H}x{FULL_W}")
+    log(f"[10] kernel == plain, bitwise: the score branch of K2 and K8, FS at B=1 "
+        f"{FULL_H}x{FULL_W} k-means-256 ({time.perf_counter() - t0:.1f} s)")
+    stream16 = twf.skew(batch_t, fs.s)
+    score_ms = {}
+    plain_frames256 = None
+    for p, pal_t in pals_t.items():
+        exact_ms, _ = cuda_ms(torch, lambda: twf.scan(stream16, pal_t, fs, FULL_W), 3)
+        ms, got = cuda_ms(
+            torch, lambda: twf.scan(stream16, pal_t, fs, FULL_W, dense_search="mxu"), 3)
+        plain_ms, want = cuda_ms(
+            torch, lambda: twf.scan_plain(stream16, pal_t, fs, FULL_W, dense_search="mxu"), 1,
+            warmup=False)
+        err = hold(torch, "ed_scan", got, want, errs,
+                   f"score search, the timed {BATCH}x{FULL_H}x{FULL_W} FS k-means-{p} batch")
+        if p == 256:
+            # The plain score frames of the batch the facade gets below.
+            plain_frames256 = twf.unskew_unpack_plain(want, fs.s, FULL_H, FULL_W).cpu().numpy()
+        del got, want
+        score_ms[str(p)] = {
+            "ms": ms, "exact_ms": exact_ms, "plain_ms": plain_ms, "max_abs_err": err,
+            **scan_bound(BATCH, FULL_H, FULL_W, fs.s, p, len(fs.weights), score=True)}
+    del stream16
+    log(f"[10] ed_scan (K2) with the score branch, {BATCH}x{FULL_H}x{FULL_W} floyd_steinberg "
+        f"k-means, each equal to its plain version bitwise: " + ", ".join(
+            f"P={p} score {v['ms']:.3f} ms against exact {v['exact_ms']:.3f} ms (plain "
+            f"{v['plain_ms']:.0f} ms, bound {v['bound_ms']:.4f} ms by {v['bound_by']})"
+            for p, v in score_ms.items()) + f" [{card}]")
+    scan_row = next(row for row in rows if row["name"] == "ed_scan")
+    scan_row["score_ms"] = score_ms
+    scan_row["max_abs_err"] = errs["ed_scan"]
+
+    # --- the main paths, each with its own launch counts ------------------
+    ed = dpt.DitherMode.ERROR_DIFFUSION
+    ditherer = dpt.ImageDitherer(num_colors=256, dither_mode=ed, palette=palette256,
+                                 dither_params={"variant": "floyd_steinberg"}, device=dev)
+    totals = {}
+    rgb_path = ("skew", "ed_scan", "unskew_unpack")
+
+    def drive(name, call, expect, search, index="0", count=1):
+        """One facade call with the counts set to 0 before it and read after
+        it; ``expect``: the kernels it must launch, ``count`` times each."""
+        with dense_search_env(search), index_transfer(index):
+            build.reset_launch_counts()
+            out = call()
+            sync(torch, dev)
+            launches = dict(build.LAUNCHES)
+        check(launches == {key: count for key in expect},
+              f"{name} launched {launches}, expected {sorted(expect)} x {count}")
+        for key, n in launches.items():
+            totals[key] = totals.get(key, 0) + n
+        return np.asarray(out), launches
+
+    def gate_metrics(score, exact):
+        """(least identity, largest block mean, largest block max) of the
+        score output against the exact one over the frames, on the card."""
+        score_t, exact_t = on_card(score), on_card(exact)
+        idents = [fidelity.identity_fraction(a, c) for a, c in zip(exact_t, score_t)]
+        blocks = [fidelity.block_mean_error(a, c, block=4) for a, c in zip(exact_t, score_t)]
+        return min(idents), max(m for m, _ in blocks), max(x for _, x in blocks)
+
+    def wall(search, frames, planar=False, index="0"):
+        with dense_search_env(search), index_transfer(index):
+            return median_wall(lambda: ditherer.apply_dithering_batch(frames, planar=planar))
+
+    out_exact, launches = drive("exact", lambda: ditherer.apply_dithering_batch(frames16),
+                                rgb_path, None)
+    out_mxu, launches_mxu = drive("DENSE_SEARCH=mxu",
+                                  lambda: ditherer.apply_dithering_batch(frames16), rgb_path,
+                                  "mxu")
+    check(out_mxu.shape == frames16.shape and out_mxu.dtype == np.uint8
+          and palette_only(out_mxu, pal256_np), "DENSE_SEARCH=mxu output malformed")
+    check(np.array_equal(out_mxu, plain_frames256),
+          "DENSE_SEARCH=mxu output != the plain score scan of the same frames and palette, "
+          "unskewed and unpacked by the plain version")
+    del plain_frames256
+    ident, block_mean, block_max = gate_metrics(out_mxu, out_exact)
+    # The score search is another function than the exact one: a pick that
+    # flips on a near tie changes the pixels after it, so pixel identity is
+    # a measurement, and the gate's verdict follows from it. What every
+    # valid dithering of these frames must keep is the local mean colour:
+    # the gate's two block thresholds are required here.
+    check(block_mean <= twf._DENSE_GATE_MAX_BLOCK_MEAN
+          and block_max <= twf._DENSE_GATE_MAX_BLOCK_MAX,
+          f"the score output drifts in local mean colour: block mean {block_mean}, block max "
+          f"{block_max}")
+    passes = ident >= twf._DENSE_GATE_MIN_IDENTITY
+    golds = [golden_frame(lib, ed_kernels.kernel_arrays, f, pal256_np, "floyd_steinberg")
+             for f in frames16[:2]]
+    gold_exact = [identity(o, g) for o, g in zip(out_exact, golds)]
+    gold_mxu = [identity(o, g) for o, g in zip(out_mxu, golds)]
+    check(all(v == 1.0 for v in gold_exact), f"exact golden identity {gold_exact}")
+    log(f"[10] main path FS k-means-256, DITHER_PIE_TPU_DENSE_SEARCH=mxu: launches "
+        f"{launches_mxu}; {out_mxu.shape} uint8, palette-only, == the plain score scan of "
+        f"the same batch through the plain unskew, bitwise; against the exact output of "
+        f"this run (launches {launches}) over the {BATCH} frames: least identity {ident}, "
+        f"largest 4x4 block mean error {block_mean}, largest block max {block_max} (gate: >= "
+        f"{twf._DENSE_GATE_MIN_IDENTITY}, <= {twf._DENSE_GATE_MAX_BLOCK_MEAN}, <= "
+        f"{twf._DENSE_GATE_MAX_BLOCK_MAX}: the score search "
+        f"{'passes' if passes else 'misses the identity threshold'}); golden identity of "
+        f"frames 0-1: exact {gold_exact}, score {gold_mxu}")
+
+    # auto: the first call runs both searches and decides by those three
+    # numbers, the second runs the one it chose.
+    expected = "mxu" if passes else "exact"
+    out_chosen = out_mxu if passes else out_exact
+    twf._DENSE_GATE_CACHE.clear()
+    out_auto1, launches1 = drive("DENSE_SEARCH=auto, first call",
+                                 lambda: ditherer.apply_dithering_batch(frames16), rgb_path,
+                                 "auto", count=2)
+    verdict = list(twf._DENSE_GATE_CACHE.values())
+    check(verdict == [expected], f"the gate's verdict is {verdict}, the metrics say "
+                                 f"{expected!r}")
+    out_auto2, launches2 = drive("DENSE_SEARCH=auto, second call",
+                                 lambda: ditherer.apply_dithering_batch(frames16), rgb_path,
+                                 "auto")
+    check(np.array_equal(out_auto1, out_chosen) and np.array_equal(out_auto2, out_chosen),
+          f"DENSE_SEARCH=auto output != the {expected} output")
+    log(f"[10] main path FS k-means-256, DITHER_PIE_TPU_DENSE_SEARCH=auto: first call "
+        f"launches {launches1} (both searches), verdict {verdict[0]!r}, second call "
+        f"launches {launches2}; both outputs == the {expected} output")
+    # The gate's other verdict, on the card: small random frames and a
+    # random 256-colour palette, where near ties are rare. The 1080p
+    # verdict stays cached for the walls below.
+    cached = dict(twf._DENSE_GATE_CACHE)
+    twf._DENSE_GATE_CACHE.clear()
+    small_t, pal_small = on_card(small["u8"]), score_palettes[256]
+    small_exact = twf.ed_batch_wavefront(small_t, pal_small)
+    small_score = twf.ed_batch_wavefront(small_t, pal_small, dense_search="mxu")
+    small_ident = min(fidelity.identity_fraction(a, c) for a, c in zip(small_exact, small_score))
+    build.reset_launch_counts()
+    first = twf.ed_batch_wavefront(small_t, pal_small, dense_search="auto")
+    counts1 = dict(build.LAUNCHES)
+    small_verdict = list(twf._DENSE_GATE_CACHE.values())
+    build.reset_launch_counts()
+    second = twf.ed_batch_wavefront(small_t, pal_small, dense_search="auto")
+    counts2 = dict(build.LAUNCHES)
+    small_expected = "mxu" if small_ident >= twf._DENSE_GATE_MIN_IDENTITY else "exact"
+    small_chosen = small_score if small_expected == "mxu" else small_exact
+    check(small_verdict == [small_expected] and torch.equal(first, small_chosen)
+          and torch.equal(second, small_chosen)
+          and counts1 == {key: 2 for key in rgb_path} and counts2 == {key: 1 for key in rgb_path},
+          f"the gate at B={b} {h}x{w}: verdict {small_verdict}, identity {small_ident}, "
+          f"launches {counts1} then {counts2}")
+    log(f"[10] the gate on the card, B={b} {h}x{w} random frames, random 256 colours: least "
+        f"identity {small_ident}, verdict {small_verdict[0]!r}; first call launches {counts1}, "
+        f"second {counts2}")
+    twf._DENSE_GATE_CACHE.clear()
+    twf._DENSE_GATE_CACHE.update(cached)
+
+    # The index stream and planar batches with the score search.
+    out_idx, launches_idx = drive("DENSE_SEARCH=mxu, index stream",
+                                  lambda: ditherer.apply_dithering_batch(frames16),
+                                  ("skew", "ed_scan_idx", "unskew_idx"), "mxu", index="1")
+    check(np.array_equal(out_idx, out_mxu), "score index stream != the RGB score output")
+    planes16 = planes_of(frames16)
+    out_planar, launches_planar = drive(
+        "DENSE_SEARCH=mxu, planar",
+        lambda: ditherer.apply_dithering_batch(planes16, planar=True),
+        ("skew_planar", "ed_scan", "unskew_unpack"), "mxu")
+    check(np.array_equal(np.moveaxis(out_planar, 0, -1), out_mxu),
+          "score planar output != the RGB NHWC score output transposed")
+    log(f"[10] main path FS k-means-256, DENSE_SEARCH=mxu: index stream (launches "
+        f"{launches_idx}) and planar (launches {launches_planar}) == the RGB NHWC score "
+        f"output, bitwise")
+
+    # One PIL image: one float32 frame, through K7.
+    pil = Image.fromarray(frame0)
+    k7_path = ("skew_transpose", "ed_scan", "unskew_unpack")
+    pil_exact, launches_pil = drive("apply_dithering, exact",
+                                    lambda: ditherer.apply_dithering(pil), k7_path, None)
+    gold0 = golden_frame(lib, ed_kernels.kernel_arrays, frame0, pal256_np, "floyd_steinberg")
+    ident_pil = identity(pil_exact, gold0)
+    check(ident_pil == 1.0, f"apply_dithering (float32 frame through K7) golden identity "
+                            f"{ident_pil}")
+    pil_mxu, _ = drive("apply_dithering, DENSE_SEARCH=mxu",
+                       lambda: ditherer.apply_dithering(pil), k7_path, "mxu")
+    pil_auto, _ = drive("apply_dithering, DENSE_SEARCH=auto",
+                        lambda: ditherer.apply_dithering(pil), k7_path, "auto")
+    check(np.array_equal(pil_auto, pil_exact), "a single image entered the gate")
+    log(f"[10] apply_dithering(PIL {FULL_W}x{FULL_H}) FS k-means-256: launches "
+        f"{launches_pil} (skew_transpose, not skew), golden identity {ident_pil} in exact "
+        f"mode; DENSE_SEARCH=mxu identity with the exact output "
+        f"{identity(pil_mxu, pil_exact)}; DENSE_SEARCH=auto == exact (a single image never "
+        f"enters the gate)")
+    for row in rows:
+        row["launches"] += totals.get(row["name"], 0)
+
+    # Walls, all in this run.
+    parts = []
+    for label, search, frames, planar, index in (
+            ("exact", None, frames16, False, "0"), ("mxu", "mxu", frames16, False, "0"),
+            (f"auto (locked to {expected})", "auto", frames16, False, "0"),
+            ("mxu, index stream", "mxu", frames16, False, "1"),
+            ("mxu, planar", "mxu", planes16, True, "0")):
+        med, walls = wall(search, frames, planar, index)
+        parts.append(f"{label} median {med * 1e3:.3f} ms -> {BATCH / med:.2f} fps (5 runs: "
+                     f"{', '.join(f'{t * 1e3:.3f}' for t in walls)})")
+    log(f"[10] apply_dithering_batch wall, FS k-means-256, {BATCH}x{FULL_H}x{FULL_W} (numpy "
+        f"u8 in/out) by DITHER_PIE_TPU_DENSE_SEARCH: {'; '.join(parts)} [{card}]")
+    path_ms = {}
+    for search in twf.DENSE_SEARCHES:
+        path_ms[search], _ = cuda_ms(
+            torch, lambda: twf.ed_batch_wavefront(batch_t, pals_t[256], dense_search=search), 3)
+    log(f"[10] device path K1+K2+K3, FS k-means-256 (tensors on the card): exact "
+        f"{path_ms['exact']:.3f} ms, mxu {path_ms['mxu']:.3f} ms per batch{BATCH} [{card}]")
+
+    # --- T2: the search probe ---------------------------------------------
+    t0 = time.perf_counter()
+    iters = 64
+    for pp in (256, 1024):
+        cur_np, pal_np = probe.probe_inputs(pp)
+        cur, pal_t = on_card(cur_np), on_card(pal_np)
+        aug = convert.augment_palette(pal_t)
+        for n_iter in (1, iters):
+            hold(torch, "search_probe", probe.search_exact(cur, pal_t, n_iter),
+                 probe.search_exact_plain(cur, pal_t), errs, f"exact sweep, pp={pp}, {n_iter}x")
+            hold(torch, "search_probe", probe.search_score(cur, aug, n_iter),
+                 probe.search_score_plain(cur, aug), errs, f"score form, pp={pp}, {n_iter}x")
+    log(f"[10] kernel == plain, bitwise: both search-probe kernels at pp = 256 and 1024, "
+        f"nb={probe.NB} lf={probe.LF}, 1 and {iters} repetitions "
+        f"({time.perf_counter() - t0:.1f} s)")
+    build.reset_launch_counts()
+    probed = {str(pp): probe.probe(pp, iters, dev) for pp in (256, 1024)}
+    probe_launches = build.LAUNCHES["search_probe"]
+    check(set(build.LAUNCHES) == {"search_probe"} and probe_launches >= 4,
+          f"the probe launched {dict(build.LAUNCHES)}")
+    for pp, r in probed.items():
+        log(f"[10] search probe pp={pp} lf={probe.LF} iters={iters}: exact "
+            f"{r['exact_us_per_row_step']:.3f} us/row-step, score "
+            f"{r['score_us_per_row_step']:.3f} us/row-step, speedup "
+            f"{r['exact_ms'] / r['score_ms']:.2f}x; flip fraction of score against exact "
+            f"{r['flip_fraction']:.6f} [{card}]")
+    # The row's times: one launch of the score form at 256 colours, one
+    # repetition, beside its plain version on the same inputs.
+    cur_np, pal_np = probe.probe_inputs(256)
+    cur, aug = on_card(cur_np), convert.augment_palette(on_card(pal_np))
+    one_ms, got = cuda_ms(torch, lambda: probe.search_score(cur, aug, 1), 5)
+    one_plain_ms, want = cuda_ms(torch, lambda: probe.search_score_plain(cur, aug), 3)
+    hold(torch, "search_probe", got, want, errs, "the timed score form, pp=256")
+    n_lanes = probe.NB * probe.LF
+    probe_bound = bound(cur.numel() * 4 + aug.numel() * 4 + n_lanes * 4, n_lanes * 256 * 6)
+
+    new_rows = [{"name": "skew_transpose", "route": "cuda", "source": DENSE_KERNELS[0][1],
+                 "replaces": DENSE_KERNELS[0][2], "launches": totals["skew_transpose"],
+                 "max_abs_err": errs["skew_transpose"], "ms": k7_ms, "plain_ms": k7_plain_ms,
+                 "planes_ms": k7p_ms, "k1_ms": k1_ms, "k6_ms": k6_ms, "f32_ms": k7f_ms,
+                 "k1_f32_ms": k1f_ms, "f32_bound_ms": f32_bound["bound_ms"], **k7_bound},
+                {"name": "search_probe", "route": "cuda", "source": DENSE_KERNELS[1][1],
+                 "replaces": DENSE_KERNELS[1][2], "launches": probe_launches,
+                 "max_abs_err": errs["search_probe"], "ms": one_ms, "plain_ms": one_plain_ms,
+                 "probe": probed, **probe_bound}]
+    return new_rows
+
+
 def main() -> int:
     import torch
 
@@ -1442,7 +1950,7 @@ def sync(torch, dev):
 
 
 def run(torch, dev, card) -> int:
-    """Phases 1-9 on ``dev``; prints the result lines and returns 0, or
+    """Phases 1-10 on ``dev``; prints the result lines and returns 0, or
     raises on the first failure."""
     from PIL import Image
 
@@ -1456,6 +1964,7 @@ def run(torch, dev, card) -> int:
     variants = ed_kernels.KERNEL_NAMES
     # Phases 1-8 hold the RGB path, whatever the link probe would say.
     os.environ["DITHER_PIE_TPU_INDEX_TRANSFER"] = "0"
+    os.environ.pop("DITHER_PIE_TPU_DENSE_SEARCH", None)  # the exact search
 
     # 1. The card.
     log(f"[1] card: {card}; torch {torch.__version__}, CUDA "
@@ -1665,6 +2174,12 @@ def run(torch, dev, card) -> int:
     ditherer256.apply_dithering_batch(frames16)
     report_trace(torch, "6-256", "apply_dithering_batch FS k-means-256",
                  lambda: ditherer256.apply_dithering_batch(frames16), frames16.nbytes, card)
+    # And phase 10's call, the same batch with the score search.
+    with env_var("DITHER_PIE_TPU_DENSE_SEARCH", "mxu"):
+        ditherer256.apply_dithering_batch(frames16)
+        report_trace(torch, "6-256-mxu",
+                     "apply_dithering_batch FS k-means-256, DITHER_PIE_TPU_DENSE_SEARCH=mxu",
+                     lambda: ditherer256.apply_dithering_batch(frames16), frames16.nbytes, card)
     # Phase 9's index-stream calls are traced here for the same reason:
     # k-means-32 (one byte a pixel) and k-means-16 (4-bit packed).
     palette16 = dpt.ColorReducer.generate_kmeans_palette(
@@ -1691,6 +2206,10 @@ def run(torch, dev, card) -> int:
     # 9. The index stream and planar batches.
     rows.extend(transfer_phase(torch, dev, card, lib, frames16, frame0, palette, palette16,
                                palette256, out16, out_bayer, rows, errs))
+
+    # 10. The dense-search path, the transposing skew and the search probe.
+    rows.extend(dense_search_phase(torch, dev, card, lib, frames16, frame0, palette256, rows,
+                                   errs))
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -21,6 +21,13 @@ the batch leaves the device as palette indices (K4's index output, or K5's
 stream; bit-packed up to 16 colours, ``ops/idxpack.py``) and one exact
 palette gather on the host rebuilds the colours. Nothing falls back: a
 failing index path raises.
+
+``DITHER_PIE_TPU_DENSE_SEARCH`` picks the error-diffusion scan's palette
+search for palettes of 65 to 1024 colours: ``exact`` (the default, the bit
+contract with the golden engine), ``mxu`` (the score search: near ties may
+flip) or ``auto`` (batches run both on the first call and keep the score
+search only if its output matches the exact one perceptually; single images
+stay exact). It is read here; the entry points in ``ops/`` take an argument.
 """
 
 from __future__ import annotations
@@ -365,6 +372,18 @@ class PolkaDotDitherStrategy(MatrixDitherStrategy):
         return {"tile_size": self.tile_size, "gamma": self.gamma}
 
 
+_DENSE_SEARCH_VALUES = ("exact", "mxu", "auto")
+
+
+def _dense_search_mode() -> str:
+    """DITHER_PIE_TPU_DENSE_SEARCH: "exact" (default), "mxu" or "auto"."""
+    value = os.environ.get("DITHER_PIE_TPU_DENSE_SEARCH", "exact")
+    if value not in _DENSE_SEARCH_VALUES:
+        raise ValueError(f"DITHER_PIE_TPU_DENSE_SEARCH must be one of "
+                         f"{_DENSE_SEARCH_VALUES}, got {value!r}")
+    return value
+
+
 def _serpentine_choice() -> Dict[str, Any]:
     return {
         "type": "choice",
@@ -397,37 +416,50 @@ class _WavefrontDitherStrategy(BaseDitherStrategy):
         the layout, for a (B, H, W, 3) or planar (3, B, H, W) numpy batch."""
         return {}
 
-    def _on_device(self, images, pal: torch.Tensor, planar: bool = False,
-                   return_indices: bool = False) -> torch.Tensor:
+    def _on_device(self, images, palette_arr, planar: bool = False,
+                   return_indices: bool = False, gate: bool = True):
+        """One batch through ``ed_batch_wavefront`` with the environment's
+        dense search; without ``gate``, "auto" means "exact". Returns the
+        output and the palette tensor it ran with. The gate is keyed by the
+        host palette's bytes, so a decided batch reads nothing back."""
         images = np.asarray(images)
-        return _wf.ed_batch_wavefront(
+        pal = _palette_tensor(palette_arr, self.device)
+        dense_search = _dense_search_mode()
+        if dense_search == "auto" and not gate:
+            dense_search = "exact"
+        palette_key = None
+        if dense_search == "auto":
+            palette_key = np.asarray(palette_arr, dtype=np.float32).tobytes()
+        out = _wf.ed_batch_wavefront(
             _frames_tensor(images, self.device), pal, self.mode, planar=planar,
-            return_indices=return_indices, **self._mode_args(images, planar))
+            return_indices=return_indices, dense_search=dense_search,
+            palette_key=palette_key, **self._mode_args(images, planar))
+        return out, pal
 
     def dither(self, pixels, palette_arr, image_size):
+        # One float32 frame; as in the JAX package a single image never
+        # enters the first-batch gate.
         h, w = image_size
         img = np.asarray(pixels, dtype=np.float32).reshape(1, h, w, 3)
-        return self.dither_batch(img, palette_arr)[0].astype(np.float32).reshape(-1, 3)
+        out = self._on_device(img, palette_arr, gate=False)[0].cpu().numpy()
+        return out[0].astype(np.float32).reshape(-1, 3)
 
     def dither_batch(self, images, palette_arr):
-        pal = _palette_tensor(palette_arr, self.device)
-        return self._on_device(images, pal).cpu().numpy()
+        return self._on_device(images, palette_arr)[0].cpu().numpy()
 
     def dither_batch_planar(self, planes, palette_arr):
         """(3, B, H, W) channel-major planes in, planes out: the layout of
         the video pipeline's zero-copy flow."""
-        pal = _palette_tensor(palette_arr, self.device)
-        return self._on_device(planes, pal, planar=True).cpu().numpy()
+        return self._on_device(planes, palette_arr, planar=True)[0].cpu().numpy()
 
     def dither_batch_indices(self, images, palette_arr, planar=False):
         """Host (B, H, W) palette indices, uint8 up to 256 colours and
         uint16 up to 1024: a third (two thirds) of the RGB path's
         device-to-host bytes, less when bit-packed (up to 16 colours).
         ``None`` above ``PACKED_PALETTE_MAX`` colours."""
-        pal = _palette_tensor(palette_arr, self.device)
-        if pal.shape[0] > _wf.PACKED_PALETTE_MAX:
+        if len(palette_arr) > _wf.PACKED_PALETTE_MAX:
             return None
-        idx = self._on_device(images, pal, planar, return_indices=True)
+        idx, pal = self._on_device(images, palette_arr, planar, return_indices=True)
         return _idxpack.packed_transfer(idx, pal.shape[0], idx.shape[2])
 
 

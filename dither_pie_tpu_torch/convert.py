@@ -10,6 +10,7 @@ Floyd-Steinberg entries of hybrid, perceptual and adaptive) and
 ``ops.wavefront.ostro_lut`` the Ostromoukhov table from
 ``weight_table_to_torch``; the tests use ``palette_to_torch`` to feed both
 packages one palette (their k-means streams differ, see core/palette.py).
+``augment_palette`` derives the score search's palette from it.
 """
 
 from __future__ import annotations
@@ -53,3 +54,18 @@ def weight_table_to_torch(table, device: DeviceLike) -> torch.Tensor:
         raise ValueError(f"weight table must be (256, 3) float32, got "
                          f"{arr.shape} {arr.dtype}")
     return torch.as_tensor(arr, device=resolve_device(device))
+
+
+def augment_palette(palette: torch.Tensor) -> torch.Tensor:
+    """(P, 3) float32 palette -> (P, 4) float32 rows ``[r, g, b, n]`` with
+    ``n = -0.5 * ((r*r + g*g) + b*b)``, on the palette's device: the
+    palette of the score search (``dense_search="mxu"``), whose pick is the
+    maximum of ``c . x + n`` instead of the minimum of ``|x - c|^2``. Each
+    product and sum is one eager float32 op, so ``n`` equals the JAX
+    package's ``_pad_palette_aug(pal, pp)[:P, 3]`` bit for bit; its sentinel
+    rows and four zero columns are TPU tiling and are not carried over."""
+    if palette.dtype != torch.float32 or palette.dim() != 2 or palette.shape[1] != 3:
+        raise ValueError("palette must be a (P, 3) float32 tensor")
+    sq = palette * palette
+    norm = (sq[:, 0] + sq[:, 1]) + sq[:, 2]
+    return torch.cat([palette, (norm * -0.5)[:, None]], dim=1).contiguous()

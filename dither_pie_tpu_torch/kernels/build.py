@@ -29,8 +29,9 @@ import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-SOURCES = ("bindings.cpp", "skew.cu", "skew_planar.cu", "ed_scan.cu",
-           "unskew_unpack.cu", "unskew_idx.cu", "unskew_select.cu", "ordered.cu")
+SOURCES = ("bindings.cpp", "skew.cu", "skew_planar.cu", "skew_transpose.cu",
+           "ed_scan.cu", "unskew_unpack.cu", "unskew_idx.cu", "unskew_select.cu",
+           "ordered.cu", "search_probe.cu")
 EXT_NAME = "dither_pie_tpu_torch_kernels"
 NVCC_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "--fmad=false"]
 CXX_FLAGS = ["-O3"]
@@ -56,9 +57,10 @@ def on_cuda(t: torch.Tensor) -> bool:
 
 
 def extension() -> ModuleType:
-    """The compiled kernel module (``skew``, ``skew_planar``, ``ed_scan``,
-    ``unskew_unpack``, ``unskew_idx``, ``unskew_select``, ``ordered_fused``),
-    built on the first call."""
+    """The compiled kernel module (``skew``, ``skew_planar``,
+    ``skew_transpose``, ``ed_scan``, ``unskew_unpack``, ``unskew_idx``,
+    ``unskew_select``, ``ordered_fused``, ``search_probe``), built on the
+    first call."""
     global _ext
     with _lock:
         if _ext is None:

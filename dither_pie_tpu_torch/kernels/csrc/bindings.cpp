@@ -3,7 +3,8 @@
 // contiguity, launches on PyTorch's current stream of the tensor's device,
 // and raises if the launch is refused. Outputs and scratch are allocated
 // by the Python wrappers in dither_pie_tpu_torch/ops/wavefront.py (K1-K3,
-// K5, K6, K8, K9) and dither_pie_tpu_torch/ops/ordered_fused.py (K4).
+// K5-K9), dither_pie_tpu_torch/ops/ordered_fused.py (K4) and
+// dither_pie_tpu_torch/tools/proto_mxu_search.py (the search probe).
 
 #include <torch/extension.h>
 
@@ -68,9 +69,9 @@ void skew(torch::Tensor images, torch::Tensor out, int64_t s) {
     check_launch(rc, "skew");
 }
 
-void ed_scan(torch::Tensor img, torch::Tensor palette, torch::Tensor aux,
-             torch::Tensor lut, torch::Tensor hist, torch::Tensor out,
-             torch::Tensor offsets, torch::Tensor weights,
+void ed_scan(torch::Tensor img, torch::Tensor palette,
+             torch::Tensor palette_aug, torch::Tensor aux, torch::Tensor lut,
+             torch::Tensor hist, torch::Tensor out, torch::Tensor offsets, torch::Tensor weights,
              torch::Tensor columns, int64_t mode, int64_t s, int64_t width,
              double lum_factor, double col_factor, bool emit_idx) {
     check_tensor(img, "img", img);
@@ -100,6 +101,18 @@ void ed_scan(torch::Tensor img, torch::Tensor palette, torch::Tensor aux,
     TORCH_CHECK(P <= DPT_IDX_MAX_PALETTE, "palette size ", P, " above ",
                 DPT_IDX_MAX_PALETTE, ": the index scan keeps its palette in "
                 "shared memory");
+    // An empty palette_aug asks for the exact search, a (P, 4) one for the
+    // score search.
+    const bool score = palette_aug.numel() != 0;
+    if (score) {
+        check_tensor(palette_aug, "palette_aug", img);
+        TORCH_CHECK(palette_aug.scalar_type() == torch::kFloat32 &&
+                        palette_aug.dim() == 2 && palette_aug.size(0) == P &&
+                        palette_aug.size(1) == 4,
+                    "palette_aug must be (P, 4) float32");
+        TORCH_CHECK(P <= DPT_MAX_PALETTE, "palette size ", P, " above ",
+                    DPT_MAX_PALETTE, ": the score search does not serve it");
+    }
     const int C = (ostromoukhov || mode == 3) ? 4 : 3;
     TORCH_CHECK(hist.scalar_type() == torch::kFloat32 && hist.dim() == 4 &&
                     hist.size(0) == B && hist.size(2) == C &&
@@ -169,6 +182,7 @@ void ed_scan(torch::Tensor img, torch::Tensor palette, torch::Tensor aux,
     a.img = img.data_ptr();
     a.img_is_f32 = img.scalar_type() == torch::kFloat32;
     a.pal = palette.data_ptr<float>();
+    a.pal_aug = score ? palette_aug.data_ptr<float>() : nullptr;
     a.P = P;
     a.mode = (int)mode;
     a.aux = has_aux ? aux.data_ptr<float>() : nullptr;
@@ -270,6 +284,98 @@ void skew_planar(torch::Tensor planes, torch::Tensor out, int64_t s) {
     check_launch(rc, "skew_planar");
 }
 
+void skew_transpose(torch::Tensor in, torch::Tensor out, int64_t s,
+                    int64_t width) {
+    // `in` is a strided view, (R, H, D) or (C, B, H, D) with rows c*B + b,
+    // of any non-negative strides: it is read in place.
+    TORCH_CHECK(in.is_cuda(), "in must be a CUDA tensor");
+    check_tensor(out, "out", in);
+    TORCH_CHECK(in.dim() == 3 || in.dim() == 4,
+                "in must be (R, H, D) or (C, B, H, D)");
+    const bool split = in.dim() == 4;
+    const int rows_inner = as_int(split ? in.size(1) : 1, "B");
+    const int R = as_int(split ? in.size(0) * in.size(1) : in.size(0), "R");
+    const int H = as_int(in.size(split ? 2 : 1), "H");
+    const int D = as_int(in.size(split ? 3 : 2), "D");
+    const int W = as_int(width, "W");
+    TORCH_CHECK(s >= 1 && W >= 1 && D == W + s * (H - 1),
+                "the view's last axis must be W + s*(H-1) long");
+    TORCH_CHECK(out.dim() == 3 && out.size(0) == D && out.size(1) == R &&
+                    out.size(2) == H,
+                "out must be (D, R, H)");
+    const int64_t stride_outer = in.stride(0);
+    const int64_t stride_inner = split ? in.stride(1) : 0;
+    const int64_t stride_y = in.stride(split ? 2 : 1);
+    const int64_t stride_d = in.stride(split ? 3 : 2);
+    // The view may overlap itself, never leave its storage.
+    int64_t last = in.storage_offset();
+    for (int64_t i = 0; i < in.dim(); ++i) {
+        TORCH_CHECK(in.stride(i) >= 0, "in has a negative stride on axis ", i);
+        last += (in.size(i) - 1) * in.stride(i);
+    }
+    TORCH_CHECK(in.numel() > 0 &&
+                    (last + 1) * (int64_t)in.element_size() <=
+                        (int64_t)in.storage().nbytes(),
+                "the view reads past the end of its storage");
+    const c10::cuda::CUDAGuard guard(in.device());
+    void* stream = current_stream(in);
+    int rc;
+    if (in.scalar_type() == torch::kUInt8 &&
+        out.scalar_type() == torch::kUInt8) {
+        rc = dpt_skew_transpose_u8(in.data_ptr<uint8_t>(),
+                                   out.data_ptr<uint8_t>(), R, rows_inner,
+                                   stride_outer, stride_inner, stride_y,
+                                   stride_d, H, W, D, (int)s, stream);
+    } else if (in.scalar_type() == torch::kFloat32 &&
+               out.scalar_type() == torch::kFloat32) {
+        rc = dpt_skew_transpose_f32(in.data_ptr<float>(),
+                                    out.data_ptr<float>(), R, rows_inner,
+                                    stride_outer, stride_inner, stride_y,
+                                    stride_d, H, W, D, (int)s, stream);
+    } else {
+        TORCH_CHECK(in.scalar_type() == torch::kUInt8 &&
+                        out.scalar_type() == torch::kFloat32,
+                    "skew_transpose serves uint8 -> uint8, float32 -> "
+                    "float32 and uint8 -> float32");
+        rc = dpt_skew_transpose_u8_f32(in.data_ptr<uint8_t>(),
+                                       out.data_ptr<float>(), R, rows_inner,
+                                       stride_outer, stride_inner, stride_y,
+                                       stride_d, H, W, D, (int)s, stream);
+    }
+    check_launch(rc, "skew_transpose");
+}
+
+void search_probe(torch::Tensor cur, torch::Tensor palette, torch::Tensor out,
+                  int64_t iters, bool score) {
+    check_tensor(cur, "cur", cur);
+    check_tensor(palette, "palette", cur);
+    check_tensor(out, "out", cur);
+    TORCH_CHECK(cur.scalar_type() == torch::kFloat32 && cur.dim() == 2 &&
+                    cur.size(0) % 3 == 0,
+                "cur must be the (3*nb, lf) float32 working tile");
+    const int nb = as_int(cur.size(0) / 3, "nb");
+    const int lf = as_int(cur.size(1), "lf");
+    const int width = score ? 4 : 3;
+    TORCH_CHECK(palette.scalar_type() == torch::kFloat32 &&
+                    palette.dim() == 2 && palette.size(1) == width &&
+                    palette.size(0) >= 1 &&
+                    palette.size(0) <= DPT_PROBE_MAX_PALETTE,
+                "palette must be (pp, ", width, ") float32, pp in 1..",
+                DPT_PROBE_MAX_PALETTE);
+    TORCH_CHECK(out.scalar_type() == torch::kInt32 && out.dim() == 2 &&
+                    out.size(0) == nb && out.size(1) == lf,
+                "out must be (nb, lf) int32");
+    TORCH_CHECK(iters >= 1, "iters must be >= 1");
+    const c10::cuda::CUDAGuard guard(cur.device());
+    check_launch(dpt_search_probe(cur.data_ptr<float>(),
+                                  palette.data_ptr<float>(),
+                                  as_int(palette.size(0), "pp"), nb, lf,
+                                  as_int(iters, "iters"), score ? 1 : 0,
+                                  out.data_ptr<int32_t>(),
+                                  current_stream(cur)),
+                 "search_probe");
+}
+
 void unskew_select(torch::Tensor idx, torch::Tensor palette,
                    torch::Tensor out, int64_t s) {
     check_tensor(idx, "idx", idx);
@@ -349,6 +455,12 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
           "K5: (D,B,H) palette indices -> (B,H,W) uint8 or uint16");
     m.def("skew_planar", &skew_planar,
           "K6: compact planes (R,H,W) -> (D,R,H) skewed stream");
+    m.def("skew_transpose", &skew_transpose,
+          "K7: strided view (R,H,D) or (C,B,H,D) -> (D,R,H) stream, tile "
+          "transpose fused with the mask and the cast");
+    m.def("search_probe", &search_probe,
+          "T2: exact or scored palette search over a (3*nb, lf) tile, "
+          "repeated iters times -> (nb, lf) int32");
     m.def("unskew_select", &unskew_select,
           "K9: (D,B,H) palette indices + palette -> (B,H,W,3) uint8");
     m.def("ordered_fused", &ordered_fused,

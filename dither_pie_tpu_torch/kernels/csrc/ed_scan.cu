@@ -11,6 +11,9 @@
 //   cur  = img + c_1 + c_2 + ...                  left fold, consume order
 //   cur  = clamp(cur, 0, 255)                     fixed, ostromoukhov, hybrid
 //   idx  = first argmin_p (dr*dr + dg*dg) + db*db  strict <, first wins
+//          or, with the score branch (dense_search="mxu"),
+//          first argmax_p ((r_p*cur_r + g_p*cur_g) + b_p*cur_b) + n_p,
+//          n_p = -0.5*((r_p*r_p + g_p*g_p) + b_p*b_p), strict >, first wins
 //   err  = cur - palette[idx]
 //   out  = (r << 16 | g << 8 | b) of palette[idx], truncated to int (K2)
 //          idx                                                      (K8)
@@ -55,6 +58,20 @@
 //    for a whole tile at once). The palette sits in dynamic shared memory:
 //    12 KB at 1024 colours; K8 opts in to more than 48 KB, up to the
 //    192 KB of DPT_IDX_MAX_PALETTE colours.
+//  * The score branch (template flag SCORE) replaces the TPU kernel's
+//    `mxu_dense` branch, a (pp, 8) @ (8, lf) matrix product per step whose
+//    column maximum is the pick: argmin |x - c|^2 = argmax c.x - |c|^2/2.
+//    Here the augmented palette [r, g, b, n] sits in shared memory as one
+//    float4 a colour (16 KB at 1024 colours) and each thread keeps the
+//    running maximum of its own pixel's scores on the CUDA cores: three
+//    multiplies and three adds a colour in the order written above, each
+//    rounded on its own, so the pick equals the plain version's bit for
+//    bit. It is a different function from the exact sweep (two colours
+//    whose distances differ can tie or swap once rounded as scores), so it
+//    runs only where the caller asks for it, for 64 < P <= DPT_MAX_PALETTE,
+//    in every mode and for both outputs. A tensor-core form (mma.sync
+//    m16n8k8 TF32 with a hi/lo split of n_p and the working value) is the
+//    later step; this one fixes the function it must reproduce.
 //  * Ostromoukhov's (256, 3) weight table sits in shared memory and a
 //    thread indexes it (the TPU's halving-tree walk was its missing gather).
 //  * The aux map of perceptual and adaptive is read in place,
@@ -96,7 +113,7 @@ __device__ __forceinline__ float luma(float r, float g, float b) {
                      __fmul_rn(0.114f, b));
 }
 
-template <typename T, int MODE, bool EMIT_IDX>
+template <typename T, int MODE, bool EMIT_IDX, bool SCORE>
 __global__ void __launch_bounds__(1024)
 ed_scan_kernel(const T* __restrict__ img, const float* __restrict__ pal, int P,
                DptScanEntries e, const float* __restrict__ aux,
@@ -108,16 +125,20 @@ ed_scan_kernel(const T* __restrict__ img, const float* __restrict__ pal, int P,
     constexpr bool CLAMP = MODE == FIXED || MODE == OSTROMOUKHOV || MODE == HYBRID;
     constexpr bool HAS_AUX = MODE == PERCEPTUAL || MODE == ADAPTIVE;
 
-    // Dynamic shared memory: the weight table (ostromoukhov), then the
-    // palette.
-    extern __shared__ float smem[];
+    // Floats a colour of the palette: (r, g, b), or with the score branch
+    // the augmented (r, g, b, n).
+    constexpr int PC = SCORE ? 4 : 3;
+
+    // Dynamic shared memory: the weight table (ostromoukhov, 3072 bytes, a
+    // multiple of 16), then the palette.
+    extern __shared__ __align__(16) float smem[];
     float* slut = smem;
     float* spal = smem + (MODE == OSTROMOUKHOV ? LUT_FLOATS : 0);
     const int b = blockIdx.x;
     if (MODE == OSTROMOUKHOV) {
         for (int i = threadIdx.x; i < LUT_FLOATS; i += blockDim.x) slut[i] = lut[i];
     }
-    for (int i = threadIdx.x; i < 3 * P; i += blockDim.x) spal[i] = pal[i];
+    for (int i = threadIdx.x; i < PC * P; i += blockDim.x) spal[i] = pal[i];
     __syncthreads();
 
     float* hb = hist + (int64_t)b * ring * C * H;
@@ -163,24 +184,41 @@ ed_scan_kernel(const T* __restrict__ img, const float* __restrict__ pal, int P,
                     cur2 = clamp255(cur2);
                 }
 
-                // Running-min palette search, first strict minimum wins.
                 int best_i = 0;
                 float best = 0.f;
-                for (int p = 0; p < P; ++p) {
-                    const float dr = __fsub_rn(cur0, spal[3 * p]);
-                    const float dg = __fsub_rn(cur1, spal[3 * p + 1]);
-                    const float db = __fsub_rn(cur2, spal[3 * p + 2]);
-                    const float dist = __fadd_rn(
-                        __fadd_rn(__fmul_rn(dr, dr), __fmul_rn(dg, dg)),
-                        __fmul_rn(db, db));
-                    if (p == 0 || dist < best) {
-                        best = dist;
-                        best_i = p;
+                if (SCORE) {
+                    // Running-max score search, first strict maximum wins.
+                    const float4* spal4 = reinterpret_cast<const float4*>(spal);
+                    for (int p = 0; p < P; ++p) {
+                        const float4 c = spal4[p];
+                        const float score = __fadd_rn(
+                            __fadd_rn(__fadd_rn(__fmul_rn(c.x, cur0),
+                                                __fmul_rn(c.y, cur1)),
+                                      __fmul_rn(c.z, cur2)),
+                            c.w);
+                        if (p == 0 || score > best) {
+                            best = score;
+                            best_i = p;
+                        }
+                    }
+                } else {
+                    // Running-min palette search, first strict minimum wins.
+                    for (int p = 0; p < P; ++p) {
+                        const float dr = __fsub_rn(cur0, spal[3 * p]);
+                        const float dg = __fsub_rn(cur1, spal[3 * p + 1]);
+                        const float db = __fsub_rn(cur2, spal[3 * p + 2]);
+                        const float dist = __fadd_rn(
+                            __fadd_rn(__fmul_rn(dr, dr), __fmul_rn(dg, dg)),
+                            __fmul_rn(db, db));
+                        if (p == 0 || dist < best) {
+                            best = dist;
+                            best_i = p;
+                        }
                     }
                 }
-                const float cr = spal[3 * best_i];
-                const float cg = spal[3 * best_i + 1];
-                const float cb = spal[3 * best_i + 2];
+                const float cr = spal[PC * best_i];
+                const float cg = spal[PC * best_i + 1];
+                const float cb = spal[PC * best_i + 2];
                 float e0 = __fsub_rn(cur0, cr);
                 float e1 = __fsub_rn(cur1, cg);
                 float e2 = __fsub_rn(cur2, cb);
@@ -224,9 +262,9 @@ ed_scan_kernel(const T* __restrict__ img, const float* __restrict__ pal, int P,
     }
 }
 
-template <typename T, int MODE, bool EMIT_IDX>
+template <typename T, int MODE, bool EMIT_IDX, bool SCORE>
 int launch(const DptScanArgs& a, size_t smem_bytes, cudaStream_t stream) {
-    auto kernel = ed_scan_kernel<T, MODE, EMIT_IDX>;
+    auto kernel = ed_scan_kernel<T, MODE, EMIT_IDX, SCORE>;
     if (smem_bytes > 48 * 1024) {
         const cudaError_t rc = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
@@ -235,22 +273,33 @@ int launch(const DptScanArgs& a, size_t smem_bytes, cudaStream_t stream) {
     int threads = ((a.H + 31) / 32) * 32;
     if (threads > 1024) threads = 1024;
     kernel<<<a.B, threads, smem_bytes, stream>>>(
-        (const T*)a.img, a.pal, a.P, a.e, a.aux, a.lut, a.lum_factor,
-        a.col_factor, a.s, a.ring, a.B, a.H, a.W, a.D, a.hist, a.out);
+        (const T*)a.img, SCORE ? a.pal_aug : a.pal, a.P, a.e, a.aux, a.lut,
+        a.lum_factor, a.col_factor, a.s, a.ring, a.B, a.H, a.W, a.D, a.hist,
+        a.out);
     return (int)cudaGetLastError();
+}
+
+template <typename T, int MODE, bool EMIT_IDX>
+int launch_search(const DptScanArgs& a, cudaStream_t stream) {
+    const size_t lut_bytes = MODE == OSTROMOUKHOV ? LUT_FLOATS * sizeof(float) : 0;
+    if (a.pal_aug != nullptr) {
+        // The score branch holds 16 bytes a colour, and serves the packed
+        // scan's palette sizes only, whichever the output.
+        if (a.P > DPT_MAX_PALETTE) return (int)cudaErrorInvalidValue;
+        return launch<T, MODE, EMIT_IDX, true>(
+            a, lut_bytes + 4 * (size_t)a.P * sizeof(float), stream);
+    }
+    return launch<T, MODE, EMIT_IDX, false>(
+        a, lut_bytes + 3 * (size_t)a.P * sizeof(float), stream);
 }
 
 template <typename T, int MODE>
 int launch_mode(const DptScanArgs& a, cudaStream_t stream) {
-    const size_t lut_bytes = MODE == OSTROMOUKHOV ? LUT_FLOATS * sizeof(float) : 0;
-    const size_t pal_bytes = 3 * (size_t)a.P * sizeof(float);
     if (a.P > (a.emit_idx ? DPT_IDX_MAX_PALETTE : DPT_MAX_PALETTE)) {
         return (int)cudaErrorInvalidValue;
     }
-    if (a.emit_idx) {
-        return launch<T, MODE, true>(a, lut_bytes + pal_bytes, stream);
-    }
-    return launch<T, MODE, false>(a, lut_bytes + pal_bytes, stream);
+    if (a.emit_idx) return launch_search<T, MODE, true>(a, stream);
+    return launch_search<T, MODE, false>(a, stream);
 }
 
 template <typename T>

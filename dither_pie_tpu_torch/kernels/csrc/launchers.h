@@ -1,5 +1,6 @@
 // Launch functions of the port's kernels: the wavefront error-diffusion
-// kernels K1-K3, K5, K6, K8 and K9 and the ordered-dither kernel K4.
+// kernels K1-K3 and K5-K9, the ordered-dither kernel K4 and the search
+// probe T2.
 //
 // The .cu files that define them include no PyTorch header, so nvcc
 // compiles them in seconds; bindings.cpp (the only file with
@@ -44,6 +45,9 @@ struct DptScanArgs {
     const void* img;   // (D, 3B, H) skewed stream, uint8 or float32
     int img_is_f32;
     const float* pal;  // (P, 3)
+    const float* pal_aug;  // (P, 4) rows [r, g, b, -0.5*((r*r + g*g) + b*b)]:
+                           // the score search (P <= DPT_MAX_PALETTE); null:
+                           // the exact search
     int P;
     DptScanEntries e;
     int mode;
@@ -92,6 +96,39 @@ int dpt_skew_planar_u8(const uint8_t* in, uint8_t* out, int R, int H, int W,
                        int D, int s, void* stream);
 int dpt_skew_planar_f32(const float* in, float* out, int R, int H, int W,
                         int D, int s, void* stream);
+
+// K7: tile transpose of a strided view into the skewed stream,
+// out[d, r, y] = cast(in[r, y, d]) where d - s*y lies in [0, W), else 0; out
+// is (D, R, H) contiguous. Row r = c*rows_inner + b of the view starts at
+// in + c*stride_outer + b*stride_inner, and element (y, d) of it lies
+// y*stride_y + d*stride_d further (strides in elements). The stride-lemma
+// view of compact planes (stride_y = W - s, stride_d = 1) or of NHWC frames
+// (stride_y = 3*(W - s), stride_d = 3) makes in[r, y, d] the pixel
+// (y, d - s*y), so the result is K1's and K6's stream.
+int dpt_skew_transpose_u8(const uint8_t* in, uint8_t* out, int R,
+                          int rows_inner, int64_t stride_outer,
+                          int64_t stride_inner, int64_t stride_y,
+                          int64_t stride_d, int H, int W, int D, int s,
+                          void* stream);
+int dpt_skew_transpose_f32(const float* in, float* out, int R, int rows_inner,
+                           int64_t stride_outer, int64_t stride_inner,
+                           int64_t stride_y, int64_t stride_d, int H, int W,
+                           int D, int s, void* stream);
+int dpt_skew_transpose_u8_f32(const uint8_t* in, float* out, int R,
+                              int rows_inner, int64_t stride_outer,
+                              int64_t stride_inner, int64_t stride_y,
+                              int64_t stride_d, int H, int W, int D, int s,
+                              void* stream);
+
+// T2: the palette search alone, over a (3*nb, lf) float32 working tile (row
+// c*nb + b is channel c of frame b), repeated iters times; out (nb, lf)
+// int32. score == 0: the exact sweep over a (pp, 3) palette, first strict
+// minimum of (dr*dr + dg*dg) + db*db; score != 0: the score form over a
+// (pp, 4) augmented palette, first strict maximum of
+// ((r*x_r + g*x_g) + b*x_b) + n.
+constexpr int DPT_PROBE_MAX_PALETTE = 1024;
+int dpt_search_probe(const float* cur, const float* pal, int pp, int nb,
+                     int lf, int iters, int score, int32_t* out, void* stream);
 
 // K9: (D, B, H) palette indices in 0..P-1 + (P, 3) float32 palette ->
 // (B, H, W, 3) uint8, out[b, y, x, c] = (int)pal[idx[x + s*y, b, y], c].

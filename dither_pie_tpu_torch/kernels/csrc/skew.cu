@@ -16,6 +16,12 @@
 // is fully defined and equals the plain PyTorch version element for
 // element. The element type passes through unchanged (u8 stays u8, f32
 // stays f32): exact, and a quarter of the bytes for u8 video frames.
+//
+// Who calls which form: `ops.wavefront.skew` sends uint8 frames here and
+// float32 frames to K7 (skew_transpose.cu). The float32 instantiation stays
+// as K7's counterpart: `skew_gather` reaches it, and only chip_smoke.py and
+// the card's tests call that with float32 frames, to hold K7's stream to
+// this one bit for bit.
 
 #include <cuda_runtime.h>
 

@@ -18,6 +18,12 @@
 // a row of the plane (W - s elements) between neighbouring y and lean on
 // L2, as K1's do. The element type passes through unchanged (u8 stays u8,
 // f32 stays f32).
+//
+// Who calls which form: `ops.wavefront.skew_planar` sends uint8 planes here
+// and float32 planes to K7 (skew_transpose.cu). The float32 instantiation
+// stays as K7's counterpart: `skew_planar_gather` reaches it, and only
+// chip_smoke.py and the card's tests call that with float32 planes, to hold
+// K7's stream to this one bit for bit.
 
 #include <cuda_runtime.h>
 

@@ -25,13 +25,26 @@ plain PyTorch version of the same function beside it here:
 * K5 ``unskew_idx``: (D, B, H) indices -> the (B, H, W) index stream, uint8
   for palettes of up to 256 colours, uint16 above.
 * K9 ``unskew_select``: (D, B, H) indices + palette -> (B, H, W, 3) uint8.
+* K7 ``skew_transpose``: the same stream as K1 and K6 through a tile
+  transpose of the frames' stride-lemma view; float32 frames take it, NHWC
+  and planar (``skew`` and ``skew_planar`` dispatch on the dtype).
 
 Palettes of up to 1024 colours run K1 -> K2 -> K3, larger ones K1 -> K8 ->
 K9. ``planar`` batches (3, B, H, W), the layout of the video pipeline's
 zero-copy flow, run K6 -> K2 -> K3 and stay planar; ``return_indices``
 (either layout) runs the skew -> K8 -> K5 and returns the index stream,
 whose ``palette.astype(uint8)[idx]`` is the colour output exactly. Both
-stop at ``PACKED_PALETTE_MAX`` colours, as in the JAX package. The modes are "fixed" (8 variants), "ostromoukhov" (per-pixel weights
+stop at ``PACKED_PALETTE_MAX`` colours, as in the JAX package.
+
+``dense_search="mxu"`` replaces the scan's exact palette search by the
+score search for palettes of 65 to ``PACKED_PALETTE_MAX`` colours (K2's and
+K8's score branch): the first maximum of ``c . x - |c|^2 / 2`` instead of
+the first minimum of ``|x - c|^2``. The two agree except on near ties, so
+the score search is outside the bit contract with the golden engine;
+``"auto"`` runs both on the first batch and keeps the score search only if
+the outputs match perceptually.
+
+The modes are "fixed" (8 variants), "ostromoukhov" (per-pixel weights
 from a luminance-indexed table), "hybrid" (the error projected onto luma
 and chroma), "perceptual" (weights scaled by a per-pixel sensitivity) and
 "adaptive" (the error gated per pixel); the last two take an ``aux``
@@ -61,12 +74,13 @@ from __future__ import annotations
 import functools
 import math
 from dataclasses import dataclass
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from dither_pie_tpu_torch import convert
+from dither_pie_tpu_torch.core import fidelity
 from dither_pie_tpu_torch.kernels import build
 from dither_pie_tpu_torch.ops.ed_kernels import OSTROMOUKHOV_ARRAY, get_kernel
 
@@ -76,6 +90,11 @@ PACKED_PALETTE_MAX = 1024
 # Largest palette of the index scan K8: 192 KB of shared memory. The golden
 # engine stops at 4096 colours.
 INDEX_PALETTE_MAX = 16384
+
+# The palette searches of the scan: the exact sweep, and the score search
+# that ``"mxu"`` asks for above SCORE_PALETTE_MIN colours.
+DENSE_SEARCHES = ("exact", "mxu")
+SCORE_PALETTE_MIN = 64
 
 # The scan's modes; a mode's position is its id in the CUDA kernel.
 MODES = ("fixed", "ostromoukhov", "hybrid", "perceptual", "adaptive")
@@ -237,16 +256,26 @@ def skew_plain(images: torch.Tensor, s: int) -> torch.Tensor:
     return out
 
 
-def skew(images: torch.Tensor, s: int) -> torch.Tensor:
-    """K1 on CUDA tensors, its plain version on CPU tensors."""
-    if not build.on_cuda(images):
-        return skew_plain(images, s)
+def skew_gather(images: torch.Tensor, s: int) -> torch.Tensor:
+    """K1 itself on CUDA frames of either dtype: one gathered element a
+    thread. ``skew`` sends uint8 frames here; with float32 frames no path
+    of the package calls it, only the checks that hold K7's stream to K1's."""
     b, h, w, _ = images.shape
     out = torch.empty((stream_length(h, w, s), 3 * b, h), dtype=images.dtype,
                       device=images.device)
     build.extension().skew(images, out, s)
     build.LAUNCHES["skew"] += 1
     return out
+
+
+def skew(images: torch.Tensor, s: int) -> torch.Tensor:
+    """The frames' stream on CUDA tensors, K1 for uint8 frames and K7 for
+    float32 ones; the plain version of K1 on CPU tensors."""
+    if not build.on_cuda(images):
+        return skew_plain(images, s)
+    if images.dtype == torch.float32:
+        return skew_transpose(images, s)
+    return skew_gather(images, s)
 
 
 # ---------------------------------------------------------------------------
@@ -266,12 +295,10 @@ def skew_planar_plain(planes: torch.Tensor, s: int) -> torch.Tensor:
     return out
 
 
-def skew_planar(planes: torch.Tensor, s: int) -> torch.Tensor:
-    """K6 on CUDA tensors, its plain version on CPU tensors. ``planes`` is
-    (R, H, W) uint8 or float32, contiguous; a (3, B, H, W) batch viewed as
-    (3B, H, W) gives the stream K1 gives for the same frames."""
-    if not build.on_cuda(planes):
-        return skew_planar_plain(planes, s)
+def skew_planar_gather(planes: torch.Tensor, s: int) -> torch.Tensor:
+    """K6 itself on CUDA planes of either dtype. ``skew_planar`` sends
+    uint8 planes here; with float32 planes no path of the package calls it,
+    only the checks that hold K7's stream to K6's."""
     r, h, w = planes.shape
     out = torch.empty((stream_length(h, w, s), r, h), dtype=planes.dtype,
                       device=planes.device)
@@ -280,21 +307,138 @@ def skew_planar(planes: torch.Tensor, s: int) -> torch.Tensor:
     return out
 
 
+def skew_planar(planes: torch.Tensor, s: int) -> torch.Tensor:
+    """The planes' stream on CUDA tensors, K6 for uint8 planes and K7 for
+    float32 ones; the plain version of K6 on CPU tensors. ``planes`` is
+    (R, H, W) uint8 or float32, contiguous; a (3, B, H, W) batch viewed as
+    (3B, H, W) gives the stream K1 gives for the same frames."""
+    if not build.on_cuda(planes):
+        return skew_planar_plain(planes, s)
+    if planes.dtype == torch.float32:
+        return skew_transpose(planes, s)
+    return skew_planar_gather(planes, s)
+
+
+# ---------------------------------------------------------------------------
+# K7: the transposing skew
+# ---------------------------------------------------------------------------
+
+
+def _as_planes(frames: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, 3) frames as (3B, H, W) planes in the stream's row order
+    c*B + b (a copy); (R, H, W) planes as they are."""
+    if frames.dim() == 4:
+        b, h, w, _ = frames.shape
+        return frames.permute(3, 0, 1, 2).reshape(3 * b, h, w)
+    return frames
+
+
+def skew_transpose_plain(frames: torch.Tensor, s: int,
+                         out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Plain PyTorch K7: (B, H, W, 3) frames or (R, H, W) planes -> the
+    (D, 3B or R, H) stream, cast to ``out_dtype``.
+
+    The stride lemma in its padded form: pad every plane's rows with zeros
+    to D + s elements and read the flat buffer again with rows of D
+    elements; row y then starts s*y elements late, ``view[r, y, d] =
+    plane[r, y, d - s*y]``, and every position outside the image falls on
+    padding (D + s - s*(H-1) >= W). The transpose ``permute(2, 0, 1)`` puts
+    the wavefront axis first. Any width is served, W <= s too."""
+    planes = _as_planes(frames)
+    r, h, w = planes.shape
+    d = stream_length(h, w, s)
+    padded = torch.nn.functional.pad(planes, (0, d + s - w))  # (R, H, D + s)
+    view = padded.reshape(r, h * (d + s))[:, : h * d].reshape(r, h, d)
+    out = view.permute(2, 0, 1).contiguous()
+    return out if out_dtype is None else out.to(out_dtype)
+
+
+def _stride_lemma_view(frames: torch.Tensor, s: int) -> torch.Tensor:
+    """The frames' skewed form as a view, without a copy: (C, B, H, D) for
+    (B, H, W, 3) frames, (R, H, D) for (R, H, W) planes, with ``view[...,
+    y, d]`` the pixel (y, d - s*y) wherever that lies inside the image.
+
+    A row-major plane read with a row stride of W - s shows row y shifted
+    right by s*y; the largest offset, (H-1)(W-s) + D - 1 = H*W - 1, is the
+    plane's last element, so the view stays inside the buffer. Outside the
+    image it shows other rows' pixels: K7 masks them. Widths W <= s would
+    need a row stride <= 0, which a view cannot have: such frames are
+    padded to W = s + 1 first (a copy of a few columns), and K7 masks the
+    padding with the true width."""
+    frames = frames.contiguous()
+    nhwc = frames.dim() == 4
+    h, w = frames.shape[1:3]
+    d = stream_length(h, w, s)
+    if w <= s:
+        pad = (0, 0, 0, s + 1 - w) if nhwc else (0, s + 1 - w)
+        frames = torch.nn.functional.pad(frames, pad)
+        w = s + 1
+    if nhwc:
+        b = frames.shape[0]
+        return frames.as_strided((3, b, h, d), (1, h * w * 3, 3 * (w - s), 3))
+    return frames.as_strided((frames.shape[0], h, d), (h * w, w - s, 1))
+
+
+def skew_transpose(frames: torch.Tensor, s: int,
+                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """K7 on CUDA tensors, its plain version on CPU tensors: (B, H, W, 3)
+    frames or (R, H, W) planes, uint8 or float32 -> the (D, 3B or R, H)
+    stream that K1 and K6 give, bit for bit, as ``out_dtype`` (the input's
+    dtype, or float32 from uint8)."""
+    if frames.dim() not in (3, 4) or (frames.dim() == 4 and frames.shape[3] != 3):
+        raise ValueError("frames must be (B, H, W, 3) or planes (R, H, W), got "
+                         f"{tuple(frames.shape)}")
+    out_dtype = frames.dtype if out_dtype is None else out_dtype
+    if (frames.dtype, out_dtype) not in (
+            (torch.uint8, torch.uint8), (torch.float32, torch.float32),
+            (torch.uint8, torch.float32)):
+        raise TypeError(f"skew_transpose serves uint8 -> uint8, float32 -> float32 "
+                        f"and uint8 -> float32, got {frames.dtype} -> {out_dtype}")
+    if not build.on_cuda(frames):
+        return skew_transpose_plain(frames, s, out_dtype)
+    h, w = frames.shape[1:3]
+    rows = 3 * frames.shape[0] if frames.dim() == 4 else frames.shape[0]
+    out = torch.empty((stream_length(h, w, s), rows, h), dtype=out_dtype,
+                      device=frames.device)
+    build.extension().skew_transpose(_stride_lemma_view(frames, s), out, s, w)
+    build.LAUNCHES["skew_transpose"] += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # K2 and K8: the scan
 # ---------------------------------------------------------------------------
 
 
+def score_search(dense_search: str, p: int) -> bool:
+    """Whether a P-colour scan takes the score search: ``"mxu"`` and 64 < P
+    <= PACKED_PALETTE_MAX. Smaller palettes and the index scan's larger
+    ones run the exact search whatever is asked, as in the JAX package
+    (whose further condition, a power-of-two padded size, is TPU tiling:
+    this port pads no palette, so any size in the range qualifies)."""
+    if dense_search not in DENSE_SEARCHES:
+        raise ValueError(f"dense_search must be one of {DENSE_SEARCHES}, got "
+                         f"{dense_search!r}")
+    return dense_search == "mxu" and SCORE_PALETTE_MIN < p <= PACKED_PALETTE_MAX
+
+
 def _scan_core(stream: torch.Tensor, palette: torch.Tensor, geom: ScanGeometry,
-               width: int, aux: Optional[torch.Tensor],
-               emit_idx: bool) -> torch.Tensor:
+               width: int, aux: Optional[torch.Tensor], emit_idx: bool,
+               dense_search: str = "exact") -> torch.Tensor:
     """The plain scan of K2 (packed colours) and K8 (``emit_idx``).
 
     Push form, as the TPU kernel: each step folds the per-entry error rings
     into the image value, clamps (fixed, ostromoukhov, hybrid), searches,
     transforms the error by the mode and pushes err * w into ring slot
     (d + dx + s*dy) mod n_slots at row y + dy. One eager op per arithmetic
-    step, so each rounds on its own."""
+    step, so each rounds on its own.
+
+    The search is the exact one, the first minimum of ``(dr*dr + dg*dg) +
+    db*db``, or where ``score_search`` says so the score search: the first
+    strict maximum over p of ``((r_p*x_r + g_p*x_g) + b_p*x_b) + n_p`` with
+    the augmented palette of ``convert.augment_palette``, each product and
+    sum an eager float32 op of its own (no ``matmul``), which fixes the
+    order the CUDA kernel follows."""
     d_total, rows, h = stream.shape
     b = rows // 3
     dev = stream.device
@@ -303,6 +447,10 @@ def _scan_core(stream: torch.Tensor, palette: torch.Tensor, geom: ScanGeometry,
     pal_t = palette.t().contiguous()  # (3, P)
     pal_c = pal_t[:, :, None, None]  # (3, P, 1, 1)
     p_iota = torch.arange(p, device=dev)[:, None, None]
+    score = score_search(dense_search, p)
+    if score:
+        aug = convert.augment_palette(palette)
+        norm_c = aug[:, 3, None, None]  # (P, 1, 1)
     offsets = geom.offsets.tolist()
     weights = geom.weights.to(dev).unbind()
     columns = geom.columns.tolist()
@@ -322,12 +470,17 @@ def _scan_core(stream: torch.Tensor, palette: torch.Tensor, geom: ScanGeometry,
             cur = cur + ring[e, slot]
         if geom.clamp_before:
             cur = cur.clamp(0.0, 255.0)
-        diff = cur[:, None] - pal_c  # (3, P, B, H)
-        sq = diff * diff
-        d2 = (sq[0] + sq[1]) + sq[2]
-        # The first minimum wins by construction: the least index among
-        # the entries that equal the minimum.
-        idx = torch.where(d2 == d2.amin(0), p_iota, p).amin(0)
+        # The first extremum wins by construction: the least index among
+        # the entries that equal it.
+        if score:
+            prod = pal_c * cur[:, None]  # (3, P, B, H)
+            sc = ((prod[0] + prod[1]) + prod[2]) + norm_c
+            idx = torch.where(sc == sc.amax(0), p_iota, p).amin(0)
+        else:
+            diff = cur[:, None] - pal_c  # (3, P, B, H)
+            sq = diff * diff
+            d2 = (sq[0] + sq[1]) + sq[2]
+            idx = torch.where(d2 == d2.amin(0), p_iota, p).amin(0)
         chosen = pal_t[:, idx]  # (3, B, H)
         x = d - s * y
         active = (x >= 0) & (x < width)
@@ -363,22 +516,25 @@ def _scan_core(stream: torch.Tensor, palette: torch.Tensor, geom: ScanGeometry,
 
 
 def scan_plain(stream: torch.Tensor, palette: torch.Tensor, geom: ScanGeometry,
-               width: int, aux: Optional[torch.Tensor] = None) -> torch.Tensor:
+               width: int, aux: Optional[torch.Tensor] = None,
+               dense_search: str = "exact") -> torch.Tensor:
     """Plain PyTorch K2: (D, 3B, H) stream -> (D, B, H) int32 packed colours."""
-    return _scan_core(stream, palette, geom, width, aux, emit_idx=False)
+    return _scan_core(stream, palette, geom, width, aux, False, dense_search)
 
 
 def scan_idx_plain(stream: torch.Tensor, palette: torch.Tensor,
                    geom: ScanGeometry, width: int,
-                   aux: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   aux: Optional[torch.Tensor] = None,
+                   dense_search: str = "exact") -> torch.Tensor:
     """Plain PyTorch K8: (D, 3B, H) stream -> (D, B, H) int32 palette indices."""
-    return _scan_core(stream, palette, geom, width, aux, emit_idx=True)
+    return _scan_core(stream, palette, geom, width, aux, True, dense_search)
 
 
 def _launch_scan(stream: torch.Tensor, palette: torch.Tensor, geom: ScanGeometry,
-                 width: int, aux: Optional[torch.Tensor],
-                 emit_idx: bool) -> torch.Tensor:
-    """Launch the scan kernel: K8 with ``emit_idx``, else K2."""
+                 width: int, aux: Optional[torch.Tensor], emit_idx: bool,
+                 dense_search: str) -> torch.Tensor:
+    """Launch the scan kernel: K8 with ``emit_idx``, else K2; with the
+    augmented palette where the score search runs."""
     d_total, rows, h = stream.shape
     b = rows // 3
     dev = stream.device
@@ -386,8 +542,10 @@ def _launch_scan(stream: torch.Tensor, palette: torch.Tensor, geom: ScanGeometry
                        dtype=torch.float32, device=dev)
     out = torch.empty((d_total, b, h), dtype=torch.int32, device=dev)
     none = torch.empty(0, dtype=torch.float32, device=dev)
+    score = score_search(dense_search, palette.shape[0])
     build.extension().ed_scan(
-        stream, palette, aux if geom.needs_aux else none,
+        stream, palette, convert.augment_palette(palette) if score else none,
+        aux if geom.needs_aux else none,
         ostro_lut(dev) if geom.mode == "ostromoukhov" else none, hist, out,
         geom.offsets, geom.weights, geom.columns, MODES.index(geom.mode),
         geom.s, width, geom.lum_factor, geom.col_factor, emit_idx)
@@ -410,22 +568,25 @@ def _check_aux(geom: ScanGeometry, aux: Optional[torch.Tensor],
 
 
 def scan(stream: torch.Tensor, palette: torch.Tensor, geom: ScanGeometry,
-         width: int, aux: Optional[torch.Tensor] = None) -> torch.Tensor:
+         width: int, aux: Optional[torch.Tensor] = None,
+         dense_search: str = "exact") -> torch.Tensor:
     """K2 on CUDA tensors, its plain version on CPU tensors. ``palette`` is
     (P, 3) float32 on the stream's device, P <= PACKED_PALETTE_MAX; ``aux``
-    the (B, H, W) float32 map of perceptual and adaptive."""
+    the (B, H, W) float32 map of perceptual and adaptive; ``dense_search``
+    "exact" or "mxu" (``score_search``)."""
     if palette.shape[0] > PACKED_PALETTE_MAX:
         raise ValueError(
             f"the packed-colour scan serves up to {PACKED_PALETTE_MAX} colours, "
             f"got {palette.shape[0]}: use scan_idx")
     _check_aux(geom, aux, stream, width)
     if not build.on_cuda(stream):
-        return scan_plain(stream, palette, geom, width, aux)
-    return _launch_scan(stream, palette, geom, width, aux, emit_idx=False)
+        return scan_plain(stream, palette, geom, width, aux, dense_search)
+    return _launch_scan(stream, palette, geom, width, aux, False, dense_search)
 
 
 def scan_idx(stream: torch.Tensor, palette: torch.Tensor, geom: ScanGeometry,
-             width: int, aux: Optional[torch.Tensor] = None) -> torch.Tensor:
+             width: int, aux: Optional[torch.Tensor] = None,
+             dense_search: str = "exact") -> torch.Tensor:
     """K8 on CUDA tensors, its plain version on CPU tensors: the scan for
     palettes of up to INDEX_PALETTE_MAX colours, emitting palette indices."""
     if palette.shape[0] > INDEX_PALETTE_MAX:
@@ -434,8 +595,8 @@ def scan_idx(stream: torch.Tensor, palette: torch.Tensor, geom: ScanGeometry,
             f"{palette.shape[0]}")
     _check_aux(geom, aux, stream, width)
     if not build.on_cuda(stream):
-        return scan_idx_plain(stream, palette, geom, width, aux)
-    return _launch_scan(stream, palette, geom, width, aux, emit_idx=True)
+        return scan_idx_plain(stream, palette, geom, width, aux, dense_search)
+    return _launch_scan(stream, palette, geom, width, aux, True, dense_search)
 
 
 # ---------------------------------------------------------------------------
@@ -557,7 +718,8 @@ def perceptual_sensitivity(images: torch.Tensor, planar: bool = False) -> torch.
 def _run(mode: str, images: torch.Tensor, palette: torch.Tensor,
          variant: str = "", aux: Optional[torch.Tensor] = None,
          lum_factor: float = 1.0, col_factor: float = 0.2,
-         planar: bool = False, return_indices: bool = False) -> torch.Tensor:
+         planar: bool = False, return_indices: bool = False,
+         dense_search: str = "exact") -> torch.Tensor:
     """(B, H, W, 3) uint8 or float32 frames + (P, 3) float32 palette on the
     same device -> (B, H, W, 3) uint8 palette colours. Any B, P from 1 to
     INDEX_PALETTE_MAX: up to PACKED_PALETTE_MAX colours through K1 -> K2 ->
@@ -567,7 +729,10 @@ def _run(mode: str, images: torch.Tensor, palette: torch.Tensor,
     the output (K6 -> K2 -> K3's planar layout). ``return_indices``: the
     result is the (B, H, W) index stream, uint8 up to 256 colours and
     uint16 above (skew -> K8 -> K5), whatever the frames' layout. Both
-    serve up to PACKED_PALETTE_MAX colours, as the JAX package does."""
+    serve up to PACKED_PALETTE_MAX colours, as the JAX package does.
+    ``dense_search``: "exact" or "mxu", the scan's palette search
+    (``score_search``). uint8 frames reach the stream through K1 or K6,
+    float32 ones through K7."""
     if palette.dtype != torch.float32 or palette.dim() != 2 or palette.shape[1] != 3:
         raise ValueError("palette must be a (P, 3) float32 tensor")
     p = palette.shape[0]
@@ -600,22 +765,72 @@ def _run(mode: str, images: torch.Tensor, palette: torch.Tensor,
     if aux is not None:
         aux = aux.contiguous()
     if return_indices:
-        idx = scan_idx(stream, palette, geom, w, aux)
+        idx = scan_idx(stream, palette, geom, w, aux, dense_search)
         return unskew_idx(idx, geom.s, h, w, index_dtype(p))
     if p <= PACKED_PALETTE_MAX:
-        col = scan(stream, palette, geom, w, aux)
+        col = scan(stream, palette, geom, w, aux, dense_search)
         return unskew_unpack(col, geom.s, h, w, planar_out=planar)
-    idx = scan_idx(stream, palette, geom, w, aux)
+    idx = scan_idx(stream, palette, geom, w, aux, dense_search)
     return unskew_select(idx, palette, geom.s, h, w)
 
 
-def _check_slice(mode: str, dense_search: Optional[str]) -> None:
-    """Raise for the option not ported yet, naming the ROADMAP item."""
-    _check_mode(mode)
-    if dense_search not in (None, "exact"):
-        raise NotImplementedError(
-            f"dense_search={dense_search!r}: the matrix-unit dense search is "
-            "not ported yet (ROADMAP A5)")
+# The first-batch gate of dense_search="auto": (mode, variant, factors,
+# palette bytes) -> "mxu" or "exact", decided once for the process.
+_DENSE_GATE_CACHE: Dict[tuple, str] = {}
+_DENSE_GATE_MAX_KEYS = 64
+_DENSE_GATE_MIN_IDENTITY = 0.98
+_DENSE_GATE_MAX_BLOCK_MEAN = 2.0
+_DENSE_GATE_MAX_BLOCK_MAX = 32.0
+
+
+def _dense_gate_frames(out: torch.Tensor, palette: torch.Tensor, planar: bool,
+                       return_indices: bool) -> torch.Tensor:
+    """A batched output as (B, H, W, 3) uint8 frames for the gate's metrics;
+    indices gather through the palette exactly."""
+    if return_indices:
+        if out.dtype == torch.uint16:  # few operators take uint16
+            idx = out.view(torch.int16).to(torch.int64) & 0xFFFF
+        else:
+            idx = out.to(torch.int64)
+        return palette.to(torch.uint8)[idx]
+    return out.permute(1, 2, 3, 0) if planar else out
+
+
+def _dense_gated_run(mode: str, images: torch.Tensor, palette: torch.Tensor,
+                     variant: str, kw: dict,
+                     palette_key: Optional[bytes] = None) -> torch.Tensor:
+    """``dense_search="auto"``: the first batch of a (mode, variant,
+    factors, palette) runs both searches and compares the score output with
+    the exact one on the device, frame by frame: pixel identity >= 0.98, 4x4
+    block mean colour within 2.0 on average and 32.0 at worst. The verdict
+    holds for the life of the process; later batches run one search. A
+    score run that fails raises, it does not lock the exact search.
+    ``palette_key``: the palette's bytes where the caller holds them on the
+    host; without it they are read back from the tensor on every batch."""
+    if palette_key is None:
+        palette_key = palette.detach().cpu().numpy().tobytes()
+    key = (mode, variant, float(kw["lum_factor"]), float(kw["col_factor"]), palette_key)
+    if len(_DENSE_GATE_CACHE) > _DENSE_GATE_MAX_KEYS:
+        _DENSE_GATE_CACHE.clear()
+    choice = _DENSE_GATE_CACHE.get(key)
+    if choice is not None:
+        return _run(mode, images, palette, variant, dense_search=choice, **kw)
+    out_exact = _run(mode, images, palette, variant, dense_search="exact", **kw)
+    out_score = _run(mode, images, palette, variant, dense_search="mxu", **kw)
+    frames_exact, frames_score = (
+        _dense_gate_frames(out, palette, kw["planar"], kw["return_indices"])
+        for out in (out_exact, out_score))
+    idents, means, maxes = [], [], []
+    for fa, fb in zip(frames_exact, frames_score):
+        idents.append(fidelity.identity_fraction(fa, fb))
+        mean, worst = fidelity.block_mean_error(fa, fb, block=4)
+        means.append(mean)
+        maxes.append(worst)
+    ok = (min(idents) >= _DENSE_GATE_MIN_IDENTITY
+          and max(means) <= _DENSE_GATE_MAX_BLOCK_MEAN
+          and max(maxes) <= _DENSE_GATE_MAX_BLOCK_MAX)
+    _DENSE_GATE_CACHE[key] = "mxu" if ok else "exact"
+    return out_score if ok else out_exact
 
 
 def ed_batch_wavefront(images: torch.Tensor, palette: torch.Tensor,
@@ -623,17 +838,35 @@ def ed_batch_wavefront(images: torch.Tensor, palette: torch.Tensor,
                        aux: Optional[torch.Tensor] = None,
                        lum_factor: float = 1.0, col_factor: float = 0.2,
                        planar: bool = False, return_indices: bool = False,
-                       dense_search: Optional[str] = None) -> torch.Tensor:
+                       dense_search: Optional[str] = None,
+                       palette_key: Optional[bytes] = None) -> torch.Tensor:
     """Batched entry of the video path: (B, H, W, 3) frames in one scan,
     or with ``planar`` (3, B, H, W) planes in and out; with
     ``return_indices`` the (B, H, W) index stream comes back instead of
     colours. ``aux``: adaptive's (B, H, W) float32 gates; perceptual's
-    sensitivity map is built here from the frames."""
-    _check_slice(mode, dense_search)
+    sensitivity map is built here from the frames.
+
+    ``dense_search``: ``None`` or "exact", the exact palette search; "mxu",
+    the score search for palettes of 65 to PACKED_PALETTE_MAX colours
+    (outside the bit contract: near ties may flip); "auto", the first-batch
+    gate that keeps the score search only where its output matches the
+    exact one perceptually (``_dense_gated_run``). ``palette_key``: for
+    "auto", the palette's host bytes as the gate's key, so that a decided
+    batch costs no read of a palette that lies on the device."""
+    _check_mode(mode)
+    dense_search = dense_search or "exact"
+    if dense_search not in DENSE_SEARCHES + ("auto",):
+        raise ValueError(f"dense_search must be None, 'exact', 'mxu' or 'auto', got "
+                         f"{dense_search!r}")
     if mode == "perceptual":
         aux = perceptual_sensitivity(images, planar)
-    return _run(mode, images, palette, variant, aux, lum_factor, col_factor,
-                planar, return_indices)
+    kw = dict(aux=aux, lum_factor=lum_factor, col_factor=col_factor, planar=planar,
+              return_indices=return_indices)
+    if dense_search == "auto":
+        if score_search("mxu", palette.shape[0]):
+            return _dense_gated_run(mode, images, palette, variant, kw, palette_key)
+        dense_search = "exact"  # small and very large palettes never enter the gate
+    return _run(mode, images, palette, variant, dense_search=dense_search, **kw)
 
 
 def wavefront_device_fn(mode: str, variant: str, h: int, w: int, p: int,
@@ -644,10 +877,11 @@ def wavefront_device_fn(mode: str, variant: str, h: int, w: int, p: int,
     (batch, h, w, 3) uint8``: the shape-checked device function of one
     configuration, as the JAX package's benchmark builds it (``aux``: the
     (batch, h, w) float32 map of perceptual and adaptive); with ``planar``
-    the frames and the result are (3, batch, h, w) planes. Raises at
-    construction for what is not ported and for a planar configuration
-    above PACKED_PALETTE_MAX colours."""
-    _check_slice(mode, dense_search)
+    the frames and the result are (3, batch, h, w) planes; ``dense_search``
+    "exact" or "mxu". Raises at construction for an unknown mode or search
+    and for a planar configuration above PACKED_PALETTE_MAX colours."""
+    _check_mode(mode)
+    score_search(dense_search, p)  # raises for an unknown search
     if planar and p > PACKED_PALETTE_MAX:
         raise ValueError(
             "planar layout requires a palette <= "
@@ -661,6 +895,6 @@ def wavefront_device_fn(mode: str, variant: str, h: int, w: int, p: int,
                 f"expected frames {shape} and palette ({p}, 3), got "
                 f"{tuple(frames.shape)} and {tuple(palette.shape)}")
         return _run(mode, frames, palette, variant, aux, lum_factor, col_factor,
-                    planar)
+                    planar, dense_search=dense_search)
 
     return fn

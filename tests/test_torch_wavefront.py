@@ -287,10 +287,19 @@ def test_device_fn_checks_shapes():
     ({"dense_search": "auto"}, "A5"),
 ])
 def test_unported_options_raise(kw, item):
-    frames = torch.zeros((1, 4, 5, 3), dtype=torch.uint8)
+    """The dense search was the last option of ``ed_batch_wavefront`` that
+    raised ``NotImplementedError`` (ROADMAP A5): it is served now, for this
+    4-colour palette by the exact search (the score search starts at 65
+    colours), so the output equals the default's bit for bit; only an
+    unknown value raises. tests/test_torch_dense_search.py holds the score
+    search itself."""
+    frames = torch.from_numpy(_frames(1, 4, 5, 0, np.uint8))
     pal = torch.from_numpy(_palette(4, 0))
-    with pytest.raises(NotImplementedError, match=item):
-        twf.ed_batch_wavefront(frames, pal, **kw)
+    plain = {k: v for k, v in kw.items() if k != "dense_search"}
+    assert torch.equal(twf.ed_batch_wavefront(frames, pal, **kw),
+                       twf.ed_batch_wavefront(frames, pal, **plain))
+    with pytest.raises(ValueError, match="dense_search"):
+        twf.ed_batch_wavefront(frames, pal, **{**kw, "dense_search": item})
 
 
 def test_large_palette_and_auto_mesh_raise(monkeypatch):
