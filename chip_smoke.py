@@ -128,10 +128,39 @@ a non-zero exit code and no result line:
    T2, the search probe: both kernels held to their plain versions bitwise
    at 256 and 1024 colours, their microseconds per row-step and the flip
    fraction of score against exact. The k-means-256 call in score mode is
-   traced in phase 6, right after the exact one.
+   traced in phase 6, right after the exact one;
+11. wavelet and halftone, K4 on float32 frames, and the probes T1 and T3:
+   K4's float32 instantiation held to its plain version bitwise at B=3 37x53
+   with P in {2, 16, 33, 300} on non-integer frames (random and Bayer
+   screens, colours and indices), on flat float32 frames of exact ties, and
+   at 16 x 1080p on a wavelet reconstruction with the k-means-32 palette
+   (timed beside the u8 instantiation and the plain version);
+   integer-valued float32 frames must give the u8 frames' output; the main
+   paths ImageDitherer(WAVELET haar/8/42), (WAVELET db4/16/7), (HALFTONE
+   defaults) and (HALFTONE cell 6, 30 degrees, diamond), each
+   apply_dithering_batch on the 16 frames of phase 5 and apply_dithering on
+   one of them as a PIL image (== the batch's frame), with the launch
+   counts set to 0 before and read after (wavelet launches ordered_fused,
+   halftone nothing), shape, dtype, palette-only colours, the index stream
+   forced on == the RGB output, the card == the CPU device
+   (``device="cpu"``, the plain path) bitwise on 2 frames, identity with a
+   numpy float64 twin of the mode on 2 frames (wavelet >= 0.98, halftone >=
+   0.995) and the batch wall (median of 5); the device times of the
+   wavelet's stages and of halftone; T1, the gather probe: the gather held
+   to its plain version and to np.take_along_axis at 64, 512 and 4096
+   rows, the gather chain to its plain version at 256 to 16384 rows (k = 1
+   and 68), the select sweep to its plain version at P = 64, 256, 1024
+   (k = 3) and, at k = 1026, to the gather chain on its tile, then the
+   tool's lines (microseconds a gather by table height, a sweep step
+   beside a gather on the same tile) with the launch counts of that run;
+   T3, the identity: == its input and == clone() at (3, 2160, 1920), an odd
+   size, a view off the 16-byte boundary and 15 bytes, one 100 x 1080p plane
+   timed beside clone() (GB/s beside the 3.35 TB/s of the bounds), the
+   layout harness at 3 x 100 frames (temporary bytes over the arguments')
+   and its chain through K4 at 3 x 16; and what the whole run took.
 
 Phases 1-8 run with DITHER_PIE_TPU_INDEX_TRANSFER=0 (the RGB path, whatever
-the link probe would say); phases 9 and 10 set it as each check needs.
+the link probe would say); phases 9 to 11 set it as each check needs.
 DITHER_PIE_TPU_DENSE_SEARCH is unset (the exact search) outside phase 10's
 main paths and phase 6's one score-mode trace. Phases 3-9 hold K1 and K6
 themselves (``skew_gather``, ``skew_planar_gather``) where they hold a skew
@@ -1930,6 +1959,389 @@ def dense_search_phase(torch, dev, card, lib, frames16, frame0, palette256, rows
     return new_rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: wavelet and halftone, K4 on float32 frames, the probes T1 and T3
+# ---------------------------------------------------------------------------
+
+PROBE_KERNELS = [
+    ("gather_probe", "dither_pie_tpu_torch/kernels/csrc/gather_probe.cu",
+     "tools/gather_probe.py:24"),
+    ("identity", "dither_pie_tpu_torch/kernels/csrc/identity.cu",
+     "tools/xla_layout_repro.py:39"),
+]
+
+
+def quant_twin(sub, noise, q_levels):
+    """float64 twin of the wavelet mode's subband quantiser."""
+    mn, mx = sub.min(), sub.max()
+    scale = mx - mn
+    if scale == 0:
+        return sub
+    q = np.clip(np.floor((sub - mn) / (scale + 1e-9) * q_levels + noise), 0, q_levels - 1)
+    return q / (q_levels - 1 + 1e-9) * scale + mn
+
+
+def wavelet_twin(frame, pal, wavelet, q_levels, noises, thr):
+    """numpy twin of the wavelet mode on one frame: the float64 transform
+    (the port's numpy copy of the filter banks), the float64 quantiser, and
+    the ordered pick of ``ordered_twin`` on the reconstruction."""
+    from dither_pie_tpu_torch.ops import wavelet as twav
+
+    h, w, _ = frame.shape
+    chans = []
+    for ch in range(3):
+        cA, details = twav.dwt2_np(frame[:, :, ch], wavelet)
+        subs = [quant_twin(sub, noises[ch, k].astype(np.float64), q_levels)
+                for k, sub in enumerate((cA, *details))]
+        rec = twav.idwt2_np(subs[0], subs[1:], wavelet)
+        chans.append(np.clip(rec[:h, :w], 0, 255))
+    rec = np.stack(chans, axis=-1).astype(np.float32)
+    return ordered_twin(rec[None], pal, thr)[0]
+
+
+def halftone_twin(frame, pal, screen, cell_idx, n_cells):
+    """float64 numpy twin of the halftone mode on one frame."""
+    px = frame.reshape(-1, 3).astype(np.float64)
+    flat = cell_idx.reshape(-1)
+    counts = np.maximum(np.bincount(flat, minlength=n_cells), 1)[:, None]
+    avgs = np.stack([np.bincount(flat, px[:, c], n_cells) for c in range(3)], 1) / counts
+    pal64 = pal.astype(np.float64)
+    cell_pal = ((avgs[:, None, :] - pal64[None]) ** 2).sum(-1).argmin(1)
+    weights = np.array([0.299, 0.587, 0.114])
+    paper = int((pal64 @ weights).argmax())
+    ink = (1.0 - (px @ weights) / 255.0) > screen.reshape(-1)
+    idx = np.where(ink, cell_pal[flat], paper)
+    return pal[idx].astype(np.int32).astype(np.uint8).reshape(frame.shape)
+
+
+def transform_phase(torch, dev, card, frames16, palette32, rows, errs):
+    """Phase 11; adds the float32 times to K4's row and returns the
+    kernels-line rows of the gather probe and the identity."""
+    from PIL import Image
+
+    import dither_pie_tpu_torch as dpt
+    from dither_pie_tpu_torch.api import ditherer as tditherer
+    from dither_pie_tpu_torch.kernels import build
+    from dither_pie_tpu_torch.ops import halftone as thalf
+    from dither_pie_tpu_torch.ops import ordered as tord
+    from dither_pie_tpu_torch.ops import ordered_fused as tof
+    from dither_pie_tpu_torch.ops import wavelet as twav
+    from dither_pie_tpu_torch.core import thresholds as thr
+    from dither_pie_tpu_torch.tools import gather_probe as gp
+    from dither_pie_tpu_torch.tools import layout_repro as lr
+
+    def on_card(arr):
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+
+    pal_np = np.asarray(palette32, np.float32)
+    pal_t = on_card(pal_np)
+    k4_row = next(r for r in rows if r["name"] == "ordered_fused")
+
+    # --- K4 on float32 frames == plain, bitwise ---------------------------
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(11)
+    b, h, w = SMALL
+    small_f32 = on_card(rng.uniform(-8.0, 263.0, (b, h, w, 3)).astype(np.float32))
+    small_u8 = on_card(rng.randint(0, 256, (b, h, w, 3)).astype(np.uint8))
+    small_screens = {"random": on_card(rng.rand(h, w).astype(np.float32)),
+                     "bayer8x8": tord.screen_for_matrix(thr.bayer_matrix("8x8"), h, w, dev)}
+    for p in (2, 16, 33, 300):
+        pal = on_card(rng.randint(0, 256, (p, 3)).astype(np.float32))
+        for name, screen in small_screens.items():
+            ind = (False, True) if p <= 256 else (False,)
+            compare_ordered(torch, tof, small_f32, pal, screen, errs,
+                            f"float32 B={b} {h}x{w} P={p} {name}", ind)
+            # Integer-valued float32 frames: the u8 instantiation's output.
+            for i in ind:
+                check(torch.equal(
+                    tof.ordered_dither_fused(small_u8.to(torch.float32), pal, screen, i),
+                    tof.ordered_dither_fused(small_u8, pal, screen, i)),
+                    f"ordered_fused: integer-valued float32 frames != u8 frames (P={p} {name})")
+    for colour, pal_rows in (((101, 100, 100), [[100, 100, 100], [102, 100, 100], [0, 0, 0]]),
+                             ((40.5, 50.25, 60), [[0, 0, 0], [40.5, 50.25, 60], [40.5, 50.25, 60]]),
+                             ((100.5, 100, 100), [[100, 100, 100], [101, 100, 100], [0, 0, 0]])):
+        flat = torch.tensor(colour, dtype=torch.float32, device=dev).expand(b, h, w, 3).contiguous()
+        pal = torch.tensor(pal_rows, dtype=torch.float32, device=dev)
+        for level in (0.0, 0.5, 1.0):
+            compare_ordered(torch, tof, flat, pal,
+                            torch.full((h, w), level, dtype=torch.float32, device=dev),
+                            errs, f"float32 exact ties {colour} screen {level}")
+    log(f"[11] ordered_fused (float32 frames) == plain, bitwise: B={b} {h}x{w} P in (2, 16, "
+        f"33, 300) x (random, Bayer 8x8 screens), non-integer frames, colours and indices "
+        f"(P <= 256), flat float32 frames of exact ties; integer-valued float32 frames == "
+        f"the u8 frames' output ({time.perf_counter() - t0:.1f} s)")
+
+    # Full size: a wavelet reconstruction of the 16 frames, and its times.
+    t0 = time.perf_counter()
+    batch_t = on_card(frames16)
+    haar = dpt.WaveletDitherStrategy("haar", 8, 42, device=dev)
+    noises_np, thr_np = haar._draw_noise(FULL_H, FULL_W)
+    noises_t, thr_t = on_card(noises_np), on_card(thr_np)
+    rec = haar.reconstruct(batch_t, noises_t)
+    check(rec.dtype == torch.float32 and tuple(rec.shape) == frames16.shape,
+          f"wavelet reconstruction {tuple(rec.shape)} {rec.dtype}")
+    frac = float((rec != rec.floor()).float().mean())
+    check(frac > 0.5, f"the wavelet reconstruction is integer-valued ({frac})")
+    compare_ordered(torch, tof, rec, pal_t, thr_t, errs,
+                    f"float32 {BATCH}x{FULL_H}x{FULL_W} wavelet reconstruction")
+    as_f32 = batch_t.to(torch.float32)
+    check(torch.equal(tof.ordered_dither_fused(as_f32, pal_t, thr_t),
+                      tof.ordered_dither_fused(batch_t, pal_t, thr_t)),
+          f"ordered_fused: integer-valued float32 != u8 at {BATCH}x{FULL_H}x{FULL_W}")
+    f32_ms, got = cuda_ms(torch, lambda: tof.ordered_dither_fused(rec, pal_t, thr_t), 5)
+    f32_plain_ms, want = cuda_ms(
+        torch, lambda: tof.ordered_dither_fused_plain(rec, pal_t, thr_t), 3)
+    check(torch.equal(got, want), "ordered_fused (float32) != plain on the timed run")
+    u8_ms, _ = cuda_ms(torch, lambda: tof.ordered_dither_fused(batch_t, pal_t, thr_t), 5)
+    n_px = BATCH * FULL_H * FULL_W
+    f32_bound = bound(n_px * 12 + n_px * 3 + FULL_H * FULL_W * 4 + len(pal_np) * 12,
+                      n_px * 8 * len(pal_np))
+    del as_f32
+    log(f"[11] ordered_fused (float32 frames) == plain, bitwise, at {BATCH}x{FULL_H}x{FULL_W} on "
+        f"a wavelet reconstruction ({frac:.3f} of its values hold a fraction), k-means-32, "
+        f"colours and indices; integer-valued float32 == u8 there; kernel {f32_ms:.3f} ms "
+        f"(u8 frames, same palette and screen: {u8_ms:.3f} ms), plain PyTorch "
+        f"{f32_plain_ms:.3f} ms, bound {f32_bound['bound_ms']:.4f} ms by "
+        f"{f32_bound['bound_by']} ({time.perf_counter() - t0:.1f} s) [{card}]")
+
+    # --- the main paths, each with its own launch counts ------------------
+    cases = [("WAVELET haar/8/42", dpt.DitherMode.WAVELET,
+              {"wavelet": "haar", "subband_quant": 8, "seed": 42}),
+             ("WAVELET db4/16/7", dpt.DitherMode.WAVELET,
+              {"wavelet": "db4", "subband_quant": 16, "seed": 7}),
+             ("HALFTONE defaults", dpt.DitherMode.HALFTONE, {}),
+             ("HALFTONE 6/30/diamond", dpt.DitherMode.HALFTONE,
+              {"cell_size": 6, "angle": 30.0, "shape": "diamond"})]
+    single = 3  # the frame that also goes through apply_dithering
+    pil = Image.fromarray(frames16[single])
+    walls = {}
+    f32_launches = 0
+    for name, mode, params in cases:
+        is_wavelet = mode is dpt.DitherMode.WAVELET
+        d = dpt.ImageDitherer(num_colors=N_COLORS, dither_mode=mode, palette=palette32,
+                              dither_params=params, device=dev)
+        build.reset_launch_counts()
+        out16 = d.apply_dithering_batch(frames16)
+        out_pil = np.asarray(d.apply_dithering(pil))
+        sync(torch, dev)
+        launches = dict(build.LAUNCHES)
+        log(f"[11] {name} main path launches: {launches}")
+        if is_wavelet:
+            check(launches == {"ordered_fused": 2},
+                  f"{name}: expected ordered_fused twice (batch and image), got {launches}")
+            f32_launches += launches["ordered_fused"]
+        else:
+            check(launches == {}, f"{name}: halftone launched {launches}")
+        check(out16.shape == frames16.shape and out16.dtype == np.uint8,
+              f"{name} batch output {out16.shape} {out16.dtype}")
+        check(palette_only(out16, pal_np), f"{name} batch holds colours outside the palette")
+        check(out_pil.shape == frames16[single].shape and out_pil.dtype == np.uint8,
+              f"{name} apply_dithering output {out_pil.shape}")
+        check(np.array_equal(out_pil, out16[single]),
+              f"{name}: apply_dithering of frame {single} != the batch's frame {single}")
+        # The index stream forced on == the RGB output, bitwise.
+        build.reset_launch_counts()
+        with index_transfer("1"):
+            out_idx = d.apply_dithering_batch(frames16)
+        idx_launches = dict(build.LAUNCHES)
+        check(idx_launches == ({"ordered_fused": 1} if is_wavelet else {}),
+              f"{name} index stream launched {idx_launches}")
+        check(np.array_equal(out_idx, out16), f"{name}: index stream != RGB output")
+        # The card against the CPU device (the plain path) on 2 frames.
+        cpu = dpt.ImageDitherer(num_colors=N_COLORS, dither_mode=mode, palette=palette32,
+                                dither_params=params, device="cpu")
+        out_cpu = cpu.apply_dithering_batch(frames16[:2])
+        check(np.array_equal(out_cpu, out16[:2]),
+              f"{name}: card != CPU device (identity "
+              f"{[identity(a, c) for a, c in zip(out16[:2], out_cpu)]})")
+        # A numpy float64 twin.
+        strategy = d._get_dither_strategy(mode)
+        if is_wavelet:
+            noises, thresholds = strategy._draw_noise(FULL_H, FULL_W)
+            twins = [wavelet_twin(f, pal_np, params["wavelet"], params["subband_quant"],
+                                  noises, thresholds) for f in frames16[:2]]
+            floor = 0.98
+        else:
+            screen, cell_idx, n_cells = thalf.halftone_screen(
+                FULL_H, FULL_W, **strategy.get_current_parameters())
+            twins = [halftone_twin(f, pal_np, screen, cell_idx, n_cells) for f in frames16[:2]]
+            floor = 0.995
+        idents = [identity(o, t) for o, t in zip(out16[:2], twins)]
+        check(min(idents) >= floor, f"{name}: numpy float64 twin identity {idents} < {floor}")
+        wall, all_walls = median_wall(lambda: d.apply_dithering_batch(frames16))
+        walls[name] = wall
+        log(f"[11] {name}: {out16.shape} uint8, palette-only; apply_dithering(PIL frame "
+            f"{single}) == the batch's frame; index stream == RGB bitwise (launches "
+            f"{idx_launches}); card == CPU device bitwise on 2 frames; numpy float64 twin "
+            f"identity {idents} (>= {floor}); wall median {wall * 1e3:.3f} ms/batch{BATCH} -> "
+            f"{BATCH / wall:.2f} fps (5 runs: "
+            f"{', '.join(f'{t * 1e3:.3f}' for t in all_walls)}) [{card}]")
+
+    # Device times of the wavelet's stages and of halftone, tensors on the card.
+    planes = batch_t.permute(0, 3, 1, 2).to(torch.float32)
+    dwt_ms, (cA, details) = cuda_ms(torch, lambda: twav.dwt2(planes, "haar"), 5)
+    quant_ms, subs = cuda_ms(torch, lambda: [
+        tditherer._quant_subband(sub, noises_t[:, k], 8)
+        for k, sub in enumerate((cA, *details))], 5)
+    idwt_ms, _ = cuda_ms(torch, lambda: twav.idwt2(subs[0], subs[1:], "haar")[
+        :, :, :FULL_H, :FULL_W].clamp(0, 255).permute(0, 2, 3, 1).contiguous(), 5)
+    del planes, cA, details, subs
+    screen, cell_idx, n_cells = thalf.halftone_screen(FULL_H, FULL_W)
+    screen_t, cell_t = on_card(screen), on_card(cell_idx)
+    half_ms, _ = cuda_ms(torch, lambda: thalf.halftone_dither_batch(
+        batch_t, pal_t, screen_t, cell_t, n_cells), 5)
+    # Host work inside the walls: the wavelet's noise is drawn anew on every
+    # call (as in the JAX package); the halftone screen is cached by shape.
+    noise_s, _ = median_wall(lambda: haar._draw_noise(FULL_H, FULL_W))
+    thalf._SCREEN_CACHE.clear()
+    t0 = time.perf_counter()
+    thalf.halftone_screen(FULL_H, FULL_W)
+    screen_first_s = time.perf_counter() - t0
+    log(f"[11] host times at {FULL_H}x{FULL_W}: the wavelet's noise (haar: "
+        f"{noises_np.size + thr_np.size} RandomState samples a call) median "
+        f"{noise_s * 1e3:.3f} ms of 5; halftone_screen, first call (float64 numpy, then "
+        f"cached) {screen_first_s * 1e3:.3f} ms [{card}]")
+    log(f"[11] device times at {BATCH}x{FULL_H}x{FULL_W} k-means-32 (tensors on the card): "
+        f"wavelet haar DWT {dwt_ms:.3f} ms, quantise {quant_ms:.3f} ms, IDWT + crop + clip + "
+        f"NHWC {idwt_ms:.3f} ms, K4 on float32 {f32_ms:.3f} ms; halftone (torch ops, "
+        f"{n_cells} cells) {half_ms:.3f} ms [{card}]")
+    k4_row.update(f32_ms=f32_ms, f32_plain_ms=f32_plain_ms, f32_bound_ms=f32_bound["bound_ms"],
+                  f32_launches=f32_launches,
+                  max_abs_err=max(k4_row["max_abs_err"], errs["ordered_fused"]))
+    del rec, batch_t
+
+    # --- T1: the gather probe ---------------------------------------------
+    t0 = time.perf_counter()
+    for n_rows in gp.CHECK_ROWS:
+        tbl_np, idx_np = gp.gather_inputs(n_rows)
+        tbl, idx = on_card(tbl_np), on_card(idx_np)
+        got = gp.gather_chain(tbl, idx)
+        hold(torch, "gather_probe", got, gp.gather_chain_plain(tbl, idx), errs,
+             f"gather, rows={n_rows}")
+        check(np.array_equal(got.cpu().numpy(), np.take_along_axis(tbl_np, idx_np, axis=0)),
+              f"gather rows={n_rows} != np.take_along_axis")
+    for n_rows in gp.CHAIN_ROWS:
+        tbl, idx = (on_card(a) for a in gp.chain_inputs(n_rows))
+        for k in (1, 68):
+            hold(torch, "gather_probe", gp.gather_chain(tbl, idx, k, "chain"),
+                 gp.gather_chain_plain(tbl, idx, k, "chain"), errs,
+                 f"gather chain, rows={n_rows}, k={k}")
+    k_hi = gp.SWEEP_K[0] + gp.SWEEP_K[1] * 64
+    for p in gp.SWEEP_SIZES:
+        tbl, idx = (on_card(a) for a in gp.sweep_inputs(p))
+        hold(torch, "gather_probe", gp.sweep_chain(tbl, idx, 3),
+             gp.sweep_chain_plain(tbl, idx, 3), errs, f"select sweep, P={p}, k=3")
+        same_tile = gp.gather_chain(tbl, idx, k_hi, "sweep")
+        hold(torch, "gather_probe", same_tile, gp.gather_chain_plain(tbl, idx, k_hi, "sweep"),
+             errs, f"gather on the sweep's tile, P={p}, k={k_hi}")
+        hold(torch, "gather_probe", gp.sweep_chain(tbl, idx, k_hi), same_tile, errs,
+             f"select sweep against the gather on its tile, P={p}, k={k_hi}")
+    log(f"[11] kernel == plain, bitwise: the gather at rows {gp.CHECK_ROWS} (== "
+        f"np.take_along_axis), the gather chain at rows {gp.CHAIN_ROWS} (k = 1 and 68), the "
+        f"select sweep at P {gp.SWEEP_SIZES} (k = 3), and at k = {k_hi} the sweep == the "
+        f"gather chain on its tile == that chain's plain version "
+        f"({time.perf_counter() - t0:.1f} s)")
+    # The tool's lines, with the launch counts of its run.
+    build.reset_launch_counts()
+    checks = {n_rows: gp.check_gather(n_rows, dev) for n_rows in gp.CHECK_ROWS}
+    chains = {str(n_rows): gp.probe_chain(n_rows, 64, dev) for n_rows in gp.CHAIN_ROWS}
+    sweeps = {str(p): gp.probe_sweep(p, 64, dev) for p in gp.SWEEP_SIZES}
+    gather_launches = build.LAUNCHES["gather_probe"]
+    sweep_launches = build.LAUNCHES["gather_probe_sweep"]
+    check(set(build.LAUNCHES) == {"gather_probe", "gather_probe_sweep"}
+          and gather_launches >= 1 and sweep_launches >= 1,
+          f"the gather probe launched {dict(build.LAUNCHES)}")
+    for n_rows, ok in checks.items():
+        check(ok, f"gather rows={n_rows}: WRONG")
+        log(f"[11] gather rows={n_rows}: OK exact [{card}]")
+    for n_rows, r in chains.items():
+        log(f"[11] gather rows={n_rows}: {r['us_per_op']:.4f} us/op ({r['ns_per_row']:.4f} "
+            f"ns/row), table in {r['memory']} [{card}]")
+    for p, r in sweeps.items():
+        check(r["equal"], f"select sweep P={p} != the gather on its tile")
+        log(f"[11] select-sweep P={p} ({gp.SWEEP_TILE_ROWS}-row tile): "
+            f"{r['sweep_us_per_op']:.4f} us/op; gather on the same tile: "
+            f"{r['gather_us_per_op']:.4f} us/op, sweep / gather "
+            f"{r['sweep_us_per_op'] / r['gather_us_per_op']:.1f}x, outputs equal, table in "
+            f"{r['memory']} [{card}]")
+    # The row's times: the gather alone at the tool's largest check table.
+    tbl, idx = (on_card(a) for a in gp.gather_inputs(gp.CHECK_ROWS[-1]))
+    idx64 = idx.long()
+    t1_ms, got = cuda_ms(torch, lambda: gp.gather_chain(tbl, idx), 7)
+    t1_plain_ms, want = cuda_ms(torch, lambda: gp.gather_chain_plain(tbl, idx), 7)
+    t1_lib_ms, lib_out = cuda_ms(torch, lambda: torch.gather(tbl, 0, idx64), 7)
+    hold(torch, "gather_probe", got, want, errs, "the timed gather")
+    check(torch.equal(got, lib_out), "the timed gather != torch.gather")
+    t1_bound = bound(3 * tbl.numel() * 4, 0)
+    t1_bound["library_ms"] = t1_lib_ms
+    log(f"[11] gather alone, rows={gp.CHECK_ROWS[-1]} x {gp.LF} int32: kernel {t1_ms:.4f} ms, "
+        f"plain PyTorch {t1_plain_ms:.4f} ms, torch.gather on int64 indices "
+        f"{t1_lib_ms:.4f} ms, bound {t1_bound['bound_ms']:.5f} ms by bytes [{card}]")
+
+    # --- T3: the identity and the layout harness --------------------------
+    t0 = time.perf_counter()
+    two = on_card(np.random.RandomState(12).randint(
+        0, 256, (3, 2 * FULL_H, FULL_W)).astype(np.uint8))
+    hold(torch, "identity", lr.identity_copy(two), two, errs, f"(3, {2 * FULL_H}, {FULL_W})")
+    flat_two = two.view(-1)
+    for what, x in (("an odd size", flat_two[:1_000_003]),
+                    ("a view off the 16-byte boundary", flat_two[1:1_000_020]),
+                    ("15 bytes", flat_two[:15])):
+        got = lr.identity_copy(x)
+        check(got.data_ptr() != x.data_ptr(), f"identity returned its input ({what})")
+        hold(torch, "identity", got, x, errs, what)
+        hold(torch, "identity", got, lr.identity_plain(x), errs, f"{what}, against clone()")
+    plane = lr.planarize(torch.cat(
+        [on_card(frames16).roll(37 * k, dims=2)
+         for k in range(-(-BIG_BATCH // BATCH))])[:BIG_BATCH])
+    t3_ms, got = cuda_ms(torch, lambda: lr.identity_copy(plane), 7)
+    t3_plain_ms, want = cuda_ms(torch, lambda: lr.identity_plain(plane), 7)
+    hold(torch, "identity", got, want, errs, f"the timed {BIG_BATCH}x{FULL_H}x{FULL_W} plane")
+    hold(torch, "identity", got, plane, errs, "the timed plane against its input")
+    t3_bound = bound(2 * plane.numel(), 0)
+    t3_bound["library_ms"] = t3_plain_ms
+    gbs = 2 * plane.numel() / t3_ms / 1e6
+    log(f"[11] identity == input == clone(), bitwise: (3, {2 * FULL_H}, {FULL_W}), an odd "
+        f"size, a view off the 16-byte boundary, 15 bytes; one {BIG_BATCH}x{FULL_H}x{FULL_W} "
+        f"plane ({plane.numel() / 1e6:.1f} MB): kernel {t3_ms:.3f} ms = {gbs:.1f} GB/s read + "
+        f"written ({gbs / (PEAK_BYTES_PER_S / 1e9):.3f} of {PEAK_BYTES_PER_S / 1e12:.2f} TB/s), "
+        f"clone() {t3_plain_ms:.3f} ms = {2 * plane.numel() / t3_plain_ms / 1e6:.1f} GB/s, "
+        f"bound {t3_bound['bound_ms']:.3f} ms ({time.perf_counter() - t0:.1f} s) [{card}]")
+    del plane, got, want, two, flat_two
+    build.reset_launch_counts()
+    r = lr.harness(3, BIG_BATCH, dev, FULL_H, FULL_W)
+    identity_launches = build.LAUNCHES["identity"]
+    check(dict(build.LAUNCHES) == {"identity": 3},
+          f"the layout harness launched {dict(build.LAUNCHES)}")
+    for i, out in enumerate(r["outs"]):
+        check(tuple(out.shape) == (3, BIG_BATCH * FULL_H, FULL_W) and bool((out == i).all()),
+              f"the layout harness' plane {i} is not its input")
+    log(f"[11] layout harness: params=3 batch={BIG_BATCH} args={r['arg_bytes'] / 1e9:.2f} GB "
+        f"[identity operands]; temp allocation: {r['temp_bytes'] / 1e9:.2f} GB "
+        f"({r['temp_bytes'] / r['arg_bytes']:.2f}x of args); output: "
+        f"{r['out_bytes'] / 1e9:.2f} GB ({r['out_bytes'] / r['arg_bytes']:.1f}x); executed "
+        f"ok, 3 planes of {tuple(r['outs'][0].shape)} [{card}]")
+    del r
+    build.reset_launch_counts()
+    r = lr.chain(3, BATCH, dev, FULL_H, FULL_W)
+    check(dict(build.LAUNCHES) == {"ordered_fused": 3},
+          f"the layout chain launched {dict(build.LAUNCHES)}")
+    check(np.isfinite(r["acc"]) and r["acc"] > 0, f"the layout chain's sum is {r['acc']}")
+    log(f"[11] layout chain: params=3 batch={BATCH} args={r['arg_bytes'] / 1e9:.2f} GB; temp "
+        f"allocation: {r['temp_bytes'] / 1e9:.2f} GB ({r['temp_bytes'] / r['arg_bytes']:.2f}x "
+        f"of args); executed ok: {r['acc']} [{card}]")
+
+    return [{"name": "gather_probe", "route": "cuda", "source": PROBE_KERNELS[0][1],
+             "replaces": PROBE_KERNELS[0][2], "launches": gather_launches,
+             "sweep_launches": sweep_launches, "max_abs_err": errs["gather_probe"],
+             "ms": t1_ms, "plain_ms": t1_plain_ms, "chain": chains, "sweep": sweeps,
+             **t1_bound},
+            {"name": "identity", "route": "cuda", "source": PROBE_KERNELS[1][1],
+             "replaces": PROBE_KERNELS[1][2], "launches": identity_launches,
+             "max_abs_err": errs["identity"], "ms": t3_ms, "plain_ms": t3_plain_ms,
+             "gb_per_s": gbs, **t3_bound}]
+
+
 def main() -> int:
     import torch
 
@@ -1950,9 +2362,11 @@ def sync(torch, dev):
 
 
 def run(torch, dev, card) -> int:
-    """Phases 1-10 on ``dev``; prints the result lines and returns 0, or
+    """Phases 1-11 on ``dev``; prints the result lines and returns 0, or
     raises on the first failure."""
     from PIL import Image
+
+    t_run = time.perf_counter()
 
     import dither_pie_tpu_torch as dpt
     from dither_pie_tpu_torch.kernels import build
@@ -2210,6 +2624,10 @@ def run(torch, dev, card) -> int:
     # 10. The dense-search path, the transposing skew and the search probe.
     rows.extend(dense_search_phase(torch, dev, card, lib, frames16, frame0, palette256, rows,
                                    errs))
+
+    # 11. Wavelet and halftone, K4 on float32 frames, the probes T1 and T3.
+    rows.extend(transform_phase(torch, dev, card, frames16, palette, rows, errs))
+    log(f"[11] the whole run took {time.perf_counter() - t_run:.1f} s")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

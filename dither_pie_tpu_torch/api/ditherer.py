@@ -3,9 +3,12 @@ error-diffusion strategies, palette building and the ImageDitherer facade.
 
 Mirrors ``dither_pie_tpu/api/ditherer.py`` for the modes it ports: NONE,
 BAYER (the default), BLUE_NOISE, INTERLEAVED_GRADIENT_NOISE and POLKA_DOT
-on the ordered kernel K4, and ERROR_DIFFUSION, OSTROMOUKHOV, HYBRID,
+on the ordered kernel K4, ERROR_DIFFUSION, OSTROMOUKHOV, HYBRID,
 PERCEPTUAL and ADAPTIVE_VARIANCE on the wavefront kernels (K1-K3 for
-palettes of up to 1024 colours, K1, K8 and K9 above); ``ImageDitherer`` with ``apply_dithering``,
+palettes of up to 1024 colours, K1, K8 and K9 above), WAVELET (torch ops
+for the transform and the subband quantiser, K4 on the float32
+reconstruction for the pick) and HALFTONE (torch ops); ``ImageDitherer``
+with ``apply_dithering``,
 ``apply_dithering_array`` and ``apply_dithering_batch``;
 ``ColorReducer``'s palettes; and every mode's parameter metadata. Frames
 are numpy uint8 in and out, as in the JAX package; the work runs on the
@@ -42,22 +45,22 @@ from PIL import Image
 
 from dither_pie_tpu_torch import convert
 from dither_pie_tpu_torch.api import linkspeed as _linkspeed
-from dither_pie_tpu_torch.api import parameters as _parameters
 from dither_pie_tpu_torch.api.runtime import DeviceLike, resolve_device
 from dither_pie_tpu_torch.core import colors as _colors
 from dither_pie_tpu_torch.core import palette as _palette
 from dither_pie_tpu_torch.core import thresholds as _thresholds
 from dither_pie_tpu_torch.ops import adaptive as _adaptive
 from dither_pie_tpu_torch.ops import ed_kernels as _ed_kernels
+from dither_pie_tpu_torch.ops import halftone as _halftone
 from dither_pie_tpu_torch.ops import idxpack as _idxpack
 from dither_pie_tpu_torch.ops import ordered as _ordered
 from dither_pie_tpu_torch.ops import wavefront as _wf
+from dither_pie_tpu_torch.ops import wavelet as _wavelet
 
 
 class DitherMode(Enum):
     """Dithering algorithms (names are the config-file vocabulary). The
-    port serves all but RIEMERSMA, WAVELET and HALFTONE, which raise
-    NotImplementedError."""
+    port serves all but RIEMERSMA, which raises NotImplementedError."""
 
     NONE = "none"
     BAYER = "bayer"
@@ -184,8 +187,8 @@ class _ScreenDitherStrategy(BaseDitherStrategy):
         raise NotImplementedError
 
     def dither(self, pixels, palette_arr, image_size):
-        # The pixels are integer-valued: cast to uint8 here (truncating, as
-        # K4 does) so the card gets a quarter of the bytes.
+        # The pixels are integer-valued (8-bit sRGB or 8-bit linear): cast
+        # to uint8 here so the card gets a quarter of the bytes.
         h, w = image_size
         img = np.asarray(pixels).astype(np.uint8).reshape(1, h, w, 3)
         return self.dither_batch(img, palette_arr).astype(np.float32).reshape(-1, 3)
@@ -616,6 +619,226 @@ class AdaptiveVarianceDitherStrategy(_WavefrontDitherStrategy):
         return {"aux": gates.to(self.device).to(torch.float32)}
 
 
+# -------------------- Wavelet --------------------
+
+
+def _quant_subband(sub: torch.Tensor, noise: torch.Tensor, q_levels: int) -> torch.Tensor:
+    """Randomized uniform quantization of (B, 3, hs, ws) subbands, float32
+    on the tensor's device. The minimum and the maximum are those of one
+    subband of one channel of one frame, never of the batch. The two
+    epsilons stay float32 (they vanish unless the scale is tiny), as the JAX
+    package's weak scalars do; the division by the level count takes a
+    tensor divisor, since PyTorch's CUDA division by a Python scalar
+    multiplies by the reciprocal."""
+    mn = sub.amin((-2, -1), keepdim=True)
+    mx = sub.amax((-2, -1), keepdim=True)
+    scale = mx - mn
+    norm = (sub - mn) / (scale + 1e-9)
+    q = torch.floor(norm * q_levels + noise)
+    q = q.clamp(0, q_levels - 1)
+    qn = q / torch.tensor(q_levels - 1 + 1e-9, dtype=torch.float32, device=sub.device)
+    out = qn * scale + mn
+    return torch.where(scale == 0, sub, out)
+
+
+class WaveletDitherStrategy(BaseDitherStrategy):
+    """DWT -> randomized subband quantization -> IDWT -> randomized top-2 pick.
+
+    Noise is drawn on host with ``np.random.RandomState(seed)`` in the exact
+    order the reference draws it (per channel: cA, cH, cV, cD; then the final
+    per-pixel thresholds), so results are reproducible, and the draws depend
+    only on (seed, h, w): every frame of a batch, and a single image of the
+    same size, share them. The transform and the quantization are torch ops
+    on ``device``; the pick is K4 on the float32 reconstruction (its plain
+    version on the CPU).
+    """
+
+    @staticmethod
+    def get_parameter_info() -> Dict[str, Any]:
+        return {
+            "wavelet": {
+                "type": "choice",
+                "default": "haar",
+                "choices": ["haar", "db1", "db2", "db4", "sym2", "sym4", "coif1", "bior1.3", "bior2.2"],
+                "label": "Wavelet Type",
+                "description": "Type of wavelet basis function",
+            },
+            "subband_quant": {
+                "type": "int",
+                "default": 8,
+                "min": 2,
+                "max": 32,
+                "label": "Subband Quantization",
+                "description": "Number of quantization levels for wavelet subbands",
+            },
+            "seed": {
+                "type": "int",
+                "default": 42,
+                "min": 0,
+                "max": 9999,
+                "label": "Random Seed",
+                "description": "Seed for random threshold generation (same seed = same output)",
+            },
+        }
+
+    def __init__(self, wavelet: str = "haar", subband_quant: int = 8, seed: int = 42,
+                 device: DeviceLike = "cuda"):
+        self.wavelet = wavelet
+        self.subband_quant = int(subband_quant)
+        self.seed = int(seed)
+        self.device = resolve_device(device)
+
+    def get_current_parameters(self) -> Dict[str, Any]:
+        return {"wavelet": self.wavelet, "subband_quant": self.subband_quant, "seed": self.seed}
+
+    def _draw_noise(self, h: int, w: int):
+        """Host RNG in the exact order the reference draws it (per channel:
+        cA, cH, cV, cD; then the final per-pixel thresholds). The draws
+        depend only on (seed, h, w) — identical for every video frame."""
+        L = len(_wavelet.filter_bank(self.wavelet)[0])
+        hs, ws = (h + L - 1) // 2, (w + L - 1) // 2
+        rng = np.random.RandomState(self.seed)
+        noises = np.empty((3, 4, hs, ws), np.float32)
+        for ch in range(3):
+            for k in range(4):
+                noises[ch, k] = rng.rand(hs, ws).astype(np.float32)
+        thr = rng.rand(h * w).astype(np.float32).reshape(h, w)
+        return noises, thr
+
+    def reconstruct(self, frames: torch.Tensor, noises: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) frames on the device -> the (B, H, W, 3) float32
+        reconstruction the pick runs on: DWT, quantized subbands, IDWT,
+        cropped to the image and clipped to 0..255. Not integer-valued."""
+        _, h, w, _ = frames.shape
+        planes = frames.permute(0, 3, 1, 2).to(torch.float32)  # (B, 3, H, W)
+        cA, details = _wavelet.dwt2(planes, self.wavelet)
+        subs = [_quant_subband(sub, noises[:, k], self.subband_quant)
+                for k, sub in enumerate((cA, *details))]
+        rec = _wavelet.idwt2(subs[0], subs[1:], self.wavelet)
+        rec = rec[:, :, :h, :w].clamp(0, 255)
+        return rec.permute(0, 2, 3, 1).contiguous()
+
+    def _on_device(self, images, palette_arr, return_indices: bool) -> torch.Tensor:
+        _, h, w, _ = np.shape(images)
+        noises, thr = self._draw_noise(h, w)
+        rec = self.reconstruct(_frames_tensor(images, self.device),
+                               torch.from_numpy(noises).to(self.device))
+        return _ordered.dispatch_ordered_batch(
+            rec, _palette_tensor(palette_arr, self.device),
+            torch.from_numpy(thr).to(self.device), return_indices=return_indices)
+
+    def dither(self, pixels, palette_arr, image_size):
+        h, w = image_size
+        img = np.asarray(pixels, dtype=np.float32).reshape(1, h, w, 3)
+        return self.dither_batch(img, palette_arr).astype(np.float32).reshape(-1, 3)
+
+    def dither_batch(self, images, palette_arr):
+        return self._on_device(images, palette_arr, False).cpu().numpy()
+
+    def dither_batch_indices(self, images, palette_arr, planar=False):
+        if planar or len(palette_arr) > 256:
+            return None  # NHWC-only; u8 index stream
+        return self._on_device(images, palette_arr, True).cpu().numpy()
+
+
+# -------------------- Halftone --------------------
+
+
+class HalftoneDitherStrategy(BaseDitherStrategy):
+    """Rotated-screen newspaper halftone (torch ops on ``device``; the
+    screen and the cell layout come from the host, cached by shape)."""
+
+    @staticmethod
+    def get_parameter_info() -> Dict[str, Any]:
+        return {
+            "cell_size": {
+                "type": "int", "default": 8, "min": 2, "max": 32,
+                "label": "Cell Size",
+                "description": "Distance between dot centers (smaller = finer detail)",
+            },
+            "angle": {
+                "type": "float", "default": 45.0, "min": 0.0, "max": 90.0,
+                "label": "Screen Angle",
+                "description": "Rotation angle in degrees (45° is classic newspaper)",
+            },
+            "dot_gain": {
+                "type": "float", "default": 1.0, "min": 0.5, "max": 3.0, "step": 0.1,
+                "label": "Dot Gain",
+                "description": "Controls dot growth (1.0 = linear, higher = more contrast)",
+            },
+            "min_dot_size": {
+                "type": "float", "default": 0.0, "min": 0.0, "max": 0.5, "step": 0.05,
+                "label": "Min Dot Size",
+                "description": "Minimum dot threshold (0 = pure white possible)",
+            },
+            "max_dot_size": {
+                "type": "float", "default": 1.0, "min": 0.5, "max": 1.0, "step": 0.05,
+                "label": "Max Dot Size",
+                "description": "Maximum dot threshold (1.0 = pure black possible)",
+            },
+            "shape": {
+                "type": "choice", "default": "circle",
+                "choices": ["circle", "square", "diamond"],
+                "label": "Dot Shape",
+                "description": "Shape of halftone dots",
+            },
+            "sharpness": {
+                "type": "float", "default": 1.5, "min": 0.5, "max": 4.0, "step": 0.1,
+                "label": "Sharpness",
+                "description": "Edge sharpness (higher = crisper dots)",
+            },
+        }
+
+    def __init__(self, cell_size: int = 8, angle: float = 45.0, dot_gain: float = 1.0,
+                 min_dot_size: float = 0.0, max_dot_size: float = 1.0,
+                 shape: str = "circle", sharpness: float = 1.5,
+                 device: DeviceLike = "cuda"):
+        self.cell_size = int(cell_size)
+        self.angle = float(angle)
+        self.dot_gain = float(dot_gain)
+        self.min_dot_size = float(min_dot_size)
+        self.max_dot_size = float(max_dot_size)
+        self.shape = shape
+        self.sharpness = float(sharpness)
+        self.device = resolve_device(device)
+
+    def get_current_parameters(self) -> Dict[str, Any]:
+        return {
+            "cell_size": self.cell_size, "angle": self.angle,
+            "dot_gain": self.dot_gain, "min_dot_size": self.min_dot_size,
+            "max_dot_size": self.max_dot_size, "shape": self.shape,
+            "sharpness": self.sharpness,
+        }
+
+    def _on_device(self, images, palette_arr, op) -> torch.Tensor:
+        """``op`` (``halftone_dither_batch`` or its index twin) on the
+        batch, with this strategy's screen and cell layout."""
+        _, h, w, _ = np.shape(images)
+        screen, cell_idx, n_cells = _halftone.halftone_screen(
+            h, w, self.cell_size, self.angle, self.dot_gain,
+            self.min_dot_size, self.max_dot_size, self.shape, self.sharpness,
+        )
+        return op(_frames_tensor(images, self.device),
+                  _palette_tensor(palette_arr, self.device),
+                  torch.from_numpy(screen).to(self.device),
+                  torch.from_numpy(cell_idx).to(self.device), n_cells)
+
+    def dither(self, pixels, palette_arr, image_size):
+        h, w = image_size
+        img = np.asarray(pixels, dtype=np.float32).reshape(1, h, w, 3)
+        return self.dither_batch(img, palette_arr).astype(np.float32).reshape(-1, 3)
+
+    def dither_batch(self, images, palette_arr):
+        return self._on_device(images, palette_arr,
+                               _halftone.halftone_dither_batch).cpu().numpy()
+
+    def dither_batch_indices(self, images, palette_arr, planar=False):
+        if planar or len(palette_arr) > 256:
+            return None  # NHWC-only; u8 index stream
+        return self._on_device(images, palette_arr,
+                               _halftone.halftone_dither_batch_indices).cpu().numpy()
+
+
 class ColorReducer:
     """Palette building: median-cut (host), k-means (device), uniform cube."""
 
@@ -656,19 +879,20 @@ _STRATEGY_CLASSES = {
     DitherMode.HYBRID: HybridDitherStrategy,
     DitherMode.PERCEPTUAL: PerceptualDitherStrategy,
     DitherMode.ADAPTIVE_VARIANCE: AdaptiveVarianceDitherStrategy,
+    DitherMode.WAVELET: WaveletDitherStrategy,
+    DitherMode.HALFTONE: HalftoneDitherStrategy,
 }
 
 # Parameter metadata of the modes that expose parameters (NONE, RIEMERSMA
-# and PERCEPTUAL do not), as the JAX package's table; the modes not ported
-# yet take theirs from api/parameters.py.
+# and PERCEPTUAL do not), as the JAX package's table.
 _PARAM_MODES = {
     DitherMode.BAYER: BayerDitherStrategy.get_parameter_info,
-    DitherMode.HALFTONE: _parameters.halftone,
+    DitherMode.HALFTONE: HalftoneDitherStrategy.get_parameter_info,
     DitherMode.POLKA_DOT: PolkaDotDitherStrategy.get_parameter_info,
     DitherMode.BLUE_NOISE: BlueNoiseDitherStrategy.get_parameter_info,
     DitherMode.INTERLEAVED_GRADIENT_NOISE:
         InterleavedGradientNoiseDitherStrategy.get_parameter_info,
-    DitherMode.WAVELET: _parameters.wavelet,
+    DitherMode.WAVELET: WaveletDitherStrategy.get_parameter_info,
     DitherMode.ADAPTIVE_VARIANCE: AdaptiveVarianceDitherStrategy.get_parameter_info,
     DitherMode.HYBRID: HybridDitherStrategy.get_parameter_info,
     DitherMode.ERROR_DIFFUSION: ErrorDiffusionDitherStrategy.get_parameter_info,
@@ -678,8 +902,6 @@ _PARAM_MODES = {
 # Where each mode that the port does not serve yet sits in ROADMAP Queue A.
 _NOT_PORTED = {
     DitherMode.RIEMERSMA: "A5",
-    DitherMode.WAVELET: "A7",
-    DitherMode.HALFTONE: "A7",
 }
 
 

@@ -3,8 +3,9 @@
 // contiguity, launches on PyTorch's current stream of the tensor's device,
 // and raises if the launch is refused. Outputs and scratch are allocated
 // by the Python wrappers in dither_pie_tpu_torch/ops/wavefront.py (K1-K3,
-// K5-K9), dither_pie_tpu_torch/ops/ordered_fused.py (K4) and
-// dither_pie_tpu_torch/tools/proto_mxu_search.py (the search probe).
+// K5-K9), dither_pie_tpu_torch/ops/ordered_fused.py (K4) and the probes in
+// dither_pie_tpu_torch/tools/ (proto_mxu_search.py, gather_probe.py,
+// layout_repro.py).
 
 #include <torch/extension.h>
 
@@ -411,9 +412,10 @@ void ordered_fused(torch::Tensor images, torch::Tensor palette,
     check_tensor(palette, "palette", images);
     check_tensor(screen, "screen", images);
     check_tensor(out, "out", images);
-    TORCH_CHECK(images.scalar_type() == torch::kUInt8 && images.dim() == 4 &&
-                    images.size(3) == 3,
-                "images must be (B, H, W, 3) uint8");
+    const bool f32 = images.scalar_type() == torch::kFloat32;
+    TORCH_CHECK((f32 || images.scalar_type() == torch::kUInt8) &&
+                    images.dim() == 4 && images.size(3) == 3,
+                "images must be (B, H, W, 3) uint8 or float32");
     const int64_t B = images.size(0), H = images.size(1), W = images.size(2);
     TORCH_CHECK(palette.scalar_type() == torch::kFloat32 &&
                     palette.dim() == 2 && palette.size(1) == 3,
@@ -435,13 +437,86 @@ void ordered_fused(torch::Tensor images, torch::Tensor palette,
                     "out must be (B, H, W, 3) for colours");
     }
     const c10::cuda::CUDAGuard guard(images.device());
-    check_launch(dpt_ordered_fused(images.data_ptr<uint8_t>(),
+    const int emit_idx = return_indices ? 1 : 0;
+    int rc;
+    if (f32) {
+        rc = dpt_ordered_fused_f32(images.data_ptr<float>(),
                                    palette.data_ptr<float>(), P,
                                    screen.data_ptr<float>(), B * H * W, H * W,
-                                   out.data_ptr<uint8_t>(),
-                                   return_indices ? 1 : 0,
-                                   current_stream(images)),
-                 "ordered_fused");
+                                   out.data_ptr<uint8_t>(), emit_idx,
+                                   current_stream(images));
+    } else {
+        rc = dpt_ordered_fused_u8(images.data_ptr<uint8_t>(),
+                                  palette.data_ptr<float>(), P,
+                                  screen.data_ptr<float>(), B * H * W, H * W,
+                                  out.data_ptr<uint8_t>(), emit_idx,
+                                  current_stream(images));
+    }
+    check_launch(rc, "ordered_fused");
+}
+
+void gather_chain(torch::Tensor table, torch::Tensor idx, torch::Tensor out,
+                  int64_t k, int64_t update, bool use_smem) {
+    check_tensor(table, "table", table);
+    check_tensor(idx, "idx", table);
+    check_tensor(out, "out", table);
+    TORCH_CHECK(table.scalar_type() == torch::kInt32 && table.dim() == 2,
+                "table must be (rows, lanes) int32");
+    TORCH_CHECK(idx.scalar_type() == torch::kInt32 && idx.dim() == 2 &&
+                    idx.size(1) == table.size(1),
+                "idx must be (n, lanes) int32");
+    TORCH_CHECK(out.scalar_type() == torch::kInt32 &&
+                    out.sizes() == idx.sizes(),
+                "out must be (n, lanes) int32");
+    const c10::cuda::CUDAGuard guard(table.device());
+    check_launch(dpt_gather_chain(table.data_ptr<int32_t>(),
+                                  idx.data_ptr<int32_t>(),
+                                  out.data_ptr<int32_t>(),
+                                  as_int(table.size(0), "rows"),
+                                  as_int(idx.size(0), "n"),
+                                  as_int(table.size(1), "lanes"),
+                                  as_int(k, "k"), as_int(update, "update"),
+                                  use_smem ? 1 : 0, current_stream(table)),
+                 "gather_chain");
+}
+
+void sweep_chain(torch::Tensor table, torch::Tensor idx, torch::Tensor out,
+                 int64_t k, bool use_smem) {
+    check_tensor(table, "table", table);
+    check_tensor(idx, "idx", table);
+    check_tensor(out, "out", table);
+    TORCH_CHECK(table.scalar_type() == torch::kInt32 && table.dim() == 2,
+                "table must be (P, lanes) int32");
+    TORCH_CHECK(idx.scalar_type() == torch::kInt32 && idx.dim() == 2 &&
+                    idx.size(1) == table.size(1),
+                "idx must be (n, lanes) int32");
+    TORCH_CHECK(out.scalar_type() == torch::kInt32 &&
+                    out.sizes() == idx.sizes(),
+                "out must be (n, lanes) int32");
+    const c10::cuda::CUDAGuard guard(table.device());
+    check_launch(dpt_sweep_chain(table.data_ptr<int32_t>(),
+                                 idx.data_ptr<int32_t>(),
+                                 out.data_ptr<int32_t>(),
+                                 as_int(table.size(0), "P"),
+                                 as_int(idx.size(0), "n"),
+                                 as_int(table.size(1), "lanes"),
+                                 as_int(k, "k"), use_smem ? 1 : 0,
+                                 current_stream(table)),
+                 "sweep_chain");
+}
+
+void identity_u8(torch::Tensor in, torch::Tensor out) {
+    check_tensor(in, "in", in);
+    check_tensor(out, "out", in);
+    TORCH_CHECK(in.scalar_type() == torch::kUInt8 &&
+                    out.scalar_type() == torch::kUInt8 &&
+                    out.sizes() == in.sizes(),
+                "in and out must be uint8 tensors of one shape");
+    const c10::cuda::CUDAGuard guard(in.device());
+    check_launch(dpt_identity_u8(in.data_ptr<uint8_t>(),
+                                 out.data_ptr<uint8_t>(), in.numel(),
+                                 current_stream(in)),
+                 "identity_u8");
 }
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -464,5 +539,13 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
     m.def("unskew_select", &unskew_select,
           "K9: (D,B,H) palette indices + palette -> (B,H,W,3) uint8");
     m.def("ordered_fused", &ordered_fused,
-          "K4: ordered dither (B,H,W,3) uint8 -> colours or indices");
+          "K4: ordered dither (B,H,W,3) uint8 or float32 -> colours or "
+          "indices");
+    m.def("gather_chain", &gather_chain,
+          "T1: k dependent per-lane table gathers an element, (n, lanes) "
+          "int32");
+    m.def("sweep_chain", &sweep_chain,
+          "T1: k select sweeps over the table's P rows an element, "
+          "(n, lanes) int32");
+    m.def("identity_u8", &identity_u8, "T3: identity copy of a uint8 tensor");
 }

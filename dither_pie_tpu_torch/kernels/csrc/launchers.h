@@ -1,6 +1,6 @@
 // Launch functions of the port's kernels: the wavefront error-diffusion
-// kernels K1-K3 and K5-K9, the ordered-dither kernel K4 and the search
-// probe T2.
+// kernels K1-K3 and K5-K9, the ordered-dither kernel K4 and the probes T1
+// (gather), T2 (search) and T3 (identity copy).
 //
 // The .cu files that define them include no PyTorch header, so nvcc
 // compiles them in seconds; bindings.cpp (the only file with
@@ -135,12 +135,41 @@ int dpt_search_probe(const float* cur, const float* pal, int pp, int nb,
 int dpt_unskew_select(const int32_t* idx, const float* pal, uint8_t* out,
                       int B, int H, int W, int s, void* stream);
 
-// K4: ordered dither of n = B*H*W NHWC u8 pixels against a (H, W) float32
-// screen (hw = H*W, read at i mod hw); out is n*3 u8 palette colours, or n
-// u8 indices when emit_idx != 0 (P <= 256). pal: (P, 3) float32.
-int dpt_ordered_fused(const uint8_t* img, const float* pal, int P,
-                      const float* screen, int64_t n, int64_t hw, uint8_t* out,
-                      int emit_idx, void* stream);
+// K4: ordered dither of n = B*H*W NHWC pixels, u8 or float32 (taken as they
+// are, not truncated), against a (H, W) float32 screen (hw = H*W, read at
+// i mod hw); out is n*3 u8 palette colours, or n u8 indices when
+// emit_idx != 0 (P <= 256). pal: (P, 3) float32.
+int dpt_ordered_fused_u8(const uint8_t* img, const float* pal, int P,
+                         const float* screen, int64_t n, int64_t hw,
+                         uint8_t* out, int emit_idx, void* stream);
+int dpt_ordered_fused_f32(const float* img, const float* pal, int P,
+                          const float* screen, int64_t n, int64_t hw,
+                          uint8_t* out, int emit_idx, void* stream);
+
+// T1: the gather probe, over a (rows, lanes) int32 table and an (n, lanes)
+// int32 tile of start values; element (r, l) runs its own chain on one
+// thread, blocks of up to 1024 threads (an (8, 128) tile is one block):
+//   gather  update 0: out = table[idx, l] (k must be 1);
+//           update 1: k times acc = |table[acc, l] + step| mod rows;
+//           update 2: k times acc = |table[acc & (rows-1), l] + acc + step|
+//                     mod 255 (the sweep's update, fetched by one load;
+//                     rows a power of two);
+//   sweep   k times best = 0; for p in 0..rows-1: best = (acc & (rows-1))
+//           == p ? table[p, l] : best; acc = |best + acc + step| mod 255
+//           (rows a power of two).
+// use_smem != 0 stages the table in dynamic shared memory (it must fit
+// DPT_PROBE_SMEM_BYTES); else every load goes to device memory.
+constexpr int DPT_PROBE_SMEM_BYTES = 227 * 1024;
+int dpt_gather_chain(const int32_t* table, const int32_t* idx, int32_t* out,
+                     int rows, int n, int lanes, int k, int update,
+                     int use_smem, void* stream);
+int dpt_sweep_chain(const int32_t* table, const int32_t* idx, int32_t* out,
+                    int rows, int n, int lanes, int k, int use_smem,
+                    void* stream);
+
+// T3: identity copy of n bytes, 16 bytes a thread where both pointers are
+// 16-byte aligned (a scalar tail for the rest), byte by byte otherwise.
+int dpt_identity_u8(const uint8_t* in, uint8_t* out, int64_t n, void* stream);
 
 // Blocks for a grid-stride loop over n elements: enough to fill the card's
 // 132 SMs many times over, never 0.

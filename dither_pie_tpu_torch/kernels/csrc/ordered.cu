@@ -2,7 +2,9 @@
 //
 // Replaces the TPU kernel dither_pie_tpu/ops/ordered_pallas.py
 // `_compiled_padded` (body `_build`). It computes the same function, for
-// every pixel i = (b, y, x) of a (B, H, W, 3) u8 batch:
+// every pixel i = (b, y, x) of a (B, H, W, 3) batch, u8 or float32 (a
+// float32 pixel is taken as it is, never truncated: the wavelet mode's
+// reconstruction is not integer-valued):
 //   d_p    = (dr*dr + dg*dg) + db*db, dr = r - pal[p].r, ... in float32
 //   (d1, i1), (d2, i2) = running top-2 over p = 0..P-1, strict <, so the
 //                        lowest index wins every tie
@@ -12,8 +14,10 @@
 //
 // Design.
 //  * One thread per pixel in a grid-stride loop over B*H*W, reading NHWC
-//    u8 directly: neighbouring threads read and write neighbouring 3-byte
-//    pixels. The TPU kernel's planar (3, rows, 128k) repack, row and lane
+//    directly: neighbouring threads read neighbouring 3-byte (u8) or
+//    12-byte (float32) pixels and write neighbouring 3-byte ones. The
+//    kernel is a template on the input type; everything after the three
+//    loads is one body. The TPU kernel's planar (3, rows, 128k) repack, row and lane
 //    padding and sentinel palette entries were its tiling; none is needed.
 //  * The (H, W) screen is read at i mod H*W for every frame, not tiled over
 //    the batch: a 1080p float32 screen is 8.3 MB and stays in the 50 MB L2.
@@ -25,8 +29,9 @@
 //    intrinsics and the build adds --fmad=false, so no multiply-add is
 //    contracted into an FMA; the result is bit for bit the plain PyTorch
 //    version's (dither_pie_tpu_torch/ops/ordered_fused.py).
-//  * What bounds it: at 16 x 1080p with P = 16 it moves 99.5 MB in, 99.5 MB
-//    out and the 8.3 MB screen (~62 us at 3.35 TB/s), and runs ~12 FP32
+//  * What bounds it: at 16 x 1080p with P = 16 it moves 99.5 MB in (398 MB
+//    of float32 frames), 99.5 MB out and the 8.3 MB screen (~62 us at
+//    3.35 TB/s; ~151 us from float32), and runs ~12 FP32
 //    operations per palette entry per pixel (~6.4 G operations, plus one
 //    shared-memory load per plane and entry). So it sits near the balance
 //    at P = 16 and is bound by arithmetic as P grows. Holding the palette
@@ -39,8 +44,9 @@
 
 namespace {
 
+template <typename T>
 __global__ void __launch_bounds__(256)
-ordered_fused_kernel(const uint8_t* __restrict__ img,
+ordered_fused_kernel(const T* __restrict__ img,
                      const float* __restrict__ pal, int P,
                      const float* __restrict__ screen, int64_t n, int64_t hw,
                      uint8_t* __restrict__ out, int emit_idx) {
@@ -94,15 +100,27 @@ ordered_fused_kernel(const uint8_t* __restrict__ img,
     }
 }
 
-}  // namespace
-
-int dpt_ordered_fused(const uint8_t* img, const float* pal, int P,
-                      const float* screen, int64_t n, int64_t hw, uint8_t* out,
-                      int emit_idx, void* stream) {
+template <typename T>
+int launch(const T* img, const float* pal, int P, const float* screen,
+           int64_t n, int64_t hw, uint8_t* out, int emit_idx, void* stream) {
     const int threads = 256;
     const int blocks = dpt_grid_blocks(n, threads);
     const size_t smem = 3 * (size_t)P * sizeof(float);
-    ordered_fused_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+    ordered_fused_kernel<T><<<blocks, threads, smem, (cudaStream_t)stream>>>(
         img, pal, P, screen, n, hw, out, emit_idx);
     return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+int dpt_ordered_fused_u8(const uint8_t* img, const float* pal, int P,
+                         const float* screen, int64_t n, int64_t hw,
+                         uint8_t* out, int emit_idx, void* stream) {
+    return launch<uint8_t>(img, pal, P, screen, n, hw, out, emit_idx, stream);
+}
+
+int dpt_ordered_fused_f32(const float* img, const float* pal, int P,
+                          const float* screen, int64_t n, int64_t hw,
+                          uint8_t* out, int emit_idx, void* stream) {
+    return launch<float>(img, pal, P, screen, n, hw, out, emit_idx, stream);
 }

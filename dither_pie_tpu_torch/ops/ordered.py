@@ -12,7 +12,9 @@ CUDA batch to the hand-written kernel K4 (``ops/ordered_fused.py``),
 whatever its size and palette, and runs K4's plain version on a CPU batch.
 The JAX package's size and palette conditions for its Pallas kernel were
 TPU launch-cost and SMEM limits. Its dense (N, P) XLA path is not ported:
-K4's plain version is the CPU path, and it gives the XLA path's bits.
+K4's plain version is the CPU path, and it gives the XLA path's bits on
+integer-valued frames. float32 frames (the wavelet mode's reconstruction)
+enter K4 as they are, as they entered the XLA path.
 """
 
 from __future__ import annotations
@@ -42,8 +44,8 @@ def screen_for_matrix(matrix: np.ndarray, h: int, w: int,
 def dispatch_ordered_batch(images: torch.Tensor, palette: torch.Tensor,
                            screen: torch.Tensor,
                            return_indices: bool = False) -> torch.Tensor:
-    """(B, H, W, 3) frames -> (B, H, W, 3) u8 colours, or (B, H, W) u8
-    indices with ``return_indices`` (P <= 256): K4 on a CUDA batch, its
+    """(B, H, W, 3) u8 or float32 frames -> (B, H, W, 3) u8 colours, or
+    (B, H, W) u8 indices with ``return_indices`` (P <= 256): K4 on a CUDA batch, its
     plain version on a CPU batch. Bit-identical either way; more than 256
     colours with ``return_indices`` raise ValueError."""
     return ordered_dither_fused(images, palette, screen,

@@ -2,12 +2,14 @@
 
 The port of ``dither_pie_tpu/ops/ordered_pallas.py`` (the Pallas kernel
 ``_compiled_padded``, body ``_build``). For every pixel of a (B, H, W, 3)
-u8 batch it keeps a running top-2 of exact squared palette distances,
+batch, u8 or float32, it keeps a running top-2 of squared palette distances,
 ``d = (dr*dr + dg*dg) + db*db`` in float32 with strict ``<`` (the lowest
 index wins every tie), and picks ``i1`` where ``d1/(d1+d2) <= screen[y, x]``
 (0 where both are 0), ``i2`` otherwise. It returns the chosen colours as u8
 (truncated from the float32 palette) or, with ``return_indices``, the u8
-index.
+index. A float32 batch is taken as it is, never truncated: the wavelet
+mode's reconstruction is not integer-valued (the TPU kernel's prep cast
+every batch to u8; its XLA twin, which served the wavelet mode, did not).
 
 Which implementation runs is a pure function of the tensor's device: a
 CUDA tensor launches ``kernels/csrc/ordered.cu`` (counted in
@@ -60,8 +62,7 @@ def ordered_dither_fused_plain(images: torch.Tensor, palette: torch.Tensor,
     """Plain PyTorch K4: the TPU kernel's running top-2 as a loop over the
     palette on (B, H, W) planes. It never materialises (N, P)."""
     _check(images, palette, screen, return_indices)
-    x = images.to(torch.uint8).to(torch.float32)  # f32 frames truncate
-    r, g, b = x.unbind(-1)
+    r, g, b = images.to(torch.float32).unbind(-1)
     pal_t = palette.t()  # (3, P)
     d1 = torch.full_like(r, float("inf"))
     d2 = torch.full_like(r, float("inf"))
@@ -91,15 +92,14 @@ def ordered_dither_fused(images: torch.Tensor, palette: torch.Tensor,
                          return_indices: bool = False) -> torch.Tensor:
     """K4 on CUDA tensors, its plain version on CPU tensors.
 
-    ``images`` (B, H, W, 3) u8 (float32 frames are cast to u8 by
-    truncation; every entry point hands over integer values), ``palette``
-    (P, 3) float32 with P <= 4096, ``screen`` (H, W) float32, all on one
+    ``images`` (B, H, W, 3) u8 or float32 (float32 pixels enter the
+    distances as they are), ``palette`` (P, 3) float32 with P <= 4096, ``screen`` (H, W) float32, all on one
     device. Returns (B, H, W, 3) u8 colours, or (B, H, W) u8 indices with
     ``return_indices`` (P <= 256)."""
     if not build.on_cuda(images):
         return ordered_dither_fused_plain(images, palette, screen, return_indices)
     _check(images, palette, screen, return_indices)
-    frames = images.to(torch.uint8).contiguous()
+    frames = images.contiguous()
     shape = frames.shape[:3] if return_indices else frames.shape
     out = torch.empty(shape, dtype=torch.uint8, device=frames.device)
     build.extension().ordered_fused(frames, palette.contiguous(),

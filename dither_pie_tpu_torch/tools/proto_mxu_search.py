@@ -149,6 +149,13 @@ def _cuda_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def card_line() -> str:
+    """The card's ``name, power.limit`` as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
 def probe(pp: int, iters: int, device) -> Dict[str, float]:
     """Run both kernels on ``device`` (a CUDA device) at ``pp`` colours:
     their times, microseconds per row-step and the flip fraction of score
@@ -173,9 +180,7 @@ def main() -> int:
         return 2
     sizes = [int(sys.argv[1])] if len(sys.argv) > 1 else [256, 1024]
     iters = int(sys.argv[2]) if len(sys.argv) > 2 else 64
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    card = card_line()
     for pp in sizes:
         r = probe(pp, iters, torch.device("cuda"))
         print(f"pp={pp} lf={LF} iters={iters} [{card}]")

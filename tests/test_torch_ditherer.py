@@ -1,7 +1,9 @@
 """The port's public surface (dither_pie_tpu_torch.ImageDitherer) against
 the JAX package's, on the CPU, for the modes it serves: the error-diffusion
 family (fixed-weight, Ostromoukhov, hybrid, perceptual, adaptive variance)
-and the ordered family (none, Bayer, blue noise, IGN, polka dot).
+and the ordered family (none, Bayer, blue noise, IGN, polka dot); wavelet
+and halftone have files of their own (test_torch_wavelet.py,
+test_torch_halftone.py) and join the index-stream cases here.
 
 * error diffusion, apply_dithering_batch: bitwise equal to the JAX
   package's for the same palette, gamma off and on (the JAX package runs
@@ -291,13 +293,34 @@ def test_cuda_without_gpu_raises():
     assert tdpt.resolve_device("cpu") == torch.device("cpu")
 
 
+TRANSFORM_MODES = {tdpt.DitherMode.WAVELET, tdpt.DitherMode.HALFTONE}
+
+
 @pytest.mark.parametrize("mode", [m for m in tdpt.DitherMode
-                                  if m not in ED_MODES and m not in ORDERED_MODES])
+                                  if m not in ED_MODES | ORDERED_MODES | TRANSFORM_MODES])
 def test_unported_modes_raise(mode):
+    assert mode is tdpt.DitherMode.RIEMERSMA  # the one mode still to port
     d = tdpt.ImageDitherer(dither_mode=mode, palette=[(0, 0, 0), (255, 255, 255)],
                            device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A[457]"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A5"):
         d.apply_dithering_batch(np.zeros((1, 4, 4, 3), np.uint8))
+
+
+@pytest.mark.parametrize("mode", sorted(TRANSFORM_MODES, key=lambda m: m.value),
+                         ids=lambda m: m.value)
+def test_wavelet_and_halftone_are_served(mode):
+    """The two modes the facade refused before dither now, single image
+    and batch, to palette colours only (their tests against the JAX package
+    are tests/test_torch_wavelet.py and tests/test_torch_halftone.py)."""
+    frames = _frames(2, 20, 28)
+    palette = tpal.median_cut_palette(frames[0], 8)
+    d = tdpt.ImageDitherer(num_colors=8, dither_mode=mode, palette=palette, device="cpu")
+    out = d.apply_dithering_batch(frames)
+    assert out.dtype == np.uint8 and out.shape == frames.shape
+    assert {tuple(c) for c in out.reshape(-1, 3)} <= set(palette)
+    np.testing.assert_array_equal(
+        np.asarray(d.apply_dithering(Image.fromarray(frames[1]))), out[1])
+    assert not hasattr(tdpt, "parameters") and "parameters" not in dir(tdpt.api)
 
 
 def test_unported_options_raise():
@@ -332,7 +355,8 @@ INDEX_ORDERED_CASES = [
     ("IGN", {"scale": 2.5, "seed": 7}),
     ("polka_dot", {"tile_size": 6, "gamma": 2.0}),
 ]
-INDEX_CASES = ALL_ED_CASES + INDEX_ORDERED_CASES
+INDEX_CASES = ALL_ED_CASES + INDEX_ORDERED_CASES + [
+    ("wavelet", {"wavelet": "db2"}), ("halftone", {"cell_size": 4})]
 INDEX_IDS = [m for m, _ in INDEX_CASES]
 
 
