@@ -157,7 +157,17 @@ a non-zero exit code and no result line:
    size, a view off the 16-byte boundary and 15 bytes, one 100 x 1080p plane
    timed beside clone() (GB/s beside the 3.35 TB/s of the bounds), the
    layout harness at 3 x 100 frames (temporary bytes over the arguments')
-   and its chain through K4 at 3 x 16; and what the whole run took.
+   and its chain through K4 at 3 x 16;
+12. K2 and K8 over thread-block clusters (one frame on n blocks whose ranks
+   search contiguous slices of the palette, ``ops.wavefront.
+   scan_cluster_plan``): both held to scan_plain / scan_idx_plain bitwise
+   at B=1, 3, 17, 33, 133 x 37x53 with P in {2, 3, 7, 33, 65, 100, 1023,
+   2049}, at the plan's n and at every n <= min(8, P); in the five modes,
+   u8 and float32, at P=33 and at P=100 with both searches; on colours
+   planted on both sides of every slice boundary (the lower index must win)
+   and on exact ties across the first boundary; the plan's n at 1080p for
+   the same batch sizes (8 down to 1) and the clusters the card holds at
+   once for the main path's launches; and what the whole run took.
 
 Phases 1-8 run with DITHER_PIE_TPU_INDEX_TRANSFER=0 (the RGB path, whatever
 the link probe would say); phases 9 to 11 set it as each check needs.
@@ -174,7 +184,8 @@ the scans K2 and K8, and each entry of K2's ``modes_ms`` and ``palette_ms``,
 carry ``chain_bound_ms`` beside it: the serial chain of D wavefront steps
 at 0.1 us a step, the least latency one step is taken to have (a
 block-wide barrier, one trip through shared memory or L1, and about 25
-dependent float instructions).
+dependent float instructions). Each timed scan (those and ``score_ms``'s
+entries) also carries ``n``, the cluster size its launch ran with.
 
 The lines before the last are a JSON object {"kernels": [...]} and the
 card's name and power limit; the last line is
@@ -1015,11 +1026,12 @@ def ed_modes_phase(torch, dev, card, lib, frames16, frame0, palette32, palette25
         check(torch.equal(got, want), f"ed_scan kernel != plain version ({what}, "
                                       f"{BATCH}x{FULL_H}x{FULL_W}, max abs err {err})")
         return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                "n": twf.launch_plan(stream, pal_t, geom).n,
                 **scan_bound(BATCH, FULL_H, FULL_W, geom.s, pal_t.shape[0],
                              len(geom.weights), aux=aux is not None)}
 
     def timed_line(entries, prefix=""):
-        return ", ".join(f"{prefix}{k} {v['ms']:.3f} ms (plain {v['plain_ms']:.0f} ms)"
+        return ", ".join(f"{prefix}{k} {v['ms']:.3f} ms, n {v['n']} (plain {v['plain_ms']:.0f} ms)"
                          for k, v in entries.items())
 
     mode_ms = {}
@@ -1070,11 +1082,14 @@ def ed_modes_phase(torch, dev, card, lib, frames16, frame0, palette32, palette25
         errs[key] = max(errs[key], err)
         check(torch.equal(got, want), f"{key} kernel != plain version on the "
                                       f"{BATCH}x{SD_H}x{SD_W} batch (max abs err {err})")
+        cluster = ({"n": twf.launch_plan(sd_stream, pals_t[2048], fs, True).n}
+                   if key == "ed_scan_idx" else {})
         log(f"[8] {key}: kernel {ms:.3f} ms, plain PyTorch {plain_ms:.3f} ms per "
-            f"{BATCH}x{SD_H}x{SD_W} FS k-means-2048 batch, outputs equal bitwise [{card}]")
+            f"{BATCH}x{SD_H}x{SD_W} FS k-means-2048 batch, outputs equal bitwise {cluster} "
+            f"[{card}]")
         new_rows.append({"name": key, "route": "cuda", "source": source, "replaces": replaces,
                          "launches": totals[key], "max_abs_err": errs[key], "ms": ms,
-                         "plain_ms": plain_ms, **bounds[key]})
+                         "plain_ms": plain_ms, **cluster, **bounds[key]})
     scan_row["max_abs_err"] = errs["ed_scan"]
 
     walls = []
@@ -1725,11 +1740,14 @@ def dense_search_phase(torch, dev, card, lib, frames16, frame0, palette256, rows
         del got, want
         score_ms[str(p)] = {
             "ms": ms, "exact_ms": exact_ms, "plain_ms": plain_ms, "max_abs_err": err,
+            "n": twf.launch_plan(stream16, pal_t, fs, False, "mxu").n,
+            "exact_n": twf.launch_plan(stream16, pal_t, fs).n,
             **scan_bound(BATCH, FULL_H, FULL_W, fs.s, p, len(fs.weights), score=True)}
     del stream16
     log(f"[10] ed_scan (K2) with the score branch, {BATCH}x{FULL_H}x{FULL_W} floyd_steinberg "
         f"k-means, each equal to its plain version bitwise: " + ", ".join(
-            f"P={p} score {v['ms']:.3f} ms against exact {v['exact_ms']:.3f} ms (plain "
+            f"P={p} score {v['ms']:.3f} ms (n {v['n']}) against exact {v['exact_ms']:.3f} ms "
+            f"(n {v['exact_n']}; plain "
             f"{v['plain_ms']:.0f} ms, bound {v['bound_ms']:.4f} ms by {v['bound_by']})"
             for p, v in score_ms.items()) + f" [{card}]")
     scan_row = next(row for row in rows if row["name"] == "ed_scan")
@@ -1957,6 +1975,167 @@ def dense_search_phase(torch, dev, card, lib, frames16, frame0, palette256, rows
                  "max_abs_err": errs["search_probe"], "ms": one_ms, "plain_ms": one_plain_ms,
                  "probe": probed, **probe_bound}]
     return new_rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: K2 and K8 over thread-block clusters
+# ---------------------------------------------------------------------------
+
+CLUSTER_BATCHES = (1, 3, 17, 33, 133)  # the plan's n from 8 down to 1
+CLUSTER_PALETTES = (2, 3, 7, 33, 65, 100, 1023, 2049)
+
+
+def cluster_phase(torch, dev, card, frames16, errs):
+    """Phase 12: the scan over a cluster of n blocks, the palette split in
+    rank order, held to the plain scan bitwise at every n. Returns the
+    number of kernel == plain comparisons."""
+    from dither_pie_tpu_torch.ops import wavefront as twf
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(12)
+    _, h, w = SMALL
+    fs = twf.scan_geometry("floyd_steinberg")
+    count = [0]
+
+    def on_card(arr):
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+
+    def hold_sizes(frames_t, pal_t, geom, aux, what, searches=("exact",), sizes=(1, 2, 4, 8)):
+        """K2 (up to 1024 colours) and K8, each search, at the plan's n and
+        at every n in ``sizes`` up to P, against one plain run each.
+        Returns {(output, search): (the plan's n, {n: output})}."""
+        stream = twf.skew(frames_t, geom.s)
+        p = pal_t.shape[0]
+        found = {}
+        for emit_idx in ((False, True) if p <= twf.PACKED_PALETTE_MAX else (True,)):
+            key = "ed_scan_idx" if emit_idx else "ed_scan"
+            kern, plain = ((twf.scan_idx, twf.scan_idx_plain) if emit_idx
+                           else (twf.scan, twf.scan_plain))
+            for search in searches:
+                want = plain(stream, pal_t, geom, w, aux, search)
+                plan_n = twf.launch_plan(stream, pal_t, geom, emit_idx, search).n
+                outs = {0: kern(stream, pal_t, geom, w, aux, search)}
+                for n in sizes:
+                    if n <= p:
+                        outs[n] = twf.launch_scan(stream, pal_t, geom, w, aux, emit_idx,
+                                                  search, n)
+                sync(torch, dev)
+                for n, got in outs.items():
+                    hold(torch, key, got, want, errs,
+                         f"{what}, P={p}, {search}, n={n or f'{plan_n} (plan)'}")
+                    count[0] += 1
+                found[(key, search)] = (plan_n, outs)
+        return found
+
+    # (a) The plan at every batch size, FS on random u8 frames: K2 and K8 at
+    # the plan's n and at every n up to P.
+    picked = {}
+    for b in CLUSTER_BATCHES:
+        frames_t = on_card(rng.randint(0, 256, (b, h, w, 3)).astype(np.uint8))
+        for p in CLUSTER_PALETTES:
+            got = hold_sizes(frames_t, on_card(unique_palette(rng, p)), fs, None,
+                             f"FS B={b}")
+            picked[(b, p)] = got[("ed_scan_idx", "exact")][0]
+    log(f"[12] kernel == plain, bitwise, K2 and K8 FS at {h}x{w}, B in {CLUSTER_BATCHES} x P in "
+        f"{CLUSTER_PALETTES}, each at the plan's n and at every n <= min(8, P); the plan's n "
+        f"by (B, P): {picked} ({time.perf_counter() - t0:.1f} s)")
+    # The same batch sizes at the main path's frame size, where a block has
+    # 1024 threads and one SM holds one: the plan goes down from 8 to 1 as
+    # the clusters stop fitting the card at once (a stream of zero strides
+    # carries the launch's shape).
+    pal_t = on_card(unique_palette(rng, 1023))
+    by_b = {}
+    for b in CLUSTER_BATCHES:
+        shape = (twf.stream_length(FULL_H, FULL_W, fs.s), 3 * b, FULL_H)
+        stream = torch.zeros(1, dtype=torch.uint8, device=dev).expand(*shape)
+        by_b[b] = twf.launch_plan(stream, pal_t, fs, True).n
+    log(f"[12] the plan's n at {FULL_H}x{FULL_W}, K8 at 1023 colours, by batch: {by_b}")
+    check(set(by_b.values()) == {1, 2, 4, 8},
+          f"the plan did not take every cluster size over the batches at 1023 colours: {by_b}")
+
+    # (b) Every mode, u8 and float32, both outputs, both searches.
+    t1 = time.perf_counter()
+    b = 3
+    small = {"u8": rng.randint(0, 256, (b, h, w, 3)).astype(np.uint8),
+             "f32": rng.uniform(-8.0, 263.0, (b, h, w, 3)).astype(np.float32)}
+    gates = on_card((rng.rand(b, h, w) < 0.5).astype(np.float32))
+    pals = {33: on_card(unique_palette(rng, 33)), 100: on_card(unique_palette(rng, 100))}
+    for mode in twf.MODES:
+        lum, col = (0.7, 0.45) if mode == "hybrid" else (1.0, 0.2)
+        geom = twf.scan_geometry("floyd_steinberg" if mode == "fixed" else "", mode, lum, col)
+        for name, arr in small.items():
+            frames_t = on_card(arr)
+            aux = (twf.perceptual_sensitivity(frames_t) if mode == "perceptual"
+                   else gates if mode == "adaptive" else None)
+            hold_sizes(frames_t, pals[33], geom, aux, f"{mode} {name}")
+            hold_sizes(frames_t, pals[100], geom, aux, f"{mode} {name}",
+                       searches=("exact", "mxu"))
+    jjn = twf.scan_geometry("jjn")
+    hold_sizes(on_card(small["u8"]), pals[100], jjn, None, "jjn u8", searches=("exact", "mxu"))
+    log(f"[12] kernel == plain, bitwise: 5 modes x (u8, f32) x (K2, K8) at B={b} {h}x{w}, "
+        f"P=33 exact and P=100 exact and score, jjn at P=100, each at the plan's n and n in "
+        f"(1, 2, 4, 8) ({time.perf_counter() - t1:.1f} s)")
+
+    # (c) A colour planted on both sides of every slice boundary (index
+    # hi_r - 1 repeated at hi_r): the lower index must win; frames flat on
+    # those colours give exact distance-0 ties across ranks.
+    t1 = time.perf_counter()
+    planted = 0
+    for p in (65, 1023, 2049):
+        for n in (2, 4, 8):
+            bounds = twf.palette_slices(p, n)
+            pal_np = unique_palette(rng, p)
+            for hi in bounds[1:-1]:
+                pal_np[hi] = pal_np[hi - 1]
+            frames = rng.randint(0, 256, (b, h, w, 3)).astype(np.uint8)
+            frames[0] = pal_np[bounds[1] - 1].astype(np.uint8)
+            frames[1] = pal_np[bounds[-2] - 1].astype(np.uint8)
+            frames[2, :, : w // 2] = pal_np[bounds[n // 2] - 1].astype(np.uint8)
+            searches = ("exact", "mxu") if twf.score_search("mxu", p) else ("exact",)
+            got = hold_sizes(on_card(frames), on_card(pal_np), fs, None,
+                             f"planted boundaries n={n}", searches=searches, sizes=(n,))
+            for search in searches:
+                for idx in got[("ed_scan_idx", search)][1].values():
+                    idx = idx.cpu().numpy()
+                    check(not np.isin(idx, bounds[1:-1]).any(),
+                          f"a slice's first colour won over its planted twin below the "
+                          f"boundary (P={p}, n={n}, {search})")
+                    planted += 1
+    # Exact ties between neighbours across a boundary: a flat frame midway
+    # between colour hi_0 - 1 and colour hi_0.
+    for p, n in ((2, 2), (7, 2), (7, 4), (33, 8)):
+        bounds = twf.palette_slices(p, n)
+        pal_np = rng.randint(180, 256, (p, 3)).astype(np.float32)
+        pal_np[bounds[1] - 1] = (100, 100, 100)
+        pal_np[bounds[1]] = (102, 100, 100)
+        ties = np.empty((b, h, w, 3), np.uint8)
+        ties[...] = (101, 100, 100)
+        got = hold_sizes(on_card(ties), on_card(pal_np), fs, None, f"exact ties n={n}",
+                         sizes=(n,))
+        idx = got[("ed_scan_idx", "exact")][1][n].cpu().numpy()
+        # Each frame's first pixel is the exact tie (the error moves the rest).
+        check((idx[0, :, 0] == bounds[1] - 1).all(),
+              f"a tie across the slice boundary went to the later colour (P={p}, n={n})")
+    log(f"[12] kernel == plain, bitwise: colours planted on both sides of every slice "
+        f"boundary at P in (65, 1023, 2049) x n in (2, 4, 8), exact and score, no later twin "
+        f"emitted ({planted} index streams); flat frames whose first pixel ties exactly across "
+        f"the first boundary at (P, n) in ((2, 2), (7, 2), (7, 4), (33, 8)) took the lower index "
+        f"({time.perf_counter() - t1:.1f} s)")
+
+    # Residency: how many clusters of n blocks the card holds at once for
+    # the main path's 16 x 1080p launches, and the n the plan takes.
+    batch_t = on_card(frames16)
+    stream = twf.skew(batch_t, fs.s)
+    caps = {}
+    for p in (32, 64, 256, 1024):
+        pal_t = on_card(unique_palette(rng, p))
+        caps[p] = ({n: twf.launch_capacity(stream, pal_t, fs, n) for n in (1, 2, 4, 8)},
+                   twf.launch_plan(stream, pal_t, fs).n)
+    del stream
+    log(f"[12] clusters resident at once, FS {BATCH}x{FULL_H}x{FULL_W}, by P: "
+        + "; ".join(f"P={p}: {c} -> plan n={n}" for p, (c, n) in caps.items())
+        + f" ({count[0]} comparisons in all, {time.perf_counter() - t0:.1f} s) [{card}]")
+    return count[0]
 
 
 # ---------------------------------------------------------------------------
@@ -2566,13 +2745,15 @@ def run(torch, dev, card) -> int:
         check(torch.equal(got, want),
               f"{key} kernel != plain version on the {BATCH}x{FULL_H}x{FULL_W} "
               f"batch (max abs err {err})")
+        # The cluster size the timed scan launch ran with.
+        cluster = {"n": twf.launch_plan(stream, pal_t, geom).n} if key == "ed_scan" else {}
         log(f"[6] {key}: kernel {ms:.3f} ms, plain PyTorch {plain_ms:.3f} ms "
-            f"per {BATCH}x{FULL_H}x{FULL_W} FS batch, outputs equal bitwise "
+            f"per {BATCH}x{FULL_H}x{FULL_W} FS batch, outputs equal bitwise {cluster} "
             f"[{card}]")
         rows.append({"name": key, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches.get(key, 0),
                      "max_abs_err": errs[key], "ms": ms,
-                     "plain_ms": plain_ms, **bounds[key]})
+                     "plain_ms": plain_ms, **cluster, **bounds[key]})
 
     # One traced call: how much of the wall time the device is busy.
     report_trace(torch, 6, "apply_dithering_batch FS",
@@ -2627,7 +2808,13 @@ def run(torch, dev, card) -> int:
 
     # 11. Wavelet and halftone, K4 on float32 frames, the probes T1 and T3.
     rows.extend(transform_phase(torch, dev, card, frames16, palette, rows, errs))
-    log(f"[11] the whole run took {time.perf_counter() - t_run:.1f} s")
+
+    # 12. K2 and K8 over thread-block clusters.
+    cluster_phase(torch, dev, card, frames16, errs)
+    for row in rows:
+        if row["name"] in ("ed_scan", "ed_scan_idx"):
+            row["max_abs_err"] = errs[row["name"]]
+    log(f"[12] the whole run took {time.perf_counter() - t_run:.1f} s")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -13,6 +13,9 @@
 #include <c10/cuda/CUDAStream.h>
 #include <cuda_runtime_api.h>
 
+#include <algorithm>
+#include <vector>
+
 #include "launchers.h"
 
 namespace {
@@ -70,14 +73,41 @@ void skew(torch::Tensor images, torch::Tensor out, int64_t s) {
     check_launch(rc, "skew");
 }
 
+// The cluster fields of a scan launch: n blocks a frame, the palette's
+// slice bounds (n + 1 ints, 0 .. P), the history's place and the wrapper's
+// shared-memory budget.
+void set_cluster(DptScanArgs& a, int64_t n, const std::vector<int64_t>& bounds,
+                 int64_t ring, bool hist_smem, int64_t smem_bytes) {
+    TORCH_CHECK(n >= 1 && n <= DPT_MAX_CLUSTER && (n & (n - 1)) == 0,
+                "cluster size ", n, " must be 1, 2, 4 or 8");
+    TORCH_CHECK((int64_t)bounds.size() == n + 1 && bounds.front() == 0 &&
+                    bounds.back() == a.P,
+                "slice bounds must be n + 1 ints from 0 to P");
+    TORCH_CHECK(ring >= 1 && (ring & (ring - 1)) == 0,
+                "ring must be a power of two");
+    a.n = (int)n;
+    a.max_slice = 0;
+    for (int64_t r = 0; r <= n; ++r) {
+        a.slices.lo[r] = (int)bounds[r];
+        if (r > 0) {
+            TORCH_CHECK(bounds[r] > bounds[r - 1], "slice ", r - 1, " is empty");
+            a.max_slice = std::max(a.max_slice, (int)(bounds[r] - bounds[r - 1]));
+        }
+    }
+    a.ring = (int)ring;
+    a.hist_smem = hist_smem ? 1 : 0;
+    a.smem_bytes = as_int(smem_bytes, "smem_bytes");
+}
+
 void ed_scan(torch::Tensor img, torch::Tensor palette,
              torch::Tensor palette_aug, torch::Tensor aux, torch::Tensor lut,
              torch::Tensor hist, torch::Tensor out, torch::Tensor offsets, torch::Tensor weights,
              torch::Tensor columns, int64_t mode, int64_t s, int64_t width,
-             double lum_factor, double col_factor, bool emit_idx) {
+             double lum_factor, double col_factor, bool emit_idx, int64_t n,
+             std::vector<int64_t> bounds, int64_t ring, bool hist_smem,
+             int64_t smem_bytes) {
     check_tensor(img, "img", img);
     check_tensor(palette, "palette", img);
-    check_tensor(hist, "hist", img);
     check_tensor(out, "out", img);
     TORCH_CHECK(mode >= 0 && mode < DPT_SCAN_MODES, "mode ", mode,
                 " outside 0..", DPT_SCAN_MODES - 1);
@@ -115,13 +145,19 @@ void ed_scan(torch::Tensor img, torch::Tensor palette,
                     DPT_MAX_PALETTE, ": the score search does not serve it");
     }
     const int C = (ostromoukhov || mode == 3) ? 4 : 3;
-    TORCH_CHECK(hist.scalar_type() == torch::kFloat32 && hist.dim() == 4 &&
-                    hist.size(0) == B && hist.size(2) == C &&
-                    hist.size(3) == H,
-                "hist must be (B, ring, ", C, ", H) float32");
-    const int ring = as_int(hist.size(1), "ring");
-    TORCH_CHECK(ring >= 1 && (ring & (ring - 1)) == 0,
-                "ring must be a power of two");
+    DptScanArgs a{};
+    a.P = P;
+    set_cluster(a, n, bounds, ring, hist_smem, smem_bytes);
+    if (hist_smem) {
+        TORCH_CHECK(hist.numel() == 0, "hist must be empty when the history "
+                                       "lives in shared memory");
+    } else {
+        check_tensor(hist, "hist", img);
+        TORCH_CHECK(hist.scalar_type() == torch::kFloat32 && hist.dim() == 4 &&
+                        hist.size(0) == (int64_t)B * n && hist.size(1) == ring &&
+                        hist.size(2) == C && hist.size(3) == H,
+                    "hist must be (B*n, ring, ", C, ", H) float32");
+    }
     TORCH_CHECK(out.scalar_type() == torch::kInt32 && out.dim() == 3 &&
                     out.size(0) == D && out.size(1) == B && out.size(2) == H,
                 "out must be (D, B, H) int32");
@@ -156,22 +192,21 @@ void ed_scan(torch::Tensor img, torch::Tensor palette,
     TORCH_CHECK(columns.scalar_type() == torch::kInt32 &&
                     columns.dim() == 1 && columns.is_contiguous(),
                 "columns must be a contiguous (n,) int32 tensor");
-    const int64_t n = offsets.size(0);
-    TORCH_CHECK(n >= 1 && n <= DPT_MAX_ENTRIES && weights.size(0) == n &&
-                    columns.size(0) == n,
+    const int64_t n_e = offsets.size(0);
+    TORCH_CHECK(n_e >= 1 && n_e <= DPT_MAX_ENTRIES && weights.size(0) == n_e &&
+                    columns.size(0) == n_e,
                 "entries must be 1..", DPT_MAX_ENTRIES, " (dx, dy, w, column)");
-    TORCH_CHECK(!ostromoukhov || n == 3, "ostromoukhov has 3 entries");
+    TORCH_CHECK(!ostromoukhov || n_e == 3, "ostromoukhov has 3 entries");
     const int32_t* off = offsets.data_ptr<int32_t>();
     const float* wts = weights.data_ptr<float>();
     const int32_t* cols = columns.data_ptr<int32_t>();
-    DptScanArgs a{};
-    a.e.n = (int)n;
-    for (int64_t k = 0; k < n; ++k) {
+    a.e.n = (int)n_e;
+    for (int64_t k = 0; k < n_e; ++k) {
         const int64_t dx = off[2 * k], dy = off[2 * k + 1];
         TORCH_CHECK(dy >= 0 && dx + s * dy >= 1 && dx + s * dy < ring,
                     "entry ", k, " violates the skew or ring bound");
-        TORCH_CHECK(cols[k] >= 0 && cols[k] < n, "entry ", k,
-                    " has column ", cols[k], " outside 0..", n - 1);
+        TORCH_CHECK(cols[k] >= 0 && cols[k] < n_e, "entry ", k,
+                    " has column ", cols[k], " outside 0..", n_e - 1);
         a.e.dx[k] = (int)dx;
         a.e.dy[k] = (int)dy;
         a.e.w[k] = wts[k];
@@ -184,24 +219,48 @@ void ed_scan(torch::Tensor img, torch::Tensor palette,
     a.img_is_f32 = img.scalar_type() == torch::kFloat32;
     a.pal = palette.data_ptr<float>();
     a.pal_aug = score ? palette_aug.data_ptr<float>() : nullptr;
-    a.P = P;
     a.mode = (int)mode;
     a.aux = has_aux ? aux.data_ptr<float>() : nullptr;
     a.lut = ostromoukhov ? lut.data_ptr<float>() : nullptr;
     a.lum_factor = (float)lum_factor;
     a.col_factor = (float)col_factor;
     a.s = (int)s;
-    a.ring = ring;
     a.B = B;
     a.H = H;
     a.W = W;
     a.D = D;
-    a.hist = hist.data_ptr<float>();
+    a.hist = hist_smem ? nullptr : hist.data_ptr<float>();
     a.out = out.data_ptr<int32_t>();
     a.emit_idx = emit_idx ? 1 : 0;
+    a.capacity = nullptr;
     const c10::cuda::CUDAGuard guard(img.device());
     check_launch(dpt_ed_scan(a, current_stream(img)),
                  emit_idx ? "ed_scan_idx" : "ed_scan");
+}
+
+// How many clusters of n blocks of the scan the current device holds at
+// once (cudaOccupancyMaxActiveClusters) for the launch that ed_scan would
+// make with these arguments; launches nothing.
+int64_t ed_scan_capacity(bool img_f32, int64_t mode, bool emit_idx,
+                         bool score, int64_t P, int64_t H, int64_t n,
+                         std::vector<int64_t> bounds, int64_t ring,
+                         bool hist_smem, int64_t smem_bytes) {
+    TORCH_CHECK(mode >= 0 && mode < DPT_SCAN_MODES, "mode ", mode,
+                " outside 0..", DPT_SCAN_MODES - 1);
+    DptScanArgs a{};
+    a.img_is_f32 = img_f32 ? 1 : 0;
+    a.mode = (int)mode;
+    a.emit_idx = emit_idx ? 1 : 0;
+    static float dummy;
+    a.pal_aug = score ? &dummy : nullptr;
+    a.P = as_int(P, "P");
+    a.H = as_int(H, "H");
+    a.B = 1;
+    set_cluster(a, n, bounds, ring, hist_smem, smem_bytes);
+    int clusters = 0;
+    a.capacity = &clusters;
+    check_launch(dpt_ed_scan(a, nullptr), "ed_scan_capacity");
+    return clusters;
 }
 
 void unskew_unpack(torch::Tensor col, torch::Tensor out, int64_t s,
@@ -524,6 +583,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
     m.def("ed_scan", &ed_scan,
           "K2 / K8: wavefront scan, every mode -> (D,B,H) packed colours or "
           "palette indices");
+    m.def("ed_scan_capacity", &ed_scan_capacity,
+          "K2 / K8: clusters of n blocks the device holds at once");
     m.def("unskew_unpack", &unskew_unpack,
           "K3: (D,B,H) packed colours -> (B,H,W,3) or planar (3,B,H,W) uint8");
     m.def("unskew_idx", &unskew_idx,

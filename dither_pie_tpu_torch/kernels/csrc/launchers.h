@@ -40,6 +40,18 @@ struct DptScanEntries {
     int col[DPT_MAX_ENTRIES];
 };
 
+// Largest cluster of the scan: a frame over at most 8 blocks (the portable
+// cluster size), its palette split into as many contiguous slices.
+constexpr int DPT_MAX_CLUSTER = 8;
+// Dynamic shared memory a block may have (232,448 bytes).
+constexpr int DPT_SMEM_BYTES = 227 * 1024;
+
+// The palette slices of a cluster: rank r searches colours
+// [lo[r], lo[r+1]), lo[0] = 0, lo[n] = P.
+struct DptSlices {
+    int lo[DPT_MAX_CLUSTER + 1];
+};
+
 // One launch of the scan (K2, or K8 with emit_idx).
 struct DptScanArgs {
     const void* img;   // (D, 3B, H) skewed stream, uint8 or float32
@@ -56,11 +68,20 @@ struct DptScanArgs {
     float lum_factor;  // hybrid
     float col_factor;
     int s, ring, B, H, W, D;
-    float* hist;   // (B, ring, C, H) scratch, C = 4 for perceptual and
-                   // ostromoukhov, else 3; ring a power of two >= n_slots
+    float* hist;   // (B*n, ring, C, H) scratch, one history a block, C = 4
+                   // for perceptual and ostromoukhov, else 3; ring a power
+                   // of two >= n_slots; unused (null) with hist_smem
+    int hist_smem; // 1: the history lives in shared memory
+    int n;         // blocks a frame: the cluster, 1, 2, 4 or 8 (<= P)
+    DptSlices slices;
+    int max_slice; // colours of the longest slice
+    int smem_bytes;  // the wrapper's dynamic shared-memory budget; must equal
+                     // the kernel's layout
     int32_t* out;  // (D, B, H)
     int emit_idx;  // 0: packed colours (K2, P <= DPT_MAX_PALETTE); 1: indices
                    // (K8, P <= DPT_IDX_MAX_PALETTE)
+    int* capacity; // non-null: launch nothing, store how many clusters of n
+                   // blocks the card holds at once
 };
 
 // K1: (B, H, W, 3) frames -> (D, 3B, H) skewed stream,
@@ -72,7 +93,9 @@ int dpt_skew_f32(const float* in, float* out, int B, int H, int W, int D,
 
 // K2 and K8: the wavefront scan over the skewed stream, every mode; out
 // (D, B, H) int32, 0 outside the image: packed colours
-// (r << 16 | g << 8 | b) for K2, palette indices for K8.
+// (r << 16 | g << 8 | b) for K2, palette indices for K8. One frame a
+// cluster of a.n blocks. With a.capacity set it launches nothing and
+// answers cudaOccupancyMaxActiveClusters for the launch it would make.
 int dpt_ed_scan(const DptScanArgs& a, void* stream);
 
 // K3: (D, B, H) packed colours -> uint8 colours v = (col[x + s*y, b, y] >>

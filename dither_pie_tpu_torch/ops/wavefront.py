@@ -15,7 +15,9 @@ plain PyTorch version of the same function beside it here:
   (rows c*B + b) give K1's stream bit for bit.
 * K2 ``scan``: the wavefront scan -> (D, B, H) int32 packed colours
   ``r << 16 | g << 8 | b`` (0 outside the image), palettes of up to
-  ``PACKED_PALETTE_MAX`` colours.
+  ``PACKED_PALETTE_MAX`` colours. One frame runs on a thread-block cluster
+  of n blocks whose ranks search contiguous slices of the palette
+  (``scan_cluster_plan``, ``scan_smem_plan``).
 * K3 ``unskew_unpack``: (D, B, H) packed colours -> (B, H, W, 3) uint8, or
   the planes (3, B, H, W) with ``planar_out``.
 * K8 ``scan_idx``: the same scan for palettes of up to
@@ -530,25 +532,187 @@ def scan_idx_plain(stream: torch.Tensor, palette: torch.Tensor,
     return _scan_core(stream, palette, geom, width, aux, True, dense_search)
 
 
-def _launch_scan(stream: torch.Tensor, palette: torch.Tensor, geom: ScanGeometry,
-                 width: int, aux: Optional[torch.Tensor], emit_idx: bool,
-                 dense_search: str) -> torch.Tensor:
+# ---------------------------------------------------------------------------
+# K2 and K8 over a thread-block cluster
+# ---------------------------------------------------------------------------
+
+# Blocks a frame of the scan: the cluster sizes the kernel takes.
+CLUSTER_SIZES = (1, 2, 4, 8)
+# Dynamic shared memory a block may have on the H100 (232,448 bytes).
+SMEM_BYTES_MAX = 227 * 1024
+# The cluster size by palette size, (least P, n) in ascending P: a fixed
+# table, set from the sweep of n in {1, 2, 4, 8} at P in {32, 64, 256,
+# 1024, 2048} on an H100 (dither_pie_tpu_torch/tools/time_ed_path.py
+# --sweep, PERF.md). A step costs about c_n + k * P / n, k = 0.035 us and
+# c_1 = 1.6, c_2 = 2.7, c_4 = 2.9, c_8 = 3.5 us: the crossovers lie near
+# 45-56 colours (1 -> 4) and 128-143 (4 -> 8), and every measured P takes
+# its fastest n. n = 2 is never the least; the plan takes it where four or
+# eight are not all resident.
+_CLUSTER_TABLE = ((1, 1), (56, 4), (128, 8))
+
+
+def cluster_size_for(p: int) -> int:
+    """The table's cluster size for a P-colour palette, before the limits
+    of ``scan_cluster_plan``."""
+    n = 1
+    for least_p, size in _CLUSTER_TABLE:
+        if p >= least_p:
+            n = size
+    return n
+
+
+def palette_slices(p: int, n: int) -> Tuple[int, ...]:
+    """The n + 1 bounds of the contiguous palette slices, in rank order:
+    rank r searches colours [bounds[r], bounds[r+1]). Slices differ in
+    length by at most one colour and none is empty while n <= p."""
+    if not 1 <= n <= p:
+        raise ValueError(f"cannot split {p} colours into {n} slices")
+    return tuple(r * p // n for r in range(n + 1))
+
+
+def scan_smem_bytes(geom: ScanGeometry, h: int, p: int, n: int, score: bool,
+                    hist_smem: bool) -> int:
+    """Bytes of dynamic shared memory of one block of the scan, the sum the
+    kernel's ``smem_layout`` makes, in floats, each part rounded up to 4:
+    the ostromoukhov weight table (768); the block's palette slice, packed
+    (3 floats a colour, 4 with the score search: (r, g, b, n)) for the
+    longest of the ``palette_slices``; with n > 1 and P <=
+    PACKED_PALETTE_MAX the whole palette's colours (3 floats a colour); the
+    error history (ring * C * H, where ``hist_smem``); with n > 1 the rows'
+    stage (4 floats a row) and the candidates (2 buffers of 2 floats a
+    row)."""
+    def round4(v):
+        return (v + 3) // 4 * 4
+    longest = int(max(np.diff(palette_slices(p, n))))
+    floats = 256 * 3 if geom.mode == "ostromoukhov" else 0
+    floats += round4((4 if score else 3) * longest)
+    if n > 1 and p <= PACKED_PALETTE_MAX:
+        floats += round4(3 * p)
+    if hist_smem:
+        floats += round4(geom.ring * geom.hist_channels * h)
+    if n > 1:
+        floats += 8 * h
+    return 4 * floats
+
+
+def scan_smem_plan(geom: ScanGeometry, h: int, p: int, n: int,
+                   score: bool = False) -> Optional[Tuple[int, bool]]:
+    """(bytes, hist_smem): the block's shared memory with the error history
+    in it where that fits SMEM_BYTES_MAX, else without it (the history then
+    lives in device memory). None where even that does not fit."""
+    for hist_smem in (True, False):
+        nbytes = scan_smem_bytes(geom, h, p, n, score, hist_smem)
+        if nbytes <= SMEM_BYTES_MAX:
+            return nbytes, hist_smem
+    return None
+
+
+@dataclass(frozen=True)
+class ClusterPlan:
+    """One launch of the scan: ``n`` blocks a frame, the palette slices'
+    ``bounds`` (n + 1 ints from 0 to P), the block's ``smem_bytes`` and
+    whether the history lives in shared memory (``hist_smem``)."""
+
+    n: int
+    bounds: Tuple[int, ...]
+    smem_bytes: int
+    hist_smem: bool
+
+
+def scan_cluster_plan(b: int, h: int, p: int, geom: ScanGeometry,
+                      score: bool = False,
+                      capacity: Optional[Callable[[ClusterPlan], int]] = None,
+                      n: Optional[int] = None) -> ClusterPlan:
+    """The scan's launch for B frames of H rows and a P-colour palette.
+
+    n starts at the table's size for P (``cluster_size_for``), or at ``n``
+    where a measurement asks for one size, and halves until n <= P, the
+    block's shared memory fits (``scan_smem_plan``) and all B clusters are
+    resident at once: B <= ``capacity(plan)``, the card's count of clusters
+    of that launch (cudaOccupancyMaxActiveClusters; None: no limit), since
+    a second wave of clusters would double the time. A forced ``n`` skips
+    the residency rule, and so does n = 1, which always fits: its block
+    holds the palette (at most 192 KB at INDEX_PALETTE_MAX colours) and the
+    weight table, the history going to device memory where it must."""
+    start = cluster_size_for(p) if n is None else n
+    if start not in CLUSTER_SIZES:
+        raise ValueError(f"cluster size {start} not one of {CLUSTER_SIZES}")
+    for size in CLUSTER_SIZES[::-1]:
+        smem = scan_smem_plan(geom, h, p, size, score) if size <= min(start, p) else None
+        if smem is None:
+            continue
+        plan = ClusterPlan(size, palette_slices(p, size), *smem)
+        if size == 1 or n is not None or capacity is None or b <= capacity(plan):
+            return plan
+    raise ValueError(f"a {p}-colour scan of {h} rows does not fit {SMEM_BYTES_MAX} bytes "
+                     "of shared memory")
+
+
+@functools.lru_cache(maxsize=256)
+def _cluster_capacity(device: int, img_f32: bool, mode: str, emit_idx: bool,
+                      score: bool, p: int, h: int, ring: int,
+                      plan: ClusterPlan) -> int:
+    """Clusters of ``plan.n`` blocks that the card holds at once for this
+    launch, asked of the CUDA runtime once per configuration."""
+    with torch.cuda.device(device):
+        return build.extension().ed_scan_capacity(
+            img_f32, MODES.index(mode), emit_idx, score, p, h, plan.n,
+            list(plan.bounds), ring, plan.hist_smem, plan.smem_bytes)
+
+
+def _capacity_of(stream: torch.Tensor, palette: torch.Tensor, geom: ScanGeometry,
+                 emit_idx: bool, dense_search: str) -> Callable[[ClusterPlan], int]:
+    """``capacity`` of ``scan_cluster_plan`` for the launch on this stream."""
+    dev = stream.device
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    p = palette.shape[0]
+    key = (index, stream.dtype == torch.float32, geom.mode, emit_idx,
+           score_search(dense_search, p), p, stream.shape[2], geom.ring)
+    return lambda plan: _cluster_capacity(*key, plan)
+
+
+def launch_plan(stream: torch.Tensor, palette: torch.Tensor, geom: ScanGeometry,
+                emit_idx: bool = False, dense_search: str = "exact",
+                n: Optional[int] = None) -> ClusterPlan:
+    """The cluster plan of the scan launch on this CUDA stream and palette
+    (``scan_cluster_plan`` with the card's residency count)."""
+    _, rows, h = stream.shape
+    p = palette.shape[0]
+    return scan_cluster_plan(rows // 3, h, p, geom, score_search(dense_search, p),
+                             _capacity_of(stream, palette, geom, emit_idx, dense_search), n)
+
+
+def launch_capacity(stream: torch.Tensor, palette: torch.Tensor, geom: ScanGeometry,
+                    n: int, emit_idx: bool = False, dense_search: str = "exact") -> int:
+    """Clusters of ``n`` blocks of this scan launch that the card holds at
+    once (the number ``launch_plan`` holds the batch to)."""
+    return _capacity_of(stream, palette, geom, emit_idx, dense_search)(
+        launch_plan(stream, palette, geom, emit_idx, dense_search, n))
+
+
+def launch_scan(stream: torch.Tensor, palette: torch.Tensor, geom: ScanGeometry,
+                width: int, aux: Optional[torch.Tensor], emit_idx: bool,
+                dense_search: str, n: Optional[int] = None) -> torch.Tensor:
     """Launch the scan kernel: K8 with ``emit_idx``, else K2; with the
-    augmented palette where the score search runs."""
+    augmented palette where the score search runs; one frame over a
+    cluster of ``launch_plan``'s size (``n`` forces one, for the
+    measurements and checks that compare sizes)."""
     d_total, rows, h = stream.shape
     b = rows // 3
     dev = stream.device
-    hist = torch.empty((b, geom.ring, geom.hist_channels, h),
-                       dtype=torch.float32, device=dev)
-    out = torch.empty((d_total, b, h), dtype=torch.int32, device=dev)
-    none = torch.empty(0, dtype=torch.float32, device=dev)
     score = score_search(dense_search, palette.shape[0])
+    plan = launch_plan(stream, palette, geom, emit_idx, dense_search, n)
+    none = torch.empty(0, dtype=torch.float32, device=dev)
+    hist = none if plan.hist_smem else torch.empty(
+        (b * plan.n, geom.ring, geom.hist_channels, h), dtype=torch.float32, device=dev)
+    out = torch.empty((d_total, b, h), dtype=torch.int32, device=dev)
     build.extension().ed_scan(
         stream, palette, convert.augment_palette(palette) if score else none,
         aux if geom.needs_aux else none,
         ostro_lut(dev) if geom.mode == "ostromoukhov" else none, hist, out,
         geom.offsets, geom.weights, geom.columns, MODES.index(geom.mode),
-        geom.s, width, geom.lum_factor, geom.col_factor, emit_idx)
+        geom.s, width, geom.lum_factor, geom.col_factor, emit_idx, plan.n,
+        list(plan.bounds), geom.ring, plan.hist_smem, plan.smem_bytes)
     build.LAUNCHES["ed_scan_idx" if emit_idx else "ed_scan"] += 1
     return out
 
@@ -581,7 +745,7 @@ def scan(stream: torch.Tensor, palette: torch.Tensor, geom: ScanGeometry,
     _check_aux(geom, aux, stream, width)
     if not build.on_cuda(stream):
         return scan_plain(stream, palette, geom, width, aux, dense_search)
-    return _launch_scan(stream, palette, geom, width, aux, False, dense_search)
+    return launch_scan(stream, palette, geom, width, aux, False, dense_search)
 
 
 def scan_idx(stream: torch.Tensor, palette: torch.Tensor, geom: ScanGeometry,
@@ -596,7 +760,7 @@ def scan_idx(stream: torch.Tensor, palette: torch.Tensor, geom: ScanGeometry,
     _check_aux(geom, aux, stream, width)
     if not build.on_cuda(stream):
         return scan_idx_plain(stream, palette, geom, width, aux, dense_search)
-    return _launch_scan(stream, palette, geom, width, aux, True, dense_search)
+    return launch_scan(stream, palette, geom, width, aux, True, dense_search)
 
 
 # ---------------------------------------------------------------------------
