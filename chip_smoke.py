@@ -167,7 +167,16 @@ a non-zero exit code and no result line:
    planted on both sides of every slice boundary (the lower index must win)
    and on exact ties across the first boundary; the plan's n at 1080p for
    the same batch sizes (8 down to 1) and the clusters the card holds at
-   once for the main path's launches; and what the whole run took.
+   once for the main path's launches;
+13. K1 and K3, the tile transposes (``ops.wavefront.skew_tile_plan``,
+   ``unskew_tile_plan``): K1 (u8 and float32) == skew_plain and == K7's
+   stream, K3 (NHWC and planar) == unskew_unpack_plain, bitwise, at the
+   shapes of tests/test_torch_skew_tiles.py (B in 1, 3, 17; H in 1, 7, 8,
+   33, 64, 65; W in 1, 2, 3, 5, 21, 64, 65; s = 2 and 3), whole and as
+   contiguous slices whose base lies off the 16-byte boundary, K1 into
+   outputs off a sector boundary, and on 2 x 1080 x 1919 slices (the 16 x
+   1080p batch's holds are phase 6's, 9's and 10's); and what the whole run
+   took of its 1200 s limit.
 
 Phases 1-8 run with DITHER_PIE_TPU_INDEX_TRANSFER=0 (the RGB path, whatever
 the link probe would say); phases 9 to 11 set it as each check needs.
@@ -226,6 +235,7 @@ ED_MODES = ["ostromoukhov", "hybrid", "perceptual", "adaptive"]
 # The card's published peaks (NVIDIA's data sheet, H100 SXM, 700 W).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+RUN_LIMIT_S = 1200  # the time this script must finish in, its build included
 # Least latency of one wavefront step of the scans: a block-wide barrier
 # (~30 cycles), one trip through L1 or shared memory (~35 cycles) and ~25
 # dependent float instructions at 4 cycles, ~175 cycles at 1.755 GHz.
@@ -1649,6 +1659,10 @@ def dense_search_phase(torch, dev, card, lib, frames16, frame0, palette256, rows
     log(f"[10] skew_transpose (K7), {BATCH}x{FULL_H}x{FULL_W} float32, equal to K1's stream "
         f"bitwise: {k7f_ms:.3f} ms; K1 skew on the same batch {k1f_ms:.3f} ms; bound "
         f"{f32_bound['bound_ms']:.4f} ms by {f32_bound['bound_by']} [{card}]")
+    # K1's row: its times beside K7's and K6's on the same batches.
+    next(row for row in rows if row["name"] == "skew").update(
+        u8_ms=k1_ms, k7_u8_ms=k7_ms, k6_u8_ms=k6_ms, f32_ms=k1f_ms, k7_f32_ms=k7f_ms,
+        f32_bound_ms=f32_bound["bound_ms"])
 
     # --- the score branch of K2 and K8 == plain, bitwise ------------------
     t0 = time.perf_counter()
@@ -2521,6 +2535,105 @@ def transform_phase(torch, dev, card, frames16, palette32, rows, errs):
              "gb_per_s": gbs, **t3_bound}]
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: K1 and K3, the tile transposes, at the odd shapes
+# ---------------------------------------------------------------------------
+
+TILE_HS = (1, 7, 8, 33, 64, 65)  # the shapes of tests/test_torch_skew_tiles.py
+TILE_WS = (1, 2, 3, 5, 21, 64, 65)
+TILE_BS = (1, 3, 17)
+
+
+def tile_phase(torch, dev, card, errs):
+    """Phase 13: K1 (``skew_gather``, u8 and float32) against ``skew_plain``
+    and K7's stream, and K3 (``unskew_unpack``, NHWC and planar) against
+    ``unskew_unpack_plain``, all bitwise, at the CPU test's odd shapes: on
+    whole tensors, on contiguous slices whose base lies off the 16-byte
+    boundary, and on a K1 output that starts off a sector boundary (the
+    binding called with an offset output and its plan). Returns the number
+    of comparisons."""
+    from dither_pie_tpu_torch.kernels import build
+    from dither_pie_tpu_torch.ops import wavefront as twf
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(13)
+    count = 0
+
+    def skew_at(frames, s, out_offset):
+        """K1 through the binding into an output ``out_offset`` bytes into
+        a fresh buffer (the wrappers always allocate a fresh one)."""
+        b, h, w, _ = frames.shape
+        shape = (twf.stream_length(h, w, s), 3 * b, h)
+        e = frames.element_size()
+        buf = torch.empty(int(np.prod(shape)) * e + out_offset, dtype=torch.uint8, device=dev)
+        out = buf[out_offset:].view(frames.dtype).view(shape)
+        plan = twf.skew_tile_plan(b, h, w, s, frames.dtype, out.data_ptr() % twf.SECTOR_BYTES)
+        build.extension().skew(frames, out, s, plan.td, plan.ty, plan.lead, plan.threads,
+                               list(plan.grid), plan.smem_bytes)
+        return out
+
+    for s in (2, 3):
+        for b in TILE_BS:
+            for h in TILE_HS:
+                for w in TILE_WS:
+                    what = f"B={b} {h}x{w} s={s}"
+                    # One spare frame: [1:] is a contiguous slice whose base
+                    # lies h*w*3 bytes in, off the 16-byte boundary unless
+                    # that is a multiple of 16.
+                    u8 = torch.from_numpy(
+                        rng.randint(0, 256, (b + 1, h, w, 3)).astype(np.uint8)).to(dev)
+                    f32 = torch.from_numpy(
+                        rng.uniform(-8.0, 263.0, (b + 1, h, w, 3)).astype(np.float32)).to(dev)
+                    for frames, name in ((u8[:b], "u8"), (u8[1:], "u8 slice"),
+                                         (f32[:b], "f32"), (f32[1:], "f32 slice")):
+                        got = twf.skew_gather(frames, s)
+                        hold(torch, "skew", got, twf.skew_plain(frames, s), errs,
+                             f"{what} {name}")
+                        hold(torch, "skew", got, twf.skew_transpose(frames, s), errs,
+                             f"against K7's stream, {what} {name}")
+                        count += 2
+                    for frames, off in ((u8[1:], 13), (f32[1:], 12)):
+                        hold(torch, "skew", skew_at(frames, s, off),
+                             twf.skew_plain(frames, s), errs,
+                             f"{what} {frames.dtype}, output {off} bytes off a sector")
+                        count += 1
+                    d = twf.stream_length(h, w, s)
+                    buf = torch.from_numpy(
+                        rng.randint(0, 1 << 24, d * b * h + 1).astype(np.int32)).to(dev)
+                    for col, name in ((buf[:-1].view(d, b, h), "whole"),
+                                      (buf[1:].view(d, b, h), "slice")):
+                        for planar in (False, True):
+                            hold(torch, "unskew_unpack",
+                                 twf.unskew_unpack(col, s, h, w, planar),
+                                 twf.unskew_unpack_plain(col, s, h, w, planar), errs,
+                                 f"{what} {name} planar={planar}")
+                            count += 1
+    # Off the boundary at the main path's width: 1919-wide frames (a frame
+    # of 6217560 bytes, 8 past a 16-byte boundary) and a stream 4 bytes in.
+    fr = torch.from_numpy(rng.randint(0, 256, (3, FULL_H, FULL_W - 1, 3)).astype(np.uint8)).to(dev)
+    for s in (2, 3):
+        got = twf.skew_gather(fr[1:], s)
+        hold(torch, "skew", got, twf.skew_plain(fr[1:], s), errs,
+             f"2x{FULL_H}x{FULL_W - 1} slice s={s}")
+        hold(torch, "skew", got, twf.skew_transpose(fr[1:], s), errs,
+             f"against K7's stream, 2x{FULL_H}x{FULL_W - 1} slice s={s}")
+        d = twf.stream_length(FULL_H, FULL_W - 1, s)
+        col = torch.from_numpy(rng.randint(0, 1 << 24, d * 2 * FULL_H + 1).astype(
+            np.int32)).to(dev)[1:].view(d, 2, FULL_H)
+        for planar in (False, True):
+            hold(torch, "unskew_unpack", twf.unskew_unpack(col, s, FULL_H, FULL_W - 1, planar),
+                 twf.unskew_unpack_plain(col, s, FULL_H, FULL_W - 1, planar), errs,
+                 f"2x{FULL_H}x{FULL_W - 1} slice s={s} planar={planar}")
+        count += 4
+    log(f"[13] kernel == plain, bitwise: K1 skew (u8, float32; == K7's stream too) and K3 "
+        f"unskew_unpack (NHWC, planar) at B in {TILE_BS}, H in {TILE_HS}, W in {TILE_WS}, "
+        f"s = 2 and 3, whole and as slices off the 16-byte boundary, K1 into outputs 13 and "
+        f"12 bytes off a sector, and 2x{FULL_H}x{FULL_W - 1} slices: {count} comparisons "
+        f"({time.perf_counter() - t0:.1f} s); the 16x{FULL_H}x{FULL_W} batch's are phase 6's, "
+        f"9's and 10's")
+    return count
+
+
 def main() -> int:
     import torch
 
@@ -2811,10 +2924,15 @@ def run(torch, dev, card) -> int:
 
     # 12. K2 and K8 over thread-block clusters.
     cluster_phase(torch, dev, card, frames16, errs)
+
+    # 13. K1 and K3 at the odd shapes.
+    tile_phase(torch, dev, card, errs)
     for row in rows:
-        if row["name"] in ("ed_scan", "ed_scan_idx"):
+        if row["name"] in ("ed_scan", "ed_scan_idx", "skew", "unskew_unpack"):
             row["max_abs_err"] = errs[row["name"]]
-    log(f"[12] the whole run took {time.perf_counter() - t_run:.1f} s")
+    took = time.perf_counter() - t_run
+    log(f"[13] the whole run took {took:.1f} s, {took / RUN_LIMIT_S:.2f} of its "
+        f"{RUN_LIMIT_S} s limit")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -4,7 +4,8 @@
 with the score branch), ``unskew_unpack.cu`` (K3), ``ordered.cu`` (K4),
 ``unskew_idx.cu`` (K5), ``skew_planar.cu`` (K6), ``skew_transpose.cu``
 (K7), ``unskew_select.cu`` (K9), ``search_probe.cu`` (the probe T2) and
-the PyTorch binding ``bindings.cpp``. ``build.extension()`` compiles them
+the PyTorch binding ``bindings.cpp``; ``tile_copy.cuh`` holds the 16-byte
+word moves that K1 and K3 share. ``build.extension()`` compiles them
 at first use and ``build.LAUNCHES`` counts their launches. The Python
 wrappers that launch them and hold their plain PyTorch versions live in
 ``dither_pie_tpu_torch/ops/wavefront.py`` (K1-K3, K5-K9),

@@ -42,9 +42,25 @@ int as_int(int64_t v, const char* name) {
     return (int)v;
 }
 
+// The tile plan of a K1 or K3 launch, as the wrapper computed it.
+DptTilePlan tile_plan(int64_t td, int64_t ty, int64_t lead, int64_t threads,
+                      const std::vector<int64_t>& grid, int64_t smem_bytes) {
+    TORCH_CHECK(grid.size() == 3, "grid must be 3 ints");
+    DptTilePlan plan;
+    plan.td = as_int(td, "td");
+    plan.ty = as_int(ty, "ty");
+    plan.lead = as_int(lead, "lead");
+    plan.threads = as_int(threads, "threads");
+    for (int i = 0; i < 3; ++i) plan.grid[i] = as_int(grid[i], "grid");
+    plan.smem_bytes = as_int(smem_bytes, "smem_bytes");
+    return plan;
+}
+
 }  // namespace
 
-void skew(torch::Tensor images, torch::Tensor out, int64_t s) {
+void skew(torch::Tensor images, torch::Tensor out, int64_t s, int64_t td,
+          int64_t ty, int64_t lead, int64_t threads, std::vector<int64_t> grid,
+          int64_t smem_bytes) {
     check_tensor(images, "images", images);
     check_tensor(out, "out", images);
     TORCH_CHECK(images.dim() == 4 && images.size(3) == 3,
@@ -59,16 +75,17 @@ void skew(torch::Tensor images, torch::Tensor out, int64_t s) {
     TORCH_CHECK(out.dim() == 3 && out.size(0) == D && out.size(1) == 3 * B &&
                     out.size(2) == H,
                 "out must be (W + s*(H-1), 3B, H)");
+    const DptTilePlan plan = tile_plan(td, ty, lead, threads, grid, smem_bytes);
     const c10::cuda::CUDAGuard guard(images.device());
     int rc;
     if (images.scalar_type() == torch::kUInt8) {
         rc = dpt_skew_u8(images.data_ptr<uint8_t>(), out.data_ptr<uint8_t>(),
-                         B, H, W, D, (int)s, current_stream(images));
+                         B, H, W, D, (int)s, plan, current_stream(images));
     } else {
         TORCH_CHECK(images.scalar_type() == torch::kFloat32,
                     "images must be uint8 or float32");
         rc = dpt_skew_f32(images.data_ptr<float>(), out.data_ptr<float>(), B,
-                          H, W, D, (int)s, current_stream(images));
+                          H, W, D, (int)s, plan, current_stream(images));
     }
     check_launch(rc, "skew");
 }
@@ -264,7 +281,9 @@ int64_t ed_scan_capacity(bool img_f32, int64_t mode, bool emit_idx,
 }
 
 void unskew_unpack(torch::Tensor col, torch::Tensor out, int64_t s,
-                   bool planar) {
+                   bool planar, int64_t td, int64_t ty, int64_t lead,
+                   int64_t threads, std::vector<int64_t> grid,
+                   int64_t smem_bytes) {
     check_tensor(col, "col", col);
     check_tensor(out, "out", col);
     TORCH_CHECK(col.scalar_type() == torch::kInt32 && col.dim() == 3,
@@ -279,10 +298,11 @@ void unskew_unpack(torch::Tensor col, torch::Tensor out, int64_t s,
     TORCH_CHECK(s >= 1 && col.size(0) >= W + s * (H - 1) &&
                     col.size(1) == B && col.size(2) == H,
                 "col must be (>= W + s*(H-1), B, H)");
+    const DptTilePlan plan = tile_plan(td, ty, lead, threads, grid, smem_bytes);
     const c10::cuda::CUDAGuard guard(col.device());
     check_launch(dpt_unskew_unpack(col.data_ptr<int32_t>(),
                                    out.data_ptr<uint8_t>(), B, H, W, (int)s,
-                                   planar ? 1 : 0, current_stream(col)),
+                                   planar ? 1 : 0, plan, current_stream(col)),
                  "unskew_unpack");
 }
 

@@ -84,12 +84,25 @@ struct DptScanArgs {
                    // blocks the card holds at once
 };
 
+// One launch of the tile transposes K1 and K3, as the wrapper planned it
+// (ops.wavefront.skew_tile_plan / unskew_tile_plan): tiles of td steps by
+// ty rows, `lead` rows above each tile that a block also loads (K1: the
+// sector phase of its output rows; K3: 0), blocks of `threads`, grid (row
+// tiles, step tiles, frames a pass) and the block's static shared memory.
+// The launcher computes its own and refuses a plan that differs
+// (cudaErrorInvalidConfiguration).
+struct DptTilePlan {
+    int td, ty, lead, threads;
+    int grid[3];
+    int smem_bytes;
+};
+
 // K1: (B, H, W, 3) frames -> (D, 3B, H) skewed stream,
 // out[d, c*B + b, y] = in[b, y, d - s*y, c], 0 outside the image.
 int dpt_skew_u8(const uint8_t* in, uint8_t* out, int B, int H, int W, int D,
-                int s, void* stream);
+                int s, const DptTilePlan& plan, void* stream);
 int dpt_skew_f32(const float* in, float* out, int B, int H, int W, int D,
-                 int s, void* stream);
+                 int s, const DptTilePlan& plan, void* stream);
 
 // K2 and K8: the wavefront scan over the skewed stream, every mode; out
 // (D, B, H) int32, 0 outside the image: packed colours
@@ -102,7 +115,7 @@ int dpt_ed_scan(const DptScanArgs& a, void* stream);
 // (16 - 8c)) & 255: NHWC out[b, y, x, c], or with planar != 0 the planes
 // out[c, b, y, x].
 int dpt_unskew_unpack(const int32_t* col, uint8_t* out, int B, int H, int W,
-                      int s, int planar, void* stream);
+                      int s, int planar, const DptTilePlan& plan, void* stream);
 
 // K5: (D, B, H) palette indices -> the (B, H, W) index stream,
 // out[b, y, x] = idx[x + s*y, b, y], narrowed to uint8 (palettes of up to

@@ -1,5 +1,5 @@
 // K3: unskew the scan's packed colours and unpack them to uint8, NHWC or
-// planar.
+// planar, a shared-memory tile transpose.
 //
 // Replaces the TPU kernel dither_pie_tpu/ops/wavefront.py
 // `_unskew_unpack_call` (reached through `_unskew_unpack_colors`): the same
@@ -10,57 +10,260 @@
 // planar video flow.
 //
 // What bounds it: bytes, 4 read and 3 written per pixel, no arithmetic
-// beyond shifts. One thread per output pixel keeps the stores coalesced
-// (neighbouring x; in the planar layout each of the three stores is a run
-// of whole bytes in its own plane); the loads step by B*H int32 between
-// neighbouring x and lean on L2. A shared-memory tile transpose is the
-// obvious next step if this kernel ever shows in the breakdown.
+// beyond byte moves. It is K1's transpose reversed: one block takes one
+// tile of TD steps d by TY rows y of the (D, H) plane (the plan is
+// `ops.wavefront.unskew_tile_plan`; the launcher refuses any other):
+//
+// * Store along x, in whole sectors. Of each output row (b, y) (of each
+//   plane, planar) the block writes the window of U*TD bytes (U = 3 NHWC,
+//   1 planar) that starts at the 32-byte sector boundary at or before its
+//   first pixel x0 = d0 - s*y: consecutive step tiles' windows tile the
+//   row, and only a row's first and last sectors are shared between
+//   blocks. The block walks the 16-byte words that cover its window,
+//   builds each from the tile's row j with __byte_perm (NHWC: the six
+//   pixels that hold a word, four selectors fixed by its first byte's
+//   channel; planar: channel c's byte of 16 pixels) and stores whole words
+//   with one 16-byte store, head and tail words in 4-byte or single-byte
+//   pieces (tile_copy.cuh).
+// * Load along y. A window starts up to LEAD = ceil(31 / U) steps before
+//   d0, so a tile row holds the steps d0 - LEAD .. d0 + TD - 1 (column
+//   i = d - d0 + LEAD). Step d's run col[(d*B + b)*H + y0 ...] holds the
+//   tile's column; the block reads the 16-byte words that cover the rows j
+//   whose pixel x = d - s*(y0 + j) lies in the image (a table of those
+//   rows, one int a column, is made once a block: no division in the
+//   loop), and puts each int32 at tile[j][i + i/32]. Aligned at 1080p; any
+//   alignment is served.
+// * The grid holds only the band of step tiles that own bytes of each row
+//   tile's rows; a block walks two frames and loads the second's words
+//   into registers while it stores the first's tile.
+//
+// The tile's rows are LEAD + TD steps, a spare word after every 32 and the
+// pitch made odd, so the loads' stores along j and the reads along x, whose
+// pixels lie 16/3 apart from lane to lane in NHWC, spread over the banks.
+// Four blocks of 256 threads fit an SM. On an H100 both the instructions a
+// word and the shared sectors set its time: a first version of this walk
+// (a division per run and item, eight clamped pixel reads and a selector
+// computed per 4-byte word) was markedly slower at 16 x 1080p, and runs
+// cut at x0 cost more than the LEAD extra steps' loads. Indexing inside a
+// tile is 32-bit, with no per-element 64-bit division. The numpy model of
+// this walk in tests/test_torch_skew_tiles.py holds it bit for bit to the
+// plain version.
 
 #include <cuda_runtime.h>
 
 #include "launchers.h"
+#include "tile_copy.cuh"
 
 namespace {
 
-template <bool PLANAR>
-__global__ void unskew_unpack_kernel(const int32_t* __restrict__ col,
-                                     uint8_t* __restrict__ out, int B, int H,
-                                     int W, int s) {
-    const int64_t n = (int64_t)B * H * W;
-    for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
-         i += (int64_t)gridDim.x * blockDim.x) {
-        const int x = (int)(i % W);
-        const int64_t q = i / W;
-        const int y = (int)(q % H);
-        const int b = (int)(q / H);
-        const int32_t v = col[((int64_t)(x + s * y) * B + b) * H + y];
-        const uint8_t r = (uint8_t)((v >> 16) & 255);
-        const uint8_t g = (uint8_t)((v >> 8) & 255);
-        const uint8_t bl = (uint8_t)(v & 255);
-        if (PLANAR) {
-            out[i] = r;
-            out[n + i] = g;
-            out[2 * n + i] = bl;
-        } else {
-            out[3 * i] = r;
-            out[3 * i + 1] = g;
-            out[3 * i + 2] = bl;
-        }
+constexpr int THREADS = 256;
+constexpr int FRAMES_PER_BLOCK = 2;  // frames a block walks, loads of the next under stores
+
+constexpr int SECTOR = 32;  // bytes of a device-memory sector
+
+template <bool PLANAR, int TD, int TY>
+struct UnskewTile {
+    static constexpr int U = PLANAR ? 1 : 3;            // bytes a pixel of an output row
+    static constexpr int LEAD = (SECTOR - 1 + U - 1) / U;  // steps before the tile
+    static constexpr int COLS = LEAD + TD;              // steps a tile row holds
+    static constexpr int PITCH = (COLS + COLS / 32) | 1;  // int32 a tile row j: odd
+    static constexpr int NWR = TY * 4 / 16 + 1;         // covering words a step's run
+    static constexpr int RUNS = PLANAR ? 3 * TY : TY;   // output runs: rows (c, j) or j
+    static constexpr int PER_RUN = U * TD / 16 + 1;
+    static constexpr int LOAD_ITEMS = (COLS * NWR + THREADS - 1) / THREADS;
+    static constexpr int STORE_ITEMS = (RUNS * PER_RUN + THREADS - 1) / THREADS;
+    static constexpr int SMEM = 4 * TY * PITCH + 4 * COLS;  // the tile, rows_of
+    static_assert((U * TD) % SECTOR == 0 && TD % 16 == 0 && TY % 4 == 0, "tile sizes");
+    static_assert(SMEM <= 48 * 1024, "static shared memory");
+};
+
+__device__ __forceinline__ int floor_div(int a, int s) {
+    return a >= 0 ? a / s : -((-a + s - 1) / s);
+}
+
+// 16 NHWC bytes from the six pixels v[0..5] that hold them, the first byte
+// being channel PH0 of v[0]: 4-byte word m starts at channel (PH0 + 4m) % 3
+// of pixel (PH0 + 4m) / 3, and takes its bytes from that pixel and the next
+// (a pixel's r, g, b are its bytes 2, 1, 0; bytes 4-7 are the next's).
+template <int PH0>
+__device__ __forceinline__ void nhwc_word(const uint32_t v[6], uint32_t q[4]) {
+    constexpr uint32_t SEL[3] = {0x6012u, 0x5601u, 0x4560u};
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+        q[m] = __byte_perm(v[(PH0 + 4 * m) / 3], v[(PH0 + 4 * m) / 3 + 1],
+                           SEL[(PH0 + 4 * m) % 3]);
     }
+}
+
+template <bool PLANAR, int TD, int TY>
+__global__ void __launch_bounds__(THREADS, 4)
+unskew_tile_kernel(const int32_t* __restrict__ col, uint8_t* __restrict__ out,
+                   int B, int H, int W, int s) {
+    using L = UnskewTile<PLANAR, TD, TY>;
+    __shared__ int32_t tile[TY * L::PITCH];
+    __shared__ int rows_of[L::COLS];  // column i's rows [jlo, jhi] as jlo | jhi << 16
+
+    // Block (x, y) takes row tile x and the y-th step tile of that row
+    // tile's band. Its tile rows hold the steps d0 - LEAD .. d0 + TD - 1
+    // (column i = d - d0 + LEAD): the stores' windows start up to LEAD
+    // steps before d0.
+    const int y0 = blockIdx.x * TY;
+    const int ny = min(TY, H - y0);
+    const int y_last = y0 + ny - 1;
+    const int d0 = ((s * y0) / TD + blockIdx.y) * TD;
+    if (d0 - L::LEAD >= s * y_last + W) return;  // past the band: no pixel here
+    // The rows j of column i whose pixel x = d - s*(y0 + j) lies in [0, W).
+    for (int i = threadIdx.x; i < L::COLS; i += THREADS) {
+        const int t = d0 - L::LEAD + i - s * y0;
+        const int jlo = max(0, floor_div(t - W, s) + 1);
+        const int jhi = min(ny - 1, floor_div(t, s));
+        rows_of[i] = jlo <= jhi ? jlo | (jhi << 16) : 1;  // 1: jlo 1 > jhi 0
+    }
+    __syncthreads();
+
+    // Load item f: word k of the 16-byte words that cover column i's rows
+    // [jlo, jhi] of frame b; its address, or 0 where there is none.
+    auto word_of = [&](int f, int b, uintptr_t& gs, int& jlo, int& jhi) -> uintptr_t {
+        const int i = f / L::NWR;
+        const int k = f - i * L::NWR;
+        if (i >= L::COLS) return 0;
+        jlo = rows_of[i] & 0xFFFF;
+        jhi = rows_of[i] >> 16;
+        if (jlo > jhi) return 0;
+        gs = reinterpret_cast<uintptr_t>(
+            col + ((int64_t)(d0 - L::LEAD + i) * B + b) * H + y0);
+        const uintptr_t a = ((gs + 4 * jlo) & ~uintptr_t(15)) + 16 * k;
+        return a < gs + 4 * (jhi + 1) ? a : 0;
+    };
+    // Frames z, z + gridDim.z, ...: the next frame's words are loaded into
+    // registers while this frame's tile is stored.
+    uint4 v[L::LOAD_ITEMS];
+    auto load = [&](int b) {
+#pragma unroll
+        for (int it = 0; it < L::LOAD_ITEMS; ++it) {
+            uintptr_t gs;
+            int jlo, jhi;
+            const uintptr_t a = word_of(threadIdx.x + it * THREADS, b, gs, jlo, jhi);
+            v[it] = a ? __ldg(reinterpret_cast<const uint4*>(a)) : make_uint4(0, 0, 0, 0);
+        }
+    };
+    int b = blockIdx.z;
+    if (b < B) load(b);
+    for (; b < B; b += gridDim.z) {
+        // Put each loaded int32 at tile[j][i + i/32].
+#pragma unroll
+        for (int it = 0; it < L::LOAD_ITEMS; ++it) {
+            const int f = threadIdx.x + it * THREADS;
+            uintptr_t gs;
+            int jlo, jhi;
+            const uintptr_t a = word_of(f, b, gs, jlo, jhi);
+            if (!a) continue;
+            const int i = f / L::NWR;
+            const int j0 = (int)((intptr_t)(a - gs)) / 4;  // may be < 0
+            const int32_t* vals = reinterpret_cast<const int32_t*>(&v[it]);
+#pragma unroll
+            for (int m = 0; m < 4; ++m) {
+                const int j = j0 + m;
+                if (j >= jlo && j <= jhi) tile[j * L::PITCH + i + (i >> 5)] = vals[m];
+            }
+        }
+        __syncthreads();
+        if (b + (int)gridDim.z < B) load(b + gridDim.z);
+        // Store: item f is word k of run rr, row j (and plane c). Of the
+        // output row (b, y) (of plane c), the block writes the window of
+        // U*TD bytes that starts at the sector boundary at or before pixel
+        // x0 = d0 - s*y: consecutive step tiles' windows tile the row, and
+        // every sector but the row's first and last is written whole by
+        // one block.
+#pragma unroll 1
+        for (int it = 0; it < L::STORE_ITEMS; ++it) {
+            const int f = threadIdx.x + it * THREADS;
+            const int rr = f / L::PER_RUN;
+            const int k = f - rr * L::PER_RUN;
+            const int c = PLANAR ? rr / TY : 0;
+            const int j = rr - c * TY;
+            if (rr >= L::RUNS || j >= ny) continue;
+            const int y = y0 + j;
+            const int64_t row = (PLANAR ? ((int64_t)c * B + b) * H : (int64_t)b * H) + y;
+            const intptr_t rs = reinterpret_cast<intptr_t>(out + row * W * L::U);
+            const intptr_t win = (rs + (intptr_t)L::U * (d0 - s * y)) & ~intptr_t(SECTOR - 1);
+            const intptr_t end = rs + (intptr_t)L::U * W;
+            const uintptr_t gs = (uintptr_t)(win > rs ? win : rs);
+            const uintptr_t ge = (uintptr_t)(win + L::U * TD < end ? win + L::U * TD : end);
+            const uintptr_t a = (gs & ~uintptr_t(15)) + 16 * k;
+            if (gs >= ge || a >= ge) continue;
+            const int e0 = (int)((intptr_t)a - rs);  // byte of the row: >= -15
+            const int off = s * y - d0 + L::LEAD;     // column of pixel x = 0
+            const int32_t* trow = tile + j * L::PITCH;
+            // Pixel p of the row (clamped into the tile: head and tail
+            // words read pixels they do not store).
+            auto pixel = [&](int p) {
+                const int i = min(max(p + off, 0), L::COLS - 1);
+                return (uint32_t)trow[i + (i >> 5)];
+            };
+            uint32_t q[4];
+            if (PLANAR) {
+                const uint32_t pair = (uint32_t)((2 - c) | ((6 - c) << 4));
+#pragma unroll
+                for (int m = 0; m < 4; ++m) {
+                    const int p = e0 + 4 * m;
+                    const uint32_t lo2 = __byte_perm(pixel(p), pixel(p + 1), pair);
+                    const uint32_t hi2 = __byte_perm(pixel(p + 2), pixel(p + 3), pair);
+                    q[m] = __byte_perm(lo2, hi2, 0x5410);
+                }
+            } else {
+                const int px0 = (e0 + 15) / 3 - 5;  // floor(e0 / 3): the word's first pixel
+                uint32_t px[6];
+#pragma unroll
+                for (int i = 0; i < 6; ++i) px[i] = pixel(px0 + i);
+                switch (e0 - 3 * px0) {  // the first byte's channel
+                    case 0: nhwc_word<0>(px, q); break;
+                    case 1: nhwc_word<1>(px, q); break;
+                    default: nhwc_word<2>(px, q); break;
+                }
+            }
+            dpt_store_word(reinterpret_cast<uint8_t*>(a), q, gs, ge);
+        }
+        __syncthreads();
+    }
+}
+
+// Step tiles of the widest band: row tile x's band runs from step tile
+// s*y0 / TD to the one that holds step s*y_last + W - 1 (the launcher
+// passes W + LEAD: a tile owns bytes up to LEAD steps before its own).
+int band_tiles(int H, int W, int s, int TD, int TY) {
+    int widest = 1;
+    for (int y0 = 0; y0 < H; y0 += TY) {
+        const int y_last = min(H, y0 + TY) - 1;
+        widest = max(widest, (s * y_last + W - 1) / TD - (s * y0) / TD + 1);
+    }
+    return widest;
+}
+
+template <bool PLANAR>
+int launch(const int32_t* col, uint8_t* out, int B, int H, int W, int s,
+           const DptTilePlan& plan, void* stream) {
+    constexpr int TD = 128, TY = 32;
+    using L = UnskewTile<PLANAR, TD, TY>;
+    if (B < 1 || H < 1 || W < 1 || s < 1) return (int)cudaErrorInvalidValue;
+    const int z = (B + FRAMES_PER_BLOCK - 1) / FRAMES_PER_BLOCK;
+    const dim3 grid((H + TY - 1) / TY, band_tiles(H, W + L::LEAD, s, TD, TY),
+                    z < 65535 ? z : 65535);
+    if (plan.td != TD || plan.ty != TY || plan.lead != L::LEAD || plan.threads != THREADS ||
+        plan.smem_bytes != L::SMEM || plan.grid[0] != (int)grid.x ||
+        plan.grid[1] != (int)grid.y || plan.grid[2] != (int)grid.z ||
+        grid.y > 65535) {
+        return (int)cudaErrorInvalidConfiguration;
+    }
+    unskew_tile_kernel<PLANAR, TD, TY><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+        col, out, B, H, W, s);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 int dpt_unskew_unpack(const int32_t* col, uint8_t* out, int B, int H, int W,
-                      int s, int planar, void* stream) {
-    const int threads = 256;
-    const int blocks = dpt_grid_blocks((int64_t)B * H * W, threads);
-    if (planar) {
-        unskew_unpack_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-            col, out, B, H, W, s);
-    } else {
-        unskew_unpack_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-            col, out, B, H, W, s);
-    }
-    return (int)cudaGetLastError();
+                      int s, int planar, const DptTilePlan& plan, void* stream) {
+    return planar ? launch<true>(col, out, B, H, W, s, plan, stream)
+                  : launch<false>(col, out, B, H, W, s, plan, stream);
 }

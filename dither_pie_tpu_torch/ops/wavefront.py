@@ -259,13 +259,16 @@ def skew_plain(images: torch.Tensor, s: int) -> torch.Tensor:
 
 
 def skew_gather(images: torch.Tensor, s: int) -> torch.Tensor:
-    """K1 itself on CUDA frames of either dtype: one gathered element a
-    thread. ``skew`` sends uint8 frames here; with float32 frames no path
-    of the package calls it, only the checks that hold K7's stream to K1's."""
+    """K1 itself on CUDA frames of either dtype: a shared-memory tile
+    transpose (``skew_tile_plan``). ``skew`` sends uint8 frames here; with
+    float32 frames no path of the package calls it, only the checks that
+    hold K7's stream to K1's."""
     b, h, w, _ = images.shape
     out = torch.empty((stream_length(h, w, s), 3 * b, h), dtype=images.dtype,
                       device=images.device)
-    build.extension().skew(images, out, s)
+    plan = skew_tile_plan(b, h, w, s, images.dtype, out.data_ptr() % SECTOR_BYTES)
+    build.extension().skew(images, out, s, plan.td, plan.ty, plan.lead, plan.threads,
+                           list(plan.grid), plan.smem_bytes)
     build.LAUNCHES["skew"] += 1
     return out
 
@@ -717,6 +720,117 @@ def launch_scan(stream: torch.Tensor, palette: torch.Tensor, geom: ScanGeometry,
     return out
 
 
+# ---------------------------------------------------------------------------
+# K1 and K3: tile plans
+# ---------------------------------------------------------------------------
+
+# Tiles (TD steps d, TY rows y) of the (D, H) stream plane that one block of
+# K1 moves, by frame dtype, and of K3; 256 threads a block. Set by timing
+# variants on an H100 (PERF.md).
+SKEW_TILES = {torch.uint8: (64, 128), torch.float32: (64, 32)}
+UNSKEW_TILE = (128, 32)
+# Frames a block of K3 walks: it loads the next one's words while it stores
+# this one's tile.
+UNSKEW_FRAMES_PER_BLOCK = 2
+TILE_THREADS = 256
+SECTOR_BYTES = 32  # a device-memory sector: K1 writes its stream in whole ones
+_GRID_Y_MAX = _GRID_Z_MAX = 65535
+
+
+@dataclass(frozen=True)
+class TilePlan:
+    """One launch of K1 or K3: blocks of ``threads`` threads over tiles of
+    ``td`` steps by ``ty`` rows, each block also loading the ``lead`` rows
+    above its tile (K1) or steps before it (K3) that its sector-aligned
+    store windows reach, ``grid`` = (row tiles, step tiles, frames a pass;
+    a block walks frames z, z + grid[2], ...), and the block's static shared
+    memory, which the kernel's layout must equal."""
+
+    td: int
+    ty: int
+    lead: int
+    threads: int
+    grid: Tuple[int, int, int]
+    smem_bytes: int
+
+
+def _checked_grid(grid: Tuple[int, int, int], b: int, h: int, w: int) -> Tuple[int, int, int]:
+    if min(b, h, w) < 1 or grid[1] > _GRID_Y_MAX:
+        raise ValueError(f"no tile grid for B={b} H={h} W={w}")
+    return grid
+
+
+def skew_lead_rows(h: int, itemsize: int, out_phase: int = 0) -> int:
+    """K1's ``lead``: the largest sector phase, in elements, of a stream
+    row's start when the (D, 3B, H) output starts ``out_phase`` bytes past
+    a sector boundary. Row R starts at out_phase + R*H*itemsize; modulo 32
+    those are out_phase plus the multiples of gcd(H*itemsize, 32)."""
+    step = math.gcd(h * itemsize, SECTOR_BYTES)
+    return (out_phase % step + SECTOR_BYTES - step) // itemsize
+
+
+@functools.lru_cache(maxsize=64)
+def skew_tile_plan(b: int, h: int, w: int, s: int, dtype: torch.dtype,
+                   out_phase: int = 0) -> TilePlan:
+    """K1's launch for B (H, W) frames of ``dtype`` (uint8 or float32) and
+    skew s, its output starting ``out_phase`` bytes past a 32-byte sector
+    boundary (0 for a fresh allocation).
+
+    Row tile k stores, of each stream row R, the window y in [k*TY - ph,
+    (k+1)*TY - ph), ph = the phase of R's start in its sector, so every
+    window starts on a sector boundary; a block therefore loads the
+    ``lead`` >= ph rows above its tile too, and the grid has
+    ceil((H + lead) / TY) row tiles. Shared memory: a 16-byte front pad,
+    the tile's 3*TD stream rows (dd, c) of TY + 32/itemsize elements and 4
+    bytes (an odd count of 32-bit words, so the rows' word-wise reads meet
+    no bank conflict), row r = 3*dd + c placed at r + r/32 (a spare row
+    after every 32, so the de-interleaving byte stores of a warp meet few),
+    and a 32-byte back pad; the pads take the reads of the first and last
+    rows' partial words."""
+    td, ty = SKEW_TILES[dtype]
+    e = dtype.itemsize
+    lead = skew_lead_rows(h, e, out_phase)
+    pitch = (ty + SECTOR_BYTES // e) * e + 4
+    grid = (-(-(h + lead) // ty), -(-stream_length(h, w, s) // td), min(b, _GRID_Z_MAX))
+    return TilePlan(td, ty, lead, TILE_THREADS, _checked_grid(grid, b, h, w),
+                    16 + (3 * td + 3 * td // 32) * pitch + 32)
+
+
+def unskew_band_tiles(h: int, w: int, s: int, td: int, ty: int) -> int:
+    """Step tiles of K3's widest band: row tile k (rows y0 = k*TY ..
+    y_last) holds pixels only in the step tiles s*y0 // TD through
+    (s*y_last + W - 1) // TD."""
+    widest = 1
+    for y0 in range(0, h, ty):
+        y_last = min(h, y0 + ty) - 1
+        widest = max(widest, (s * y_last + w - 1) // td - (s * y0) // td + 1)
+    return widest
+
+
+@functools.lru_cache(maxsize=64)
+def unskew_tile_plan(b: int, h: int, w: int, s: int, planar: bool) -> TilePlan:
+    """K3's launch for B (H, W) frames and skew s, NHWC or ``planar``.
+
+    Of each output row (NHWC) or plane row (planar), step tile k writes the
+    window of U*TD bytes (U = 3 or 1 bytes a pixel) that starts on the
+    sector boundary at or before its first pixel x0 = k*TD - s*y, so a
+    block also loads the ``lead`` = ceil(31 / U) steps before its tile.
+    Block (x, y, z) takes row tile x, the y-th step tile of that row tile's
+    band (``unskew_band_tiles`` over W + lead: tiles that own no byte are
+    never launched) and frames z, z + grid[2], ... (UNSKEW_FRAMES_PER_BLOCK
+    of them). Shared memory: one int32 tile of TY rows of lead + TD steps,
+    a spare word after every 32 and the pitch made odd (so the loads along
+    y and the reads along x meet few bank conflicts), and each column's
+    range of rows inside the image (an int32 a column)."""
+    td, ty = UNSKEW_TILE
+    lead = -(-(SECTOR_BYTES - 1) // (1 if planar else 3))
+    cols = lead + td
+    grid = (-(-h // ty), unskew_band_tiles(h, w + lead, s, td, ty),
+            min(-(-b // UNSKEW_FRAMES_PER_BLOCK), _GRID_Z_MAX))
+    return TilePlan(td, ty, lead, TILE_THREADS, _checked_grid(grid, b, h, w),
+                    4 * ty * ((cols + cols // 32) | 1) + 4 * cols)
+
+
 def _check_aux(geom: ScanGeometry, aux: Optional[torch.Tensor],
                stream: torch.Tensor, width: int) -> None:
     if not geom.needs_aux:
@@ -791,13 +905,16 @@ def unskew_unpack_plain(col: torch.Tensor, s: int, h: int, w: int,
 
 def unskew_unpack(col: torch.Tensor, s: int, h: int, w: int,
                   planar_out: bool = False) -> torch.Tensor:
-    """K3 on CUDA tensors, its plain version on CPU tensors."""
+    """K3 on CUDA tensors (a shared-memory tile transpose,
+    ``unskew_tile_plan``), its plain version on CPU tensors."""
     if not build.on_cuda(col):
         return unskew_unpack_plain(col, s, h, w, planar_out)
     b = col.shape[1]
     out = torch.empty((3, b, h, w) if planar_out else (b, h, w, 3),
                       dtype=torch.uint8, device=col.device)
-    build.extension().unskew_unpack(col, out, s, planar_out)
+    plan = unskew_tile_plan(b, h, w, s, planar_out)
+    build.extension().unskew_unpack(col, out, s, planar_out, plan.td, plan.ty, plan.lead,
+                                    plan.threads, list(plan.grid), plan.smem_bytes)
     build.LAUNCHES["unskew_unpack"] += 1
     return out
 

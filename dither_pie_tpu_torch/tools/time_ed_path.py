@@ -17,7 +17,13 @@ min, max) milliseconds of CUDA events after one warm-up:
   2048 colours (480p), 3 runs each, with the microseconds a wavefront step;
 * K2 at 32 colours on 1024 and on 1080 rows (1920 wide), the microseconds a
   step of each: whether the rows a block of 1024 threads takes in a second
-  pass cost anything.
+  pass cost anything;
+* the ends of the path alone at 1080p, 9 runs each: the skew K1
+  (``skew_gather``) of the uint8 frames beside K7 (``skew_transpose``) and
+  K6 (``skew_planar_gather``, on the frames' planes) on the same frames, K1
+  on the frames as float32, and the unskew K3 (``unskew_unpack``) of the
+  32-colour scan's output in both layouts; K1's stream is held to K7's and
+  K6's bitwise.
 
 Every line carries the cluster size the launch ran with ("n"; "-" for a
 tree whose scan has no clusters). It prints the card's name and power
@@ -126,6 +132,26 @@ def main() -> int:
     for h in (1024, 1080):
         s = stream if h == 1080 else twf.skew(frames[:, :h].contiguous(), geom.s)
         scan_line(f"K2 FS P=32 {h} rows x 1920", s, pals[32], False, 1920)
+
+    planes = frames.permute(3, 0, 1, 2).contiguous().view(48, 1080, 1920)
+    col = twf.scan(stream, pals[32], geom, 1920)
+    ends = {"K1 skew u8": lambda: twf.skew_gather(frames, geom.s),
+            "K7 skew_transpose u8": lambda: twf.skew_transpose(frames, geom.s),
+            "K6 skew_planar u8": lambda: twf.skew_planar_gather(planes, geom.s),
+            "K3 unskew_unpack NHWC": lambda: twf.unskew_unpack(col, geom.s, 1080, 1920),
+            "K3 unskew_unpack planar": lambda: twf.unskew_unpack(col, geom.s, 1080, 1920, True)}
+    for label, fn in ends.items():
+        print(f"{tree}: {label}, 16 x 1080p FS: ms {ms(fn, 9)} [{card}]", flush=True)
+    k1 = twf.skew_gather(frames, geom.s)
+    for other in ("K7 skew_transpose u8", "K6 skew_planar u8"):
+        if not torch.equal(k1, ends[other]()):
+            print(f"{tree}: K1's stream != {other}'s", file=sys.stderr)
+            return 1
+    del k1, planes, col
+    frames_f32 = frames.to(torch.float32)
+    print(f"{tree}: K1 skew float32, 16 x 1080p FS: ms "
+          f"{ms(lambda: twf.skew_gather(frames_f32, geom.s), 9)} [{card}]", flush=True)
+    del frames_f32
 
     if sweep:
         if not clusters:
