@@ -175,8 +175,21 @@ a non-zero exit code and no result line:
    33, 64, 65; W in 1, 2, 3, 5, 21, 64, 65; s = 2 and 3), whole and as
    contiguous slices whose base lies off the 16-byte boundary, K1 into
    outputs off a sector boundary, and on 2 x 1080 x 1919 slices (the 16 x
-   1080p batch's holds are phase 6's, 9's and 10's); and what the whole run
-   took of its 1200 s limit.
+   1080p batch's holds are phase 6's, 9's and 10's);
+14. K6 as K1's one-channel tile transpose (``skew_tile_plan(...,
+   channels=1)``) and K4's two bodies (``ops.ordered_fused.ordered_plan``;
+   the integer body for u8 frames and a palette of integers in 0..255, the
+   float body otherwise): K6 (u8 and float32) == skew_planar_plain and ==
+   K7's stream (and K1's for planes of frames) at R in (1, 3, 5, 48)
+   planes of odd sizes, s = 2 and 3, whole, as slices off the 16-byte
+   boundary and into outputs off a sector, and on the 48 planes of the 16 x
+   1080p batch; K4 == ordered_dither_fused_plain, colours and indices, at
+   P in (1, 2, 16, 33, 256, 300, 4096) on odd shapes (u8 through both
+   bodies, float32 frames, whole and as slices), on flat frames of exact
+   ties and a palette with planted duplicates, and at 16 x 1080p (pico8
+   through both bodies, float32 frames with a k-means-32 palette, one copy 3
+   bytes off the boundary); then the planar main path == the NHWC main
+   path's output; and what the whole run took of its 1200 s limit.
 
 Phases 1-8 run with DITHER_PIE_TPU_INDEX_TRANSFER=0 (the RGB path, whatever
 the link probe would say); phases 9 to 11 set it as each check needs.
@@ -287,7 +300,7 @@ IDX_KERNELS = [  # the path of palettes above 1024 colours, with K1
 TRANSFER_KERNELS = [  # the index stream and the planar layout
     ("unskew_idx", "dither_pie_tpu_torch/kernels/csrc/unskew_idx.cu",
      "dither_pie_tpu/ops/wavefront.py:1636"),
-    ("skew_planar", "dither_pie_tpu_torch/kernels/csrc/skew_planar.cu",
+    ("skew_planar", "dither_pie_tpu_torch/kernels/csrc/skew.cu",
      "dither_pie_tpu/ops/wavefront.py:1352"),
 ]
 DENSE_KERNELS = [  # the transposing skew and the search probe
@@ -2634,6 +2647,212 @@ def tile_phase(torch, dev, card, errs):
     return count
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: K6 as K1's one-channel tile transpose, K4's two bodies
+# ---------------------------------------------------------------------------
+
+PLANE_COUNTS = (1, 3, 5, 48)
+PLANE_HWS = ((1, 1), (7, 5), (37, 53), (65, 21), (130, 300))
+ORDERED_PALETTES = (1, 2, 16, 33, 256, 300, 4096)
+ORDERED_SHAPES = ((3, 37, 53), (1, 7, 5), (2, 5, 130))
+
+
+def ported_phase(torch, dev, card, frames16, palette, out16, errs):
+    """Phase 14: the redesigned K6 (``skew_planar_gather``, u8 and float32)
+    against ``skew_planar_plain`` and K1's / K7's streams, and the
+    redesigned K4 (``ordered_dither_fused``: u8 frames through the integer
+    body and, with a palette that fails its vote, the float body; float32
+    frames) against ``ordered_dither_fused_plain``, colours and indices, all
+    bitwise: at odd shapes, R planes in PLANE_COUNTS, P colours in
+    ORDERED_PALETTES, on flat frames of exact ties and palettes with
+    planted duplicates, on slices whose base lies off the 16-byte boundary,
+    K6 into outputs off a sector boundary, and at 16 x 1080p; then the
+    planar main path against the NHWC main path's output. Returns the
+    number of comparisons."""
+    import dither_pie_tpu_torch as dpt
+    from dither_pie_tpu_torch.core import thresholds as thr
+    from dither_pie_tpu_torch.kernels import build
+    from dither_pie_tpu_torch.ops import ordered as tord
+    from dither_pie_tpu_torch.ops import ordered_fused as tof
+    from dither_pie_tpu_torch.ops import wavefront as twf
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(14)
+    count = 0
+
+    def on_card(arr):
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+
+    def k6_at(planes, s, out_offset):
+        """K6 through the binding into an output ``out_offset`` bytes into
+        a fresh buffer."""
+        r, h, w = planes.shape
+        shape = (twf.stream_length(h, w, s), r, h)
+        buf = torch.empty(int(np.prod(shape)) * planes.element_size() + out_offset,
+                          dtype=torch.uint8, device=dev)
+        out = buf[out_offset:].view(planes.dtype).view(shape)
+        plan = twf.skew_tile_plan(r, h, w, s, planes.dtype,
+                                  out.data_ptr() % twf.SECTOR_BYTES, 1)
+        build.extension().skew(planes, out, s, plan.td, plan.ty, plan.lead, plan.threads,
+                               list(plan.grid), plan.smem_bytes)
+        return out
+
+    # --- K6 at the odd shapes ---------------------------------------------
+    for s in (2, 3):
+        for r in PLANE_COUNTS:
+            for h, w in PLANE_HWS:
+                what = f"R={r} {h}x{w} s={s}"
+                # One spare plane: [1:] starts h*w elements in.
+                u8 = on_card(rng.randint(0, 256, (r + 1, h, w)).astype(np.uint8))
+                f32 = on_card(rng.uniform(-8.0, 263.0, (r + 1, h, w)).astype(np.float32))
+                for planes, name in ((u8[:r], "u8"), (u8[1:], "u8 slice"),
+                                     (f32[:r], "f32"), (f32[1:], "f32 slice")):
+                    got = twf.skew_planar_gather(planes, s)
+                    hold(torch, "skew_planar", got, twf.skew_planar_plain(planes, s), errs,
+                         f"{what} {name}")
+                    hold(torch, "skew_planar", got, twf.skew_transpose(planes, s), errs,
+                         f"against K7's stream, {what} {name}")
+                    count += 2
+                for planes, off in ((u8[1:], 13), (f32[1:], 12)):
+                    hold(torch, "skew_planar", k6_at(planes, s, off),
+                         twf.skew_planar_plain(planes, s), errs,
+                         f"{what} {planes.dtype}, output {off} bytes off a sector")
+                    count += 1
+                if r % 3 == 0:  # the planes of r/3 frames give K1's stream
+                    frames = on_card(rng.randint(0, 256, (r // 3, h, w, 3)).astype(np.uint8))
+                    planes = frames.permute(3, 0, 1, 2).contiguous().view(r, h, w)
+                    hold(torch, "skew_planar", twf.skew_planar_gather(planes, s),
+                         twf.skew_gather(frames, s), errs, f"against K1's stream, {what}")
+                    count += 1
+    def off_boundary(t, offset):
+        """A copy of ``t`` whose base lies ``offset`` bytes past a 16-byte
+        boundary (the 1080p frames and planes are multiples of 16 bytes, so
+        their own slices are not)."""
+        buf = torch.empty(t.numel() * t.element_size() + offset, dtype=torch.uint8, device=dev)
+        out = buf[offset:].view(t.dtype).view(t.shape)
+        out.copy_(t)
+        return out
+
+    # At the planar main path's shape: the 48 planes of the 16 frames, and
+    # the same planes 5 bytes off the boundary.
+    batch_t = on_card(frames16)
+    planes16 = batch_t.permute(3, 0, 1, 2).contiguous().view(3 * BATCH, FULL_H, FULL_W)
+    for s in (2, 3):
+        got = twf.skew_planar_gather(planes16 if s == 2 else off_boundary(planes16, 5), s)
+        hold(torch, "skew_planar", got, twf.skew_planar_plain(planes16, s), errs,
+             f"{3 * BATCH}x{FULL_H}x{FULL_W} u8 s={s}")
+        hold(torch, "skew_planar", got, twf.skew_gather(batch_t, s), errs,
+             f"against K1's stream, {3 * BATCH}x{FULL_H}x{FULL_W} u8 s={s}")
+        count += 2
+    del got
+    planes16_f32 = planes16.to(torch.float32)
+    got = twf.skew_planar_gather(planes16_f32, 2)
+    hold(torch, "skew_planar", got, twf.skew_planar_plain(planes16_f32, 2), errs,
+         f"{3 * BATCH}x{FULL_H}x{FULL_W} float32")
+    hold(torch, "skew_planar", got, twf.skew_transpose(planes16_f32, 2), errs,
+         f"against K7's stream, {3 * BATCH}x{FULL_H}x{FULL_W} float32")
+    count += 2
+    del got, planes16_f32
+    k6_count = count
+    log(f"[14] K6 skew_planar == plain and == K7's (and K1's) stream, bitwise: R in "
+        f"{PLANE_COUNTS}, (H, W) in {PLANE_HWS}, s = 2 and 3, u8 and float32, whole and as "
+        f"slices off the 16-byte boundary, outputs 13 and 12 bytes off a sector, and "
+        f"{3 * BATCH}x{FULL_H}x{FULL_W} planes (u8 also 5 bytes off the boundary, and "
+        f"float32): {k6_count} comparisons "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # --- K4: both bodies at the odd shapes --------------------------------
+    t1 = time.perf_counter()
+
+    def hold_k4(frames, pal, screen, what, indices=(False, True)):
+        nonlocal count
+        for ind in indices:
+            if ind and pal.shape[0] > tof.INDEX_PALETTE_MAX:
+                continue
+            hold(torch, "ordered_fused", tof.ordered_dither_fused(frames, pal, screen, ind),
+                 tof.ordered_dither_fused_plain(frames, pal, screen, ind), errs,
+                 f"{what}, indices={ind}")
+            count += 1
+
+    for p in ORDERED_PALETTES:
+        pal_int = rng.randint(0, 256, (p, 3)).astype(np.float32)
+        pal_frac = pal_int.copy()
+        pal_frac[p // 2, 1] += 0.5  # one value off the integers: the float body
+        for b, h, w in ORDERED_SHAPES:
+            u8 = on_card(rng.randint(0, 256, (b + 1, h, w, 3)).astype(np.uint8))
+            f32 = on_card(rng.uniform(-8.0, 263.0, (b + 1, h, w, 3)).astype(np.float32))
+            screen = on_card(rng.rand(h, w).astype(np.float32))
+            for pal_np, body in ((pal_int, "integer"), (pal_frac, "float")):
+                pal = on_card(pal_np)
+                for frames, name in ((u8[:b], "u8"), (u8[1:], "u8 slice")):
+                    hold_k4(frames, pal, screen, f"P={p} B={b} {h}x{w} {name}, {body} body")
+            for frames, name in ((f32[:b], "float32"), (f32[1:], "float32 slice")):
+                hold_k4(frames, on_card(pal_int), screen, f"P={p} B={b} {h}x{w} {name}")
+    # Exact ties: flat frames midway between two colours, on a duplicated
+    # colour (d1 + d2 == 0), on one colour, and frames drawn from a palette
+    # with planted duplicates; flat screens 0, 0.5 and 1.
+    b, h, w = SMALL
+    ties = [((101, 100, 100), [[100, 100, 100], [102, 100, 100], [0, 0, 0]]),
+            ((40, 50, 60), [[0, 0, 0], [40, 50, 60], [40, 50, 60]]),
+            ((7, 7, 7), [[7, 7, 7]]),
+            ((10, 10, 10), [[12, 10, 10], [8, 10, 10], [10, 12, 10], [10, 8, 10]])]
+    dup = rng.randint(0, 256, (40, 3)).astype(np.float32)
+    dup[[5, 17, 33]] = dup[2]
+    dup[[30, 39]] = dup[29]
+    drawn = on_card(dup[rng.randint(0, 40, (b + 1, h, w))].astype(np.uint8))
+    for level in (0.0, 0.5, 1.0):
+        flat_screen = torch.full((h, w), level, dtype=torch.float32, device=dev)
+        for colour, rows in ties:
+            flat = torch.tensor(colour, dtype=torch.uint8, device=dev).expand(
+                b, h, w, 3).contiguous()
+            pal = torch.tensor(rows, dtype=torch.float32, device=dev)
+            hold_k4(flat, pal, flat_screen, f"exact ties {colour} screen {level}")
+            hold_k4(flat.to(torch.float32), pal, flat_screen,
+                    f"exact ties {colour} float32 screen {level}")
+        hold_k4(drawn[1:], on_card(dup), flat_screen, f"planted duplicates, screen {level}")
+    # 16 x 1080p: pico8 through the integer body (Bayer 8x8, blue noise),
+    # pico8 shifted by 0.25 through the float body, float32 frames.
+    pico8 = on_card(np.asarray(pico8_palette(), np.float32))
+    bayer = tord.screen_for_matrix(thr.bayer_matrix("8x8"), FULL_H, FULL_W, dev)
+    blue = tord.screen_for_matrix(thr.blue_noise_cached(64, 42), FULL_H, FULL_W, dev)
+    pal32 = on_card(np.asarray(palette, np.float32))
+    noisy = batch_t.to(torch.float32) + on_card(
+        rng.uniform(-0.5, 0.5, frames16.shape).astype(np.float32))
+    full = f"{BATCH}x{FULL_H}x{FULL_W}"
+    hold_k4(batch_t, pico8, bayer, f"{full} pico8 Bayer 8x8, integer body")
+    hold_k4(off_boundary(batch_t, 3), pico8, blue,
+            f"{full} 3 bytes off the boundary, pico8 blue noise")
+    hold_k4(batch_t, pico8 + 0.25, bayer, f"{full} pico8 + 0.25 Bayer 8x8, float body",
+            (False,))
+    hold_k4(noisy, pal32, bayer, f"{full} float32 k-means-32 Bayer 8x8")
+    del noisy
+    log(f"[14] K4 ordered_fused == plain, bitwise: P in {ORDERED_PALETTES} at (B, H, W) in "
+        f"{ORDERED_SHAPES}, u8 through the integer body and (one value + 0.5) the float body, "
+        f"float32 frames, whole and as slices off the 16-byte boundary, colours and indices "
+        f"(P <= 256); exact ties and planted duplicates at screens 0, 0.5, 1; {full} pico8 "
+        f"(integer and float bodies) and float32 k-means-32: {count - k6_count} comparisons "
+        f"({time.perf_counter() - t1:.1f} s)")
+
+    # --- The planar main path against the NHWC main path's output --------
+    ditherer = dpt.ImageDitherer(
+        num_colors=N_COLORS, dither_mode=dpt.DitherMode.ERROR_DIFFUSION,
+        palette=palette, dither_params={"variant": "floyd_steinberg"}, device=dev)
+    planar_np = np.ascontiguousarray(np.moveaxis(frames16, -1, 0))
+    build.reset_launch_counts()
+    out_planar = ditherer.apply_dithering_batch(planar_np, planar=True)
+    sync(torch, dev)
+    launches = dict(build.LAUNCHES)
+    check(launches.get("skew_planar", 0) >= 1 and "skew" not in launches,
+          f"the planar main path launched {launches}")
+    check(np.array_equal(np.moveaxis(out_planar, 0, -1), out16),
+          "the planar main path's output != the NHWC main path's")
+    count += 1
+    log(f"[14] planar main path (FS k-means-32, {planar_np.shape} u8): launches {launches}; "
+        f"== the NHWC main path's output transposed, bitwise")
+    log(f"[14] phase 14: {count} comparisons in {time.perf_counter() - t0:.1f} s [{card}]")
+    return count
+
+
 def main() -> int:
     import torch
 
@@ -2927,11 +3146,15 @@ def run(torch, dev, card) -> int:
 
     # 13. K1 and K3 at the odd shapes.
     tile_phase(torch, dev, card, errs)
+
+    # 14. K6 and K4, redesigned, at the odd shapes and at 16 x 1080p.
+    ported_phase(torch, dev, card, frames16, palette, out16, errs)
     for row in rows:
-        if row["name"] in ("ed_scan", "ed_scan_idx", "skew", "unskew_unpack"):
-            row["max_abs_err"] = errs[row["name"]]
+        if row["name"] in ("ed_scan", "ed_scan_idx", "skew", "unskew_unpack", "skew_planar",
+                           "ordered_fused"):
+            row["max_abs_err"] = max(row["max_abs_err"], errs.get(row["name"], 0.0))
     took = time.perf_counter() - t_run
-    log(f"[13] the whole run took {took:.1f} s, {took / RUN_LIMIT_S:.2f} of its "
+    log(f"[14] the whole run took {took:.1f} s, {took / RUN_LIMIT_S:.2f} of its "
         f"{RUN_LIMIT_S} s limit")
 
     print(json.dumps({"kernels": rows}), flush=True)

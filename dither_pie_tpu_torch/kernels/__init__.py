@@ -1,13 +1,15 @@
 """Hand-written Hopper (sm_90a) CUDA kernels of the port and their loader.
 
-``csrc/`` holds the sources: ``skew.cu`` (K1), ``ed_scan.cu`` (K2 and K8,
-with the score branch), ``unskew_unpack.cu`` (K3), ``ordered.cu`` (K4),
-``unskew_idx.cu`` (K5), ``skew_planar.cu`` (K6), ``skew_transpose.cu``
-(K7), ``unskew_select.cu`` (K9), ``search_probe.cu`` (the probe T2) and
-the PyTorch binding ``bindings.cpp``; ``tile_copy.cuh`` holds the 16-byte
-word moves that K1 and K3 share. ``build.extension()`` compiles them
-at first use and ``build.LAUNCHES`` counts their launches. The Python
-wrappers that launch them and hold their plain PyTorch versions live in
+``csrc/`` holds the sources: ``skew.cu`` (K1 and K6, one tile transpose
+over C = 3 or 1 channels), ``ed_scan.cu`` (K2 and K8, with the score
+branch), ``unskew_unpack.cu`` (K3), ``ordered.cu`` (K4), ``unskew_idx.cu``
+(K5), ``skew_transpose.cu`` (K7), ``unskew_select.cu`` (K9),
+``search_probe.cu``, ``gather_probe.cu`` and ``identity.cu`` (the probes
+T2, T1, T3) and the PyTorch binding ``bindings.cpp``; ``tile_copy.cuh``
+holds the 16-byte word moves that K1, K3 and K6 share.
+``build.extension()`` compiles them at first use and ``build.LAUNCHES``
+counts their launches. The Python wrappers that launch them and hold their
+plain PyTorch versions live in
 ``dither_pie_tpu_torch/ops/wavefront.py`` (K1-K3, K5-K9),
 ``dither_pie_tpu_torch/ops/ordered_fused.py`` (K4) and
 ``dither_pie_tpu_torch/tools/proto_mxu_search.py`` (T2).

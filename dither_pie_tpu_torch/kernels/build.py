@@ -29,7 +29,7 @@ import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-SOURCES = ("bindings.cpp", "skew.cu", "skew_planar.cu", "skew_transpose.cu",
+SOURCES = ("bindings.cpp", "skew.cu", "skew_transpose.cu",
            "ed_scan.cu", "unskew_unpack.cu", "unskew_idx.cu", "unskew_select.cu",
            "ordered.cu", "search_probe.cu", "gather_probe.cu", "identity.cu")
 EXT_NAME = "dither_pie_tpu_torch_kernels"
@@ -57,11 +57,10 @@ def on_cuda(t: torch.Tensor) -> bool:
 
 
 def extension() -> ModuleType:
-    """The compiled kernel module (``skew``, ``skew_planar``,
-    ``skew_transpose``, ``ed_scan``, ``unskew_unpack``, ``unskew_idx``,
-    ``unskew_select``, ``ordered_fused``, ``search_probe``,
-    ``gather_chain``, ``sweep_chain``, ``identity_u8``), built on the first
-    call."""
+    """The compiled kernel module (``skew``, ``skew_transpose``,
+    ``ed_scan``, ``unskew_unpack``, ``unskew_idx``, ``unskew_select``,
+    ``ordered_fused``, ``search_probe``, ``gather_chain``, ``sweep_chain``,
+    ``identity_u8``), built on the first call."""
     global _ext
     with _lock:
         if _ext is None:

@@ -42,7 +42,7 @@ int as_int(int64_t v, const char* name) {
     return (int)v;
 }
 
-// The tile plan of a K1 or K3 launch, as the wrapper computed it.
+// The tile plan of a K1, K3 or K6 launch, as the wrapper computed it.
 DptTilePlan tile_plan(int64_t td, int64_t ty, int64_t lead, int64_t threads,
                       const std::vector<int64_t>& grid, int64_t smem_bytes) {
     TORCH_CHECK(grid.size() == 3, "grid must be 3 ints");
@@ -58,34 +58,37 @@ DptTilePlan tile_plan(int64_t td, int64_t ty, int64_t lead, int64_t threads,
 
 }  // namespace
 
+// K1 on (B, H, W, 3) frames, K6 on (R, H, W) planes (one channel).
 void skew(torch::Tensor images, torch::Tensor out, int64_t s, int64_t td,
           int64_t ty, int64_t lead, int64_t threads, std::vector<int64_t> grid,
           int64_t smem_bytes) {
     check_tensor(images, "images", images);
     check_tensor(out, "out", images);
-    TORCH_CHECK(images.dim() == 4 && images.size(3) == 3,
-                "images must be (B, H, W, 3)");
+    const bool planes = images.dim() == 3;
+    TORCH_CHECK(planes || (images.dim() == 4 && images.size(3) == 3),
+                "images must be (B, H, W, 3) frames or (R, H, W) planes");
     TORCH_CHECK(out.scalar_type() == images.scalar_type(),
                 "out must have the images' dtype");
     TORCH_CHECK(s >= 1, "skew s must be >= 1");
+    const int C = planes ? 1 : 3;
     const int B = as_int(images.size(0), "B");
     const int H = as_int(images.size(1), "H");
     const int W = as_int(images.size(2), "W");
     const int D = as_int(W + s * (H - 1), "D");
-    TORCH_CHECK(out.dim() == 3 && out.size(0) == D && out.size(1) == 3 * B &&
+    TORCH_CHECK(out.dim() == 3 && out.size(0) == D && out.size(1) == C * B &&
                     out.size(2) == H,
-                "out must be (W + s*(H-1), 3B, H)");
+                "out must be (W + s*(H-1), C*B, H)");
     const DptTilePlan plan = tile_plan(td, ty, lead, threads, grid, smem_bytes);
     const c10::cuda::CUDAGuard guard(images.device());
     int rc;
     if (images.scalar_type() == torch::kUInt8) {
         rc = dpt_skew_u8(images.data_ptr<uint8_t>(), out.data_ptr<uint8_t>(),
-                         B, H, W, D, (int)s, plan, current_stream(images));
+                         B, C, H, W, D, (int)s, plan, current_stream(images));
     } else {
         TORCH_CHECK(images.scalar_type() == torch::kFloat32,
                     "images must be uint8 or float32");
         rc = dpt_skew_f32(images.data_ptr<float>(), out.data_ptr<float>(), B,
-                          H, W, D, (int)s, plan, current_stream(images));
+                          C, H, W, D, (int)s, plan, current_stream(images));
     }
     check_launch(rc, "skew");
 }
@@ -334,36 +337,6 @@ void unskew_idx(torch::Tensor idx, torch::Tensor out, int64_t s) {
     check_launch(rc, "unskew_idx");
 }
 
-void skew_planar(torch::Tensor planes, torch::Tensor out, int64_t s) {
-    check_tensor(planes, "planes", planes);
-    check_tensor(out, "out", planes);
-    TORCH_CHECK(planes.dim() == 3, "planes must be (R, H, W)");
-    TORCH_CHECK(out.scalar_type() == planes.scalar_type(),
-                "out must have the planes' dtype");
-    TORCH_CHECK(s >= 1, "skew s must be >= 1");
-    const int R = as_int(planes.size(0), "R");
-    const int H = as_int(planes.size(1), "H");
-    const int W = as_int(planes.size(2), "W");
-    const int D = as_int(W + s * (H - 1), "D");
-    TORCH_CHECK(out.dim() == 3 && out.size(0) == D && out.size(1) == R &&
-                    out.size(2) == H,
-                "out must be (W + s*(H-1), R, H)");
-    const c10::cuda::CUDAGuard guard(planes.device());
-    int rc;
-    if (planes.scalar_type() == torch::kUInt8) {
-        rc = dpt_skew_planar_u8(planes.data_ptr<uint8_t>(),
-                                out.data_ptr<uint8_t>(), R, H, W, D, (int)s,
-                                current_stream(planes));
-    } else {
-        TORCH_CHECK(planes.scalar_type() == torch::kFloat32,
-                    "planes must be uint8 or float32");
-        rc = dpt_skew_planar_f32(planes.data_ptr<float>(),
-                                 out.data_ptr<float>(), R, H, W, D, (int)s,
-                                 current_stream(planes));
-    }
-    check_launch(rc, "skew_planar");
-}
-
 void skew_transpose(torch::Tensor in, torch::Tensor out, int64_t s,
                     int64_t width) {
     // `in` is a strided view, (R, H, D) or (C, B, H, D) with rows c*B + b,
@@ -486,7 +459,8 @@ void unskew_select(torch::Tensor idx, torch::Tensor palette,
 
 void ordered_fused(torch::Tensor images, torch::Tensor palette,
                    torch::Tensor screen, torch::Tensor out,
-                   bool return_indices) {
+                   bool return_indices, int64_t threads, int64_t pixels,
+                   int64_t frames, std::vector<int64_t> grid, int64_t smem_bytes) {
     check_tensor(images, "images", images);
     check_tensor(palette, "palette", images);
     check_tensor(screen, "screen", images);
@@ -495,7 +469,9 @@ void ordered_fused(torch::Tensor images, torch::Tensor palette,
     TORCH_CHECK((f32 || images.scalar_type() == torch::kUInt8) &&
                     images.dim() == 4 && images.size(3) == 3,
                 "images must be (B, H, W, 3) uint8 or float32");
-    const int64_t B = images.size(0), H = images.size(1), W = images.size(2);
+    const int B = as_int(images.size(0), "B");
+    const int H = as_int(images.size(1), "H");
+    const int W = as_int(images.size(2), "W");
     TORCH_CHECK(palette.scalar_type() == torch::kFloat32 &&
                     palette.dim() == 2 && palette.size(1) == 3,
                 "palette must be (P, 3) float32");
@@ -515,20 +491,27 @@ void ordered_fused(torch::Tensor images, torch::Tensor palette,
         TORCH_CHECK(out.sizes() == images.sizes(),
                     "out must be (B, H, W, 3) for colours");
     }
+    TORCH_CHECK(grid.size() == 3, "grid must be 3 ints");
+    DptOrderedPlan plan;
+    plan.threads = as_int(threads, "threads");
+    plan.pixels = as_int(pixels, "pixels");
+    plan.frames = as_int(frames, "frames");
+    for (int i = 0; i < 3; ++i) plan.grid[i] = as_int(grid[i], "grid");
+    plan.smem_bytes = as_int(smem_bytes, "smem_bytes");
     const c10::cuda::CUDAGuard guard(images.device());
     const int emit_idx = return_indices ? 1 : 0;
     int rc;
     if (f32) {
         rc = dpt_ordered_fused_f32(images.data_ptr<float>(),
                                    palette.data_ptr<float>(), P,
-                                   screen.data_ptr<float>(), B * H * W, H * W,
-                                   out.data_ptr<uint8_t>(), emit_idx,
+                                   screen.data_ptr<float>(), B, H, W,
+                                   out.data_ptr<uint8_t>(), emit_idx, plan,
                                    current_stream(images));
     } else {
         rc = dpt_ordered_fused_u8(images.data_ptr<uint8_t>(),
                                   palette.data_ptr<float>(), P,
-                                  screen.data_ptr<float>(), B * H * W, H * W,
-                                  out.data_ptr<uint8_t>(), emit_idx,
+                                  screen.data_ptr<float>(), B, H, W,
+                                  out.data_ptr<uint8_t>(), emit_idx, plan,
                                   current_stream(images));
     }
     check_launch(rc, "ordered_fused");
@@ -599,7 +582,9 @@ void identity_u8(torch::Tensor in, torch::Tensor out) {
 }
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
-    m.def("skew", &skew, "K1: (B,H,W,3) -> (D,3B,H) skewed stream");
+    m.def("skew", &skew,
+          "K1 / K6: (B,H,W,3) frames or (R,H,W) planes -> (D,3B,H) or (D,R,H) "
+          "skewed stream");
     m.def("ed_scan", &ed_scan,
           "K2 / K8: wavefront scan, every mode -> (D,B,H) packed colours or "
           "palette indices");
@@ -609,8 +594,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
           "K3: (D,B,H) packed colours -> (B,H,W,3) or planar (3,B,H,W) uint8");
     m.def("unskew_idx", &unskew_idx,
           "K5: (D,B,H) palette indices -> (B,H,W) uint8 or uint16");
-    m.def("skew_planar", &skew_planar,
-          "K6: compact planes (R,H,W) -> (D,R,H) skewed stream");
     m.def("skew_transpose", &skew_transpose,
           "K7: strided view (R,H,D) or (C,B,H,D) -> (D,R,H) stream, tile "
           "transpose fused with the mask and the cast");

@@ -19,8 +19,8 @@ constexpr int DPT_MAX_PALETTE = 1024;
 // which with Ostromoukhov's 3 KB weight table fits the 227 KB a block may
 // have. The golden engine stops at 4096 colours.
 constexpr int DPT_IDX_MAX_PALETTE = 16384;
-// Largest palette of the ordered kernel: three float32 planes of 4096
-// entries fill the 48 KB of dynamic shared memory a block gets by default.
+// Largest palette of the ordered kernel (the golden engine's MAX_PAL): 16
+// bytes of shared memory a colour, 64 KB at 4096.
 constexpr int DPT_ORDERED_MAX_PALETTE = 4096;
 // Most diffusion entries of any fixed kernel (jjn and stucki have 12).
 constexpr int DPT_MAX_ENTRIES = 12;
@@ -84,7 +84,7 @@ struct DptScanArgs {
                    // blocks the card holds at once
 };
 
-// One launch of the tile transposes K1 and K3, as the wrapper planned it
+// One launch of the tile transposes K1, K3 and K6, as the wrapper planned it
 // (ops.wavefront.skew_tile_plan / unskew_tile_plan): tiles of td steps by
 // ty rows, `lead` rows above each tile that a block also loads (K1: the
 // sector phase of its output rows; K3: 0), blocks of `threads`, grid (row
@@ -97,12 +97,15 @@ struct DptTilePlan {
     int smem_bytes;
 };
 
-// K1: (B, H, W, 3) frames -> (D, 3B, H) skewed stream,
-// out[d, c*B + b, y] = in[b, y, d - s*y, c], 0 outside the image.
-int dpt_skew_u8(const uint8_t* in, uint8_t* out, int B, int H, int W, int D,
-                int s, const DptTilePlan& plan, void* stream);
-int dpt_skew_f32(const float* in, float* out, int B, int H, int W, int D,
-                 int s, const DptTilePlan& plan, void* stream);
+// K1 and K6, one tile transpose: B frames of C channels, (B, H, W, C)
+// -> (D, C*B, H) skewed stream, out[d, c*B + b, y] = in[b, y, d - s*y, c],
+// 0 outside the image. C = 3: NHWC frames (K1); C = 1: compact planes
+// (R, H, W) as R frames of one channel (K6), and R = 3B planes in the
+// order c*B + b give K1's stream. Other C are refused.
+int dpt_skew_u8(const uint8_t* in, uint8_t* out, int B, int C, int H, int W,
+                int D, int s, const DptTilePlan& plan, void* stream);
+int dpt_skew_f32(const float* in, float* out, int B, int C, int H, int W,
+                 int D, int s, const DptTilePlan& plan, void* stream);
 
 // K2 and K8: the wavefront scan over the skewed stream, every mode; out
 // (D, B, H) int32, 0 outside the image: packed colours
@@ -124,14 +127,6 @@ int dpt_unskew_idx_u8(const int32_t* idx, uint8_t* out, int B, int H, int W,
                       int s, void* stream);
 int dpt_unskew_idx_u16(const int32_t* idx, uint16_t* out, int B, int H, int W,
                        int s, void* stream);
-
-// K6: compact planes (R, H, W) -> (D, R, H) skewed stream,
-// out[d, r, y] = in[r, y, d - s*y], 0 outside the image; R = 3B rows in the
-// order c*B + b give K1's stream.
-int dpt_skew_planar_u8(const uint8_t* in, uint8_t* out, int R, int H, int W,
-                       int D, int s, void* stream);
-int dpt_skew_planar_f32(const float* in, float* out, int R, int H, int W,
-                        int D, int s, void* stream);
 
 // K7: tile transpose of a strided view into the skewed stream,
 // out[d, r, y] = cast(in[r, y, d]) where d - s*y lies in [0, W), else 0; out
@@ -171,16 +166,28 @@ int dpt_search_probe(const float* cur, const float* pal, int pp, int nb,
 int dpt_unskew_select(const int32_t* idx, const float* pal, uint8_t* out,
                       int B, int H, int W, int s, void* stream);
 
-// K4: ordered dither of n = B*H*W NHWC pixels, u8 or float32 (taken as they
-// are, not truncated), against a (H, W) float32 screen (hw = H*W, read at
-// i mod hw); out is n*3 u8 palette colours, or n u8 indices when
-// emit_idx != 0 (P <= 256). pal: (P, 3) float32.
+// One launch of the ordered kernel K4, as the wrapper planned it
+// (ops.ordered_fused.ordered_plan): blocks of `threads` threads, `pixels`
+// pixels a thread, `frames` frames a block at most, grid (pixel groups of a
+// row / threads, H, ceil(B / frames)) and the dynamic shared memory of the
+// staged palette. The launcher computes its own and refuses a plan that
+// differs (cudaErrorInvalidConfiguration).
+struct DptOrderedPlan {
+    int threads, pixels, frames;
+    int grid[3];
+    int smem_bytes;
+};
+
+// K4: ordered dither of a (B, H, W, 3) NHWC batch, u8 or float32 (taken as
+// they are, not truncated), against a (H, W) float32 screen; out is
+// (B, H, W, 3) u8 palette colours, or (B, H, W) u8 indices when
+// emit_idx != 0 (P <= 256). pal: (P, 3) float32, P <= DPT_ORDERED_MAX_PALETTE.
 int dpt_ordered_fused_u8(const uint8_t* img, const float* pal, int P,
-                         const float* screen, int64_t n, int64_t hw,
-                         uint8_t* out, int emit_idx, void* stream);
+                         const float* screen, int B, int H, int W, uint8_t* out,
+                         int emit_idx, const DptOrderedPlan& plan, void* stream);
 int dpt_ordered_fused_f32(const float* img, const float* pal, int P,
-                          const float* screen, int64_t n, int64_t hw,
-                          uint8_t* out, int emit_idx, void* stream);
+                          const float* screen, int B, int H, int W, uint8_t* out,
+                          int emit_idx, const DptOrderedPlan& plan, void* stream);
 
 // T1: the gather probe, over a (rows, lanes) int32 table and an (n, lanes)
 // int32 tile of start values; element (r, l) runs its own chain on one

@@ -13,8 +13,8 @@
 // Outside that parallelogram the view shows other rows' pixels (the TPU
 // scan masks them; this port's streams hold 0 there), so the kernel takes
 // (s, W) and writes 0 without reading. The result equals K1's stream
-// (skew.cu) for NHWC frames and K6's (skew_planar.cu) for compact planes,
-// bit for bit and everywhere.
+// (skew.cu, C = 3) for NHWC frames and K6's (skew.cu, C = 1) for compact
+// planes, bit for bit and everywhere.
 //
 // Rows: r = c*rows_inner + b starts at c*stride_outer + b*stride_inner, so
 // the channel-major row order c*B + b is reached from NHWC frames
@@ -27,8 +27,8 @@
 //
 // What bounds it: bytes. The frames are read once and D*R*H elements
 // written (about twice the input at 1080p, s = 2); there is no arithmetic.
-// K1 and K6 gather one element a thread with neighbouring threads a row of
-// the frame apart: every load touches its own 32-byte sector. Here a block
+// A gather of one element a thread, neighbouring threads a row of the
+// frame apart, touches its own 32-byte sector with every load. Here a block
 // moves a 64 x 64 tile through shared memory: the loads run along d
 // (neighbouring threads on neighbouring elements of a frame row), the
 // stores along y (neighbouring elements of the stream), and each sector is

@@ -18,21 +18,62 @@ CUDA tensor launches ``kernels/csrc/ordered.cu`` (counted in
 
 Left out, as TPU artefacts: the shape bucketing, 128-lane padding,
 sentinel palette padding and planar (3, rows, W) repack. The kernel reads
-NHWC directly and the (H, W) screen once for every frame.
+NHWC rows directly, ``ORDERED_PIXELS`` pixels a thread, over the grid that
+``ordered_plan`` computes, and the (H, W) screen once for every frame.
 """
 
 from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import Tuple
 
 import torch
 
 from dither_pie_tpu_torch.kernels import build
 
-# Largest palette K4 serves: three float32 planes of 4096 entries fill the
-# 48 KB of shared memory a block gets without opting in (and 4096 is the
-# golden engine's MAX_PAL).
+# Largest palette K4 serves (the golden engine's MAX_PAL); the kernel
+# stages 16 bytes of shared memory a colour.
 FUSED_PALETTE_MAX = 4096
 # Largest palette whose index fits the u8 index stream.
 INDEX_PALETTE_MAX = 256
+ORDERED_PIXELS = 4  # pixels a thread of K4
+ORDERED_FRAMES = 2  # frames a block of K4 walks, at most
+ORDERED_THREADS_MAX = 256
+ORDERED_ENTRY_BYTES = 16  # shared memory a palette colour
+_GRID_Y_MAX = _GRID_Z_MAX = 65535
+
+
+@dataclass(frozen=True)
+class OrderedPlan:
+    """One launch of K4: blocks of ``threads`` threads, ``pixels`` pixels a
+    thread, at most ``frames`` frames a block, ``grid`` = (pixel groups of
+    a row / threads, rows H, ceil(B / frames); block (x, y, z) takes row y
+    of frames z, z + grid[2], ...) and the dynamic shared memory of the
+    staged palette."""
+
+    threads: int
+    pixels: int
+    frames: int
+    grid: Tuple[int, int, int]
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=64)
+def ordered_plan(b: int, h: int, w: int, p: int) -> OrderedPlan:
+    """K4's launch for B (H, W) frames and a P-colour palette. A row's
+    ceil(W / ORDERED_PIXELS) pixel groups are split over the fewest blocks
+    of at most ORDERED_THREADS_MAX threads, each as even as a multiple of
+    32 threads allows; thread t of block x takes the group x*threads + t."""
+    if min(b, h, w) < 1 or h > _GRID_Y_MAX or not 1 <= p <= FUSED_PALETTE_MAX:
+        raise ValueError(f"no K4 grid for B={b} H={h} W={w} P={p}")
+    groups = -(-w // ORDERED_PIXELS)
+    gx = -(-groups // ORDERED_THREADS_MAX)
+    per_block = -(-groups // gx)
+    threads = -(-per_block // 32) * 32
+    gz = min(-(-b // ORDERED_FRAMES), _GRID_Z_MAX)
+    return OrderedPlan(threads, ORDERED_PIXELS, ORDERED_FRAMES, (gx, h, gz),
+                       p * ORDERED_ENTRY_BYTES)
 
 
 def _check(images: torch.Tensor, palette: torch.Tensor, screen: torch.Tensor,
@@ -102,7 +143,9 @@ def ordered_dither_fused(images: torch.Tensor, palette: torch.Tensor,
     frames = images.contiguous()
     shape = frames.shape[:3] if return_indices else frames.shape
     out = torch.empty(shape, dtype=torch.uint8, device=frames.device)
-    build.extension().ordered_fused(frames, palette.contiguous(),
-                                    screen.contiguous(), out, return_indices)
+    plan = ordered_plan(*frames.shape[:3], palette.shape[0])
+    build.extension().ordered_fused(frames, palette.contiguous(), screen.contiguous(), out,
+                                    return_indices, plan.threads, plan.pixels, plan.frames,
+                                    list(plan.grid), plan.smem_bytes)
     build.LAUNCHES["ordered_fused"] += 1
     return out

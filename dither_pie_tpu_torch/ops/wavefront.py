@@ -12,7 +12,8 @@ plain PyTorch version of the same function beside it here:
   ``out[d, c*B + b, y] = x[b, y, d - s*y, c]`` (0 outside the image).
 * K6 ``skew_planar``: compact planes (R, H, W) -> (D, R, H) stream,
   ``out[d, r, y] = x[r, y, d - s*y]``; the planes of a (3, B, H, W) batch
-  (rows c*B + b) give K1's stream bit for bit.
+  (rows c*B + b) give K1's stream bit for bit. K1 and K6 are one tile
+  transpose, over C = 3 channels or one (``skew_tile_plan``).
 * K2 ``scan``: the wavefront scan -> (D, B, H) int32 packed colours
   ``r << 16 | g << 8 | b`` (0 outside the image), palettes of up to
   ``PACKED_PALETTE_MAX`` colours. One frame runs on a thread-block cluster
@@ -301,13 +302,16 @@ def skew_planar_plain(planes: torch.Tensor, s: int) -> torch.Tensor:
 
 
 def skew_planar_gather(planes: torch.Tensor, s: int) -> torch.Tensor:
-    """K6 itself on CUDA planes of either dtype. ``skew_planar`` sends
-    uint8 planes here; with float32 planes no path of the package calls it,
-    only the checks that hold K7's stream to K6's."""
+    """K6 itself on CUDA planes of either dtype: K1's tile transpose with
+    one channel (``skew_tile_plan(..., channels=1)``). ``skew_planar``
+    sends uint8 planes here; with float32 planes no path of the package
+    calls it, only the checks that hold K7's stream to K6's."""
     r, h, w = planes.shape
     out = torch.empty((stream_length(h, w, s), r, h), dtype=planes.dtype,
                       device=planes.device)
-    build.extension().skew_planar(planes, out, s)
+    plan = skew_tile_plan(r, h, w, s, planes.dtype, out.data_ptr() % SECTOR_BYTES, 1)
+    build.extension().skew(planes, out, s, plan.td, plan.ty, plan.lead, plan.threads,
+                           list(plan.grid), plan.smem_bytes)
     build.LAUNCHES["skew_planar"] += 1
     return out
 
@@ -725,9 +729,11 @@ def launch_scan(stream: torch.Tensor, palette: torch.Tensor, geom: ScanGeometry,
 # ---------------------------------------------------------------------------
 
 # Tiles (TD steps d, TY rows y) of the (D, H) stream plane that one block of
-# K1 moves, by frame dtype, and of K3; 256 threads a block. Set by timing
-# variants on an H100 (PERF.md).
-SKEW_TILES = {torch.uint8: (64, 128), torch.float32: (64, 32)}
+# K1 (3 channels) or K6 (1 channel) moves, by frame dtype and channel count,
+# and of K3; 256 threads a block. Set by timing variants on an H100
+# (PERF.md, PR 8 and 9): K6's tiles hold at least K1's C*TD stream rows.
+SKEW_TILES = {(torch.uint8, 3): (64, 128), (torch.float32, 3): (64, 32),
+              (torch.uint8, 1): (256, 128), (torch.float32, 1): (192, 32)}
 UNSKEW_TILE = (128, 32)
 # Frames a block of K3 walks: it loads the next one's words while it stores
 # this one's tile.
@@ -739,9 +745,9 @@ _GRID_Y_MAX = _GRID_Z_MAX = 65535
 
 @dataclass(frozen=True)
 class TilePlan:
-    """One launch of K1 or K3: blocks of ``threads`` threads over tiles of
+    """One launch of K1, K6 or K3: blocks of ``threads`` threads over tiles of
     ``td`` steps by ``ty`` rows, each block also loading the ``lead`` rows
-    above its tile (K1) or steps before it (K3) that its sector-aligned
+    above its tile (K1, K6) or steps before it (K3) that its sector-aligned
     store windows reach, ``grid`` = (row tiles, step tiles, frames a pass;
     a block walks frames z, z + grid[2], ...), and the block's static shared
     memory, which the kernel's layout must equal."""
@@ -761,8 +767,8 @@ def _checked_grid(grid: Tuple[int, int, int], b: int, h: int, w: int) -> Tuple[i
 
 
 def skew_lead_rows(h: int, itemsize: int, out_phase: int = 0) -> int:
-    """K1's ``lead``: the largest sector phase, in elements, of a stream
-    row's start when the (D, 3B, H) output starts ``out_phase`` bytes past
+    """K1's and K6's ``lead``: the largest sector phase, in elements, of a
+    stream row's start when the (D, C*B, H) output starts ``out_phase`` bytes past
     a sector boundary. Row R starts at out_phase + R*H*itemsize; modulo 32
     those are out_phase plus the multiples of gcd(H*itemsize, 32)."""
     step = math.gcd(h * itemsize, SECTOR_BYTES)
@@ -771,9 +777,10 @@ def skew_lead_rows(h: int, itemsize: int, out_phase: int = 0) -> int:
 
 @functools.lru_cache(maxsize=64)
 def skew_tile_plan(b: int, h: int, w: int, s: int, dtype: torch.dtype,
-                   out_phase: int = 0) -> TilePlan:
-    """K1's launch for B (H, W) frames of ``dtype`` (uint8 or float32) and
-    skew s, its output starting ``out_phase`` bytes past a 32-byte sector
+                   out_phase: int = 0, channels: int = 3) -> TilePlan:
+    """The launch of K1 (``channels`` = 3: B (H, W, 3) frames) or K6
+    (``channels`` = 1: B (H, W) planes) of ``dtype`` (uint8 or float32) and
+    skew s, the output starting ``out_phase`` bytes past a 32-byte sector
     boundary (0 for a fresh allocation).
 
     Row tile k stores, of each stream row R, the window y in [k*TY - ph,
@@ -781,19 +788,20 @@ def skew_tile_plan(b: int, h: int, w: int, s: int, dtype: torch.dtype,
     window starts on a sector boundary; a block therefore loads the
     ``lead`` >= ph rows above its tile too, and the grid has
     ceil((H + lead) / TY) row tiles. Shared memory: a 16-byte front pad,
-    the tile's 3*TD stream rows (dd, c) of TY + 32/itemsize elements and 4
+    the tile's C*TD stream rows (dd, c) of TY + 32/itemsize elements and 4
     bytes (an odd count of 32-bit words, so the rows' word-wise reads meet
-    no bank conflict), row r = 3*dd + c placed at r + r/32 (a spare row
-    after every 32, so the de-interleaving byte stores of a warp meet few),
+    no bank conflict), row r = C*dd + c placed at r + r/32 (a spare row
+    after every 32, so the scattering byte stores of a warp meet few),
     and a 32-byte back pad; the pads take the reads of the first and last
     rows' partial words."""
-    td, ty = SKEW_TILES[dtype]
+    td, ty = SKEW_TILES[dtype, channels]
     e = dtype.itemsize
     lead = skew_lead_rows(h, e, out_phase)
     pitch = (ty + SECTOR_BYTES // e) * e + 4
+    rows = channels * td
     grid = (-(-(h + lead) // ty), -(-stream_length(h, w, s) // td), min(b, _GRID_Z_MAX))
     return TilePlan(td, ty, lead, TILE_THREADS, _checked_grid(grid, b, h, w),
-                    16 + (3 * td + 3 * td // 32) * pitch + 32)
+                    16 + (rows + rows // 32) * pitch + 32)
 
 
 def unskew_band_tiles(h: int, w: int, s: int, td: int, ty: int) -> int:

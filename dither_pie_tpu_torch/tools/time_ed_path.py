@@ -10,7 +10,8 @@ on 16 distinct random uint8 frames already on the card, each as (median,
 min, max) milliseconds of CUDA events after one warm-up:
 
 * Floyd-Steinberg to 32 colours at 1080p: the whole device path
-  (``ops.wavefront.ed_batch_wavefront``: skew, scan, unskew), 9 runs;
+  (``ops.wavefront.ed_batch_wavefront``: skew, scan, unskew), 9 runs, on
+  the NHWC frames and on their (3, 16, H, W) planes (K6, K2, K3 planar);
 * the scan K2 alone at 32, 64, 256 and 1024 colours (1080p; Floyd-Steinberg,
   and at 32 colours also ostromoukhov, hybrid, perceptual and adaptive with
   random gates; at 256 and 1024 colours also the score search) and K8 at
@@ -23,7 +24,22 @@ min, max) milliseconds of CUDA events after one warm-up:
   K6 (``skew_planar_gather``, on the frames' planes) on the same frames, K1
   on the frames as float32, and the unskew K3 (``unskew_unpack``) of the
   32-colour scan's output in both layouts; K1's stream is held to K7's and
-  K6's bitwise.
+  K6's bitwise;
+* the ordered kernel K4 (``ordered_dither_fused``), 9 runs each: the 16
+  frames to pico8 with the Bayer 8x8 screen, colours and indices; the
+  frames as float32 with noise in [-0.5, 0.5) (the wavelet mode's float
+  input) to a 32-colour palette; 100 frames (the 16 rolled along x) to
+  pico8 with the 64x64 blue-noise screen. Each timed output is held to the
+  plain version bitwise;
+* the probes T1 and T3 beside their library calls: T1's gather
+  (``gather_probe.gather_chain``) on the 4096 x 128 int32 table against
+  ``torch.gather`` on the same int64 indices, and T3's identity
+  (``layout_repro.identity_copy``) on one 100 x 1080p plane against
+  ``clone()``. A T1 launch is shorter than its Python enqueue, so both T1
+  forms are timed as a CUDA graph of 100 launches (device time a launch,
+  the graph's gaps between kernels included), and also as 100 launches
+  enqueued from Python; T3 as 20 launches in a row. Each output is held to
+  its library call's bitwise.
 
 Every line carries the cluster size the launch ran with ("n"; "-" for a
 tree whose scan has no clusters). It prints the card's name and power
@@ -115,9 +131,13 @@ def main() -> int:
     gates = torch.from_numpy((rng.rand(16, 1080, 1920) < 0.5).astype(np.float32)).to(dev)
     auxes = {"perceptual": twf.perceptual_sensitivity(frames), "adaptive": gates}
 
+    planes4 = frames.permute(3, 0, 1, 2).contiguous()
     for _ in range(2):
         path = ms(lambda: twf.ed_batch_wavefront(frames, pals[32]), 9)
         print(f"{tree}: FS 32 colours, 16 x 1080p u8: device path ms (median, min, max) "
+              f"{path} [{card}]", flush=True)
+        path = ms(lambda: twf.ed_batch_wavefront(planes4, pals[32], planar=True), 9)
+        print(f"{tree}: FS 32 colours, 16 x 1080p u8 planar: device path ms (median, min, max) "
               f"{path} [{card}]", flush=True)
         for p in SIZES:
             scan_line(f"K2 FS P={p} 1080p", stream, pals[p], False, 1920)
@@ -147,11 +167,14 @@ def main() -> int:
         if not torch.equal(k1, ends[other]()):
             print(f"{tree}: K1's stream != {other}'s", file=sys.stderr)
             return 1
-    del k1, planes, col
+    del k1, planes, planes4, col
     frames_f32 = frames.to(torch.float32)
     print(f"{tree}: K1 skew float32, 16 x 1080p FS: ms "
           f"{ms(lambda: twf.skew_gather(frames_f32, geom.s), 9)} [{card}]", flush=True)
     del frames_f32
+
+    if ordered_lines(tree, card, dev, frames, ms) or probe_lines(tree, card, dev, frames):
+        return 1
 
     if sweep:
         if not clusters:
@@ -190,6 +213,119 @@ def main() -> int:
             print(f"{tree}: fit K2 1080p n={n}: {c:.4f} us + {k:.5f} us x P/n a step "
                   f"(max residual {np.abs(c + k * x - y).max():.4f} us) [{card}]", flush=True)
     return 0
+
+
+def ordered_lines(tree, card, dev, frames, ms) -> bool:
+    """K4's lines; True if a timed output differs from the plain version."""
+    import torch
+
+    from dither_pie_tpu_torch.core import thresholds as thr
+    from dither_pie_tpu_torch.core.builtin_palettes import BUILTIN_PALETTES
+    from dither_pie_tpu_torch.ops import ordered as tord
+    from dither_pie_tpu_torch.ops import ordered_fused as tof
+
+    rng = np.random.RandomState(4)
+    h, w = frames.shape[1:3]
+    pico8 = torch.tensor([[int(c[i:i + 2], 16) for i in (0, 2, 4)]
+                          for c in BUILTIN_PALETTES["pico8_palette"]],
+                         dtype=torch.float32, device=dev)
+    pal32 = torch.from_numpy(rng.randint(0, 256, (32, 3)).astype(np.float32)).to(dev)
+    bayer = tord.screen_for_matrix(thr.bayer_matrix("8x8"), h, w, dev)
+    blue = tord.screen_for_matrix(thr.blue_noise_cached(64, 42), h, w, dev)
+    noisy = frames.to(torch.float32) + torch.from_numpy(
+        rng.uniform(-0.5, 0.5, tuple(frames.shape)).astype(np.float32)).to(dev)
+    big = torch.cat([frames.roll(37 * k, dims=2) for k in range(7)])[:100]
+    cases = [("u8 pico8 Bayer 8x8 colours, 16 x 1080p", frames, pico8, bayer, False),
+             ("u8 pico8 Bayer 8x8 indices, 16 x 1080p", frames, pico8, bayer, True),
+             ("float32 32 colours Bayer 8x8 colours, 16 x 1080p", noisy, pal32, bayer, False),
+             ("u8 pico8 blue noise colours, 100 x 1080p", big, pico8, blue, False)]
+    for label, x, pal, screen, ind in cases:
+        t = ms(lambda: tof.ordered_dither_fused(x, pal, screen, ind), 9)
+        same = torch.equal(tof.ordered_dither_fused(x, pal, screen, ind),
+                           tof.ordered_dither_fused_plain(x, pal, screen, ind))
+        print(f"{tree}: K4 ordered {label}: ms {t}, == plain {same} [{card}]", flush=True)
+        if not same:
+            print(f"{tree}: K4 {label} != its plain version", file=sys.stderr)
+            return True
+    return False
+
+
+def graph_ms(fn, launches: int = 100) -> float:
+    """Device milliseconds a launch of fn, from CUDA events around the
+    replay of a CUDA graph of ``launches`` calls (median of 5 replays)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / launches)
+    del graph
+    return statistics.median(times)
+
+
+def loop_ms(fn, launches: int) -> float:
+    """Milliseconds a launch of fn over ``launches`` calls enqueued back to
+    back between two CUDA events (median of 5)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / launches)
+    return statistics.median(times)
+
+
+def probe_lines(tree, card, dev, frames) -> bool:
+    """T1's and T3's lines; True if an output differs from its library
+    call's."""
+    import torch
+
+    from dither_pie_tpu_torch.tools import gather_probe as gp
+    from dither_pie_tpu_torch.tools import layout_repro as lr
+
+    tbl, idx = (torch.from_numpy(a).to(dev) for a in gp.gather_inputs(gp.CHECK_ROWS[-1]))
+    idx64 = idx.long()
+    t1 = (lambda: gp.gather_chain(tbl, idx), lambda: torch.gather(tbl, 0, idx64))
+    same = torch.equal(t1[0](), t1[1]())
+    g = [graph_ms(f) for f in t1]
+    loop = [loop_ms(f, 100) for f in t1]
+    print(f"{tree}: T1 gather {tuple(tbl.shape)} int32: kernel {g[0]:.5f} ms, torch.gather "
+          f"{g[1]:.5f} ms a launch in a CUDA graph of 100; enqueued from Python: kernel "
+          f"{loop[0]:.5f} ms, torch.gather {loop[1]:.5f} ms; == torch.gather {same} [{card}]",
+          flush=True)
+    plane = lr.planarize(torch.cat([frames.roll(37 * k, dims=2) for k in range(7)])[:100])
+    t3 = (lambda: lr.identity_copy(plane), lambda: plane.clone())
+    same3 = torch.equal(t3[0](), plane)
+    t = [loop_ms(f, 20) for f in t3]
+    print(f"{tree}: T3 identity, one {tuple(plane.shape)} u8 plane: kernel {t[0]:.5f} ms, "
+          f"clone() {t[1]:.5f} ms a launch over 20 in a row; == input {same3} [{card}]",
+          flush=True)
+    return not (same and same3)
 
 
 if __name__ == "__main__":

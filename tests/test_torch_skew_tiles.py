@@ -115,24 +115,25 @@ def _funnel_read(smem32, blk, word_index, shift):
 
 
 def skew_model(frames: np.ndarray, s: int, plan, in_off: int, out_off: int, seed=0):
-    """K1's walk: (B, H, W, 3) uint8 or float32 frames at byte offset
-    ``in_off`` -> the (D, 3B, H) stream written at ``out_off``."""
+    """The walk of ``skew.cu``'s tile kernel: (B, H, W, C) uint8 or float32
+    frames at byte offset ``in_off`` -> the (D, C*B, H) stream written at
+    ``out_off``. C = 3 is K1; C = 1 is K6, its R planes as (R, H, W, 1)."""
     rng = np.random.RandomState(seed)
-    b, h, w, _ = frames.shape
+    b, h, w, nc = frames.shape
     e = frames.dtype.itemsize
     td, ty, nt, lead = plan.td, plan.ty, plan.threads, plan.lead
     assert lead == twf.skew_lead_rows(h, e, out_off % 32)
     d_total = w + s * (h - 1)
-    rows = 3 * td  # stream rows (dd, c) of the tile, r = 3*dd + c
+    rows = nc * td  # stream rows (dd, c) of the tile, r = C*dd + c
     slots = rows + rows // 32  # row r sits in slot r + r/32
     pitch = (ty + 32 // e) * e + 4  # bytes of a stream row in shared memory
-    wpr = 3 * td * e // 16 + 1  # most covering words of a frame-row run
+    wpr = nc * td * e // 16 + 1  # most covering words of a frame-row run
     nwr = ty * e // 16 + 1  # most covering words of a stream run
     smem_bytes = 16 + slots * pitch + 32
     assert smem_bytes == plan.smem_bytes <= SMEM_STATIC_MAX
     assert pitch % 8 == 4  # an odd count of 32-bit words
     src = Memory(rng, frames.tobytes(), in_off, frames.nbytes)
-    dst = Memory(rng, None, out_off, d_total * 3 * b * h * e)
+    dst = Memory(rng, None, out_off, d_total * nc * b * h * e)
 
     # Tile rows y in [y0 - lead, y0 + TY); row j at y = y0 - lead + j.
     y0, d0, bb = _blocks(plan, b)
@@ -153,8 +154,8 @@ def skew_model(frames: np.ndarray, s: int, plan, in_off: int, out_off: int, seed
     y = y0[:, None] - lead + j
     xlo = np.maximum(0, d0[:, None] - s * y)
     xhi = np.minimum(w, d0[:, None] + td - s * y)
-    row = in_off + (bb[:, None] * h + y).astype(np.int64) * (w * 3 * e)
-    addr, live = _covering_words(row + xlo * 3 * e, row + xhi * 3 * e, k)
+    row = in_off + (bb[:, None] * h + y).astype(np.int64) * (w * nc * e)
+    addr, live = _covering_words(row + xlo * nc * e, row + xhi * nc * e, k)
     live &= (y >= ya[:, None]) & (y <= yb[:, None]) & ~empty[:, None]
     assert not live[:, (ty + lead) * wpr:].any()
     blk, item = np.nonzero(live)
@@ -163,12 +164,12 @@ def skew_model(frames: np.ndarray, s: int, plan, in_off: int, out_off: int, seed
     yb_, jb = y[blk, item], j[item]
     e0 = (addr[blk, item] - row[blk, item]) // e  # element of the row, may be < 0
     el = e0[:, None] + np.arange(16 // e)
-    ok = (el >= 3 * xlo[blk, item][:, None]) & (el < 3 * xhi[blk, item][:, None])
-    # Element el = 3*x + c of the row is pixel x, channel c, and goes to the
-    # stream row r = 3*dd + c with dd = x + s*y - d0: r = el + 3*(s*y - d0),
+    ok = (el >= nc * xlo[blk, item][:, None]) & (el < nc * xhi[blk, item][:, None])
+    # Element el = C*x + c of the row is pixel x, channel c, and goes to the
+    # stream row r = C*dd + c with dd = x + s*y - d0: r = el + C*(s*y - d0),
     # in slot r + r/32. The kernel takes the word's first row r0 and its
     # slot once; element i sits i slots further, one more from i = t on.
-    r0 = e0 + 3 * (s * yb_ - d0[blk])
+    r0 = e0 + nc * (s * yb_ - d0[blk])
     t = 32 - (r0 & 31)
     i = np.arange(16 // e)
     at = (16 + (r0 + (r0 >> 5)) * pitch + jb * e)[:, None] + (i + (i >= t[:, None])) * pitch
@@ -182,14 +183,14 @@ def skew_model(frames: np.ndarray, s: int, plan, in_off: int, out_off: int, seed
         np.add.at(written, (blk_el, at + byte), 1)
     assert written.max() <= 1
 
-    # Store along y: item f of a block is word k of stream row R = d*3B +
-    # c*B + b (r = 3*dd + c of the tile), over its window y in [y0 - ph,
+    # Store along y: item f of a block is word k of stream row R = d*C*B +
+    # c*B + b (r = C*dd + c of the tile), over its window y in [y0 - ph,
     # y0 - ph + TY), ph = the sector phase of R's start in elements.
     f = np.arange(-(-rows * nwr // nt) * nt)
     r, k = f // nwr, f % nwr
-    dd, c = r // 3, r % 3
+    dd, c = r // nc, r % nc
     d = d0[:, None] + dd
-    rs = out_off + (d.astype(np.int64) * 3 * b + c * b + bb[:, None]) * h * e
+    rs = out_off + (d.astype(np.int64) * nc * b + c * b + bb[:, None]) * h * e
     ph = (rs % 32) // e
     assert np.all(ph <= lead)
     ys = np.maximum(0, y0[:, None] - ph)
@@ -205,7 +206,7 @@ def skew_model(frames: np.ndarray, s: int, plan, in_off: int, out_off: int, seed
     q = _funnel_read(smem.view(np.uint32), blk, word, o & 3)
     q[empty[blk]] = 0  # empty tiles store zeros without loading
     _store_words(dst, gs, ge, addr[blk, item], q.view(np.uint8).reshape(-1, 16))
-    return dst.tensor(frames.dtype, (d_total, 3 * b, h))
+    return dst.tensor(frames.dtype, (d_total, nc * b, h))
 
 
 def _byte_perm(x, y, sel):
