@@ -71,8 +71,10 @@ a non-zero exit code and no result line:
    colours and golden identity 1.0 on all 16 frames and on the single
    image; then the times, each timed kernel's output held bitwise to its
    plain version's on the same batch of 16: K2 per mode at 16 x 1080p
-   P=32, K2 at P = 64, 256, 1024 (FS), K8 and K9 at 16 x 480p P=2048, and
-   the k-means-256 batch wall (its traced call is phase 6's second trace);
+   P=32, K2 at P = 64, 256, 1024 (FS), K8 and K9 at 16 x 480p P=2048 (K9
+   also beside the one PyTorch call that computes it, pal_u8[idx.as_strided
+   (...)] over the truncated u8 palette table, its library_ms), and the
+   k-means-256 batch wall (its traced call is phase 6's second trace);
 9. the video pipeline's two transfer shapes, the index stream and planar
    batches: K5 (unskew of the index stream, u8 and u16), K6 (skew of
    compact planes) and K3's planar layout held to their plain versions
@@ -94,7 +96,8 @@ a non-zero exit code and no result line:
    DITHER_PIE_TPU_INDEX_TRANSFER unset, the link probe's MB/s, the host
    gather's ns a pixel, the verdict and the path the facade then takes; then
    the times: K5, K6 and K3's planar layout beside their plain versions (K5
-   also beside the one PyTorch call that computes it, its library_ms), the
+   also beside the one PyTorch call that computes it, its library_ms, and
+   that call's uint16 form where this torch casts to uint16 on CUDA), the
    batch walls of the index
    and planar paths beside their RGB and NHWC walls, and inside the index
    walls the device-to-host copy, the host unpack and the host palette
@@ -153,11 +156,15 @@ a non-zero exit code and no result line:
    (k = 3) and, at k = 1026, to the gather chain on its tile, then the
    tool's lines (microseconds a gather by table height, a sweep step
    beside a gather on the same tile) with the launch counts of that run;
-   T3, the identity: == its input and == clone() at (3, 2160, 1920), an odd
-   size, a view off the 16-byte boundary and 15 bytes, one 100 x 1080p plane
-   timed beside clone() (GB/s beside the 3.35 TB/s of the bounds), the
-   layout harness at 3 x 100 frames (temporary bytes over the arguments')
-   and its chain through K4 at 3 x 16;
+   T3, the identity (``identity_phase``): == its input and == clone() at
+   (3, 2160, 1920), an odd size, a view off the 16-byte boundary and 15
+   bytes, and pairs of views into outputs at chosen offsets that agree and
+   disagree mod 16 (the bulk form and the shifted one; the bytes around
+   each output untouched), one 100 x 1080p plane timed beside clone() (GB/s
+   beside the 3.35 TB/s of the bounds) in the bulk form and in the shifted
+   form (the plane less its first byte), the layout harness at
+   3 x 100 frames (temporary bytes over the arguments') and its chain
+   through K4 at 3 x 16;
 12. K2 and K8 over thread-block clusters (one frame on n blocks whose ranks
    search contiguous slices of the palette, ``ops.wavefront.
    scan_cluster_plan``): both held to scan_plain / scan_idx_plain bitwise
@@ -189,7 +196,14 @@ a non-zero exit code and no result line:
    ties and a palette with planted duplicates, and at 16 x 1080p (pico8
    through both bodies, float32 frames with a k-means-32 palette, one copy 3
    bytes off the boundary); then the planar main path == the NHWC main
-   path's output; and what the whole run took of its 1200 s limit.
+   path's output;
+15. K5 as the index kinds of K3's tile transpose (``unskew_tile_plan(...,
+   "u8" / "u16")``): == unskew_idx_plain bitwise at the odd shapes of phase
+   13, on indices each type holds, whole and as slices off the 16-byte
+   boundary, into fresh outputs and outputs off the boundary (through the
+   binding), on 2 x 1080 x 1919 slices, and on the index scan's uint16
+   streams of 16 x 1080p at 300 and 1024 colours; and what the whole run
+   took of its 1200 s limit.
 
 Phases 1-8 run with DITHER_PIE_TPU_INDEX_TRANSFER=0 (the RGB path, whatever
 the link probe would say); phases 9 to 11 set it as each check needs.
@@ -298,7 +312,7 @@ IDX_KERNELS = [  # the path of palettes above 1024 colours, with K1
      "dither_pie_tpu/ops/wavefront.py:1709"),
 ]
 TRANSFER_KERNELS = [  # the index stream and the planar layout
-    ("unskew_idx", "dither_pie_tpu_torch/kernels/csrc/unskew_idx.cu",
+    ("unskew_idx", "dither_pie_tpu_torch/kernels/csrc/unskew_unpack.cu",
      "dither_pie_tpu/ops/wavefront.py:1636"),
     ("skew_planar", "dither_pie_tpu_torch/kernels/csrc/skew.cu",
      "dither_pie_tpu/ops/wavefront.py:1352"),
@@ -1113,7 +1127,23 @@ def ed_modes_phase(torch, dev, card, lib, frames16, frame0, palette32, palette25
         new_rows.append({"name": key, "route": "cuda", "source": source, "replaces": replaces,
                          "launches": totals[key], "max_abs_err": errs[key], "ms": ms,
                          "plain_ms": plain_ms, **cluster, **bounds[key]})
+        if key == "unskew_select":
+            k9_out = got
     scan_row["max_abs_err"] = errs["ed_scan"]
+    # One PyTorch call computes K9: the truncated u8 palette table (a (P, 3)
+    # set-up cast, made once) indexed by a strided view of the stream. Timed
+    # here, used nowhere in the port.
+    pal_u8 = pals_t[2048].to(torch.int32).to(torch.uint8)
+    bh = BATCH * SD_H
+    lib_ms, lib_out = cuda_ms(torch, lambda: pal_u8[sd_idx.as_strided(
+        (BATCH, SD_H, SD_W), (SD_H, fs.s * bh + 1, bh))], 3)
+    hold(torch, "unskew_select", lib_out, k9_out, errs,
+         f"pal_u8[idx.as_strided(...)] against K9, {BATCH}x{SD_H}x{SD_W}")
+    new_rows[-1]["library_ms"] = lib_ms
+    log(f"[8] unskew_select as one PyTorch call, pal_u8[idx.as_strided((B, H, W), (H, "
+        f"s*B*H + 1, B*H))] over the truncated u8 palette table: {lib_ms:.3f} ms, equal to "
+        f"the kernel bitwise [{card}]")
+    del lib_out, k9_out
 
     walls = []
     for _ in range(5):
@@ -1331,6 +1361,23 @@ def transfer_phase(torch, dev, card, lib, frames16, frame0, palette32, palette16
          f"uint16, {BATCH}x{FULL_H}x{FULL_W}")
     log(f"[9] unskew_idx, uint16 output, {BATCH}x{FULL_H}x{FULL_W}: {ms_u16:.3f} ms, equal to "
         f"its plain version bitwise [{card}]")
+    # The uint16 stream's one PyTorch call, where this torch casts to uint16
+    # on CUDA.
+    lib16_ms = None
+    try:
+        lib16_ms, lib16_out = cuda_ms(
+            torch, lambda: idx_stream.as_strided(
+                (BATCH, FULL_H, FULL_W), (FULL_H, fs.s * bh + 1, bh)).to(torch.uint16), 5)
+    except (RuntimeError, NotImplementedError) as e:
+        log(f"[9] unskew_idx, uint16, as one PyTorch call: not taken on CUDA ({e})")
+    else:
+        hold(torch, "unskew_idx", lib16_out, got_u16, errs,
+             f"as_strided(...).to(uint16) against K5, {BATCH}x{FULL_H}x{FULL_W}")
+        log(f"[9] unskew_idx, uint16, as one PyTorch call, idx.as_strided(...).to(uint16): "
+            f"{lib16_ms:.3f} ms, equal to the kernel bitwise [{card}]")
+        del lib16_out
+    measured["unskew_idx"][2].update(
+        u16_library_ms=lib16_ms, u16_bound_ms=bound(n_px * 4 + 2 * n_px, 0)["bound_ms"])
     k6_times = measured.pop("skew_planar")[:3]  # drop the held stream
     del got_u16
 
@@ -2234,7 +2281,6 @@ def transform_phase(torch, dev, card, frames16, palette32, rows, errs):
     from dither_pie_tpu_torch.ops import wavelet as twav
     from dither_pie_tpu_torch.core import thresholds as thr
     from dither_pie_tpu_torch.tools import gather_probe as gp
-    from dither_pie_tpu_torch.tools import layout_repro as lr
 
     def on_card(arr):
         return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
@@ -2484,7 +2530,26 @@ def transform_phase(torch, dev, card, frames16, palette32, rows, errs):
         f"plain PyTorch {t1_plain_ms:.4f} ms, torch.gather on int64 indices "
         f"{t1_lib_ms:.4f} ms, bound {t1_bound['bound_ms']:.5f} ms by bytes [{card}]")
 
-    # --- T3: the identity and the layout harness --------------------------
+    return [{"name": "gather_probe", "route": "cuda", "source": PROBE_KERNELS[0][1],
+             "replaces": PROBE_KERNELS[0][2], "launches": gather_launches,
+             "sweep_launches": sweep_launches, "max_abs_err": errs["gather_probe"],
+             "ms": t1_ms, "plain_ms": t1_plain_ms, "chain": chains, "sweep": sweeps,
+             **t1_bound},
+            identity_phase(torch, dev, card, frames16, errs)]
+
+
+def identity_phase(torch, dev, card, frames16, errs):
+    """Phase 11's T3: the identity kernel == its input == clone() at odd
+    sizes, views off the boundary, pairs of views into offset outputs (the
+    bulk form and the shifted one), the timed 100 x 1080p plane in each
+    form beside clone(), and the layout harness and its chain through K4.
+    Returns the kernels-line row of the identity."""
+    from dither_pie_tpu_torch.kernels import build
+    from dither_pie_tpu_torch.tools import layout_repro as lr
+
+    def on_card(arr):
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+
     t0 = time.perf_counter()
     two = on_card(np.random.RandomState(12).randint(
         0, 256, (3, 2 * FULL_H, FULL_W)).astype(np.uint8))
@@ -2497,6 +2562,21 @@ def transform_phase(torch, dev, card, frames16, palette32, rows, errs):
         check(got.data_ptr() != x.data_ptr(), f"identity returned its input ({what})")
         hold(torch, "identity", got, x, errs, what)
         hold(torch, "identity", got, lr.identity_plain(x), errs, f"{what}, against clone()")
+    # Pairs of views into outputs at chosen offsets: agreeing mod 16 off the
+    # boundary (a head, the bulk body, a tail) and disagreeing (the shifted
+    # form), the bytes around each output untouched.
+    t3_pairs = 0
+    for n in (1_000_003, 4_000_037, 47, 15):
+        for in_off, out_off in ((5, 5), (13, 13), (1, 0), (0, 7), (3, 14), (15, 2)):
+            x = flat_two[in_off:in_off + n]
+            buf = torch.full((n + 64,), 0xA5, dtype=torch.uint8, device=dev)
+            got = lr.identity_copy(x, out=buf[16 + out_off:16 + out_off + n])
+            hold(torch, "identity", got, lr.identity_plain(x), errs,
+                 f"{n} bytes at {in_off} into {out_off} mod 16")
+            check(bool((buf[:16 + out_off] == 0xA5).all()) and
+                  bool((buf[16 + out_off + n:] == 0xA5).all()),
+                  f"identity wrote outside its output ({n} bytes, {in_off}, {out_off})")
+            t3_pairs += 1
     plane = lr.planarize(torch.cat(
         [on_card(frames16).roll(37 * k, dims=2)
          for k in range(-(-BIG_BATCH // BATCH))])[:BIG_BATCH])
@@ -2504,16 +2584,24 @@ def transform_phase(torch, dev, card, frames16, palette32, rows, errs):
     t3_plain_ms, want = cuda_ms(torch, lambda: lr.identity_plain(plane), 7)
     hold(torch, "identity", got, want, errs, f"the timed {BIG_BATCH}x{FULL_H}x{FULL_W} plane")
     hold(torch, "identity", got, plane, errs, "the timed plane against its input")
+    # The shifted form on the plane less its first byte (a view 1 byte off
+    # the boundary into a fresh output).
+    off_by_one = plane.view(-1)[1:]
+    shifted_ms, got = cuda_ms(torch, lambda: lr.identity_copy(off_by_one), 7)
+    hold(torch, "identity", got, off_by_one, errs, "the timed plane 1 byte off, shifted form")
     t3_bound = bound(2 * plane.numel(), 0)
     t3_bound["library_ms"] = t3_plain_ms
     gbs = 2 * plane.numel() / t3_ms / 1e6
     log(f"[11] identity == input == clone(), bitwise: (3, {2 * FULL_H}, {FULL_W}), an odd "
-        f"size, a view off the 16-byte boundary, 15 bytes; one {BIG_BATCH}x{FULL_H}x{FULL_W} "
-        f"plane ({plane.numel() / 1e6:.1f} MB): kernel {t3_ms:.3f} ms = {gbs:.1f} GB/s read + "
-        f"written ({gbs / (PEAK_BYTES_PER_S / 1e9):.3f} of {PEAK_BYTES_PER_S / 1e12:.2f} TB/s), "
-        f"clone() {t3_plain_ms:.3f} ms = {2 * plane.numel() / t3_plain_ms / 1e6:.1f} GB/s, "
-        f"bound {t3_bound['bound_ms']:.3f} ms ({time.perf_counter() - t0:.1f} s) [{card}]")
-    del plane, got, want, two, flat_two
+        f"size, a view off the 16-byte boundary, 15 bytes, {t3_pairs} pairs of views into "
+        f"offset outputs (agreeing and disagreeing mod 16); one "
+        f"{BIG_BATCH}x{FULL_H}x{FULL_W} plane ({plane.numel() / 1e6:.1f} MB): kernel "
+        f"(bulk) {t3_ms:.3f} ms = {gbs:.1f} GB/s read + written "
+        f"({gbs / (PEAK_BYTES_PER_S / 1e9):.3f} of {PEAK_BYTES_PER_S / 1e12:.2f} TB/s), "
+        f"shifted (1 byte off) {shifted_ms:.3f} ms, clone() "
+        f"{t3_plain_ms:.3f} ms = {2 * plane.numel() / t3_plain_ms / 1e6:.1f} GB/s, bound "
+        f"{t3_bound['bound_ms']:.3f} ms ({time.perf_counter() - t0:.1f} s) [{card}]")
+    del plane, got, want, two, flat_two, off_by_one
     build.reset_launch_counts()
     r = lr.harness(3, BIG_BATCH, dev, FULL_H, FULL_W)
     identity_launches = build.LAUNCHES["identity"]
@@ -2537,15 +2625,10 @@ def transform_phase(torch, dev, card, frames16, palette32, rows, errs):
         f"allocation: {r['temp_bytes'] / 1e9:.2f} GB ({r['temp_bytes'] / r['arg_bytes']:.2f}x "
         f"of args); executed ok: {r['acc']} [{card}]")
 
-    return [{"name": "gather_probe", "route": "cuda", "source": PROBE_KERNELS[0][1],
-             "replaces": PROBE_KERNELS[0][2], "launches": gather_launches,
-             "sweep_launches": sweep_launches, "max_abs_err": errs["gather_probe"],
-             "ms": t1_ms, "plain_ms": t1_plain_ms, "chain": chains, "sweep": sweeps,
-             **t1_bound},
-            {"name": "identity", "route": "cuda", "source": PROBE_KERNELS[1][1],
-             "replaces": PROBE_KERNELS[1][2], "launches": identity_launches,
-             "max_abs_err": errs["identity"], "ms": t3_ms, "plain_ms": t3_plain_ms,
-             "gb_per_s": gbs, **t3_bound}]
+    return {"name": "identity", "route": "cuda", "source": PROBE_KERNELS[1][1],
+            "replaces": PROBE_KERNELS[1][2], "launches": identity_launches,
+            "max_abs_err": errs["identity"], "ms": t3_ms, "plain_ms": t3_plain_ms,
+            "gb_per_s": gbs, "shifted_ms": shifted_ms, **t3_bound}
 
 
 # ---------------------------------------------------------------------------
@@ -2853,6 +2936,85 @@ def ported_phase(torch, dev, card, frames16, palette, out16, errs):
     return count
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: K5 as the index kinds of K3's tile transpose
+# ---------------------------------------------------------------------------
+
+
+def index_tile_phase(torch, dev, card, frames16, errs):
+    """Phase 15: K5 (``unskew_idx``: the "u8" and "u16" kinds of
+    ``unskew_unpack.cu``'s tile kernel, ``unskew_tile_plan``) against
+    ``unskew_idx_plain``, bitwise, at the CPU tests' odd shapes (whole
+    streams, slices of them whose base lies off the 16-byte boundary, and
+    outputs that start off a 16-byte boundary through the binding), on 2 x
+    1080 x 1919 slices, and on the index scan's uint16 streams of 16 x 1080p
+    at 300 and 1024 colours. Returns the number of comparisons."""
+    from dither_pie_tpu_torch.ops import wavefront as twf
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(15)
+    count = 0
+    kinds = ((torch.uint8, "u8", 256, 13), (torch.uint16, "u16", 1 << 16, 6))
+
+    def idx_at(idx, s, h, w, dtype, kind, out_offset):
+        """K5 through the binding into an output ``out_offset`` bytes into a
+        fresh buffer (the wrapper always allocates a fresh one)."""
+        n = idx.shape[1] * h * w * dtype.itemsize
+        buf = torch.empty(n + out_offset, dtype=torch.uint8, device=dev)
+        out = buf[out_offset:].view(dtype).view(idx.shape[1], h, w)
+        twf.launch_unskew(idx, out, s, kind)
+        return out
+
+    def hold_kind(idx, s, h, w, dtype, kind, off, what):
+        """The wrapper and the binding into an offset output == plain."""
+        nonlocal count
+        want = twf.unskew_idx_plain(idx, s, h, w, dtype)
+        hold(torch, "unskew_idx", twf.unskew_idx(idx, s, h, w, dtype), want, errs,
+             f"{what} {kind}")
+        hold(torch, "unskew_idx", idx_at(idx, s, h, w, dtype, kind, off), want, errs,
+             f"{what} {kind}, output {off} bytes off the boundary")
+        count += 2
+
+    # Each kind on indices its type holds: below 256 (u8), below 65536 (u16).
+    for s in (2, 3):
+        for b in TILE_BS:
+            for h in TILE_HS:
+                for w in TILE_WS:
+                    d = twf.stream_length(h, w, s)
+                    for dtype, kind, top, off in kinds:
+                        buf = torch.from_numpy(
+                            rng.randint(0, top, d * b * h + 1).astype(np.int32)).to(dev)
+                        for col, name in ((buf[:-1].view(d, b, h), "whole"),
+                                          (buf[1:].view(d, b, h), "slice")):
+                            hold_kind(col, s, h, w, dtype, kind, off,
+                                      f"B={b} {h}x{w} s={s} {name}")
+        d = twf.stream_length(FULL_H, FULL_W - 1, s)
+        for dtype, kind, top, off in kinds:
+            col = torch.from_numpy(rng.randint(0, top, d * 2 * FULL_H + 1).astype(
+                np.int32)).to(dev)[1:].view(d, 2, FULL_H)
+            hold_kind(col, s, FULL_H, FULL_W - 1, dtype, kind, off,
+                      f"2x{FULL_H}x{FULL_W - 1} slice s={s}")
+    # The uint16 streams the index path makes: the index scan's own indices.
+    fs = twf.scan_geometry("floyd_steinberg")
+    stream = twf.skew(torch.from_numpy(frames16).to(dev), fs.s)
+    for p in (300, 1024):
+        idx = twf.scan_idx(stream, torch.from_numpy(unique_palette(rng, p)).to(dev), fs, FULL_W)
+        got = twf.unskew_idx(idx, fs.s, FULL_H, FULL_W, twf.index_dtype(p))
+        check(got.dtype == torch.uint16, f"the index stream at P={p} is {got.dtype}")
+        hold(torch, "unskew_idx", got,
+             twf.unskew_idx_plain(idx, fs.s, FULL_H, FULL_W, torch.uint16), errs,
+             f"the index scan's stream, {BATCH}x{FULL_H}x{FULL_W} P={p}")
+        count += 1
+        del idx, got
+    log(f"[15] K5 (unskew_idx, the u8 and u16 kinds of K3's tile kernel) == plain, bitwise, "
+        f"at B in {TILE_BS}, H in {TILE_HS}, W in {TILE_WS}, s = 2 and 3, whole and as "
+        f"slices off the 16-byte boundary, into fresh outputs and outputs 13 (u8) and 6 (u16) "
+        f"bytes off the boundary, on 2x{FULL_H}x{FULL_W - 1} slices, and on the index scan's "
+        f"uint16 streams of {BATCH}x{FULL_H}x{FULL_W} at P = 300 and 1024: {count} "
+        f"comparisons ({time.perf_counter() - t0:.1f} s) [{card}]")
+    return count
+
+
 def main() -> int:
     import torch
 
@@ -2873,7 +3035,7 @@ def sync(torch, dev):
 
 
 def run(torch, dev, card) -> int:
-    """Phases 1-11 on ``dev``; prints the result lines and returns 0, or
+    """Phases 1-15 on ``dev``; prints the result lines and returns 0, or
     raises on the first failure."""
     from PIL import Image
 
@@ -3149,12 +3311,15 @@ def run(torch, dev, card) -> int:
 
     # 14. K6 and K4, redesigned, at the odd shapes and at 16 x 1080p.
     ported_phase(torch, dev, card, frames16, palette, out16, errs)
+
+    # 15. K5, redesigned, at the odd shapes and on the uint16 streams.
+    index_tile_phase(torch, dev, card, frames16, errs)
     for row in rows:
         if row["name"] in ("ed_scan", "ed_scan_idx", "skew", "unskew_unpack", "skew_planar",
-                           "ordered_fused"):
+                           "ordered_fused", "unskew_idx", "unskew_select", "identity"):
             row["max_abs_err"] = max(row["max_abs_err"], errs.get(row["name"], 0.0))
     took = time.perf_counter() - t_run
-    log(f"[14] the whole run took {took:.1f} s, {took / RUN_LIMIT_S:.2f} of its "
+    log(f"[15] the whole run took {took:.1f} s, {took / RUN_LIMIT_S:.2f} of its "
         f"{RUN_LIMIT_S} s limit")
 
     print(json.dumps({"kernels": rows}), flush=True)

@@ -2,15 +2,17 @@
 
 ``csrc/`` holds the sources: ``skew.cu`` (K1 and K6, one tile transpose
 over C = 3 or 1 channels), ``ed_scan.cu`` (K2 and K8, with the score
-branch), ``unskew_unpack.cu`` (K3), ``ordered.cu`` (K4), ``unskew_idx.cu``
-(K5), ``skew_transpose.cu`` (K7), ``unskew_select.cu`` (K9),
-``search_probe.cu``, ``gather_probe.cu`` and ``identity.cu`` (the probes
-T2, T1, T3) and the PyTorch binding ``bindings.cpp``; ``tile_copy.cuh``
-holds the 16-byte word moves that K1, K3 and K6 share.
+branch), ``unskew_unpack.cu`` (K3 and K5, one tile transpose by output
+kind), ``ordered.cu`` (K4), ``skew_transpose.cu`` (K7), ``unskew_select.cu``
+(K9), ``search_probe.cu``, ``gather_probe.cu`` and ``identity.cu`` (the
+probes T2, T1, T3) and the PyTorch binding ``bindings.cpp``;
+``tile_copy.cuh`` holds the 16-byte word moves that K1, K3, K5 and K6 share.
 ``build.extension()`` compiles them at first use and ``build.LAUNCHES``
 counts their launches. The Python wrappers that launch them and hold their
 plain PyTorch versions live in
 ``dither_pie_tpu_torch/ops/wavefront.py`` (K1-K3, K5-K9),
-``dither_pie_tpu_torch/ops/ordered_fused.py`` (K4) and
-``dither_pie_tpu_torch/tools/proto_mxu_search.py`` (T2).
+``dither_pie_tpu_torch/ops/ordered_fused.py`` (K4),
+``dither_pie_tpu_torch/tools/proto_mxu_search.py`` (T2),
+``dither_pie_tpu_torch/tools/gather_probe.py`` (T1) and
+``dither_pie_tpu_torch/tools/layout_repro.py`` (T3).
 """

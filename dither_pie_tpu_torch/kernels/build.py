@@ -11,6 +11,10 @@ this file (listed in ``.gitignore``); ninja rebuilds only what changed.
 Nothing here falls back: a failed build raises, and the caller sees it.
 Importing this module builds nothing and needs no CUDA.
 
+``python3 -m dither_pie_tpu_torch.kernels.build --ptxas NAME.cu ...``
+compiles the named sources alone with the same flags and prints what
+ptxas reports for each kernel: registers, shared memory, spills.
+
 ``LAUNCHES`` counts the CUDA launches of every kernel in this process, by
 name; each wrapper adds one where it launches its kernel and nowhere else
 (plain-version calls are not counted). ``on_cuda`` is the one rule that
@@ -19,6 +23,8 @@ picks kernel or plain version: the tensor's device.
 
 from __future__ import annotations
 
+import subprocess
+import sys
 import threading
 from collections import Counter
 from pathlib import Path
@@ -30,7 +36,7 @@ import torch
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("bindings.cpp", "skew.cu", "skew_transpose.cu",
-           "ed_scan.cu", "unskew_unpack.cu", "unskew_idx.cu", "unskew_select.cu",
+           "ed_scan.cu", "unskew_unpack.cu", "unskew_select.cu",
            "ordered.cu", "search_probe.cu", "gather_probe.cu", "identity.cu")
 EXT_NAME = "dither_pie_tpu_torch_kernels"
 NVCC_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "--fmad=false"]
@@ -58,7 +64,7 @@ def on_cuda(t: torch.Tensor) -> bool:
 
 def extension() -> ModuleType:
     """The compiled kernel module (``skew``, ``skew_transpose``,
-    ``ed_scan``, ``unskew_unpack``, ``unskew_idx``, ``unskew_select``,
+    ``ed_scan``, ``unskew`` (K3 and K5), ``unskew_select``,
     ``ordered_fused``, ``search_probe``, ``gather_chain``, ``sweep_chain``,
     ``identity_u8``), built on the first call."""
     global _ext
@@ -77,3 +83,28 @@ def extension() -> ModuleType:
                 verbose=False,
             )
     return _ext
+
+
+def ptxas_report(names) -> str:
+    """nvcc's ``-Xptxas -v`` lines for the named sources of ``csrc/``, each
+    compiled alone to an object in ``_build/ptxas/`` with NVCC_FLAGS."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit: ptxas reports need nvcc")
+    out_dir = BUILD_DIR / "ptxas"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lines = []
+    for name in names:
+        r = subprocess.run(
+            [str(Path(CUDA_HOME) / "bin" / "nvcc"), *NVCC_FLAGS, "-std=c++17", "-Xptxas", "-v",
+             "-I", str(CSRC), "-c", str(CSRC / name), "-o", str(out_dir / f"{name}.o")],
+            capture_output=True, text=True, check=True)
+        lines.append(f"{name}:\n{r.stdout}{r.stderr}")
+    return "".join(lines)
+
+
+if __name__ == "__main__":
+    if sys.argv[1:2] != ["--ptxas"] or len(sys.argv) < 3:
+        sys.exit("usage: python3 -m dither_pie_tpu_torch.kernels.build --ptxas NAME.cu ...")
+    print(ptxas_report(sys.argv[2:]), end="")

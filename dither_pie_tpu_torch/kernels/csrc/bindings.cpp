@@ -42,7 +42,7 @@ int as_int(int64_t v, const char* name) {
     return (int)v;
 }
 
-// The tile plan of a K1, K3 or K6 launch, as the wrapper computed it.
+// The tile plan of a K1, K3, K5 or K6 launch, as the wrapper computed it.
 DptTilePlan tile_plan(int64_t td, int64_t ty, int64_t lead, int64_t threads,
                       const std::vector<int64_t>& grid, int64_t smem_bytes) {
     TORCH_CHECK(grid.size() == 3, "grid must be 3 ints");
@@ -283,58 +283,40 @@ int64_t ed_scan_capacity(bool img_f32, int64_t mode, bool emit_idx,
     return clusters;
 }
 
-void unskew_unpack(torch::Tensor col, torch::Tensor out, int64_t s,
-                   bool planar, int64_t td, int64_t ty, int64_t lead,
-                   int64_t threads, std::vector<int64_t> grid,
-                   int64_t smem_bytes) {
+// K3 (kind 0 NHWC, 1 planar: uint8 colours) and K5 (kind 2, 3: the uint8
+// or uint16 index stream), one tile transpose of the (D, B, H) int32 stream.
+void unskew(torch::Tensor col, torch::Tensor out, int64_t s, int64_t kind, int64_t td,
+            int64_t ty, int64_t lead, int64_t threads, std::vector<int64_t> grid,
+            int64_t smem_bytes) {
     check_tensor(col, "col", col);
     check_tensor(out, "out", col);
     TORCH_CHECK(col.scalar_type() == torch::kInt32 && col.dim() == 3,
                 "col must be (D, B, H) int32");
-    TORCH_CHECK(out.scalar_type() == torch::kUInt8 && out.dim() == 4 &&
-                    out.size(planar ? 0 : 3) == 3,
-                planar ? "out must be (3, B, H, W) uint8"
-                       : "out must be (B, H, W, 3) uint8");
-    const int B = as_int(out.size(planar ? 1 : 0), "B");
-    const int H = as_int(out.size(planar ? 2 : 1), "H");
-    const int W = as_int(out.size(planar ? 3 : 2), "W");
+    TORCH_CHECK(kind >= 0 && kind <= 3, "kind must be 0 (NHWC), 1 (planar), 2 (u8) or 3 (u16)");
+    const bool planar = kind == 1;
+    if (kind <= 1) {
+        TORCH_CHECK(out.scalar_type() == torch::kUInt8 && out.dim() == 4 &&
+                        out.size(planar ? 0 : 3) == 3,
+                    planar ? "out must be (3, B, H, W) uint8"
+                           : "out must be (B, H, W, 3) uint8");
+    } else {
+        TORCH_CHECK(out.dim() == 3 && out.scalar_type() == (kind == 2
+                                                                ? torch::kUInt8
+                                                                : c10::ScalarType::UInt16),
+                    kind == 2 ? "out must be (B, H, W) uint8" : "out must be (B, H, W) uint16");
+    }
+    const int lead_dims = planar ? 1 : 0;
+    const int B = as_int(out.size(lead_dims), "B");
+    const int H = as_int(out.size(lead_dims + 1), "H");
+    const int W = as_int(out.size(lead_dims + 2), "W");
     TORCH_CHECK(s >= 1 && col.size(0) >= W + s * (H - 1) &&
                     col.size(1) == B && col.size(2) == H,
                 "col must be (>= W + s*(H-1), B, H)");
     const DptTilePlan plan = tile_plan(td, ty, lead, threads, grid, smem_bytes);
     const c10::cuda::CUDAGuard guard(col.device());
-    check_launch(dpt_unskew_unpack(col.data_ptr<int32_t>(),
-                                   out.data_ptr<uint8_t>(), B, H, W, (int)s,
-                                   planar ? 1 : 0, plan, current_stream(col)),
-                 "unskew_unpack");
-}
-
-void unskew_idx(torch::Tensor idx, torch::Tensor out, int64_t s) {
-    check_tensor(idx, "idx", idx);
-    check_tensor(out, "out", idx);
-    TORCH_CHECK(idx.scalar_type() == torch::kInt32 && idx.dim() == 3,
-                "idx must be (D, B, H) int32");
-    TORCH_CHECK(out.dim() == 3, "out must be (B, H, W)");
-    const int B = as_int(out.size(0), "B");
-    const int H = as_int(out.size(1), "H");
-    const int W = as_int(out.size(2), "W");
-    TORCH_CHECK(s >= 1 && idx.size(0) >= W + s * (H - 1) &&
-                    idx.size(1) == B && idx.size(2) == H,
-                "idx must be (>= W + s*(H-1), B, H)");
-    const c10::cuda::CUDAGuard guard(idx.device());
-    int rc;
-    if (out.scalar_type() == torch::kUInt8) {
-        rc = dpt_unskew_idx_u8(idx.data_ptr<int32_t>(),
-                               out.data_ptr<uint8_t>(), B, H, W, (int)s,
-                               current_stream(idx));
-    } else {
-        TORCH_CHECK(out.scalar_type() == c10::ScalarType::UInt16,
-                    "out must be uint8 or uint16");
-        rc = dpt_unskew_idx_u16(idx.data_ptr<int32_t>(),
-                                static_cast<uint16_t*>(out.data_ptr()), B, H,
-                                W, (int)s, current_stream(idx));
-    }
-    check_launch(rc, "unskew_idx");
+    check_launch(dpt_unskew(col.data_ptr<int32_t>(), out.data_ptr(), B, H, W, (int)s,
+                            (int)kind, plan, current_stream(col)),
+                 kind <= 1 ? "unskew_unpack" : "unskew_idx");
 }
 
 void skew_transpose(torch::Tensor in, torch::Tensor out, int64_t s,
@@ -567,17 +549,27 @@ void sweep_chain(torch::Tensor table, torch::Tensor idx, torch::Tensor out,
                  "sweep_chain");
 }
 
-void identity_u8(torch::Tensor in, torch::Tensor out) {
+void identity_u8(torch::Tensor in, torch::Tensor out, int64_t form, int64_t head,
+                 int64_t body, int64_t span, int64_t blocks, int64_t threads, int64_t stages,
+                 int64_t smem_bytes) {
     check_tensor(in, "in", in);
     check_tensor(out, "out", in);
     TORCH_CHECK(in.scalar_type() == torch::kUInt8 &&
                     out.scalar_type() == torch::kUInt8 &&
                     out.sizes() == in.sizes(),
                 "in and out must be uint8 tensors of one shape");
+    DptIdentityPlan plan;
+    plan.form = as_int(form, "form");
+    plan.head = head;
+    plan.body = body;
+    plan.span = span;
+    plan.blocks = blocks;
+    plan.threads = as_int(threads, "threads");
+    plan.stages = as_int(stages, "stages");
+    plan.smem_bytes = as_int(smem_bytes, "smem_bytes");
     const c10::cuda::CUDAGuard guard(in.device());
-    check_launch(dpt_identity_u8(in.data_ptr<uint8_t>(),
-                                 out.data_ptr<uint8_t>(), in.numel(),
-                                 current_stream(in)),
+    check_launch(dpt_identity_u8(in.data_ptr<uint8_t>(), out.data_ptr<uint8_t>(), in.numel(),
+                                 plan, current_stream(in)),
                  "identity_u8");
 }
 
@@ -590,10 +582,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
           "palette indices");
     m.def("ed_scan_capacity", &ed_scan_capacity,
           "K2 / K8: clusters of n blocks the device holds at once");
-    m.def("unskew_unpack", &unskew_unpack,
-          "K3: (D,B,H) packed colours -> (B,H,W,3) or planar (3,B,H,W) uint8");
-    m.def("unskew_idx", &unskew_idx,
-          "K5: (D,B,H) palette indices -> (B,H,W) uint8 or uint16");
+    m.def("unskew", &unskew,
+          "K3 / K5: (D,B,H) int32 -> (B,H,W,3) or planar (3,B,H,W) uint8 colours, or the "
+          "(B,H,W) uint8 or uint16 index stream");
     m.def("skew_transpose", &skew_transpose,
           "K7: strided view (R,H,D) or (C,B,H,D) -> (D,R,H) stream, tile "
           "transpose fused with the mask and the cast");
@@ -611,5 +602,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
     m.def("sweep_chain", &sweep_chain,
           "T1: k select sweeps over the table's P rows an element, "
           "(n, lanes) int32");
-    m.def("identity_u8", &identity_u8, "T3: identity copy of a uint8 tensor");
+    m.def("identity_u8", &identity_u8,
+          "T3: identity copy of a uint8 tensor, as its plan cuts it");
 }

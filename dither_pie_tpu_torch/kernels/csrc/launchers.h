@@ -84,12 +84,13 @@ struct DptScanArgs {
                    // blocks the card holds at once
 };
 
-// One launch of the tile transposes K1, K3 and K6, as the wrapper planned it
-// (ops.wavefront.skew_tile_plan / unskew_tile_plan): tiles of td steps by
-// ty rows, `lead` rows above each tile that a block also loads (K1: the
-// sector phase of its output rows; K3: 0), blocks of `threads`, grid (row
-// tiles, step tiles, frames a pass) and the block's static shared memory.
-// The launcher computes its own and refuses a plan that differs
+// One launch of the tile transposes K1, K3, K5 and K6, as the wrapper
+// planned it (ops.wavefront.skew_tile_plan / unskew_tile_plan): tiles of td
+// steps by ty rows, `lead` rows above each tile (K1, K6: the sector phase of
+// its output rows) or steps before it (K3, K5: where its store windows
+// start) that a block also loads, blocks of `threads`, grid (row tiles,
+// step tiles, frames a pass) and the block's static shared memory. The
+// launcher computes its own and refuses a plan that differs
 // (cudaErrorInvalidConfiguration).
 struct DptTilePlan {
     int td, ty, lead, threads;
@@ -114,19 +115,14 @@ int dpt_skew_f32(const float* in, float* out, int B, int C, int H, int W,
 // answers cudaOccupancyMaxActiveClusters for the launch it would make.
 int dpt_ed_scan(const DptScanArgs& a, void* stream);
 
-// K3: (D, B, H) packed colours -> uint8 colours v = (col[x + s*y, b, y] >>
-// (16 - 8c)) & 255: NHWC out[b, y, x, c], or with planar != 0 the planes
-// out[c, b, y, x].
-int dpt_unskew_unpack(const int32_t* col, uint8_t* out, int B, int H, int W,
-                      int s, int planar, const DptTilePlan& plan, void* stream);
-
-// K5: (D, B, H) palette indices -> the (B, H, W) index stream,
-// out[b, y, x] = idx[x + s*y, b, y], narrowed to uint8 (palettes of up to
-// 256 colours) or uint16.
-int dpt_unskew_idx_u8(const int32_t* idx, uint8_t* out, int B, int H, int W,
-                      int s, void* stream);
-int dpt_unskew_idx_u16(const int32_t* idx, uint16_t* out, int B, int H, int W,
-                       int s, void* stream);
+// K3 and K5, one tile transpose of the (D, B, H) int32 stream, by output
+// kind: 0, 1: K3, packed colours -> uint8 colours v = (col[x + s*y, b, y]
+// >> (16 - 8c)) & 255, NHWC out[b, y, x, c] (0) or the planes out[c, b, y, x]
+// (1); 2, 3: K5, palette indices -> the (B, H, W) index stream
+// out[b, y, x] = col[x + s*y, b, y], narrowed to uint8 (2; palettes of up to
+// 256 colours) or uint16 (3; out 2-byte aligned).
+int dpt_unskew(const int32_t* col, void* out, int B, int H, int W, int s, int kind,
+               const DptTilePlan& plan, void* stream);
 
 // K7: tile transpose of a strided view into the skewed stream,
 // out[d, r, y] = cast(in[r, y, d]) where d - s*y lies in [0, W), else 0; out
@@ -210,9 +206,27 @@ int dpt_sweep_chain(const int32_t* table, const int32_t* idx, int32_t* out,
                     int rows, int n, int lanes, int k, int use_smem,
                     void* stream);
 
-// T3: identity copy of n bytes, 16 bytes a thread where both pointers are
-// 16-byte aligned (a scalar tail for the rest), byte by byte otherwise.
-int dpt_identity_u8(const uint8_t* in, uint8_t* out, int64_t n, void* stream);
+// T3: identity copy of n bytes, as the wrapper planned it
+// (tools.layout_repro.identity_plan): `head` bytes one by one until out is
+// 16-byte aligned, a body of `body` bytes in whole 16-byte words, cut into
+// spans of `span` bytes (the last may be shorter; 0 without a body) that
+// `blocks` blocks (at most one a span) take in turn, block b spans b,
+// b + blocks, ..., and the tail after it one by one. The body's form: bulk
+// (TMA bulk copies through a ring of `stages` spans of dynamic shared
+// memory, smem_bytes = stages * (span + 8) with the ring's barriers) where
+// in and out agree mod 16; shifted (aligned stores of funnel-shifted input
+// words) where they do not. The launcher computes the form, head and body
+// from the pointers and refuses a plan that differs
+// (cudaErrorInvalidConfiguration).
+constexpr int DPT_IDENTITY_BULK = 0;
+constexpr int DPT_IDENTITY_SHIFTED = 1;
+struct DptIdentityPlan {
+    int form;
+    int64_t head, body, span, blocks;
+    int threads, stages, smem_bytes;
+};
+int dpt_identity_u8(const uint8_t* in, uint8_t* out, int64_t n, const DptIdentityPlan& plan,
+                    void* stream);
 
 // Blocks for a grid-stride loop over n elements: enough to fill the card's
 // 132 SMs many times over, never 0.

@@ -1,5 +1,5 @@
 // The 16-byte word moves shared by the tile transposes K1 and K6 (skew.cu)
-// and K3 (unskew_unpack.cu).
+// and K3 and K5 (unskew_unpack.cu).
 //
 // Both write a run of contiguous bytes whose start may lie at any address:
 // they walk the 16-byte words that cover the run, store a word wholly

@@ -1,30 +1,38 @@
-// K3: unskew the scan's packed colours and unpack them to uint8, NHWC or
-// planar, a shared-memory tile transpose.
+// K3 and K5: unskew the scan's (D, B, H) int32 stream into its output
+// rows, a shared-memory tile transpose: K3 unpacks packed colours to uint8,
+// NHWC or planar; K5 narrows palette indices to the uint8 or uint16 index
+// stream.
 //
-// Replaces the TPU kernel dither_pie_tpu/ops/wavefront.py
-// `_unskew_unpack_call` (reached through `_unskew_unpack_colors`): the same
-// function, out[b, y, x, c] = (col[x + s*y, b, y] >> (16 - 8c)) & 255. The
-// TPU kernel emits three planes, which `planar_out` hands on as they are
-// and XLA otherwise restacks into NHWC; this one writes either layout
-// directly: NHWC out[b, y, x, c], or the planes out[c, b, y, x] of the
-// planar video flow.
+// Replaces the TPU kernels dither_pie_tpu/ops/wavefront.py
+// `_unskew_unpack_call` (K3, reached through `_unskew_unpack_colors`) and
+// `_unskew_transpose_call` (K5, reached through `_unskew_idx_packed`):
+// K3 out[b, y, x, c] = (col[x + s*y, b, y] >> (16 - 8c)) & 255, NHWC, or the
+// planes out[c, b, y, x] of the planar video flow (the TPU kernel emits the
+// three planes, which XLA restacks into NHWC); K5 out[b, y, x] =
+// idx[x + s*y, b, y], which the TPU kernel emits as int32 and XLA narrows
+// afterwards, written here in the stream's own type, uint8 for palettes of
+// up to 256 colours and uint16 above (K5 is the index scan's epilogue, whose
+// indices lie in 0..P-1; it does not check them). The output kind is a
+// template parameter: U bytes a pixel of an output row, 3 NHWC, 1 planar (a
+// row in each of the three planes), 1 u8, 2 u16.
 //
-// What bounds it: bytes, 4 read and 3 written per pixel, no arithmetic
-// beyond byte moves. It is K1's transpose reversed: one block takes one
-// tile of TD steps d by TY rows y of the (D, H) plane (the plan is
+// What bounds it: bytes, 4 read and U (planar 3) written per pixel, no
+// arithmetic beyond byte moves. It is K1's transpose reversed: one block
+// takes one tile of TD steps d by TY rows y of the (D, H) plane (the plan is
 // `ops.wavefront.unskew_tile_plan`; the launcher refuses any other):
 //
 // * Store along x, in whole sectors. Of each output row (b, y) (of each
-//   plane, planar) the block writes the window of U*TD bytes (U = 3 NHWC,
-//   1 planar) that starts at the 32-byte sector boundary at or before its
-//   first pixel x0 = d0 - s*y: consecutive step tiles' windows tile the
-//   row, and only a row's first and last sectors are shared between
-//   blocks. The block walks the 16-byte words that cover its window,
-//   builds each from the tile's row j with __byte_perm (NHWC: the six
-//   pixels that hold a word, four selectors fixed by its first byte's
-//   channel; planar: channel c's byte of 16 pixels) and stores whole words
-//   with one 16-byte store, head and tail words in 4-byte or single-byte
-//   pieces (tile_copy.cuh).
+//   plane, planar) the block writes the window of U*TD bytes that starts at
+//   the 32-byte sector boundary at or before its first pixel
+//   x0 = d0 - s*y: consecutive step tiles' windows tile the row, and only a
+//   row's first and last sectors are shared between blocks. The block walks
+//   the 16-byte words that cover its window, builds each from the tile's row
+//   j with __byte_perm (NHWC: the six pixels that hold a word, four
+//   selectors fixed by its first byte's channel; planar: channel c's byte of
+//   16 pixels; u8: the low byte of 16 indices, planar's selector for c = 2;
+//   u16: the low halves of 8 indices, selector 0x5410 over two) and stores
+//   whole words with one 16-byte store, head and tail words in 4-byte or
+//   single-byte pieces (tile_copy.cuh).
 // * Load along y. A window starts up to LEAD = ceil(31 / U) steps before
 //   d0, so a tile row holds the steps d0 - LEAD .. d0 + TD - 1 (column
 //   i = d - d0 + LEAD). Step d's run col[(d*B + b)*H + y0 ...] holds the
@@ -44,10 +52,13 @@
 // word and the shared sectors set its time: a first version of this walk
 // (a division per run and item, eight clamped pixel reads and a selector
 // computed per 4-byte word) was markedly slower at 16 x 1080p, and runs
-// cut at x0 cost more than the LEAD extra steps' loads. Indexing inside a
-// tile is 32-bit, with no per-element 64-bit division. The numpy model of
-// this walk in tests/test_torch_skew_tiles.py holds it bit for bit to the
-// plain version.
+// cut at x0 cost more than the LEAD extra steps' loads. K5's earlier form,
+// one thread an output element, read one 32-byte sector a 4-byte index
+// (neighbouring x lie B*H int32 apart in the stream); this walk reads them
+// along y. Indexing inside a tile is 32-bit, with no per-element 64-bit
+// division. The numpy model of this walk in tests/test_torch_skew_tiles.py
+// holds it bit for bit to the plain versions (K5's kinds in
+// tests/test_torch_unskew_idx_tiles.py).
 
 #include <cuda_runtime.h>
 
@@ -61,14 +72,21 @@ constexpr int FRAMES_PER_BLOCK = 2;  // frames a block walks, loads of the next 
 
 constexpr int SECTOR = 32;  // bytes of a device-memory sector
 
-template <bool PLANAR, int TD, int TY>
+// The output kinds, as ops.wavefront.UNSKEW_KINDS orders them.
+constexpr int KIND_NHWC = 0;    // K3: (B, H, W, 3) uint8 colours
+constexpr int KIND_PLANAR = 1;  // K3: (3, B, H, W) uint8 planes
+constexpr int KIND_U8 = 2;      // K5: (B, H, W) uint8 indices
+constexpr int KIND_U16 = 3;     // K5: (B, H, W) uint16 indices
+
+template <int KIND, int TD, int TY>
 struct UnskewTile {
-    static constexpr int U = PLANAR ? 1 : 3;            // bytes a pixel of an output row
+    static constexpr int U = KIND == KIND_NHWC ? 3 : KIND == KIND_U16 ? 2 : 1;  // bytes a pixel
+    static constexpr int PLANES = KIND == KIND_PLANAR ? 3 : 1;  // output rows a tile row
     static constexpr int LEAD = (SECTOR - 1 + U - 1) / U;  // steps before the tile
     static constexpr int COLS = LEAD + TD;              // steps a tile row holds
     static constexpr int PITCH = (COLS + COLS / 32) | 1;  // int32 a tile row j: odd
     static constexpr int NWR = TY * 4 / 16 + 1;         // covering words a step's run
-    static constexpr int RUNS = PLANAR ? 3 * TY : TY;   // output runs: rows (c, j) or j
+    static constexpr int RUNS = PLANES * TY;            // output runs: rows (c, j)
     static constexpr int PER_RUN = U * TD / 16 + 1;
     static constexpr int LOAD_ITEMS = (COLS * NWR + THREADS - 1) / THREADS;
     static constexpr int STORE_ITEMS = (RUNS * PER_RUN + THREADS - 1) / THREADS;
@@ -95,11 +113,11 @@ __device__ __forceinline__ void nhwc_word(const uint32_t v[6], uint32_t q[4]) {
     }
 }
 
-template <bool PLANAR, int TD, int TY>
+template <int KIND, int TD, int TY>
 __global__ void __launch_bounds__(THREADS, 4)
 unskew_tile_kernel(const int32_t* __restrict__ col, uint8_t* __restrict__ out,
                    int B, int H, int W, int s) {
-    using L = UnskewTile<PLANAR, TD, TY>;
+    using L = UnskewTile<KIND, TD, TY>;
     __shared__ int32_t tile[TY * L::PITCH];
     __shared__ int rows_of[L::COLS];  // column i's rows [jlo, jhi] as jlo | jhi << 16
 
@@ -169,22 +187,22 @@ unskew_tile_kernel(const int32_t* __restrict__ col, uint8_t* __restrict__ out,
         }
         __syncthreads();
         if (b + (int)gridDim.z < B) load(b + gridDim.z);
-        // Store: item f is word k of run rr, row j (and plane c). Of the
-        // output row (b, y) (of plane c), the block writes the window of
-        // U*TD bytes that starts at the sector boundary at or before pixel
-        // x0 = d0 - s*y: consecutive step tiles' windows tile the row, and
-        // every sector but the row's first and last is written whole by
-        // one block.
+        // Store: item f is word k of run rr, row j of plane c (c = 0 but
+        // for planar). Of the output row (b, y) of plane c, the block
+        // writes the window of U*TD bytes that starts at the sector
+        // boundary at or before pixel x0 = d0 - s*y: consecutive step
+        // tiles' windows tile the row, and every sector but the row's
+        // first and last is written whole by one block.
 #pragma unroll 1
         for (int it = 0; it < L::STORE_ITEMS; ++it) {
             const int f = threadIdx.x + it * THREADS;
             const int rr = f / L::PER_RUN;
             const int k = f - rr * L::PER_RUN;
-            const int c = PLANAR ? rr / TY : 0;
+            const int c = L::PLANES > 1 ? rr / TY : 0;
             const int j = rr - c * TY;
             if (rr >= L::RUNS || j >= ny) continue;
             const int y = y0 + j;
-            const int64_t row = (PLANAR ? ((int64_t)c * B + b) * H : (int64_t)b * H) + y;
+            const int64_t row = (L::PLANES > 1 ? ((int64_t)c * B + b) * H : (int64_t)b * H) + y;
             const intptr_t rs = reinterpret_cast<intptr_t>(out + row * W * L::U);
             const intptr_t win = (rs + (intptr_t)L::U * (d0 - s * y)) & ~intptr_t(SECTOR - 1);
             const intptr_t end = rs + (intptr_t)L::U * W;
@@ -202,16 +220,7 @@ unskew_tile_kernel(const int32_t* __restrict__ col, uint8_t* __restrict__ out,
                 return (uint32_t)trow[i + (i >> 5)];
             };
             uint32_t q[4];
-            if (PLANAR) {
-                const uint32_t pair = (uint32_t)((2 - c) | ((6 - c) << 4));
-#pragma unroll
-                for (int m = 0; m < 4; ++m) {
-                    const int p = e0 + 4 * m;
-                    const uint32_t lo2 = __byte_perm(pixel(p), pixel(p + 1), pair);
-                    const uint32_t hi2 = __byte_perm(pixel(p + 2), pixel(p + 3), pair);
-                    q[m] = __byte_perm(lo2, hi2, 0x5410);
-                }
-            } else {
+            if constexpr (KIND == KIND_NHWC) {
                 const int px0 = (e0 + 15) / 3 - 5;  // floor(e0 / 3): the word's first pixel
                 uint32_t px[6];
 #pragma unroll
@@ -220,6 +229,24 @@ unskew_tile_kernel(const int32_t* __restrict__ col, uint8_t* __restrict__ out,
                     case 0: nhwc_word<0>(px, q); break;
                     case 1: nhwc_word<1>(px, q); break;
                     default: nhwc_word<2>(px, q); break;
+                }
+            } else if constexpr (KIND == KIND_U16) {
+                const int p0 = e0 >> 1;  // e0 is even: the row starts on a 2-byte boundary
+#pragma unroll
+                for (int m = 0; m < 4; ++m) {
+                    q[m] = __byte_perm(pixel(p0 + 2 * m), pixel(p0 + 2 * m + 1), 0x5410);
+                }
+            } else {
+                // One byte a pixel: byte 2 - c of a packed colour (planar),
+                // an index's low byte (u8, the selector of c = 2).
+                const int cb = KIND == KIND_PLANAR ? 2 - c : 0;
+                const uint32_t pair = (uint32_t)(cb | ((cb + 4) << 4));
+#pragma unroll
+                for (int m = 0; m < 4; ++m) {
+                    const int p = e0 + 4 * m;
+                    const uint32_t lo2 = __byte_perm(pixel(p), pixel(p + 1), pair);
+                    const uint32_t hi2 = __byte_perm(pixel(p + 2), pixel(p + 3), pair);
+                    q[m] = __byte_perm(lo2, hi2, 0x5410);
                 }
             }
             dpt_store_word(reinterpret_cast<uint8_t*>(a), q, gs, ge);
@@ -240,11 +267,11 @@ int band_tiles(int H, int W, int s, int TD, int TY) {
     return widest;
 }
 
-template <bool PLANAR>
+template <int KIND>
 int launch(const int32_t* col, uint8_t* out, int B, int H, int W, int s,
            const DptTilePlan& plan, void* stream) {
     constexpr int TD = 128, TY = 32;
-    using L = UnskewTile<PLANAR, TD, TY>;
+    using L = UnskewTile<KIND, TD, TY>;
     if (B < 1 || H < 1 || W < 1 || s < 1) return (int)cudaErrorInvalidValue;
     const int z = (B + FRAMES_PER_BLOCK - 1) / FRAMES_PER_BLOCK;
     const dim3 grid((H + TY - 1) / TY, band_tiles(H, W + L::LEAD, s, TD, TY),
@@ -255,15 +282,23 @@ int launch(const int32_t* col, uint8_t* out, int B, int H, int W, int s,
         grid.y > 65535) {
         return (int)cudaErrorInvalidConfiguration;
     }
-    unskew_tile_kernel<PLANAR, TD, TY><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+    unskew_tile_kernel<KIND, TD, TY><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
         col, out, B, H, W, s);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-int dpt_unskew_unpack(const int32_t* col, uint8_t* out, int B, int H, int W,
-                      int s, int planar, const DptTilePlan& plan, void* stream) {
-    return planar ? launch<true>(col, out, B, H, W, s, plan, stream)
-                  : launch<false>(col, out, B, H, W, s, plan, stream);
+int dpt_unskew(const int32_t* col, void* out, int B, int H, int W, int s, int kind,
+               const DptTilePlan& plan, void* stream) {
+    uint8_t* o = static_cast<uint8_t*>(out);
+    switch (kind) {
+        case KIND_NHWC: return launch<KIND_NHWC>(col, o, B, H, W, s, plan, stream);
+        case KIND_PLANAR: return launch<KIND_PLANAR>(col, o, B, H, W, s, plan, stream);
+        case KIND_U8: return launch<KIND_U8>(col, o, B, H, W, s, plan, stream);
+        case KIND_U16:
+            if (reinterpret_cast<uintptr_t>(out) % 2) return (int)cudaErrorMisalignedAddress;
+            return launch<KIND_U16>(col, o, B, H, W, s, plan, stream);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }

@@ -26,7 +26,8 @@ plain PyTorch version of the same function beside it here:
   outside the image). It is also K2's ``emit_idx`` stream of the JAX
   package: the same body with the index as its output.
 * K5 ``unskew_idx``: (D, B, H) indices -> the (B, H, W) index stream, uint8
-  for palettes of up to 256 colours, uint16 above.
+  for palettes of up to 256 colours, uint16 above. K3 and K5 are one tile
+  transpose, by output kind (``unskew_tile_plan``).
 * K9 ``unskew_select``: (D, B, H) indices + palette -> (B, H, W, 3) uint8.
 * K7 ``skew_transpose``: the same stream as K1 and K6 through a tile
   transpose of the frames' stride-lemma view; float32 frames take it, NHWC
@@ -730,13 +731,18 @@ def launch_scan(stream: torch.Tensor, palette: torch.Tensor, geom: ScanGeometry,
 
 # Tiles (TD steps d, TY rows y) of the (D, H) stream plane that one block of
 # K1 (3 channels) or K6 (1 channel) moves, by frame dtype and channel count,
-# and of K3; 256 threads a block. Set by timing variants on an H100
+# and of K3 and K5; 256 threads a block. Set by timing variants on an H100
 # (PERF.md, PR 8 and 9): K6's tiles hold at least K1's C*TD stream rows.
 SKEW_TILES = {(torch.uint8, 3): (64, 128), (torch.float32, 3): (64, 32),
               (torch.uint8, 1): (256, 128), (torch.float32, 1): (192, 32)}
 UNSKEW_TILE = (128, 32)
-# Frames a block of K3 walks: it loads the next one's words while it stores
-# this one's tile.
+# The output kinds of the unskew tile kernel and their bytes a pixel of an
+# output row: K3's NHWC colours and planar planes (a row in each of three),
+# K5's uint8 and uint16 index streams. The order is the kernel's.
+UNSKEW_KINDS = ("nhwc", "planar", "u8", "u16")
+_UNSKEW_BYTES = {"nhwc": 3, "planar": 1, "u8": 1, "u16": 2}
+# Frames a block of K3 and K5 walks: it loads the next one's words while it
+# stores this one's tile.
 UNSKEW_FRAMES_PER_BLOCK = 2
 TILE_THREADS = 256
 SECTOR_BYTES = 32  # a device-memory sector: K1 writes its stream in whole ones
@@ -745,9 +751,9 @@ _GRID_Y_MAX = _GRID_Z_MAX = 65535
 
 @dataclass(frozen=True)
 class TilePlan:
-    """One launch of K1, K6 or K3: blocks of ``threads`` threads over tiles of
+    """One launch of K1, K6, K3 or K5: blocks of ``threads`` threads over tiles of
     ``td`` steps by ``ty`` rows, each block also loading the ``lead`` rows
-    above its tile (K1, K6) or steps before it (K3) that its sector-aligned
+    above its tile (K1, K6) or steps before it (K3, K5) that its sector-aligned
     store windows reach, ``grid`` = (row tiles, step tiles, frames a pass;
     a block walks frames z, z + grid[2], ...), and the block's static shared
     memory, which the kernel's layout must equal."""
@@ -805,7 +811,7 @@ def skew_tile_plan(b: int, h: int, w: int, s: int, dtype: torch.dtype,
 
 
 def unskew_band_tiles(h: int, w: int, s: int, td: int, ty: int) -> int:
-    """Step tiles of K3's widest band: row tile k (rows y0 = k*TY ..
+    """Step tiles of the unskew's widest band: row tile k (rows y0 = k*TY ..
     y_last) holds pixels only in the step tiles s*y0 // TD through
     (s*y_last + W - 1) // TD."""
     widest = 1
@@ -816,27 +822,40 @@ def unskew_band_tiles(h: int, w: int, s: int, td: int, ty: int) -> int:
 
 
 @functools.lru_cache(maxsize=64)
-def unskew_tile_plan(b: int, h: int, w: int, s: int, planar: bool) -> TilePlan:
-    """K3's launch for B (H, W) frames and skew s, NHWC or ``planar``.
+def unskew_tile_plan(b: int, h: int, w: int, s: int, kind: str) -> TilePlan:
+    """The launch of the unskew tile kernel for B (H, W) frames and skew s,
+    by output ``kind`` (``UNSKEW_KINDS``): K3's "nhwc" and "planar" colours,
+    K5's "u8" and "u16" index streams.
 
-    Of each output row (NHWC) or plane row (planar), step tile k writes the
-    window of U*TD bytes (U = 3 or 1 bytes a pixel) that starts on the
-    sector boundary at or before its first pixel x0 = k*TD - s*y, so a
-    block also loads the ``lead`` = ceil(31 / U) steps before its tile.
-    Block (x, y, z) takes row tile x, the y-th step tile of that row tile's
-    band (``unskew_band_tiles`` over W + lead: tiles that own no byte are
-    never launched) and frames z, z + grid[2], ... (UNSKEW_FRAMES_PER_BLOCK
-    of them). Shared memory: one int32 tile of TY rows of lead + TD steps,
-    a spare word after every 32 and the pitch made odd (so the loads along
-    y and the reads along x meet few bank conflicts), and each column's
-    range of rows inside the image (an int32 a column)."""
+    Of each output row (of each plane, planar), step tile k writes the
+    window of U*TD bytes (U = 3 nhwc, 2 u16, else 1 byte a pixel) that
+    starts on the sector boundary at or before its first pixel
+    x0 = k*TD - s*y, so a block also loads the ``lead`` = ceil(31 / U) steps
+    before its tile. Block (x, y, z) takes row tile x, the y-th step tile of
+    that row tile's band (``unskew_band_tiles`` over W + lead: tiles that own
+    no byte are never launched) and frames z, z + grid[2], ...
+    (UNSKEW_FRAMES_PER_BLOCK of them). Shared memory: one int32 tile of TY
+    rows of lead + TD steps, a spare word after every 32 and the pitch made
+    odd (so the loads along y and the reads along x meet few bank
+    conflicts), and each column's range of rows inside the image (an int32
+    a column)."""
     td, ty = UNSKEW_TILE
-    lead = -(-(SECTOR_BYTES - 1) // (1 if planar else 3))
+    lead = -(-(SECTOR_BYTES - 1) // _UNSKEW_BYTES[kind])
     cols = lead + td
     grid = (-(-h // ty), unskew_band_tiles(h, w + lead, s, td, ty),
             min(-(-b // UNSKEW_FRAMES_PER_BLOCK), _GRID_Z_MAX))
     return TilePlan(td, ty, lead, TILE_THREADS, _checked_grid(grid, b, h, w),
                     4 * ty * ((cols + cols // 32) | 1) + 4 * cols)
+
+
+def launch_unskew(col: torch.Tensor, out: torch.Tensor, s: int, kind: str) -> None:
+    """The unskew tile kernel from the (D, B, H) int32 stream ``col`` into
+    ``out`` (any base address; u16 on a 2-byte boundary), by ``kind``, with
+    the plan the kernel checks."""
+    h, w = (out.shape[2:4] if kind == "planar" else out.shape[1:3])
+    plan = unskew_tile_plan(col.shape[1], h, w, s, kind)
+    build.extension().unskew(col, out, s, UNSKEW_KINDS.index(kind), plan.td, plan.ty,
+                             plan.lead, plan.threads, list(plan.grid), plan.smem_bytes)
 
 
 def _check_aux(geom: ScanGeometry, aux: Optional[torch.Tensor],
@@ -920,9 +939,7 @@ def unskew_unpack(col: torch.Tensor, s: int, h: int, w: int,
     b = col.shape[1]
     out = torch.empty((3, b, h, w) if planar_out else (b, h, w, 3),
                       dtype=torch.uint8, device=col.device)
-    plan = unskew_tile_plan(b, h, w, s, planar_out)
-    build.extension().unskew_unpack(col, out, s, planar_out, plan.td, plan.ty, plan.lead,
-                                    plan.threads, list(plan.grid), plan.smem_bytes)
+    launch_unskew(col, out, s, "planar" if planar_out else "nhwc")
     build.LAUNCHES["unskew_unpack"] += 1
     return out
 
@@ -947,13 +964,14 @@ def unskew_idx_plain(idx: torch.Tensor, s: int, h: int, w: int,
 
 def unskew_idx(idx: torch.Tensor, s: int, h: int, w: int,
                dtype: torch.dtype = torch.uint8) -> torch.Tensor:
-    """K5 on CUDA tensors, its plain version on CPU tensors."""
+    """K5 on CUDA tensors (the index kinds of K3's tile transpose,
+    ``unskew_tile_plan``), its plain version on CPU tensors."""
     if dtype not in (torch.uint8, torch.uint16):
         raise TypeError(f"the index stream is uint8 or uint16, got {dtype}")
     if not build.on_cuda(idx):
         return unskew_idx_plain(idx, s, h, w, dtype)
     out = torch.empty((idx.shape[1], h, w), dtype=dtype, device=idx.device)
-    build.extension().unskew_idx(idx, out, s)
+    launch_unskew(idx, out, s, "u8" if dtype == torch.uint8 else "u16")
     build.LAUNCHES["unskew_idx"] += 1
     return out
 

@@ -3,6 +3,7 @@
 card's copy rate through a hand-written identity kernel.
 
     python3 dither_pie_tpu_torch/tools/layout_repro.py [n_params] [batch] [--chain]
+    python3 dither_pie_tpu_torch/tools/layout_repro.py [batch] --sweep
 
 The JAX package's ``tools/xla_layout_repro.py`` watches for a compiler
 fault: programs holding several ~600 MB (B, H, W, 3) uint8 parameters got
@@ -21,6 +22,12 @@ the identity kernel (``kernels/csrc/identity.cu``), and prints
   median time), beside ``Tensor.clone()``'s: the measured copy ceiling of
   this card.
 
+``--sweep`` times the identity kernel's bulk plans on one
+(3, batch*1080, 1920) plane into one output, at several (blocks an SM,
+stages, bytes a span), with ``clone()`` first and last, each the median of
+5 runs of 20 launches in a row (``time_ed_path.loop_ms``), every output
+held to the plane bitwise.
+
 ``--chain`` is the harness that failed originally: the batches chained
 through the ordered kernel K4 (``ordered_dither_fused``, a random 16-colour
 palette, the Bayer 8x8 screen), each launch's palette carrying the running
@@ -30,13 +37,22 @@ dropped.
 Defaults: 3 batches of 100 frames. The identity wrapper launches its kernel
 for a CUDA tensor and runs ``Tensor.clone()`` for a CPU tensor. The
 measurement needs a CUDA device.
+
+The kernel's launch is planned here (``identity_plan``): a head of up to 15
+bytes that brings the output to a 16-byte boundary, a body of whole 16-byte
+words cut into contiguous spans that a persistent grid of a few blocks an
+SM takes in turn (block b spans b, b + G, ...), and a tail of up to 15
+bytes. Where input and output agree mod 16 the body goes through TMA bulk
+copies, a ring of a few spans of shared memory a block; where they
+disagree, through the shifted form. The kernel refuses any other plan.
 """
 
 from __future__ import annotations
 
 import sys
+from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -49,8 +65,70 @@ from dither_pie_tpu_torch.kernels import build  # noqa: E402
 from dither_pie_tpu_torch.ops.ordered import screen_for_matrix  # noqa: E402
 from dither_pie_tpu_torch.ops.ordered_fused import ordered_dither_fused  # noqa: E402
 from dither_pie_tpu_torch.tools.proto_mxu_search import _cuda_ms, card_line  # noqa: E402
+from dither_pie_tpu_torch.tools.time_ed_path import loop_ms  # noqa: E402
 
 FULL_H, FULL_W = 1080, 1920
+
+
+# The body's forms, in the kernel's order: TMA bulk copies through a
+# shared-memory ring where input and output agree mod 16, the shifted form
+# where they disagree.
+IDENTITY_FORMS = ("bulk", "shifted")
+# Blocks an SM of the persistent grid, bytes of a span, the bulk ring's
+# stages (one span each): the fastest of ``--sweep`` on an H100 (PERF.md).
+# Threads a block, by form (bulk: one warp, its lane 0 drives the ring).
+IDENTITY_BLOCKS_PER_SM = 4
+IDENTITY_SPAN = 16384
+IDENTITY_STAGES = 3
+IDENTITY_THREADS = {"bulk": 32, "shifted": 256}
+_SMEM_BYTES_MAX = 227 * 1024  # dynamic shared memory a block may have
+
+
+@dataclass(frozen=True)
+class IdentityPlan:
+    """One launch of the identity kernel: ``head`` bytes one by one until the
+    output is 16-byte aligned, ``body`` bytes of whole 16-byte words in
+    spans of ``span`` bytes (the last may be shorter; 0 without a body),
+    which ``blocks`` blocks of ``threads`` take in turn (block b spans b,
+    b + blocks, ...), the rest one by one; the body's ``form``, and for the
+    bulk form the ring's ``stages`` of one span each and its dynamic shared
+    memory (the ring and an 8-byte barrier a stage)."""
+
+    form: str
+    head: int
+    body: int
+    span: int
+    blocks: int
+    threads: int
+    stages: int = 0
+    smem_bytes: int = 0
+
+
+def identity_plan(n: int, in_mod16: int, out_mod16: int, blocks: int,
+                  stages: int = IDENTITY_STAGES, span: int = IDENTITY_SPAN) -> IdentityPlan:
+    """The launch that copies ``n`` bytes from an input ``in_mod16`` bytes past
+    a 16-byte boundary to an output ``out_mod16`` bytes past one, over at
+    most ``blocks`` blocks (a few an SM): the bulk form where the two agree
+    mod 16, the shifted form where they disagree. The body is cut on
+    16-byte boundaries into spans of ``span`` bytes, at most one block a
+    span."""
+    if n < 0 or blocks < 1 or not (0 <= in_mod16 < 16 and 0 <= out_mod16 < 16):
+        raise ValueError(f"no identity plan for n={n} offsets {in_mod16}, {out_mod16} "
+                         f"blocks={blocks}")
+    if span % 16 or span < 16:
+        raise ValueError(f"spans are whole 16-byte words, got {span}")
+    form = IDENTITY_FORMS[in_mod16 != out_mod16]
+    head = min(n, -out_mod16 % 16)
+    body = (n - head) // 16 * 16
+    if not body:
+        span = 0
+    used = min(blocks, -(-body // span)) if body else 1
+    if form != "bulk":
+        return IdentityPlan(form, head, body, span, used, IDENTITY_THREADS[form])
+    smem = stages * (span + 8)
+    if stages < 2 or stages > 32 or smem > _SMEM_BYTES_MAX:
+        raise ValueError(f"no bulk ring of {stages} stages of {span} bytes")
+    return IdentityPlan(form, head, body, span, used, IDENTITY_THREADS[form], stages, smem)
 
 
 def identity_plain(x: torch.Tensor) -> torch.Tensor:
@@ -58,19 +136,34 @@ def identity_plain(x: torch.Tensor) -> torch.Tensor:
     return x.clone()
 
 
-def identity_copy(x: torch.Tensor) -> torch.Tensor:
+def _launch(x: torch.Tensor, out: torch.Tensor, plan: IdentityPlan) -> None:
+    build.extension().identity_u8(x, out, IDENTITY_FORMS.index(plan.form), plan.head,
+                                  plan.body, plan.span, plan.blocks, plan.threads,
+                                  plan.stages, plan.smem_bytes)
+    build.LAUNCHES["identity"] += 1
+
+
+def _grid(x: torch.Tensor, blocks_per_sm: int) -> int:
+    return blocks_per_sm * torch.cuda.get_device_properties(x.device).multi_processor_count
+
+
+def identity_copy(x: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The identity kernel on a CUDA tensor, ``clone()`` on a CPU tensor:
-    a new contiguous uint8 tensor with ``x``'s bytes."""
+    a new contiguous uint8 tensor with ``x``'s bytes (or ``out``, a
+    contiguous uint8 tensor of ``x``'s shape at any address, filled)."""
     if x.dtype != torch.uint8:
         raise TypeError(f"identity_copy takes uint8 tensors, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("identity_copy takes a contiguous tensor")
     if not build.on_cuda(x):
-        return identity_plain(x)
-    out = torch.empty_like(x)
+        if out is None:
+            return identity_plain(x)
+        return out.copy_(x)
+    if out is None:
+        out = torch.empty_like(x)
     if x.numel():
-        build.extension().identity_u8(x, out)
-        build.LAUNCHES["identity"] += 1
+        _launch(x, out, identity_plan(x.numel(), x.data_ptr() % 16, out.data_ptr() % 16,
+                                      _grid(x, IDENTITY_BLOCKS_PER_SM)))
     return out
 
 
@@ -154,15 +247,52 @@ def copy_rate(batch: int, device, h: int = FULL_H, w: int = FULL_W) -> Dict[str,
             "clone_gb_s": moved / clone_ms / 1e6, "bytes": plane.numel()}
 
 
+# The bulk plans ``--sweep`` times: (blocks an SM, stages, bytes a span),
+# each ring fitting the SM's shared memory that many times.
+SWEEP_BULK = ((1, 12, 16384), (1, 6, 32768), (1, 3, 65536), (2, 6, 16384), (2, 3, 32768),
+              (3, 4, 16384), (4, 3, 16384), (4, 6, 8192), (8, 3, 8192), (8, 6, 4096),
+              (16, 3, 4096))
+
+
+def sweep(batch: int, device, card: str) -> bool:
+    """Print the time of each swept plan beside ``clone()``'s; False if an
+    output differs from the plane."""
+    gen = torch.Generator(device).manual_seed(0)
+    plane = planarize(torch.randint(0, 256, (batch, FULL_H, FULL_W, 3), dtype=torch.uint8,
+                                    device=device, generator=gen))
+    out = torch.empty_like(plane)
+
+    def bulk(k, s, sp):
+        plan = identity_plan(plane.numel(), 0, 0, _grid(plane, k), s, sp)
+        return lambda: (_launch(plane, out, plan), out)[1]
+
+    cases = [("clone()", lambda: plane.clone())]
+    cases += [(f"bulk {k} blocks an SM, {s} stages, spans of {sp} B", bulk(k, s, sp))
+              for k, s, sp in SWEEP_BULK]
+    cases.append(cases[0])
+    print(f"identity sweep: {len(SWEEP_BULK)} bulk plans between two clone() [{card}]",
+          flush=True)
+    ok = True
+    for label, fn in cases:
+        ms = loop_ms(fn, 20)
+        same = torch.equal(fn(), plane)
+        ok &= same
+        print(f"identity sweep, one {tuple(plane.shape)} u8 plane: {label}: {ms:.5f} ms = "
+              f"{2 * plane.numel() / ms / 1e6:.1f} GB/s, == plane {same} [{card}]", flush=True)
+    return ok
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("layout_repro: no CUDA device", file=sys.stderr)
         return 2
     args = [a for a in sys.argv[1:] if not a.startswith("-")]
-    n_params = int(args[0]) if args else 3
-    batch = int(args[1]) if len(args) > 1 else 100
     device = torch.device("cuda")
     card = card_line()
+    if "--sweep" in sys.argv:
+        return 0 if sweep(int(args[0]) if args else 100, device, card) else 1
+    n_params = int(args[0]) if args else 3
+    batch = int(args[1]) if len(args) > 1 else 100
     if "--chain" in sys.argv:
         r = chain(n_params, batch, device)
         print(f"chain: params={n_params} batch={batch} args={r['arg_bytes'] / 1e9:.2f} GB "

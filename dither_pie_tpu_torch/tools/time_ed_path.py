@@ -25,6 +25,11 @@ min, max) milliseconds of CUDA events after one warm-up:
   on the frames as float32, and the unskew K3 (``unskew_unpack``) of the
   32-colour scan's output in both layouts; K1's stream is held to K7's and
   K6's bitwise;
+* the index unskew K5 (``unskew_idx``) of the 32-colour index scan's
+  output, uint8 and uint16, 9 runs each, beside the one PyTorch call that
+  computes it, ``idx.as_strided((B, H, W), (H, s*B*H + 1, B*H)).to(dtype)``
+  on the same stream (where this torch casts to uint16 on CUDA); each held
+  to its plain version and to the library call's output bitwise;
 * the ordered kernel K4 (``ordered_dither_fused``), 9 runs each: the 16
   frames to pico8 with the Bayer 8x8 screen, colours and indices; the
   frames as float32 with noise in [-0.5, 0.5) (the wavelet mode's float
@@ -39,7 +44,9 @@ min, max) milliseconds of CUDA events after one warm-up:
   forms are timed as a CUDA graph of 100 launches (device time a launch,
   the graph's gaps between kernels included), and also as 100 launches
   enqueued from Python; T3 as 20 launches in a row. Each output is held to
-  its library call's bitwise.
+  its library call's bitwise. T3 runs in turns, clone(), kernel, kernel,
+  clone(); then the plane less its first byte into a fresh output (input
+  and output disagree mod 16).
 
 Every line carries the cluster size the launch ran with ("n"; "-" for a
 tree whose scan has no clusters). It prints the card's name and power
@@ -168,6 +175,8 @@ def main() -> int:
             print(f"{tree}: K1's stream != {other}'s", file=sys.stderr)
             return 1
     del k1, planes, planes4, col
+    if index_lines(tree, card, twf, stream, pals[32], geom, ms):
+        return 1
     frames_f32 = frames.to(torch.float32)
     print(f"{tree}: K1 skew float32, 16 x 1080p FS: ms "
           f"{ms(lambda: twf.skew_gather(frames_f32, geom.s), 9)} [{card}]", flush=True)
@@ -250,6 +259,42 @@ def ordered_lines(tree, card, dev, frames, ms) -> bool:
     return False
 
 
+def index_lines(tree, card, twf, stream, pal, geom, ms) -> bool:
+    """K5's lines; True if an output differs from the plain version's or
+    the library call's."""
+    import torch
+
+    idx = twf.scan_idx(stream, pal, geom, 1920)
+    b, bh = stream.shape[1] // 3, stream.shape[1] // 3 * 1080
+    view = idx.as_strided((b, 1080, 1920), (1080, geom.s * bh + 1, bh))
+
+    def same(x, y):  # uint16 has few CUDA operators: compare its bits as int16
+        if x.dtype != y.dtype:
+            return False
+        if x.dtype == torch.uint16:
+            x, y = x.view(torch.int16), y.view(torch.int16)
+        return torch.equal(x, y)
+
+    for dtype in (torch.uint8, torch.uint16):
+        kernel = lambda: twf.unskew_idx(idx, geom.s, 1080, 1920, dtype)
+        got = kernel()
+        ok = same(got, twf.unskew_idx_plain(idx, geom.s, 1080, 1920, dtype))
+        t = ms(kernel, 9)
+        try:
+            lib_t = ms(lambda: view.to(dtype), 9)
+            ok &= same(view.to(dtype), got)
+        except (RuntimeError, NotImplementedError) as e:
+            lib_t = f"not taken on CUDA ({e})"
+        print(f"{tree}: K5 unskew_idx {str(dtype)[6:]}, 16 x 1080p FS P=32: ms {t}; "
+              f"as_strided(...).to({str(dtype)[6:]}) ms {lib_t}; == plain and library {ok} "
+              f"[{card}]", flush=True)
+        if not ok:
+            print(f"{tree}: K5 {dtype} != its plain version or the library call",
+                  file=sys.stderr)
+            return True
+    return False
+
+
 def graph_ms(fn, launches: int = 100) -> float:
     """Device milliseconds a launch of fn, from CUDA events around the
     replay of a CUDA graph of ``launches`` calls (median of 5 replays)."""
@@ -319,12 +364,18 @@ def probe_lines(tree, card, dev, frames) -> bool:
           f"{loop[0]:.5f} ms, torch.gather {loop[1]:.5f} ms; == torch.gather {same} [{card}]",
           flush=True)
     plane = lr.planarize(torch.cat([frames.roll(37 * k, dims=2) for k in range(7)])[:100])
-    t3 = (lambda: lr.identity_copy(plane), lambda: plane.clone())
-    same3 = torch.equal(t3[0](), plane)
-    t = [loop_ms(f, 20) for f in t3]
-    print(f"{tree}: T3 identity, one {tuple(plane.shape)} u8 plane: kernel {t[0]:.5f} ms, "
-          f"clone() {t[1]:.5f} ms a launch over 20 in a row; == input {same3} [{card}]",
-          flush=True)
+    kernel = lambda: lr.identity_copy(plane)
+    turns = [("clone()", lambda: plane.clone()), ("kernel", kernel)]
+    same3 = torch.equal(kernel(), plane)
+    parts = [f"{label} {loop_ms(fn, 20):.5f}" for label, fn in turns + turns[::-1]]
+    print(f"{tree}: T3 identity, one {tuple(plane.shape)} u8 plane, ms a launch over 20 in a "
+          f"row, in turns: {', '.join(parts)}; == input {same3} [{card}]", flush=True)
+    off = plane.view(-1)[1:]
+    shifted = lambda: lr.identity_copy(off)
+    same3 &= torch.equal(shifted(), off)
+    print(f"{tree}: T3 identity, the plane less its first byte into a fresh output: kernel "
+          f"{loop_ms(shifted, 20):.5f} ms a launch over 20 in a row; == input {same3} "
+          f"[{card}]", flush=True)
     return not (same and same3)
 
 

@@ -9,6 +9,9 @@ kernel, written from the plan and step for step as the kernel walks it,
 reproduces the plain versions ``skew_plain`` and ``unskew_unpack_plain``
 bit for bit.
 
+The unskew's model walks every output kind of the one tile kernel; K5's
+index kinds are held in ``test_torch_unskew_idx_tiles.py``.
+
 The models work on flat byte buffers with the tensors at chosen offsets,
 so the 16-byte words that cover each run and the heads and tails of the
 stores are those the card would see, and every byte outside the tensors is
@@ -220,20 +223,35 @@ def _byte_perm(x, y, sel):
     return out.astype(np.uint32)
 
 
-def unskew_model(col: np.ndarray, s: int, h: int, w: int, plan, planar: bool,
+# Of each output kind of the unskew tile kernel: bytes a pixel of an output
+# row, output rows a tile row (planar: one in each plane), and the output's
+# dtype and shape.
+UNSKEW_U = {"nhwc": 3, "planar": 1, "u8": 1, "u16": 2}
+UNSKEW_PLANES = {"nhwc": 1, "planar": 3, "u8": 1, "u16": 1}
+
+
+def unskew_out(kind, b, h, w):
+    """(dtype, shape) of the unskew's output of ``kind``."""
+    return {"nhwc": (np.uint8, (b, h, w, 3)), "planar": (np.uint8, (3, b, h, w)),
+            "u8": (np.uint8, (b, h, w)), "u16": (np.uint16, (b, h, w))}[kind]
+
+
+def unskew_model(col: np.ndarray, s: int, h: int, w: int, plan, kind: str,
                  in_off: int, out_off: int, seed=0):
-    """K3's walk: the (D', B, H) int32 stream at byte offset ``in_off`` ->
-    (B, H, W, 3) uint8, or (3, B, H, W) with ``planar``, at ``out_off``."""
+    """The walk of ``unskew_unpack.cu``'s tile kernel: the (D', B, H) int32
+    stream at byte offset ``in_off`` -> at ``out_off``, by output ``kind``:
+    K3's (B, H, W, 3) uint8 ("nhwc") or (3, B, H, W) ("planar"), K5's
+    (B, H, W) uint8 ("u8") or uint16 ("u16") index stream."""
     rng = np.random.RandomState(seed)
     _, b, _ = col.shape
     td, ty, nt, lead = plan.td, plan.ty, plan.threads, plan.lead
-    u = 1 if planar else 3  # bytes a pixel of an output row
+    u = UNSKEW_U[kind]  # bytes a pixel of an output row
     assert lead == -(-31 // u)
     cols = lead + td  # tile row j holds steps d0 - lead .. d0 + td - 1
     pitch = (cols + cols // 32) | 1  # int32 words: a spare after every 32, odd
     assert plan.smem_bytes == 4 * ty * pitch + 4 * cols <= SMEM_STATIC_MAX
     src = Memory(rng, col.astype(np.int32).tobytes(), in_off, col.nbytes)
-    dst = Memory(rng, None, out_off, 3 * b * h * w)
+    dst = Memory(rng, None, out_off, UNSKEW_PLANES[kind] * b * h * w * u)
 
     y0, d0, bb = _blocks(plan, b, s)
     ny = np.minimum(ty, h - y0)
@@ -274,15 +292,16 @@ def unskew_model(col: np.ndarray, s: int, h: int, w: int, plan, planar: bool,
         i = np.clip(i, 0, cols - 1)
         return tile[blk[:, None], j[:, None] * pitch + i + i // 32].astype(np.uint32)
 
-    # Store along x: of output row (b, y) (of plane c), the window of u*TD
-    # bytes from the sector boundary at or before pixel x0 = d0 - s*y.
-    lanes = 3 if planar else 1  # planar: three runs a row, one a plane
+    # Store along x: of output row (b, y) of plane c (0 but for planar), the
+    # window of u*TD bytes from the sector boundary at or before pixel
+    # x0 = d0 - s*y.
+    lanes = UNSKEW_PLANES[kind]  # planar: three runs a row, one a plane
     per_run = u * td // 16 + 1
     f = np.arange(-(-lanes * ty * per_run // nt) * nt)
     rr, k = f // per_run, f % per_run
     c, j = rr // ty, rr % ty
     y = y0[:, None] + j
-    row = (c * b + bb[:, None] if planar else bb[:, None]) * h + y
+    row = (c * b + bb[:, None]) * h + y
     rs = out_off + row.astype(np.int64) * w * u
     win = (rs + u * (d0[:, None] - s * y)) & ~31
     gs = np.maximum(win, rs)
@@ -294,15 +313,26 @@ def unskew_model(col: np.ndarray, s: int, h: int, w: int, plan, planar: bool,
     e0 = addr[blk, item] - rs[blk, item]  # byte of the row: >= -15
     off = s * y[blk, item] - d0[blk] + lead  # column of pixel x = 0
     jb = j[item]
-    if planar:
-        # Byte 2 - c of 16 pixels, two pixels a __byte_perm, then two pairs.
+    if kind in ("planar", "u8"):
+        # Byte 2 - c of 16 packed colours (planar) or the low byte of 16
+        # indices (u8, the selector of c = 2): two pixels a __byte_perm,
+        # then two pairs.
         v = pixel(blk, jb, e0[:, None] + np.arange(16) + off[:, None])
-        pair = (2 - c[item]) | ((6 - c[item]) << 4)
+        cb = 2 - c[item] if kind == "planar" else np.zeros(len(blk), np.int64)
+        pair = cb | ((cb + 4) << 4)
         q = np.zeros((len(blk), 4), np.uint32)
         for m in range(4):
             lo2 = _byte_perm(v[:, 4 * m], v[:, 4 * m + 1], pair)
             hi2 = _byte_perm(v[:, 4 * m + 2], v[:, 4 * m + 3], pair)
             q[:, m] = _byte_perm(lo2, hi2, np.full(len(blk), 0x5410))
+    elif kind == "u16":
+        # The low halves of 8 indices, two a __byte_perm; the row starts on
+        # a 2-byte boundary, so the word's first byte is a pixel's first.
+        assert np.all(e0 % 2 == 0)
+        v = pixel(blk, jb, (e0 // 2 + off)[:, None] + np.arange(8))
+        q = np.zeros((len(blk), 4), np.uint32)
+        for m in range(4):
+            q[:, m] = _byte_perm(v[:, 2 * m], v[:, 2 * m + 1], np.full(len(blk), 0x5410))
     else:
         # The six pixels that hold the word's 16 bytes; word m starts at
         # channel (ph0 + 4m) % 3 of pixel (ph0 + 4m) // 3 of them.
@@ -317,7 +347,7 @@ def unskew_model(col: np.ndarray, s: int, h: int, w: int, plan, planar: bool,
                                  np.array(NHWC_SELECTORS)[(ph0 + 4 * m) % 3])
     _store_words(dst, gs[blk, item], ge[blk, item], addr[blk, item],
                  q.view(np.uint8).reshape(-1, 16))
-    return dst.tensor(np.uint8, (3, b, h, w) if planar else (b, h, w, 3))
+    return dst.tensor(*unskew_out(kind, b, h, w))
 
 
 # ---------------------------------------------------------------------------
@@ -334,8 +364,8 @@ def _plans(b, h, w, s):
         yield f"skew u8 phase {phase}", twf.skew_tile_plan(b, h, w, s, torch.uint8, phase)
     for phase in (0, 4, 12):
         yield f"skew f32 phase {phase}", twf.skew_tile_plan(b, h, w, s, torch.float32, phase)
-    for planar in (False, True):
-        yield f"unskew planar={planar}", twf.unskew_tile_plan(b, h, w, s, planar)
+    for kind in ("nhwc", "planar"):
+        yield f"unskew {kind}", twf.unskew_tile_plan(b, h, w, s, kind)
 
 
 @pytest.mark.parametrize("b,h,w,s", PLAN_SHAPES)
@@ -363,29 +393,35 @@ def test_tile_plans_cover_the_plane_once(b, h, w, s):
                     assert lo >= k * plan.ty - plan.lead, what
                 assert np.all(cover == 1), what
             continue
-        assert gz == min(-(-b // 2), 65535), what
-        assert gx * plan.ty >= h > (gx - 1) * plan.ty, what
-        frames = np.concatenate([np.arange(z, min(b, 1000), gz) for z in range(gz)])
-        assert np.array_equal(np.sort(frames), np.arange(min(b, 1000))), what
-        # Of every output row, the launched blocks' windows hold each byte
-        # once, and each window lies in the steps its block loads.
-        u = 1 if "True" in what else 3
-        for y in range(h):
-            x = y // plan.ty
-            y_last = min(h, (x + 1) * plan.ty) - 1
-            for phase in (0, 8, 31):  # the row's start, mod 32
-                cover = np.zeros(u * w, np.int64)
-                for t_ in range(gy):
-                    d0 = ((s * x * plan.ty) // plan.td + t_) * plan.td
-                    if d0 - plan.lead >= s * y_last + w:
-                        continue  # the block returns at once
-                    win = ((phase + u * (d0 - s * y)) & ~31) - phase
-                    lo, hi = max(win, 0), min(win + u * plan.td, u * w)
-                    if lo < hi:
-                        cover[lo:hi] += 1
-                        assert lo // u >= d0 - plan.lead - s * y, what
-                        assert (hi - 1) // u < d0 + plan.td - s * y, what
-                assert np.all(cover == 1), (what, y, phase)
+        check_unskew_cover(plan, b, h, w, s, 1 if "planar" in what else 3, what)
+
+
+def check_unskew_cover(plan, b, h, w, s, u, what, phases=(0, 8, 31)):
+    """The unskew's plan (``u`` bytes a pixel of an output row) takes every
+    frame once, and of every output row starting at each of ``phases``
+    (mod 32) the launched blocks' windows hold each byte once, each inside
+    the steps its block loads."""
+    gx, gy, gz = plan.grid
+    assert gz == min(-(-b // 2), 65535), what
+    assert gx * plan.ty >= h > (gx - 1) * plan.ty, what
+    frames = np.concatenate([np.arange(z, min(b, 1000), gz) for z in range(gz)])
+    assert np.array_equal(np.sort(frames), np.arange(min(b, 1000))), what
+    for y in range(h):
+        x = y // plan.ty
+        y_last = min(h, (x + 1) * plan.ty) - 1
+        for phase in phases:  # the row's start, mod 32
+            cover = np.zeros(u * w, np.int64)
+            for t_ in range(gy):
+                d0 = ((s * x * plan.ty) // plan.td + t_) * plan.td
+                if d0 - plan.lead >= s * y_last + w:
+                    continue  # the block returns at once
+                win = ((phase + u * (d0 - s * y)) & ~31) - phase
+                lo, hi = max(win, 0), min(win + u * plan.td, u * w)
+                if lo < hi:
+                    cover[lo:hi] += 1
+                    assert lo // u >= d0 - plan.lead - s * y, what
+                    assert (hi - 1) // u < d0 + plan.td - s * y, what
+            assert np.all(cover == 1), (what, y, phase)
 
 
 @pytest.mark.parametrize("h,itemsize", [(1080, 1), (1080, 4), (1088, 1), (37, 1), (37, 4),
@@ -407,9 +443,9 @@ def test_tile_plans_at_1080p():
     f32 = twf.skew_tile_plan(b, h, w, s, torch.float32)
     assert (f32.td, f32.ty, f32.lead, f32.grid, f32.smem_bytes) == (64, 32, 0, (34, 64, 16),
                                                                       32520)
-    k3 = twf.unskew_tile_plan(b, h, w, s, False)
+    k3 = twf.unskew_tile_plan(b, h, w, s, "nhwc")
     assert (k3.td, k3.ty, k3.lead, k3.grid, k3.smem_bytes) == (128, 32, 11, (34, 17, 8), 18860)
-    k3p = twf.unskew_tile_plan(b, h, w, s, True)
+    k3p = twf.unskew_tile_plan(b, h, w, s, "planar")
     assert (k3p.td, k3p.ty, k3p.lead, k3p.grid, k3p.smem_bytes) == (128, 32, 31, (34, 17, 8), 21500)
 
 
@@ -463,13 +499,26 @@ def _hold_skew(b, h, w, s, dtype, in_off, out_off):
     assert got.shape == want.shape and np.array_equal(got.view(np.uint8), want.view(np.uint8))
 
 
-def _hold_unskew(b, h, w, s, planar, in_off, out_off, extra_steps=0):
+# The values of the stream by output kind: packed colours, or indices of a
+# palette the stream's type holds.
+UNSKEW_VALUES = {"nhwc": 1 << 24, "planar": 1 << 24, "u8": 256, "u16": 1 << 16}
+
+
+def hold_unskew(b, h, w, s, kind, in_off, out_off, extra_steps=0):
+    """The model of the unskew's walk of ``kind`` == its plain version
+    (K3's ``unskew_unpack_plain``, K5's ``unskew_idx_plain``), bitwise."""
     rng = np.random.RandomState(11 * h + w)
     d_total = twf.stream_length(h, w, s) + extra_steps
-    col = rng.randint(0, 1 << 24, (d_total, b, h)).astype(np.int32)
-    plan = twf.unskew_tile_plan(b, h, w, s, planar)
-    got = unskew_model(col, s, h, w, plan, planar, in_off, out_off)
-    want = twf.unskew_unpack_plain(torch.from_numpy(col), s, h, w, planar).numpy()
+    col = rng.randint(0, UNSKEW_VALUES[kind], (d_total, b, h)).astype(np.int32)
+    plan = twf.unskew_tile_plan(b, h, w, s, kind)
+    got = unskew_model(col, s, h, w, plan, kind, in_off, out_off)
+    col_t = torch.from_numpy(col)
+    if kind in ("nhwc", "planar"):
+        want = twf.unskew_unpack_plain(col_t, s, h, w, kind == "planar").numpy()
+    else:
+        dtype = torch.uint8 if kind == "u8" else torch.uint16
+        want = twf.unskew_idx_plain(col_t, s, h, w, dtype).view(
+            torch.uint8 if kind == "u8" else torch.int16).numpy().view(got.dtype)
     assert got.shape == want.shape and np.array_equal(got, want)
 
 
@@ -496,7 +545,7 @@ def test_skew_model_f32_equals_plain(h, s):
 def test_unskew_model_equals_plain(h, s, layout, planar):
     b, in_off, out_off = layout
     for w in WS:
-        _hold_unskew(b, h, w, s, planar, in_off - in_off % 4, out_off)
+        hold_unskew(b, h, w, s, "planar" if planar else "nhwc", in_off - in_off % 4, out_off)
 
 
 @pytest.mark.parametrize("case", [
@@ -513,5 +562,6 @@ def test_skew_model_across_row_tiles(case):
 def test_unskew_model_across_tiles_and_longer_streams(planar):
     """Several row and step tiles, and a stream longer than D (K3 takes
     col.size(0) >= D)."""
-    _hold_unskew(2, 97, 300, 2, planar, 4, 7, extra_steps=5)
-    _hold_unskew(3, 70, 130, 3, planar, 0, 0)
+    kind = "planar" if planar else "nhwc"
+    hold_unskew(2, 97, 300, 2, kind, 4, 7, extra_steps=5)
+    hold_unskew(3, 70, 130, 3, kind, 0, 0)
