@@ -103,13 +103,15 @@ a non-zero exit code and no result line:
    walls the device-to-host copy, the host unpack and the host palette
    gather. Two index-stream calls (k-means-32, k-means-16 packed) are
    traced in phase 6, right after its other traces;
-10. the dense-search path and the transposing skew: K7 (skew_transpose)
-   held to its plain version and to K1's and K6's streams bitwise and
+10. the dense-search path and the transposing skew: K7 (skew_transpose,
+   skew.cu's tile kernel in the type pairs u8 -> u8, f32 -> f32 and u8 ->
+   f32) held to its plain version and to K1's and K6's streams bitwise and
    everywhere (B=3 37x53, s = 2 and 3, u8 and f32, NHWC and planes, R = 5,
-   widths W <= s, u8 -> f32, one float32 1080p frame, the u8 and float32
-   16 x 1080p batches), with the times of K7, K1, K6 and the
-   permute(2, 0, 1).contiguous() call of the padded stride-lemma form from
-   the same run; K2's and K8's score branch (dense_search="mxu") held to
+   widths W <= s, u8 -> f32, one float32 1080p frame, the u8, u8 -> f32
+   and float32 16 x 1080p batches, NHWC and planes), with the times of K7's
+   three forms, K1, K6 and the permute(2, 0, 1).contiguous() call of the
+   padded stride-lemma form from the same run; the dispatching wrappers
+   send float32 and uint8 frames to K1 and K6; K2's and K8's score branch (dense_search="mxu") held to
    scan_plain / scan_idx_plain bitwise in the five modes at B=3 37x53 with
    P in {65, 100, 256, 1024}, u8 and f32, on planted duplicate colours and
    flat frames, P = 64 and P = 2048 equal to the exact output (the branch
@@ -127,11 +129,17 @@ a non-zero exit code and no result line:
    frames,
    the same through the index stream and planar (== the RGB NHWC score
    output), and one PIL image through apply_dithering (one float32 frame:
-   skew_transpose launched, skew not; golden identity 1.0 in exact mode);
-   T2, the search probe: both kernels held to their plain versions bitwise
-   at 256 and 1024 colours, their microseconds per row-step and the flip
-   fraction of score against exact. The k-means-256 call in score mode is
-   traced in phase 6, right after the exact one;
+   skew, ed_scan and unskew_unpack launched; golden identity 1.0 in exact
+   mode); K7's own path (its wrapper on that frame in its three type pairs,
+   NHWC and planes, with its launch counts; no facade call reaches it);
+   T2, the search probe (a frame over a cluster of n blocks, as the scan):
+   both kernels held to their plain versions bitwise at 256 and 1024
+   colours for every n in (1, 2, 4, 8), 1 and 64 repetitions, their
+   microseconds a repetition, the flip fraction of score against exact on
+   random and on k-means inputs, the n sweep at 64, 256 and 1024 colours
+   and its fit c_n + k * P / n, and the row's times (a repetition of one
+   launch of 64, one launch in a CUDA graph of 100). The k-means-256 call
+   in score mode is traced in phase 6, right after the exact one;
 11. wavelet and halftone, K4 on float32 frames, and the probes T1 and T3:
    K4's float32 instantiation held to its plain version bitwise at B=3 37x53
    with P in {2, 16, 33, 300} on non-integer frames (random and Bayer
@@ -177,7 +185,8 @@ a non-zero exit code and no result line:
    once for the main path's launches;
 13. K1 and K3, the tile transposes (``ops.wavefront.skew_tile_plan``,
    ``unskew_tile_plan``): K1 (u8 and float32) == skew_plain and == K7's
-   stream, K3 (NHWC and planar) == unskew_unpack_plain, bitwise, at the
+   stream, K7's u8 -> f32 form == K1's stream cast, K3 (NHWC and planar)
+   == unskew_unpack_plain, bitwise, at the
    shapes of tests/test_torch_skew_tiles.py (B in 1, 3, 17; H in 1, 7, 8,
    33, 64, 65; W in 1, 2, 3, 5, 21, 64, 65; s = 2 and 3), whole and as
    contiguous slices whose base lies off the 16-byte boundary, K1 into
@@ -187,7 +196,8 @@ a non-zero exit code and no result line:
    channels=1)``) and K4's two bodies (``ops.ordered_fused.ordered_plan``;
    the integer body for u8 frames and a palette of integers in 0..255, the
    float body otherwise): K6 (u8 and float32) == skew_planar_plain and ==
-   K7's stream (and K1's for planes of frames) at R in (1, 3, 5, 48)
+   K7's stream (and K1's for planes of frames), K7's u8 -> f32 form on
+   planes == K6's stream cast, at R in (1, 3, 5, 48)
    planes of odd sizes, s = 2 and 3, whole, as slices off the 16-byte
    boundary and into outputs off a sector, and on the 48 planes of the 16 x
    1080p batch; K4 == ordered_dither_fused_plain, colours and indices, at
@@ -210,7 +220,8 @@ the link probe would say); phases 9 to 11 set it as each check needs.
 DITHER_PIE_TPU_DENSE_SEARCH is unset (the exact search) outside phase 10's
 main paths and phase 6's one score-mode trace. Phases 3-9 hold K1 and K6
 themselves (``skew_gather``, ``skew_planar_gather``) where they hold a skew
-to its plain version; ``skew`` and ``skew_planar`` send float32 frames to K7.
+to its plain version; ``skew`` and ``skew_planar`` send frames of either
+dtype there too.
 
 Every row of the kernels line carries the kernel's bound: the larger of its
 bytes (inputs read once, outputs written once; of the (D, B, H) stream an
@@ -318,7 +329,7 @@ TRANSFER_KERNELS = [  # the index stream and the planar layout
      "dither_pie_tpu/ops/wavefront.py:1352"),
 ]
 DENSE_KERNELS = [  # the transposing skew and the search probe
-    ("skew_transpose", "dither_pie_tpu_torch/kernels/csrc/skew_transpose.cu",
+    ("skew_transpose", "dither_pie_tpu_torch/kernels/csrc/skew.cu",
      "dither_pie_tpu/ops/wavefront.py:371"),
     ("search_probe", "dither_pie_tpu_torch/kernels/csrc/search_probe.cu",
      "tools/proto_mxu_search.py:78"),
@@ -1023,10 +1034,9 @@ def ed_modes_phase(torch, dev, card, lib, frames16, frame0, palette32, palette25
         for key, _, _ in kernels:
             check(launches.get(key, 0) >= 1, f"kernel {key} not launched on the {name} path")
             totals[key] = totals.get(key, 0) + launches[key]
-        # The batch of u8 frames takes K1; apply_dithering's one float32
-        # frame takes K7 (held in phase 10).
-        check(set(launches) == {k for k, _, _ in kernels} | {"skew_transpose"},
-              f"{name} path launched {launches}")
+        # The batch of u8 frames and apply_dithering's one float32 frame
+        # both take K1.
+        check(set(launches) == {k for k, _, _ in kernels}, f"{name} path launched {launches}")
         check(out.shape == frames.shape and out.dtype == np.uint8,
               f"{name} batch output {out.shape} {out.dtype}")
         check(out_pil.shape == single.shape and out_pil.dtype == np.uint8,
@@ -1619,55 +1629,55 @@ def dense_search_phase(torch, dev, card, lib, frames16, frame0, palette256, rows
              "f32": rng.uniform(-8.0, 263.0, (b, h, w, 3)).astype(np.float32)}
 
     # --- K7 == plain == K1's and K6's streams, bitwise and everywhere -----
+    # K7 is skew.cu's tile kernel in three type pairs (u8 -> u8, f32 -> f32,
+    # u8 -> f32), NHWC (C = 3) and planes (C = 1).
     t0 = time.perf_counter()
 
     def hold_k7(frames_np, s, what):
-        """K7 on NHWC frames and on their planes against its plain version
-        and against K1's and K6's streams."""
+        """K7 on NHWC frames and on their planes, in each of its type pairs,
+        against its plain version and against K1's and K6's streams."""
         nhwc = on_card(frames_np)
         planes = on_card(planes_of(frames_np)).view(-1, *frames_np.shape[1:3])
         k1 = twf.skew_gather(nhwc, s)
+        out_dtypes = (None, torch.float32) if nhwc.dtype == torch.uint8 else (None,)
         for layout, x, other, name in (("NHWC", nhwc, k1, "K1"),
                                        ("planes", planes, twf.skew_planar_gather(planes, s),
                                         "K6")):
-            got = twf.skew_transpose(x, s)
-            hold(torch, "skew_transpose", got, twf.skew_transpose_plain(x, s), errs,
-                 f"{what}, {layout}")
-            hold(torch, "skew_transpose", got, other, errs,
-                 f"against {name}'s stream, {what}, {layout}")
-            hold(torch, "skew_transpose", got, k1, errs, f"against K1's stream, {what}, {layout}")
+            for out_dtype in out_dtypes:
+                got = twf.skew_transpose(x, s, out_dtype)
+                pair = f"{x.dtype} -> {got.dtype}"
+                hold(torch, "skew_transpose", got, twf.skew_transpose_plain(x, s, out_dtype),
+                     errs, f"{what}, {layout}, {pair}")
+                hold(torch, "skew_transpose", got, other.to(got.dtype), errs,
+                     f"against {name}'s stream, {what}, {layout}, {pair}")
+                hold(torch, "skew_transpose", got, k1.to(got.dtype), errs,
+                     f"against K1's stream, {what}, {layout}, {pair}")
 
     for geom in (fs, jjn):
         for name, arr in small.items():
             hold_k7(arr, geom.s, f"B={b} {h}x{w} s={geom.s} {name}")
-        for x in (on_card(small["u8"]), on_card(planes_of(small["u8"])).view(3 * b, h, w)):
-            hold(torch, "skew_transpose", twf.skew_transpose(x, geom.s, torch.float32),
-                 twf.skew_transpose_plain(x, geom.s).to(torch.float32), errs,
-                 f"u8 -> f32, B={b} {h}x{w} s={geom.s}")
         five = on_card(rng.randint(0, 256, (5, h, w)).astype(np.uint8))  # any R
-        hold(torch, "skew_transpose", twf.skew_transpose(five, geom.s),
-             twf.skew_transpose_plain(five, geom.s), errs, f"R=5 {h}x{w} s={geom.s}")
-        # Widths W <= s: the frames are padded to W = s + 1 before the view.
+        for out_dtype in (None, torch.float32):
+            hold(torch, "skew_transpose", twf.skew_transpose(five, geom.s, out_dtype),
+                 twf.skew_transpose_plain(five, geom.s, out_dtype), errs,
+                 f"R=5 {h}x{w} s={geom.s} out {out_dtype}")
+        # Widths W <= s: the tile kernel serves them as any width.
         for narrow in range(1, geom.s + 1):
             for name, dtype in (("u8", np.uint8), ("f32", np.float32)):
                 arr = rng.randint(0, 256, (2, 6, narrow, 3)).astype(dtype)
                 hold_k7(arr, geom.s, f"B=2 6x{narrow} (W <= s) s={geom.s} {name}")
-    # float32 frames take K7 from the dispatching wrappers, uint8 ones K1 and K6.
-    build.reset_launch_counts()
-    twf.skew(on_card(small["f32"]), fs.s)
-    twf.skew_planar(on_card(planes_of(small["f32"])).view(3 * b, h, w), fs.s)
-    check(dict(build.LAUNCHES) == {"skew_transpose": 2},
-          f"float32 frames launched {dict(build.LAUNCHES)}, expected skew_transpose twice")
-    build.reset_launch_counts()
-    twf.skew(on_card(small["u8"]), fs.s)
-    twf.skew_planar(on_card(planes_of(small["u8"])).view(3 * b, h, w), fs.s)
-    check(dict(build.LAUNCHES) == {"skew": 1, "skew_planar": 1},
-          f"uint8 frames launched {dict(build.LAUNCHES)}, expected skew and skew_planar")
+    # Frames of either dtype take K1 and K6 from the dispatching wrappers.
+    for name in ("f32", "u8"):
+        build.reset_launch_counts()
+        twf.skew(on_card(small[name]), fs.s)
+        twf.skew_planar(on_card(planes_of(small[name])).view(3 * b, h, w), fs.s)
+        check(dict(build.LAUNCHES) == {"skew": 1, "skew_planar": 1},
+              f"{name} frames launched {dict(build.LAUNCHES)}, expected skew and skew_planar")
     hold_k7(frame0[None].astype(np.float32), fs.s, f"one float32 {FULL_H}x{FULL_W} frame")
-    log(f"[10] kernel == plain, bitwise: K7 skew_transpose at B={b} {h}x{w}, s = 2 and 3, u8 "
-        f"and f32, NHWC and planes, == K1's and K6's streams everywhere; u8 -> f32 == the "
-        f"plain stream cast; R=5; widths W <= s (1..s) padded first; float32 frames "
-        f"dispatch to K7, uint8 to K1 and K6; one float32 {FULL_H}x{FULL_W} frame (B=1) "
+    log(f"[10] kernel == plain, bitwise: K7 skew_transpose (skew.cu's tile kernel) at B={b} "
+        f"{h}x{w}, s = 2 and 3, u8 -> u8, f32 -> f32 and u8 -> f32, NHWC and planes, == K1's "
+        f"and K6's streams everywhere; R=5; widths W <= s (1..s); float32 and uint8 frames "
+        f"dispatch to K1 and K6; one float32 {FULL_H}x{FULL_W} frame (B=1) "
         f"({time.perf_counter() - t0:.1f} s)")
 
     # --- K7's times beside K1, K6 and the library call, one run -----------
@@ -1675,7 +1685,8 @@ def dense_search_phase(torch, dev, card, lib, frames16, frame0, palette256, rows
     planes_t = on_card(planes_of(frames16)).view(3 * BATCH, FULL_H, FULL_W)
     d_fs = twf.stream_length(FULL_H, FULL_W, fs.s)
     n_px = BATCH * FULL_H * FULL_W
-    k7_bound = bound(n_px * 3 + d_fs * 3 * BATCH * FULL_H, 0)
+    n_stream = d_fs * 3 * BATCH * FULL_H
+    k7_bound = bound(n_px * 3 + n_stream, 0)
     k1_ms, k1_stream = cuda_ms(torch, lambda: twf.skew_gather(batch_t, fs.s), 5)
     k6_ms, k6_stream = cuda_ms(torch, lambda: twf.skew_planar_gather(planes_t, fs.s), 5)
     hold(torch, "skew_planar", k6_stream, k1_stream, errs, f"{BATCH}x{FULL_H}x{FULL_W}")
@@ -1701,17 +1712,43 @@ def dense_search_phase(torch, dev, card, lib, frames16, frame0, palette256, rows
     lib_ms, lib_stream = cuda_ms(torch, lambda: lemma.permute(2, 0, 1).contiguous(), 5)
     hold(torch, "skew_transpose", lib_stream, k1_stream, errs,
          "permute(2, 0, 1).contiguous() of the padded stride-lemma form against K1's stream")
-    del lib_stream, lemma, padded, k1_stream
+    del lib_stream, lemma, padded
     k7_bound["library_ms"] = lib_ms
     log(f"[10] skew_transpose (K7), {BATCH}x{FULL_H}x{FULL_W} u8, all streams equal bitwise: "
         f"NHWC {k7_ms:.3f} ms, planes {k7p_ms:.3f} ms; K1 skew {k1_ms:.3f} ms, K6 skew_planar "
         f"{k6_ms:.3f} ms; plain PyTorch {k7_plain_ms:.3f} ms; the library call permute(2, 0, 1)"
         f".contiguous() {lib_ms:.3f} ms; bound {k7_bound['bound_ms']:.4f} ms by "
         f"{k7_bound['bound_by']} [{card}]")
-    # The float32 batch, the shape K7 is routed for.
+    # u8 -> f32, the cast form: NHWC (C = 3) and planes (C = 1), each held
+    # to the plain version and to K1's stream cast.
+    k1_f32 = k1_stream.to(torch.float32)
+    del k1_stream
+    u8f_bound = bound(n_px * 3 + n_stream * 4, 0)
+    k7uf_ms, got = cuda_ms(torch, lambda: twf.skew_transpose(batch_t, fs.s, torch.float32), 5)
+    hold(torch, "skew_transpose", got, k1_f32, errs,
+         f"u8 -> f32 against K1's stream cast, the timed {BATCH}x{FULL_H}x{FULL_W} batch, NHWC")
+    del got
+    k7ufp_ms, got = cuda_ms(torch, lambda: twf.skew_transpose(planes_t, fs.s, torch.float32), 5)
+    hold(torch, "skew_transpose", got, k1_f32, errs,
+         f"u8 -> f32 against K1's stream cast, the timed {BATCH}x{FULL_H}x{FULL_W} batch, "
+         f"planes")
+    del got
+    hold(torch, "skew_transpose", twf.skew_transpose(batch_t, fs.s, torch.float32),
+         twf.skew_transpose_plain(batch_t, fs.s, torch.float32), errs,
+         f"u8 -> f32 against its plain version, {BATCH}x{FULL_H}x{FULL_W}, NHWC")
+    hold(torch, "skew_transpose", twf.skew_transpose(planes_t, fs.s, torch.float32),
+         twf.skew_transpose_plain(planes_t, fs.s, torch.float32), errs,
+         f"u8 -> f32 against its plain version, {BATCH}x{FULL_H}x{FULL_W}, planes")
+    log(f"[10] skew_transpose (K7) u8 -> f32, {BATCH}x{FULL_H}x{FULL_W}, == K1's stream cast "
+        f"and == plain, bitwise: NHWC {k7uf_ms:.3f} ms, planes {k7ufp_ms:.3f} ms; bound "
+        f"{u8f_bound['bound_ms']:.4f} ms by {u8f_bound['bound_by']} [{card}]")
+    # The float32 batch: K7's f32 -> f32 form beside K1's float32 launch.
     batch_f32 = batch_t.to(torch.float32)
-    f32_bound = bound(n_px * 3 * 4 + d_fs * 3 * BATCH * FULL_H * 4, 0)
+    f32_bound = bound(n_px * 3 * 4 + n_stream * 4, 0)
     k1f_ms, k1f_stream = cuda_ms(torch, lambda: twf.skew_gather(batch_f32, fs.s), 3)
+    hold(torch, "skew", k1f_stream, k1_f32, errs,
+         f"float32 against the u8 stream cast, {BATCH}x{FULL_H}x{FULL_W}")
+    del k1_f32
     k7f_ms, k7f_stream = cuda_ms(torch, lambda: twf.skew_transpose(batch_f32, fs.s), 3)
     hold(torch, "skew_transpose", k7f_stream, k1f_stream, errs,
          f"against K1's stream, the timed {BATCH}x{FULL_H}x{FULL_W} float32 batch")
@@ -1962,27 +1999,53 @@ def dense_search_phase(torch, dev, card, lib, frames16, frame0, palette256, rows
         f"{launches_idx}) and planar (launches {launches_planar}) == the RGB NHWC score "
         f"output, bitwise")
 
-    # One PIL image: one float32 frame, through K7.
+    # One PIL image: one float32 frame, through K1's float32 form.
     pil = Image.fromarray(frame0)
-    k7_path = ("skew_transpose", "ed_scan", "unskew_unpack")
     pil_exact, launches_pil = drive("apply_dithering, exact",
-                                    lambda: ditherer.apply_dithering(pil), k7_path, None)
+                                    lambda: ditherer.apply_dithering(pil), rgb_path, None)
     gold0 = golden_frame(lib, ed_kernels.kernel_arrays, frame0, pal256_np, "floyd_steinberg")
     ident_pil = identity(pil_exact, gold0)
-    check(ident_pil == 1.0, f"apply_dithering (float32 frame through K7) golden identity "
+    check(ident_pil == 1.0, f"apply_dithering (one float32 frame) golden identity "
                             f"{ident_pil}")
     pil_mxu, _ = drive("apply_dithering, DENSE_SEARCH=mxu",
-                       lambda: ditherer.apply_dithering(pil), k7_path, "mxu")
+                       lambda: ditherer.apply_dithering(pil), rgb_path, "mxu")
     pil_auto, _ = drive("apply_dithering, DENSE_SEARCH=auto",
-                        lambda: ditherer.apply_dithering(pil), k7_path, "auto")
+                        lambda: ditherer.apply_dithering(pil), rgb_path, "auto")
     check(np.array_equal(pil_auto, pil_exact), "a single image entered the gate")
     log(f"[10] apply_dithering(PIL {FULL_W}x{FULL_H}) FS k-means-256: launches "
-        f"{launches_pil} (skew_transpose, not skew), golden identity {ident_pil} in exact "
+        f"{launches_pil} (K1 on the float32 frame), golden identity {ident_pil} in exact "
         f"mode; DENSE_SEARCH=mxu identity with the exact output "
         f"{identity(pil_mxu, pil_exact)}; DENSE_SEARCH=auto == exact (a single image never "
         f"enters the gate)")
     for row in rows:
         row["launches"] += totals.get(row["name"], 0)
+    # K7's own path: no facade call reaches its wrapper since the tile
+    # kernel takes frames of either dtype, so its launches are those of its
+    # entry point, ops.wavefront.skew_transpose, called as a caller of the
+    # stream would on the PIL image's frame: its three type pairs, NHWC and
+    # planes, counted from 0, each output held to the stream of the facade's
+    # own K1 launch above (the frame as the facade sends it).
+    frame_u8 = on_card(frame0[None])
+    frame_f32 = frame_u8.to(torch.float32)
+    calls = [(x, od) for x in (frame_u8, frame_f32) for od in
+             ((None, torch.float32) if x.dtype == torch.uint8 else (None,))]
+    build.reset_launch_counts()
+    k7_outs = [(twf.skew_transpose(x, fs.s, od), twf.skew_transpose(
+        x.permute(3, 0, 1, 2).reshape(3, FULL_H, FULL_W), fs.s, od)) for x, od in calls]
+    sync(torch, dev)
+    k7_launches = dict(build.LAUNCHES)
+    check(k7_launches == {"skew_transpose": 2 * len(calls)},
+          f"K7's path launched {k7_launches}")
+    ref = twf.skew_gather(frame_f32, fs.s)
+    for (x, od), outs in zip(calls, k7_outs):
+        for got in outs:
+            hold(torch, "skew_transpose", got, ref.to(got.dtype), errs,
+                 f"K7's path, one {FULL_H}x{FULL_W} frame, {x.dtype} -> {got.dtype}")
+    del k7_outs, ref
+    totals["skew_transpose"] = k7_launches["skew_transpose"]
+    log(f"[10] K7's path, ops.wavefront.skew_transpose on one {FULL_H}x{FULL_W} frame, u8 -> "
+        f"u8, u8 -> f32 and f32 -> f32, NHWC and planes: launches {k7_launches}, each == "
+        f"K1's stream of the frame")
 
     # Walls, all in this run.
     parts = []
@@ -2006,48 +2069,80 @@ def dense_search_phase(torch, dev, card, lib, frames16, frame0, palette256, rows
     # --- T2: the search probe ---------------------------------------------
     t0 = time.perf_counter()
     iters = 64
+    n_holds = 0
     for pp in (256, 1024):
         cur_np, pal_np = probe.probe_inputs(pp)
         cur, pal_t = on_card(cur_np), on_card(pal_np)
         aug = convert.augment_palette(pal_t)
-        for n_iter in (1, iters):
-            hold(torch, "search_probe", probe.search_exact(cur, pal_t, n_iter),
-                 probe.search_exact_plain(cur, pal_t), errs, f"exact sweep, pp={pp}, {n_iter}x")
-            hold(torch, "search_probe", probe.search_score(cur, aug, n_iter),
-                 probe.search_score_plain(cur, aug), errs, f"score form, pp={pp}, {n_iter}x")
+        want_exact = probe.search_exact_plain(cur, pal_t)
+        want_score = probe.search_score_plain(cur, aug)
+        for n in twf.CLUSTER_SIZES:
+            for n_iter in (1, iters):
+                hold(torch, "search_probe", probe.search_exact(cur, pal_t, n_iter, n),
+                     want_exact, errs, f"exact sweep, pp={pp}, n={n}, {n_iter}x")
+                hold(torch, "search_probe", probe.search_score(cur, aug, n_iter, n),
+                     want_score, errs, f"score form, pp={pp}, n={n}, {n_iter}x")
+                n_holds += 2
     log(f"[10] kernel == plain, bitwise: both search-probe kernels at pp = 256 and 1024, "
-        f"nb={probe.NB} lf={probe.LF}, 1 and {iters} repetitions "
-        f"({time.perf_counter() - t0:.1f} s)")
+        f"nb={probe.NB} lf={probe.LF}, a frame over n = {twf.CLUSTER_SIZES} blocks, 1 and "
+        f"{iters} repetitions: {n_holds} comparisons ({time.perf_counter() - t0:.1f} s)")
     build.reset_launch_counts()
     probed = {str(pp): probe.probe(pp, iters, dev) for pp in (256, 1024)}
     probe_launches = build.LAUNCHES["search_probe"]
     check(set(build.LAUNCHES) == {"search_probe"} and probe_launches >= 4,
           f"the probe launched {dict(build.LAUNCHES)}")
     for pp, r in probed.items():
-        log(f"[10] search probe pp={pp} lf={probe.LF} iters={iters}: exact "
-            f"{r['exact_us_per_row_step']:.3f} us/row-step, score "
-            f"{r['score_us_per_row_step']:.3f} us/row-step, speedup "
-            f"{r['exact_ms'] / r['score_ms']:.2f}x; flip fraction of score against exact "
-            f"{r['flip_fraction']:.6f} [{card}]")
-    # The row's times: one launch of the score form at 256 colours, one
-    # repetition, beside its plain version on the same inputs.
+        log(f"[10] search probe pp={pp} lf={probe.LF} iters={iters} n={r['n']}: exact "
+            f"{r['exact_us_per_rep']:.3f} us a repetition, score "
+            f"{r['score_us_per_rep']:.3f}, speedup {r['exact_ms'] / r['score_ms']:.2f}x; flip "
+            f"fraction of score against exact: random inputs {r['flip_fraction']:.6f}, "
+            f"k-means inputs {r['flip_fraction_kmeans']:.6f} [{card}]")
+    # The n sweep and the fit of a repetition to c_n + k * P / n.
+    t0 = time.perf_counter()
+    probe_sweep = probe.sweep(iters, dev)
+    for form, by_n in probe_sweep["us_per_rep"].items():
+        log(f"[10] search probe sweep, {form}, us a repetition (one launch of {iters}): "
+            + "; ".join(f"n={n} " + ", ".join(f"P={p} {t:.3f}" for p, t in by_p.items())
+                        for n, by_p in by_n.items()) + f" [{card}]")
+    fit = probe_sweep["fit"]
+    log(f"[10] search probe fit (exact): a repetition = c_n + k * P / n, k = "
+        f"{fit['k_us']:.5f} us, " + ", ".join(f"c_{n} = {c:.4f} us"
+                                             for n, c in fit["c_us"].items())
+        + f", largest residual {fit['max_residual_us']:.4f} us "
+          f"({time.perf_counter() - t0:.1f} s) [{card}]")
+    # The row's times: the exact form at 256 colours with the plan's n,
+    # device time a repetition of one launch of 64, and one launch of one
+    # repetition as a CUDA graph of 100 launches; the plain version on the
+    # same inputs (one repetition).
+    from dither_pie_tpu_torch.tools.time_ed_path import graph_ms
+
     cur_np, pal_np = probe.probe_inputs(256)
-    cur, aug = on_card(cur_np), convert.augment_palette(on_card(pal_np))
-    one_ms, got = cuda_ms(torch, lambda: probe.search_score(cur, aug, 1), 5)
-    one_plain_ms, want = cuda_ms(torch, lambda: probe.search_score_plain(cur, aug), 3)
-    hold(torch, "search_probe", got, want, errs, "the timed score form, pp=256")
+    cur, pal_t = on_card(cur_np), on_card(pal_np)
+    rep_ms, got = cuda_ms(torch, lambda: probe.search_exact(cur, pal_t, iters), 5)
+    rep_ms /= iters
+    want = probe.search_exact_plain(cur, pal_t)
+    hold(torch, "search_probe", got, want, errs, "the timed exact form, pp=256")
+    one_graph_ms = graph_ms(lambda: probe.search_exact(cur, pal_t, 1))
+    one_plain_ms, _ = cuda_ms(torch, lambda: probe.search_exact_plain(cur, pal_t), 3)
     n_lanes = probe.NB * probe.LF
-    probe_bound = bound(cur.numel() * 4 + aug.numel() * 4 + n_lanes * 4, n_lanes * 256 * 6)
+    probe_bound = bound(cur.numel() * 4 + pal_t.numel() * 4 + n_lanes * 4, n_lanes * 256 * 8)
+    log(f"[10] search probe row: exact, pp=256, n={probe.probe_cluster_size(256)}: "
+        f"{rep_ms:.5f} ms a repetition (one launch of {iters}), {one_graph_ms:.5f} ms a launch "
+        f"of one repetition in a CUDA graph of 100; plain {one_plain_ms:.3f} ms; bound "
+        f"{probe_bound['bound_ms']:.6f} ms by {probe_bound['bound_by']} [{card}]")
 
     new_rows = [{"name": "skew_transpose", "route": "cuda", "source": DENSE_KERNELS[0][1],
                  "replaces": DENSE_KERNELS[0][2], "launches": totals["skew_transpose"],
                  "max_abs_err": errs["skew_transpose"], "ms": k7_ms, "plain_ms": k7_plain_ms,
                  "planes_ms": k7p_ms, "k1_ms": k1_ms, "k6_ms": k6_ms, "f32_ms": k7f_ms,
-                 "k1_f32_ms": k1f_ms, "f32_bound_ms": f32_bound["bound_ms"], **k7_bound},
+                 "k1_f32_ms": k1f_ms, "f32_bound_ms": f32_bound["bound_ms"],
+                 "u8_f32_ms": k7uf_ms, "u8_f32_planes_ms": k7ufp_ms,
+                 "u8_f32_bound_ms": u8f_bound["bound_ms"], **k7_bound},
                 {"name": "search_probe", "route": "cuda", "source": DENSE_KERNELS[1][1],
                  "replaces": DENSE_KERNELS[1][2], "launches": probe_launches,
-                 "max_abs_err": errs["search_probe"], "ms": one_ms, "plain_ms": one_plain_ms,
-                 "probe": probed, **probe_bound}]
+                 "max_abs_err": errs["search_probe"], "ms": rep_ms, "graph_ms": one_graph_ms,
+                 "plain_ms": one_plain_ms, "n": probe.probe_cluster_size(256),
+                 "probe": probed, "sweep": probe_sweep, **probe_bound}]
     return new_rows
 
 
@@ -2642,10 +2737,11 @@ TILE_BS = (1, 3, 17)
 
 def tile_phase(torch, dev, card, errs):
     """Phase 13: K1 (``skew_gather``, u8 and float32) against ``skew_plain``
-    and K7's stream, and K3 (``unskew_unpack``, NHWC and planar) against
-    ``unskew_unpack_plain``, all bitwise, at the CPU test's odd shapes: on
-    whole tensors, on contiguous slices whose base lies off the 16-byte
-    boundary, and on a K1 output that starts off a sector boundary (the
+    and K7's stream, K7's u8 -> f32 form against K1's stream cast, and K3
+    (``unskew_unpack``, NHWC and planar) against ``unskew_unpack_plain``,
+    all bitwise, at the CPU test's odd shapes: on whole tensors, on
+    contiguous slices whose base lies off the 16-byte boundary, and on a K1
+    output (all three type pairs) that starts off a sector boundary (the
     binding called with an offset output and its plan). Returns the number
     of comparisons."""
     from dither_pie_tpu_torch.kernels import build
@@ -2655,15 +2751,17 @@ def tile_phase(torch, dev, card, errs):
     rng = np.random.RandomState(13)
     count = 0
 
-    def skew_at(frames, s, out_offset):
-        """K1 through the binding into an output ``out_offset`` bytes into
-        a fresh buffer (the wrappers always allocate a fresh one)."""
+    def skew_at(frames, s, out_offset, out_dtype=None):
+        """K1 (K7's u8 -> f32 form with ``out_dtype``) through the binding
+        into an output ``out_offset`` bytes into a fresh buffer (the
+        wrappers always allocate a fresh one)."""
         b, h, w, _ = frames.shape
         shape = (twf.stream_length(h, w, s), 3 * b, h)
-        e = frames.element_size()
+        out_dtype = frames.dtype if out_dtype is None else out_dtype
+        e = out_dtype.itemsize
         buf = torch.empty(int(np.prod(shape)) * e + out_offset, dtype=torch.uint8, device=dev)
-        out = buf[out_offset:].view(frames.dtype).view(shape)
-        plan = twf.skew_tile_plan(b, h, w, s, frames.dtype, out.data_ptr() % twf.SECTOR_BYTES)
+        out = buf[out_offset:].view(out_dtype).view(shape)
+        plan = twf.skew_tile_plan(b, h, w, s, out_dtype, out.data_ptr() % twf.SECTOR_BYTES)
         build.extension().skew(frames, out, s, plan.td, plan.ty, plan.lead, plan.threads,
                                list(plan.grid), plan.smem_bytes)
         return out
@@ -2685,13 +2783,22 @@ def tile_phase(torch, dev, card, errs):
                         got = twf.skew_gather(frames, s)
                         hold(torch, "skew", got, twf.skew_plain(frames, s), errs,
                              f"{what} {name}")
-                        hold(torch, "skew", got, twf.skew_transpose(frames, s), errs,
-                             f"against K7's stream, {what} {name}")
+                        if frames.dtype == torch.uint8:
+                            hold(torch, "skew_transpose",
+                                 twf.skew_transpose(frames, s, torch.float32),
+                                 got.to(torch.float32), errs,
+                                 f"K7 u8 -> f32 against K1's stream cast, {what} {name}")
+                        else:
+                            hold(torch, "skew", got, twf.skew_transpose(frames, s), errs,
+                                 f"against K7's stream, {what} {name}")
                         count += 2
-                    for frames, off in ((u8[1:], 13), (f32[1:], 12)):
-                        hold(torch, "skew", skew_at(frames, s, off),
-                             twf.skew_plain(frames, s), errs,
-                             f"{what} {frames.dtype}, output {off} bytes off a sector")
+                    for frames, off, out_dtype in ((u8[1:], 13, None), (f32[1:], 12, None),
+                                                   (u8[1:], 12, torch.float32)):
+                        got = skew_at(frames, s, off, out_dtype)
+                        hold(torch, "skew_transpose" if out_dtype else "skew", got,
+                             twf.skew_plain(frames, s).to(got.dtype), errs,
+                             f"{what} {frames.dtype} -> {got.dtype}, output {off} bytes off "
+                             f"a sector")
                         count += 1
                     d = twf.stream_length(h, w, s)
                     buf = torch.from_numpy(
@@ -2711,8 +2818,9 @@ def tile_phase(torch, dev, card, errs):
         got = twf.skew_gather(fr[1:], s)
         hold(torch, "skew", got, twf.skew_plain(fr[1:], s), errs,
              f"2x{FULL_H}x{FULL_W - 1} slice s={s}")
-        hold(torch, "skew", got, twf.skew_transpose(fr[1:], s), errs,
-             f"against K7's stream, 2x{FULL_H}x{FULL_W - 1} slice s={s}")
+        hold(torch, "skew_transpose", twf.skew_transpose(fr[1:], s, torch.float32),
+             got.to(torch.float32), errs,
+             f"K7 u8 -> f32 against K1's stream cast, 2x{FULL_H}x{FULL_W - 1} slice s={s}")
         d = twf.stream_length(FULL_H, FULL_W - 1, s)
         col = torch.from_numpy(rng.randint(0, 1 << 24, d * 2 * FULL_H + 1).astype(
             np.int32)).to(dev)[1:].view(d, 2, FULL_H)
@@ -2721,10 +2829,11 @@ def tile_phase(torch, dev, card, errs):
                  twf.unskew_unpack_plain(col, s, FULL_H, FULL_W - 1, planar), errs,
                  f"2x{FULL_H}x{FULL_W - 1} slice s={s} planar={planar}")
         count += 4
-    log(f"[13] kernel == plain, bitwise: K1 skew (u8, float32; == K7's stream too) and K3 "
-        f"unskew_unpack (NHWC, planar) at B in {TILE_BS}, H in {TILE_HS}, W in {TILE_WS}, "
-        f"s = 2 and 3, whole and as slices off the 16-byte boundary, K1 into outputs 13 and "
-        f"12 bytes off a sector, and 2x{FULL_H}x{FULL_W - 1} slices: {count} comparisons "
+    log(f"[13] kernel == plain, bitwise: K1 skew (u8, float32; == K7's stream too), K7's u8 "
+        f"-> f32 form and K3 unskew_unpack (NHWC, planar) at B in {TILE_BS}, H in {TILE_HS}, "
+        f"W in {TILE_WS}, s = 2 and 3, whole and as slices off the 16-byte boundary, K1 into "
+        f"outputs 13 and 12 bytes off a sector (u8 -> f32 12), and 2x{FULL_H}x{FULL_W - 1} "
+        f"slices: {count} comparisons "
         f"({time.perf_counter() - t0:.1f} s); the 16x{FULL_H}x{FULL_W} batch's are phase 6's, "
         f"9's and 10's")
     return count
@@ -2742,7 +2851,8 @@ ORDERED_SHAPES = ((3, 37, 53), (1, 7, 5), (2, 5, 130))
 
 def ported_phase(torch, dev, card, frames16, palette, out16, errs):
     """Phase 14: the redesigned K6 (``skew_planar_gather``, u8 and float32)
-    against ``skew_planar_plain`` and K1's / K7's streams, and the
+    against ``skew_planar_plain`` and K1's / K7's streams, K7's u8 -> f32
+    form on planes against K6's stream cast, and the
     redesigned K4 (``ordered_dither_fused``: u8 frames through the integer
     body and, with a palette that fails its vote, the float body; float32
     frames) against ``ordered_dither_fused_plain``, colours and indices, all
@@ -2766,15 +2876,16 @@ def ported_phase(torch, dev, card, frames16, palette, out16, errs):
     def on_card(arr):
         return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
 
-    def k6_at(planes, s, out_offset):
-        """K6 through the binding into an output ``out_offset`` bytes into
-        a fresh buffer."""
+    def k6_at(planes, s, out_offset, out_dtype=None):
+        """K6 (K7's u8 -> f32 form with ``out_dtype``) through the binding
+        into an output ``out_offset`` bytes into a fresh buffer."""
         r, h, w = planes.shape
         shape = (twf.stream_length(h, w, s), r, h)
-        buf = torch.empty(int(np.prod(shape)) * planes.element_size() + out_offset,
+        out_dtype = planes.dtype if out_dtype is None else out_dtype
+        buf = torch.empty(int(np.prod(shape)) * out_dtype.itemsize + out_offset,
                           dtype=torch.uint8, device=dev)
-        out = buf[out_offset:].view(planes.dtype).view(shape)
-        plan = twf.skew_tile_plan(r, h, w, s, planes.dtype,
+        out = buf[out_offset:].view(out_dtype).view(shape)
+        plan = twf.skew_tile_plan(r, h, w, s, out_dtype,
                                   out.data_ptr() % twf.SECTOR_BYTES, 1)
         build.extension().skew(planes, out, s, plan.td, plan.ty, plan.lead, plan.threads,
                                list(plan.grid), plan.smem_bytes)
@@ -2793,13 +2904,22 @@ def ported_phase(torch, dev, card, frames16, palette, out16, errs):
                     got = twf.skew_planar_gather(planes, s)
                     hold(torch, "skew_planar", got, twf.skew_planar_plain(planes, s), errs,
                          f"{what} {name}")
-                    hold(torch, "skew_planar", got, twf.skew_transpose(planes, s), errs,
-                         f"against K7's stream, {what} {name}")
+                    if planes.dtype == torch.uint8:
+                        hold(torch, "skew_transpose",
+                             twf.skew_transpose(planes, s, torch.float32),
+                             got.to(torch.float32), errs,
+                             f"K7 u8 -> f32 against K6's stream cast, {what} {name}")
+                    else:
+                        hold(torch, "skew_planar", got, twf.skew_transpose(planes, s), errs,
+                             f"against K7's stream, {what} {name}")
                     count += 2
-                for planes, off in ((u8[1:], 13), (f32[1:], 12)):
-                    hold(torch, "skew_planar", k6_at(planes, s, off),
-                         twf.skew_planar_plain(planes, s), errs,
-                         f"{what} {planes.dtype}, output {off} bytes off a sector")
+                for planes, off, out_dtype in ((u8[1:], 13, None), (f32[1:], 12, None),
+                                               (u8[1:], 12, torch.float32)):
+                    got = k6_at(planes, s, off, out_dtype)
+                    hold(torch, "skew_transpose" if out_dtype else "skew_planar", got,
+                         twf.skew_planar_plain(planes, s).to(got.dtype), errs,
+                         f"{what} {planes.dtype} -> {got.dtype}, output {off} bytes off a "
+                         f"sector")
                     count += 1
                 if r % 3 == 0:  # the planes of r/3 frames give K1's stream
                     frames = on_card(rng.randint(0, 256, (r // 3, h, w, 3)).astype(np.uint8))
@@ -2837,7 +2957,8 @@ def ported_phase(torch, dev, card, frames16, palette, out16, errs):
     count += 2
     del got, planes16_f32
     k6_count = count
-    log(f"[14] K6 skew_planar == plain and == K7's (and K1's) stream, bitwise: R in "
+    log(f"[14] K6 skew_planar == plain and == K7's (and K1's) stream, and K7's u8 -> f32 "
+        f"form on planes, bitwise: R in "
         f"{PLANE_COUNTS}, (H, W) in {PLANE_HWS}, s = 2 and 3, u8 and float32, whole and as "
         f"slices off the 16-byte boundary, outputs 13 and 12 bytes off a sector, and "
         f"{3 * BATCH}x{FULL_H}x{FULL_W} planes (u8 also 5 bytes off the boundary, and "
@@ -3316,7 +3437,8 @@ def run(torch, dev, card) -> int:
     index_tile_phase(torch, dev, card, frames16, errs)
     for row in rows:
         if row["name"] in ("ed_scan", "ed_scan_idx", "skew", "unskew_unpack", "skew_planar",
-                           "ordered_fused", "unskew_idx", "unskew_select", "identity"):
+                           "ordered_fused", "unskew_idx", "unskew_select", "identity",
+                           "skew_transpose"):
             row["max_abs_err"] = max(row["max_abs_err"], errs.get(row["name"], 0.0))
     took = time.perf_counter() - t_run
     log(f"[15] the whole run took {took:.1f} s, {took / RUN_LIMIT_S:.2f} of its "

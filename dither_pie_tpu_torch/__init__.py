@@ -26,8 +26,8 @@ pipeline's two transfer shapes: planar (3, B, H, W) batches in and out
 (K6, K2, K3's planar layout) and the index stream, which leaves the device
 as (B, H, W) palette indices (K5, or K4's index output; bit-packed up to
 16 colours) where the device-to-host link is slow or
-``DITHER_PIE_TPU_INDEX_TRANSFER=1`` asks for it. float32 frames reach the
-scan through K7, the transposing skew. ``DITHER_PIE_TPU_DENSE_SEARCH=mxu``
+``DITHER_PIE_TPU_INDEX_TRANSFER=1`` asks for it. float32 frames (a single
+image) reach the scan through K1, as uint8 ones do. ``DITHER_PIE_TPU_DENSE_SEARCH=mxu
 or ``auto`` replaces the scan's exact palette search by the score search
 for palettes of 65 to 1024 colours (outside the bit contract; ``auto`` gates
 it on the first batch).

@@ -11,11 +11,16 @@
   ``jax.random`` stream cannot be reproduced, so the centres differ from
   the JAX package's; both are deterministic per seed and land at comparable
   inertia (tests/test_torch_palette.py states the bound).
+* ``DITHER_PIE_TPU_KMEANS=sklearn`` (or ``reference``, any case) routes
+  ``kmeans_palette`` to the reference's exact sklearn k-means on the host,
+  as the JAX package does; that route needs scikit-learn and raises
+  ``ImportError`` without it (it never falls back to the torch fit).
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import List, Tuple
 
 import numpy as np
@@ -113,6 +118,40 @@ def _kmeans_fit(points: torch.Tensor, generator: torch.Generator, k: int,
     return centers
 
 
+KMEANS_ENV = "DITHER_PIE_TPU_KMEANS"
+
+
+def _kmeans_palette_sklearn(
+    rgb_u8: np.ndarray, num_colors: int, random_state: int, sample_cap: int
+) -> List[RGB]:
+    """The reference's exact k-means path, copied from the JAX package:
+    unseeded stdlib ``random.sample`` subsample above the cap, sklearn
+    KMeans with the given random_state, truncating int cast of the centers.
+    Bit-identical to the JAX package's when no sampling happens (<= cap
+    pixels)."""
+    import random
+
+    try:
+        from sklearn.cluster import KMeans
+    except ImportError as e:
+        raise ImportError(
+            f"{KMEANS_ENV}={os.environ.get(KMEANS_ENV)!r} asks for "
+            "scikit-learn's KMeans, which is not importable; unset "
+            f"{KMEANS_ENV} to use the torch fit") from e
+
+    pix = rgb_u8.reshape(-1, 3)
+    if len(pix) > sample_cap:
+        idx = random.sample(range(len(pix)), sample_cap)
+        pix = pix[idx]
+    km = KMeans(n_clusters=max(1, min(int(num_colors), len(pix))),
+                random_state=random_state)
+    km.fit(pix)
+    out = [tuple(int(v) for v in c) for c in km.cluster_centers_.astype(int)]
+    while len(out) < num_colors:
+        out.append(out[-1])
+    return out
+
+
 def kmeans_palette(
     rgb_u8: np.ndarray,
     num_colors: int,
@@ -123,7 +162,13 @@ def kmeans_palette(
     """k-means palette from an (H, W, 3) uint8 array (seeded, deterministic).
 
     Keeps the reference's <=10k-pixel subsample cap with the JAX package's
-    seeded numpy sampler; ``random_state`` also seeds the kmeans++ draws."""
+    seeded numpy sampler; ``random_state`` also seeds the kmeans++ draws.
+    ``DITHER_PIE_TPU_KMEANS=sklearn`` (read at call time) routes to the
+    reference's sklearn algorithm on the host instead; ``device`` is then
+    ignored."""
+    if os.environ.get(KMEANS_ENV, "").lower() in ("sklearn", "reference"):
+        return _kmeans_palette_sklearn(rgb_u8, num_colors, random_state,
+                                       sample_cap)
     dev = resolve_device(device)
     pix = rgb_u8.reshape(-1, 3)
     if len(pix) > sample_cap:

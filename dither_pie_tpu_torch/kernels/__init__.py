@@ -1,12 +1,14 @@
 """Hand-written Hopper (sm_90a) CUDA kernels of the port and their loader.
 
-``csrc/`` holds the sources: ``skew.cu`` (K1 and K6, one tile transpose
-over C = 3 or 1 channels), ``ed_scan.cu`` (K2 and K8, with the score
-branch), ``unskew_unpack.cu`` (K3 and K5, one tile transpose by output
-kind), ``ordered.cu`` (K4), ``skew_transpose.cu`` (K7), ``unskew_select.cu``
-(K9), ``search_probe.cu``, ``gather_probe.cu`` and ``identity.cu`` (the
-probes T2, T1, T3) and the PyTorch binding ``bindings.cpp``;
-``tile_copy.cuh`` holds the 16-byte word moves that K1, K3, K5 and K6 share.
+``csrc/`` holds the sources: ``skew.cu`` (K1, K6 and K7, one tile
+transpose over C = 3 or 1 channels, u8 or f32 in, u8 or f32 out),
+``ed_scan.cu`` (K2 and K8, with the score branch), ``unskew_unpack.cu``
+(K3 and K5, one tile transpose by output kind), ``ordered.cu`` (K4),
+``unskew_select.cu`` (K9), ``search_probe.cu``, ``gather_probe.cu`` and
+``identity.cu`` (the probes T2, T1, T3) and the PyTorch binding
+``bindings.cpp``;
+``tile_copy.cuh`` holds the 16-byte word moves that the tile transposes
+share, ``palette_search.cuh`` the palette search that K2/K8 and T2 share.
 ``build.extension()`` compiles them at first use and ``build.LAUNCHES``
 counts their launches. The Python wrappers that launch them and hold their
 plain PyTorch versions live in

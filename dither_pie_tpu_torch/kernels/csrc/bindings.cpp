@@ -58,7 +58,8 @@ DptTilePlan tile_plan(int64_t td, int64_t ty, int64_t lead, int64_t threads,
 
 }  // namespace
 
-// K1 on (B, H, W, 3) frames, K6 on (R, H, W) planes (one channel).
+// K1 on (B, H, W, 3) frames, K6 on (R, H, W) planes (one channel); K7's
+// forms are its type pairs: u8 -> u8, f32 -> f32 and u8 -> f32.
 void skew(torch::Tensor images, torch::Tensor out, int64_t s, int64_t td,
           int64_t ty, int64_t lead, int64_t threads, std::vector<int64_t> grid,
           int64_t smem_bytes) {
@@ -67,8 +68,10 @@ void skew(torch::Tensor images, torch::Tensor out, int64_t s, int64_t td,
     const bool planes = images.dim() == 3;
     TORCH_CHECK(planes || (images.dim() == 4 && images.size(3) == 3),
                 "images must be (B, H, W, 3) frames or (R, H, W) planes");
-    TORCH_CHECK(out.scalar_type() == images.scalar_type(),
-                "out must have the images' dtype");
+    const bool widen = images.scalar_type() == torch::kUInt8 &&
+                       out.scalar_type() == torch::kFloat32;
+    TORCH_CHECK(out.scalar_type() == images.scalar_type() || widen,
+                "out must have the images' dtype, or float32 from uint8");
     TORCH_CHECK(s >= 1, "skew s must be >= 1");
     const int C = planes ? 1 : 3;
     const int B = as_int(images.size(0), "B");
@@ -81,7 +84,10 @@ void skew(torch::Tensor images, torch::Tensor out, int64_t s, int64_t td,
     const DptTilePlan plan = tile_plan(td, ty, lead, threads, grid, smem_bytes);
     const c10::cuda::CUDAGuard guard(images.device());
     int rc;
-    if (images.scalar_type() == torch::kUInt8) {
+    if (widen) {
+        rc = dpt_skew_u8_f32(images.data_ptr<uint8_t>(), out.data_ptr<float>(),
+                             B, C, H, W, D, (int)s, plan, current_stream(images));
+    } else if (images.scalar_type() == torch::kUInt8) {
         rc = dpt_skew_u8(images.data_ptr<uint8_t>(), out.data_ptr<uint8_t>(),
                          B, C, H, W, D, (int)s, plan, current_stream(images));
     } else {
@@ -319,69 +325,8 @@ void unskew(torch::Tensor col, torch::Tensor out, int64_t s, int64_t kind, int64
                  kind <= 1 ? "unskew_unpack" : "unskew_idx");
 }
 
-void skew_transpose(torch::Tensor in, torch::Tensor out, int64_t s,
-                    int64_t width) {
-    // `in` is a strided view, (R, H, D) or (C, B, H, D) with rows c*B + b,
-    // of any non-negative strides: it is read in place.
-    TORCH_CHECK(in.is_cuda(), "in must be a CUDA tensor");
-    check_tensor(out, "out", in);
-    TORCH_CHECK(in.dim() == 3 || in.dim() == 4,
-                "in must be (R, H, D) or (C, B, H, D)");
-    const bool split = in.dim() == 4;
-    const int rows_inner = as_int(split ? in.size(1) : 1, "B");
-    const int R = as_int(split ? in.size(0) * in.size(1) : in.size(0), "R");
-    const int H = as_int(in.size(split ? 2 : 1), "H");
-    const int D = as_int(in.size(split ? 3 : 2), "D");
-    const int W = as_int(width, "W");
-    TORCH_CHECK(s >= 1 && W >= 1 && D == W + s * (H - 1),
-                "the view's last axis must be W + s*(H-1) long");
-    TORCH_CHECK(out.dim() == 3 && out.size(0) == D && out.size(1) == R &&
-                    out.size(2) == H,
-                "out must be (D, R, H)");
-    const int64_t stride_outer = in.stride(0);
-    const int64_t stride_inner = split ? in.stride(1) : 0;
-    const int64_t stride_y = in.stride(split ? 2 : 1);
-    const int64_t stride_d = in.stride(split ? 3 : 2);
-    // The view may overlap itself, never leave its storage.
-    int64_t last = in.storage_offset();
-    for (int64_t i = 0; i < in.dim(); ++i) {
-        TORCH_CHECK(in.stride(i) >= 0, "in has a negative stride on axis ", i);
-        last += (in.size(i) - 1) * in.stride(i);
-    }
-    TORCH_CHECK(in.numel() > 0 &&
-                    (last + 1) * (int64_t)in.element_size() <=
-                        (int64_t)in.storage().nbytes(),
-                "the view reads past the end of its storage");
-    const c10::cuda::CUDAGuard guard(in.device());
-    void* stream = current_stream(in);
-    int rc;
-    if (in.scalar_type() == torch::kUInt8 &&
-        out.scalar_type() == torch::kUInt8) {
-        rc = dpt_skew_transpose_u8(in.data_ptr<uint8_t>(),
-                                   out.data_ptr<uint8_t>(), R, rows_inner,
-                                   stride_outer, stride_inner, stride_y,
-                                   stride_d, H, W, D, (int)s, stream);
-    } else if (in.scalar_type() == torch::kFloat32 &&
-               out.scalar_type() == torch::kFloat32) {
-        rc = dpt_skew_transpose_f32(in.data_ptr<float>(),
-                                    out.data_ptr<float>(), R, rows_inner,
-                                    stride_outer, stride_inner, stride_y,
-                                    stride_d, H, W, D, (int)s, stream);
-    } else {
-        TORCH_CHECK(in.scalar_type() == torch::kUInt8 &&
-                        out.scalar_type() == torch::kFloat32,
-                    "skew_transpose serves uint8 -> uint8, float32 -> "
-                    "float32 and uint8 -> float32");
-        rc = dpt_skew_transpose_u8_f32(in.data_ptr<uint8_t>(),
-                                       out.data_ptr<float>(), R, rows_inner,
-                                       stride_outer, stride_inner, stride_y,
-                                       stride_d, H, W, D, (int)s, stream);
-    }
-    check_launch(rc, "skew_transpose");
-}
-
 void search_probe(torch::Tensor cur, torch::Tensor palette, torch::Tensor out,
-                  int64_t iters, bool score) {
+                  int64_t iters, bool score, int64_t n, std::vector<int64_t> bounds) {
     check_tensor(cur, "cur", cur);
     check_tensor(palette, "palette", cur);
     check_tensor(out, "out", cur);
@@ -401,11 +346,15 @@ void search_probe(torch::Tensor cur, torch::Tensor palette, torch::Tensor out,
                     out.size(0) == nb && out.size(1) == lf,
                 "out must be (nb, lf) int32");
     TORCH_CHECK(iters >= 1, "iters must be >= 1");
+    TORCH_CHECK(n >= 1 && n <= DPT_MAX_CLUSTER && (int64_t)bounds.size() == n + 1,
+                "search_probe takes n in 1..", DPT_MAX_CLUSTER, " and n + 1 slice bounds");
+    DptSlices sl = {};
+    for (int64_t r = 0; r <= n; ++r) sl.lo[r] = as_int(bounds[r], "slice bound");
     const c10::cuda::CUDAGuard guard(cur.device());
     check_launch(dpt_search_probe(cur.data_ptr<float>(),
                                   palette.data_ptr<float>(),
                                   as_int(palette.size(0), "pp"), nb, lf,
-                                  as_int(iters, "iters"), score ? 1 : 0,
+                                  as_int(iters, "iters"), score ? 1 : 0, (int)n, sl,
                                   out.data_ptr<int32_t>(),
                                   current_stream(cur)),
                  "search_probe");
@@ -575,8 +524,8 @@ void identity_u8(torch::Tensor in, torch::Tensor out, int64_t form, int64_t head
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
     m.def("skew", &skew,
-          "K1 / K6: (B,H,W,3) frames or (R,H,W) planes -> (D,3B,H) or (D,R,H) "
-          "skewed stream");
+          "K1 / K6 / K7: (B,H,W,3) frames or (R,H,W) planes -> (D,3B,H) or "
+          "(D,R,H) skewed stream, the images' dtype or float32 from uint8");
     m.def("ed_scan", &ed_scan,
           "K2 / K8: wavefront scan, every mode -> (D,B,H) packed colours or "
           "palette indices");
@@ -585,12 +534,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
     m.def("unskew", &unskew,
           "K3 / K5: (D,B,H) int32 -> (B,H,W,3) or planar (3,B,H,W) uint8 colours, or the "
           "(B,H,W) uint8 or uint16 index stream");
-    m.def("skew_transpose", &skew_transpose,
-          "K7: strided view (R,H,D) or (C,B,H,D) -> (D,R,H) stream, tile "
-          "transpose fused with the mask and the cast");
     m.def("search_probe", &search_probe,
           "T2: exact or scored palette search over a (3*nb, lf) tile, "
-          "repeated iters times -> (nb, lf) int32");
+          "repeated iters times, a frame over a cluster of n blocks -> (nb, lf) "
+          "int32");
     m.def("unskew_select", &unskew_select,
           "K9: (D,B,H) palette indices + palette -> (B,H,W,3) uint8");
     m.def("ordered_fused", &ordered_fused,

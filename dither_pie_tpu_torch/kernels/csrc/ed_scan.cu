@@ -113,6 +113,7 @@
 #include <cuda_runtime.h>
 
 #include "launchers.h"
+#include "palette_search.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -188,49 +189,6 @@ __device__ __forceinline__ void fold(float& cur0, float& cur1, float& cur2,
         cur1 = clamp255(cur1);
         cur2 = clamp255(cur2);
     }
-}
-
-// The search over the block's slice of len colours, packed from index 0
-// in shared memory: (r, g, b) 12 bytes a colour for the exact search,
-// (r, g, b, n) 16 bytes for the score search. Returns the slice-local
-// index of the first strict minimum of the distance (strict <), or of the
-// first strict maximum of the score (strict >), and its key: the distance,
-// or the negated score, so that the merge of slices keeps a minimum either
-// way (negation is exact).
-template <bool SCORE>
-__device__ __forceinline__ int search(const float* sp, int len, float cur0,
-                                      float cur1, float cur2, float& key) {
-    int best_i = 0;
-    float best = 0.f;
-    if (SCORE) {
-        const float4* sp4 = reinterpret_cast<const float4*>(sp);
-        for (int i = 0; i < len; ++i) {
-            const float4 c = sp4[i];
-            const float score = __fadd_rn(
-                __fadd_rn(__fadd_rn(__fmul_rn(c.x, cur0), __fmul_rn(c.y, cur1)),
-                          __fmul_rn(c.z, cur2)),
-                c.w);
-            if (i == 0 || score > best) {
-                best = score;
-                best_i = i;
-            }
-        }
-        key = -best;
-    } else {
-        for (int i = 0; i < len; ++i) {
-            const float dr = __fsub_rn(cur0, sp[3 * i]);
-            const float dg = __fsub_rn(cur1, sp[3 * i + 1]);
-            const float db = __fsub_rn(cur2, sp[3 * i + 2]);
-            const float dist = __fadd_rn(
-                __fadd_rn(__fmul_rn(dr, dr), __fmul_rn(dg, dg)), __fmul_rn(db, db));
-            if (i == 0 || dist < best) {
-                best = dist;
-                best_i = i;
-            }
-        }
-        key = best;
-    }
-    return best_i;
 }
 
 // The error of the pick, transformed by the mode, into the row's history;
@@ -373,7 +331,7 @@ ed_scan_kernel(const T* __restrict__ img, const float* __restrict__ pal, int P,
                 float cur0 = px.x, cur1 = px.y, cur2 = px.z;
                 fold<MODE, C>(cur0, cur1, cur2, e, hb, slut, y, x, W, H, mask);
                 float key;
-                const int i = search<SCORE>(sslice, len, cur0, cur1, cur2, key);
+                const int i = dpt_palette_search<SCORE>(sslice, len, cur0, cur1, cur2, key);
                 if (!CLUSTER) {
                     result = finish<MODE, EMIT_IDX, C>(
                         cur0, cur1, cur2, px.w, sslice[PC * i], sslice[PC * i + 1],

@@ -98,15 +98,18 @@ struct DptTilePlan {
     int smem_bytes;
 };
 
-// K1 and K6, one tile transpose: B frames of C channels, (B, H, W, C)
+// K1, K6 and K7, one tile transpose: B frames of C channels, (B, H, W, C)
 // -> (D, C*B, H) skewed stream, out[d, c*B + b, y] = in[b, y, d - s*y, c],
 // 0 outside the image. C = 3: NHWC frames (K1); C = 1: compact planes
 // (R, H, W) as R frames of one channel (K6), and R = 3B planes in the
-// order c*B + b give K1's stream. Other C are refused.
+// order c*B + b give K1's stream. Other C are refused. u8 -> u8, f32 ->
+// f32, and u8 -> f32 (K7's cast; planned by the output type).
 int dpt_skew_u8(const uint8_t* in, uint8_t* out, int B, int C, int H, int W,
                 int D, int s, const DptTilePlan& plan, void* stream);
 int dpt_skew_f32(const float* in, float* out, int B, int C, int H, int W,
                  int D, int s, const DptTilePlan& plan, void* stream);
+int dpt_skew_u8_f32(const uint8_t* in, float* out, int B, int C, int H, int W,
+                    int D, int s, const DptTilePlan& plan, void* stream);
 
 // K2 and K8: the wavefront scan over the skewed stream, every mode; out
 // (D, B, H) int32, 0 outside the image: packed colours
@@ -124,38 +127,18 @@ int dpt_ed_scan(const DptScanArgs& a, void* stream);
 int dpt_unskew(const int32_t* col, void* out, int B, int H, int W, int s, int kind,
                const DptTilePlan& plan, void* stream);
 
-// K7: tile transpose of a strided view into the skewed stream,
-// out[d, r, y] = cast(in[r, y, d]) where d - s*y lies in [0, W), else 0; out
-// is (D, R, H) contiguous. Row r = c*rows_inner + b of the view starts at
-// in + c*stride_outer + b*stride_inner, and element (y, d) of it lies
-// y*stride_y + d*stride_d further (strides in elements). The stride-lemma
-// view of compact planes (stride_y = W - s, stride_d = 1) or of NHWC frames
-// (stride_y = 3*(W - s), stride_d = 3) makes in[r, y, d] the pixel
-// (y, d - s*y), so the result is K1's and K6's stream.
-int dpt_skew_transpose_u8(const uint8_t* in, uint8_t* out, int R,
-                          int rows_inner, int64_t stride_outer,
-                          int64_t stride_inner, int64_t stride_y,
-                          int64_t stride_d, int H, int W, int D, int s,
-                          void* stream);
-int dpt_skew_transpose_f32(const float* in, float* out, int R, int rows_inner,
-                           int64_t stride_outer, int64_t stride_inner,
-                           int64_t stride_y, int64_t stride_d, int H, int W,
-                           int D, int s, void* stream);
-int dpt_skew_transpose_u8_f32(const uint8_t* in, float* out, int R,
-                              int rows_inner, int64_t stride_outer,
-                              int64_t stride_inner, int64_t stride_y,
-                              int64_t stride_d, int H, int W, int D, int s,
-                              void* stream);
-
 // T2: the palette search alone, over a (3*nb, lf) float32 working tile (row
 // c*nb + b is channel c of frame b), repeated iters times; out (nb, lf)
 // int32. score == 0: the exact sweep over a (pp, 3) palette, first strict
 // minimum of (dr*dr + dg*dg) + db*db; score != 0: the score form over a
 // (pp, 4) augmented palette, first strict maximum of
-// ((r*x_r + g*x_g) + b*x_b) + n.
+// ((r*x_r + g*x_g) + b*x_b) + n. One frame a cluster of n blocks (1, 2, 4
+// or 8, n <= pp), rank r searching colours [sl.lo[r], sl.lo[r+1]), as the
+// scan splits its palette.
 constexpr int DPT_PROBE_MAX_PALETTE = 1024;
 int dpt_search_probe(const float* cur, const float* pal, int pp, int nb,
-                     int lf, int iters, int score, int32_t* out, void* stream);
+                     int lf, int iters, int score, int n, const DptSlices& sl,
+                     int32_t* out, void* stream);
 
 // K9: (D, B, H) palette indices in 0..P-1 + (P, 3) float32 palette ->
 // (B, H, W, 3) uint8, out[b, y, x, c] = (int)pal[idx[x + s*y, b, y], c].

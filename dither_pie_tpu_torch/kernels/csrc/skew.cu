@@ -1,26 +1,33 @@
-// K1 and K6: skew frames or planes into the wavefront stream, one
-// shared-memory tile transpose with the channel count C as a template
-// parameter (C = 3: NHWC frames, K1; C = 1: compact planes, K6).
+// K1, K6 and K7: skew frames or planes into the wavefront stream, one
+// shared-memory tile transpose with the channel count C and the input and
+// output element types TI, TO as template parameters (C = 3: NHWC frames,
+// K1; C = 1: compact planes, K6; TI = u8, TO = f32: K7's cast).
 //
-// Replaces two TPU kernels of dither_pie_tpu/ops/wavefront.py:
+// Replaces three TPU kernels of dither_pie_tpu/ops/wavefront.py:
 // * K1, `_skew_fullrow_call` (reached through `_skew_packed_fused`):
 //   out[d, c*B + b, y] = x[b, y, d - s*y, c], the batch folded into rows
 //   c*B + b;
 // * K6, `_skew_transpose_fused_call`: planes (R, H, W) in, out[d, r, y] =
 //   planes[r, y, d - s*y]. R = 3B planes in the order c*B + b, which a
 //   (3, B, H, W) channel-major batch (ffmpeg's gbrp) is as a free view,
-//   give K1's stream for the same frames bit for bit; any R is served.
+//   give K1's stream for the same frames bit for bit; any R is served;
+// * K7, `_skew_transpose_call`: out[d, r, y] = cast(in[r, y, d]) over the
+//   frames' stride-lemma form (a plane read with rows s elements short, so
+//   in[r, y, d] is the pixel (y, d - s*y)), u8 or f32 in, f32 out. That is
+//   K1's stream for NHWC frames and K6's for planes, cast: the (u8, f32)
+//   instantiation, with the same-type ones, serves it.
 // Both are one function: stream row R = d*C*B + c*B + b of B frames of C
 // channels, with K6's R planes as B frames of one channel. The frame's row
 // index y is the fastest axis, so the scan reads one contiguous run of H
 // values per (step, row). Positions outside the image parallelogram are 0,
 // so the output is fully defined and equals the plain PyTorch version
-// (`skew_plain`, `skew_planar_plain`) element for element. The element
-// type passes through unchanged (u8 stays u8, f32 stays f32).
+// (`skew_plain`, `skew_planar_plain`, `skew_transpose_plain`) element for
+// element. Instantiated (TI, TO) = (u8, u8), (f32, f32) and (u8, f32); the
+// cast of u8 to f32 is exact.
 //
 // What bounds it: bytes. It reads the frames once and writes D*C*B*H
-// elements (D = W + s*(H-1), so ~2x the input at 1080p with s = 2); there
-// is no arithmetic. The TPU needed bit-selected lane rolls because it
+// elements (D = W + s*(H-1), so ~2x the input at 1080p with s = 2, ~8x for
+// u8 -> f32); there is no arithmetic. The TPU needed bit-selected lane rolls because it
 // cannot gather. Here one block moves one tile of TD steps d by TY rows y of
 // one frame's (D, H) plane through shared memory (the plan is
 // `ops.wavefront.skew_tile_plan`; the launcher refuses any other):
@@ -45,12 +52,17 @@
 //   four words a thread in flight before any is used, and de-interleaved
 //   into shared memory: element el = C*x + c goes to stream row
 //   r = C*dd + c = el + C*(s*y - d0), so the channel split needs no
-//   division, in slot r + r/32.
+//   division, in slot r + r/32. Shared memory holds TO: the (u8, f32)
+//   form reads the u8 run's 16-byte words as the u8 form does and widens
+//   each element as it de-interleaves it, so its store phase is the f32
+//   form's and its plan (tile sizes, lead, shared memory) the f32 plan:
+//   every size below but the load's word count is the output type's.
 // * Tiles wholly outside the parallelogram store zeros without loading
 //   (53 % of the stream at 1080p); tiles that cut its edge are zeroed in
 //   shared memory first; tiles wholly inside need neither.
 //
-// Shared rows are (TY + 32/E)*E + 4 bytes (an odd count of 32-bit words)
+// Shared rows are (TY + 32/E)*E + 4 bytes, E = sizeof(TO) (an odd count
+// of 32-bit words)
 // and row r sits in slot r + r/32: a warp's byte stores, whose stream rows
 // lie 16/3 (C = 3) or 16 (C = 1) apart from lane to lane, then spread over
 // the banks, and the store phase's word reads meet no conflict. The numpy
@@ -59,15 +71,15 @@
 // plain versions. Four blocks of 256 threads fit an SM (__launch_bounds__).
 // Indexing inside a tile is 32-bit; each block computes its tile origin and
 // its rows' base addresses, with no per-element 64-bit division.
-// chip_smoke.py and tools/time_ed_path.py time both forms on an H100 at
+// chip_smoke.py and tools/time_ed_path.py time every form on an H100 at
 // 16 x 1080p (PERF.md).
 //
-// Who calls which form: `ops.wavefront.skew` sends uint8 frames to the
-// C = 3 form (`skew_gather`) and `ops.wavefront.skew_planar` uint8 planes
-// to the C = 1 form (`skew_planar_gather`); both send float32 input to K7
-// (skew_transpose.cu). The float32 instantiations stay as K7's
-// counterparts: only chip_smoke.py and the card's tests call the gathers
-// with float32 input, to hold K7's stream to these bit for bit.
+// Who calls which form: `ops.wavefront.skew` sends frames of either type
+// to the C = 3 form (`skew_gather`) and `ops.wavefront.skew_planar` planes
+// to the C = 1 form (`skew_planar_gather`); `skew_transpose` (K7's
+// wrapper) launches any of the three type pairs, NHWC or planes, on the
+// frames as they lie. The (u8, f32) form is on no path of the package:
+// the scan reads u8 streams itself.
 
 #include <cuda_runtime.h>
 
@@ -80,29 +92,31 @@ constexpr int THREADS = 256;
 constexpr int SECTOR = 32;  // bytes of a device-memory sector
 constexpr int BATCH = 4;    // load items a thread has in flight at once
 
-template <typename T, int C, int TD, int TY>
+template <typename TI, typename TO, int C, int TD, int TY>
 struct SkewTile {
-    static constexpr int E = sizeof(T);
+    static constexpr int EI = sizeof(TI);               // input element bytes
+    static constexpr int E = sizeof(TO);                // output and shared element bytes
     static constexpr int LEAD = SECTOR / E;             // rows above the tile, at most
     static constexpr int ROWS = C * TD;                 // stream rows r = C*dd + c
     static constexpr int SLOTS = ROWS + ROWS / 32;      // row r in slot r + r/32
     static constexpr int PITCH = (TY + LEAD) * E + 4;   // bytes a shared row
-    static constexpr int WPR = C * TD * E / 16 + 1;     // covering words a frame-row run
+    static constexpr int WPR = C * TD * EI / 16 + 1;    // covering words a frame-row run
     static constexpr int NWR = TY * E / 16 + 1;         // covering words a stream run
     static constexpr int LOAD_BATCHES =
         ((TY + LEAD - 1) * WPR + BATCH * THREADS - 1) / (BATCH * THREADS);
     static constexpr int STORE_ITEMS = (ROWS * NWR + THREADS - 1) / THREADS;
     static constexpr int SMEM = 16 + SLOTS * PITCH + 32;
     static_assert(PITCH % 8 == 4, "a shared row must be an odd count of words");
-    static_assert((TY * E) % SECTOR == 0 && (C * TD * E) % 16 == 0, "tile sizes");
+    static_assert((TY * E) % SECTOR == 0 && (C * TD * EI) % 16 == 0, "tile sizes");
     static_assert(SMEM <= 48 * 1024, "static shared memory");
 };
 
-template <typename T, int C, int TD, int TY>
+template <typename TI, typename TO, int C, int TD, int TY>
 __global__ void __launch_bounds__(THREADS, 4)
-skew_tile_kernel(const T* __restrict__ in, T* __restrict__ out, int B, int H,
+skew_tile_kernel(const TI* __restrict__ in, TO* __restrict__ out, int B, int H,
                  int W, int D, int s, int lead) {
-    using L = SkewTile<T, C, TD, TY>;
+    using L = SkewTile<TI, TO, C, TD, TY>;
+    constexpr int EI = L::EI;
     constexpr int E = L::E;
     __shared__ __align__(16) uint8_t smem[L::SMEM];
     uint8_t* const tile = smem + 16;
@@ -114,7 +128,7 @@ skew_tile_kernel(const T* __restrict__ in, T* __restrict__ out, int B, int H,
     const int yb = min(H, y0 + TY) - 1;
     const bool empty = d0 + TD - 1 < s * ya || d0 >= s * yb + W;
     const bool full = d0 >= s * yb && d0 + TD - 1 < s * ya + W;
-    const int64_t row_bytes = (int64_t)W * C * E;
+    const int64_t row_bytes = (int64_t)W * C * EI;
 
     for (int b = blockIdx.z; b < B; b += gridDim.z) {
         if (!empty) {
@@ -141,8 +155,8 @@ skew_tile_kernel(const T* __restrict__ in, T* __restrict__ out, int B, int H,
                     const int xlo = max(0, d0 - s * y);
                     const int xhi = min(W, d0 + TD - s * y);
                     const uint8_t* row = frame + (int64_t)y * row_bytes;
-                    const uintptr_t lo = reinterpret_cast<uintptr_t>(row) + xlo * C * E;
-                    const uintptr_t hi = reinterpret_cast<uintptr_t>(row) + xhi * C * E;
+                    const uintptr_t lo = reinterpret_cast<uintptr_t>(row) + xlo * C * EI;
+                    const uintptr_t hi = reinterpret_cast<uintptr_t>(row) + xhi * C * EI;
                     const uintptr_t a = (lo & ~uintptr_t(15)) + 16 * k;
                     if (xlo < xhi && a < hi) v[it] = __ldg(reinterpret_cast<const uint4*>(a));
                 }
@@ -156,8 +170,8 @@ skew_tile_kernel(const T* __restrict__ in, T* __restrict__ out, int B, int H,
                     const int xlo = max(0, d0 - s * y);
                     const int xhi = min(W, d0 + TD - s * y);
                     const uint8_t* row = frame + (int64_t)y * row_bytes;
-                    const uintptr_t lo = reinterpret_cast<uintptr_t>(row) + xlo * C * E;
-                    const uintptr_t hi = reinterpret_cast<uintptr_t>(row) + xhi * C * E;
+                    const uintptr_t lo = reinterpret_cast<uintptr_t>(row) + xlo * C * EI;
+                    const uintptr_t hi = reinterpret_cast<uintptr_t>(row) + xhi * C * EI;
                     const uintptr_t a = (lo & ~uintptr_t(15)) + 16 * k;
                     if (xlo >= xhi || a >= hi) continue;
                     // Element of the row at the word's start (may be < 0);
@@ -165,23 +179,24 @@ skew_tile_kernel(const T* __restrict__ in, T* __restrict__ out, int B, int H,
                     // r0 + i, in slot r0 + i + (r0 + i)/32: the word's
                     // elements from i = t = 32 - r0 % 32 on sit one slot
                     // further.
-                    const int e0 = (int)((intptr_t)(a - reinterpret_cast<uintptr_t>(row))) / E;
+                    const int e0 = (int)((intptr_t)(a - reinterpret_cast<uintptr_t>(row))) / EI;
                     const int r0 = e0 + C * (s * y - d0);
                     const int t = 32 - (r0 & 31);
                     uint8_t* const base = tile + (r0 + (r0 >> 5)) * L::PITCH + j * E;
                     const int ilo = C * xlo - e0;  // the word's elements [ilo, ihi)
                     const int ihi = C * xhi - e0;  // lie in the row's run
-                    const T* vals = reinterpret_cast<const T*>(&v[it]);
-                    if (ilo <= 0 && ihi >= 16 / E) {
+                    const TI* vals = reinterpret_cast<const TI*>(&v[it]);
+                    if (ilo <= 0 && ihi >= 16 / EI) {
 #pragma unroll
-                        for (int i = 0; i < 16 / E; ++i) {
-                            *reinterpret_cast<T*>(base + (i + (i >= t)) * L::PITCH) = vals[i];
+                        for (int i = 0; i < 16 / EI; ++i) {
+                            *reinterpret_cast<TO*>(base + (i + (i >= t)) * L::PITCH) = (TO)vals[i];
                         }
                     } else {
 #pragma unroll
-                        for (int i = 0; i < 16 / E; ++i) {
+                        for (int i = 0; i < 16 / EI; ++i) {
                             if (i >= ilo && i < ihi) {
-                                *reinterpret_cast<T*>(base + (i + (i >= t)) * L::PITCH) = vals[i];
+                                *reinterpret_cast<TO*>(base + (i + (i >= t)) * L::PITCH) =
+                                    (TO)vals[i];
                             }
                         }
                     }
@@ -236,10 +251,10 @@ int lead_rows(const void* out, int H, int E) {
     return ((int)(reinterpret_cast<uintptr_t>(out) % step) + SECTOR - step) / E;
 }
 
-template <typename T, int C, int TD, int TY>
-int launch(const T* in, T* out, int B, int H, int W, int D, int s,
+template <typename TI, typename TO, int C, int TD, int TY>
+int launch(const TI* in, TO* out, int B, int H, int W, int D, int s,
            const DptTilePlan& plan, void* stream) {
-    using L = SkewTile<T, C, TD, TY>;
+    using L = SkewTile<TI, TO, C, TD, TY>;
     if (B < 1 || H < 1 || W < 1 || s < 1 || D != W + s * (H - 1)) {
         return (int)cudaErrorInvalidValue;
     }
@@ -251,26 +266,33 @@ int launch(const T* in, T* out, int B, int H, int W, int D, int s,
         plan.grid[2] != (int)grid.z || grid.y > 65535) {
         return (int)cudaErrorInvalidConfiguration;
     }
-    skew_tile_kernel<T, C, TD, TY><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+    skew_tile_kernel<TI, TO, C, TD, TY><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
         in, out, B, H, W, D, s, lead);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Tile sizes (ops.wavefront.SKEW_TILES), set by timing variants on an
-// H100 (PERF.md): a planar tile holds as many stream rows as an NHWC one or
-// more, its C*TD element load runs as long or longer.
+// Tile sizes (ops.wavefront.SKEW_TILES, by the output type), set by timing
+// variants on an H100 (PERF.md): a planar tile holds as many stream rows as
+// an NHWC one or more, its C*TD element load runs as long or longer.
 int dpt_skew_u8(const uint8_t* in, uint8_t* out, int B, int C, int H, int W,
                 int D, int s, const DptTilePlan& plan, void* stream) {
-    if (C == 3) return launch<uint8_t, 3, 64, 128>(in, out, B, H, W, D, s, plan, stream);
-    if (C == 1) return launch<uint8_t, 1, 256, 128>(in, out, B, H, W, D, s, plan, stream);
+    if (C == 3) return launch<uint8_t, uint8_t, 3, 64, 128>(in, out, B, H, W, D, s, plan, stream);
+    if (C == 1) return launch<uint8_t, uint8_t, 1, 256, 128>(in, out, B, H, W, D, s, plan, stream);
     return (int)cudaErrorInvalidValue;
 }
 
 int dpt_skew_f32(const float* in, float* out, int B, int C, int H, int W,
                  int D, int s, const DptTilePlan& plan, void* stream) {
-    if (C == 3) return launch<float, 3, 64, 32>(in, out, B, H, W, D, s, plan, stream);
-    if (C == 1) return launch<float, 1, 192, 32>(in, out, B, H, W, D, s, plan, stream);
+    if (C == 3) return launch<float, float, 3, 64, 32>(in, out, B, H, W, D, s, plan, stream);
+    if (C == 1) return launch<float, float, 1, 192, 32>(in, out, B, H, W, D, s, plan, stream);
+    return (int)cudaErrorInvalidValue;
+}
+
+int dpt_skew_u8_f32(const uint8_t* in, float* out, int B, int C, int H, int W,
+                    int D, int s, const DptTilePlan& plan, void* stream) {
+    if (C == 3) return launch<uint8_t, float, 3, 64, 32>(in, out, B, H, W, D, s, plan, stream);
+    if (C == 1) return launch<uint8_t, float, 1, 192, 32>(in, out, B, H, W, D, s, plan, stream);
     return (int)cudaErrorInvalidValue;
 }

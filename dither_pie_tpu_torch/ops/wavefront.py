@@ -29,9 +29,10 @@ plain PyTorch version of the same function beside it here:
   for palettes of up to 256 colours, uint16 above. K3 and K5 are one tile
   transpose, by output kind (``unskew_tile_plan``).
 * K9 ``unskew_select``: (D, B, H) indices + palette -> (B, H, W, 3) uint8.
-* K7 ``skew_transpose``: the same stream as K1 and K6 through a tile
-  transpose of the frames' stride-lemma view; float32 frames take it, NHWC
-  and planar (``skew`` and ``skew_planar`` dispatch on the dtype).
+* K7 ``skew_transpose``: the same stream as K1 and K6, uint8 -> uint8,
+  float32 -> float32 or uint8 -> float32; on the card it is K1's and K6's
+  tile kernel in those type pairs (``skew`` and ``skew_planar`` take
+  frames and planes of either dtype themselves; no path calls K7).
 
 Palettes of up to 1024 colours run K1 -> K2 -> K3, larger ones K1 -> K8 ->
 K9. ``planar`` batches (3, B, H, W), the layout of the video pipeline's
@@ -260,28 +261,33 @@ def skew_plain(images: torch.Tensor, s: int) -> torch.Tensor:
     return out
 
 
+def _launch_skew(x: torch.Tensor, s: int, out_dtype: torch.dtype) -> torch.Tensor:
+    """The tile kernel of ``skew.cu`` on CUDA frames (B, H, W, 3) or planes
+    (R, H, W) into a fresh (D, 3B or R, H) stream of ``out_dtype``, with
+    the plan of that output type (``skew_tile_plan``); counts nothing."""
+    channels = 3 if x.dim() == 4 else 1
+    b, h, w = x.shape[:3]
+    out = torch.empty((stream_length(h, w, s), channels * b, h), dtype=out_dtype,
+                      device=x.device)
+    plan = skew_tile_plan(b, h, w, s, out_dtype, out.data_ptr() % SECTOR_BYTES, channels)
+    build.extension().skew(x, out, s, plan.td, plan.ty, plan.lead, plan.threads,
+                           list(plan.grid), plan.smem_bytes)
+    return out
+
+
 def skew_gather(images: torch.Tensor, s: int) -> torch.Tensor:
     """K1 itself on CUDA frames of either dtype: a shared-memory tile
-    transpose (``skew_tile_plan``). ``skew`` sends uint8 frames here; with
-    float32 frames no path of the package calls it, only the checks that
-    hold K7's stream to K1's."""
-    b, h, w, _ = images.shape
-    out = torch.empty((stream_length(h, w, s), 3 * b, h), dtype=images.dtype,
-                      device=images.device)
-    plan = skew_tile_plan(b, h, w, s, images.dtype, out.data_ptr() % SECTOR_BYTES)
-    build.extension().skew(images, out, s, plan.td, plan.ty, plan.lead, plan.threads,
-                           list(plan.grid), plan.smem_bytes)
+    transpose (``skew_tile_plan``)."""
+    out = _launch_skew(images, s, images.dtype)
     build.LAUNCHES["skew"] += 1
     return out
 
 
 def skew(images: torch.Tensor, s: int) -> torch.Tensor:
-    """The frames' stream on CUDA tensors, K1 for uint8 frames and K7 for
-    float32 ones; the plain version of K1 on CPU tensors."""
+    """The frames' stream: K1 on CUDA frames (uint8 or float32), its plain
+    version on CPU tensors."""
     if not build.on_cuda(images):
         return skew_plain(images, s)
-    if images.dtype == torch.float32:
-        return skew_transpose(images, s)
     return skew_gather(images, s)
 
 
@@ -304,33 +310,24 @@ def skew_planar_plain(planes: torch.Tensor, s: int) -> torch.Tensor:
 
 def skew_planar_gather(planes: torch.Tensor, s: int) -> torch.Tensor:
     """K6 itself on CUDA planes of either dtype: K1's tile transpose with
-    one channel (``skew_tile_plan(..., channels=1)``). ``skew_planar``
-    sends uint8 planes here; with float32 planes no path of the package
-    calls it, only the checks that hold K7's stream to K6's."""
-    r, h, w = planes.shape
-    out = torch.empty((stream_length(h, w, s), r, h), dtype=planes.dtype,
-                      device=planes.device)
-    plan = skew_tile_plan(r, h, w, s, planes.dtype, out.data_ptr() % SECTOR_BYTES, 1)
-    build.extension().skew(planes, out, s, plan.td, plan.ty, plan.lead, plan.threads,
-                           list(plan.grid), plan.smem_bytes)
+    one channel (``skew_tile_plan(..., channels=1)``)."""
+    out = _launch_skew(planes, s, planes.dtype)
     build.LAUNCHES["skew_planar"] += 1
     return out
 
 
 def skew_planar(planes: torch.Tensor, s: int) -> torch.Tensor:
-    """The planes' stream on CUDA tensors, K6 for uint8 planes and K7 for
-    float32 ones; the plain version of K6 on CPU tensors. ``planes`` is
-    (R, H, W) uint8 or float32, contiguous; a (3, B, H, W) batch viewed as
-    (3B, H, W) gives the stream K1 gives for the same frames."""
+    """The planes' stream: K6 on CUDA planes (uint8 or float32), its plain
+    version on CPU tensors. ``planes`` is (R, H, W), contiguous; a (3, B,
+    H, W) batch viewed as (3B, H, W) gives the stream K1 gives for the same
+    frames."""
     if not build.on_cuda(planes):
         return skew_planar_plain(planes, s)
-    if planes.dtype == torch.float32:
-        return skew_transpose(planes, s)
     return skew_planar_gather(planes, s)
 
 
 # ---------------------------------------------------------------------------
-# K7: the transposing skew
+# K7: the transposing skew, as the type pairs of K1's and K6's tile kernel
 # ---------------------------------------------------------------------------
 
 
@@ -363,38 +360,14 @@ def skew_transpose_plain(frames: torch.Tensor, s: int,
     return out if out_dtype is None else out.to(out_dtype)
 
 
-def _stride_lemma_view(frames: torch.Tensor, s: int) -> torch.Tensor:
-    """The frames' skewed form as a view, without a copy: (C, B, H, D) for
-    (B, H, W, 3) frames, (R, H, D) for (R, H, W) planes, with ``view[...,
-    y, d]`` the pixel (y, d - s*y) wherever that lies inside the image.
-
-    A row-major plane read with a row stride of W - s shows row y shifted
-    right by s*y; the largest offset, (H-1)(W-s) + D - 1 = H*W - 1, is the
-    plane's last element, so the view stays inside the buffer. Outside the
-    image it shows other rows' pixels: K7 masks them. Widths W <= s would
-    need a row stride <= 0, which a view cannot have: such frames are
-    padded to W = s + 1 first (a copy of a few columns), and K7 masks the
-    padding with the true width."""
-    frames = frames.contiguous()
-    nhwc = frames.dim() == 4
-    h, w = frames.shape[1:3]
-    d = stream_length(h, w, s)
-    if w <= s:
-        pad = (0, 0, 0, s + 1 - w) if nhwc else (0, s + 1 - w)
-        frames = torch.nn.functional.pad(frames, pad)
-        w = s + 1
-    if nhwc:
-        b = frames.shape[0]
-        return frames.as_strided((3, b, h, d), (1, h * w * 3, 3 * (w - s), 3))
-    return frames.as_strided((frames.shape[0], h, d), (h * w, w - s, 1))
-
-
 def skew_transpose(frames: torch.Tensor, s: int,
                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """K7 on CUDA tensors, its plain version on CPU tensors: (B, H, W, 3)
     frames or (R, H, W) planes, uint8 or float32 -> the (D, 3B or R, H)
     stream that K1 and K6 give, bit for bit, as ``out_dtype`` (the input's
-    dtype, or float32 from uint8)."""
+    dtype, or float32 from uint8). On the card it launches ``skew.cu``'s
+    tile kernel (C = 3 or 1) in that type pair on the frames as they lie;
+    any width is served."""
     if frames.dim() not in (3, 4) or (frames.dim() == 4 and frames.shape[3] != 3):
         raise ValueError("frames must be (B, H, W, 3) or planes (R, H, W), got "
                          f"{tuple(frames.shape)}")
@@ -406,11 +379,7 @@ def skew_transpose(frames: torch.Tensor, s: int,
                         f"and uint8 -> float32, got {frames.dtype} -> {out_dtype}")
     if not build.on_cuda(frames):
         return skew_transpose_plain(frames, s, out_dtype)
-    h, w = frames.shape[1:3]
-    rows = 3 * frames.shape[0] if frames.dim() == 4 else frames.shape[0]
-    out = torch.empty((stream_length(h, w, s), rows, h), dtype=out_dtype,
-                      device=frames.device)
-    build.extension().skew_transpose(_stride_lemma_view(frames, s), out, s, w)
+    out = _launch_skew(frames.contiguous(), s, out_dtype)
     build.LAUNCHES["skew_transpose"] += 1
     return out
 
@@ -785,9 +754,11 @@ def skew_lead_rows(h: int, itemsize: int, out_phase: int = 0) -> int:
 def skew_tile_plan(b: int, h: int, w: int, s: int, dtype: torch.dtype,
                    out_phase: int = 0, channels: int = 3) -> TilePlan:
     """The launch of K1 (``channels`` = 3: B (H, W, 3) frames) or K6
-    (``channels`` = 1: B (H, W) planes) of ``dtype`` (uint8 or float32) and
-    skew s, the output starting ``out_phase`` bytes past a 32-byte sector
-    boundary (0 for a fresh allocation).
+    (``channels`` = 1: B (H, W) planes) into a stream of ``dtype`` (uint8
+    or float32: the output's type, which alone sets the plan; K7's uint8 ->
+    float32 form takes the float32 plan) and skew s, the output starting
+    ``out_phase`` bytes past a 32-byte sector boundary (0 for a fresh
+    allocation).
 
     Row tile k stores, of each stream row R, the window y in [k*TY - ph,
     (k+1)*TY - ph), ph = the phase of R's start in its sector, so every
@@ -1038,8 +1009,8 @@ def _run(mode: str, images: torch.Tensor, palette: torch.Tensor,
     uint16 above (skew -> K8 -> K5), whatever the frames' layout. Both
     serve up to PACKED_PALETTE_MAX colours, as the JAX package does.
     ``dense_search``: "exact" or "mxu", the scan's palette search
-    (``score_search``). uint8 frames reach the stream through K1 or K6,
-    float32 ones through K7."""
+    (``score_search``). Frames of either dtype reach the stream through K1,
+    planes through K6."""
     if palette.dtype != torch.float32 or palette.dim() != 2 or palette.shape[1] != 3:
         raise ValueError("palette must be a (P, 3) float32 tensor")
     p = palette.shape[0]

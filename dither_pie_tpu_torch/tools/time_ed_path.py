@@ -20,11 +20,13 @@ min, max) milliseconds of CUDA events after one warm-up:
   step of each: whether the rows a block of 1024 threads takes in a second
   pass cost anything;
 * the ends of the path alone at 1080p, 9 runs each: the skew K1
-  (``skew_gather``) of the uint8 frames beside K7 (``skew_transpose``) and
-  K6 (``skew_planar_gather``, on the frames' planes) on the same frames, K1
-  on the frames as float32, and the unskew K3 (``unskew_unpack``) of the
-  32-colour scan's output in both layouts; K1's stream is held to K7's and
-  K6's bitwise;
+  (``skew_gather``) of the uint8 frames beside K7 (``skew_transpose``) in
+  its three forms (u8 -> u8, u8 -> f32, and f32 -> f32 on the frames as
+  float32) and K6 (``skew_planar_gather``, on the frames' planes) on the
+  same frames, K1 on the frames as float32, and the unskew K3
+  (``unskew_unpack``) of the 32-colour scan's output in both layouts; K1's
+  stream is held to K7's and K6's bitwise (K7's float32 forms to K1's
+  stream cast);
 * the index unskew K5 (``unskew_idx``) of the 32-colour index scan's
   output, uint8 and uint16, 9 runs each, beside the one PyTorch call that
   computes it, ``idx.as_strided((B, H, W), (H, s*B*H + 1, B*H)).to(dtype)``
@@ -36,6 +38,11 @@ min, max) milliseconds of CUDA events after one warm-up:
   input) to a 32-colour palette; 100 frames (the 16 rolled along x) to
   pico8 with the 64x64 blue-noise screen. Each timed output is held to the
   plain version bitwise;
+* the search probe T2 (``proto_mxu_search.search_exact`` /
+  ``search_score`` with the tree's own cluster size) at 256 and 1024
+  colours on its random inputs, one launch of 64 repetitions, 5 runs,
+  and one launch of one repetition as a CUDA graph of 100, each output
+  held to its plain version;
 * the probes T1 and T3 beside their library calls: T1's gather
   (``gather_probe.gather_chain``) on the 4096 x 128 int32 table against
   ``torch.gather`` on the same int64 indices, and T3's identity
@@ -161,28 +168,33 @@ def main() -> int:
         scan_line(f"K2 FS P=32 {h} rows x 1920", s, pals[32], False, 1920)
 
     planes = frames.permute(3, 0, 1, 2).contiguous().view(48, 1080, 1920)
+    frames_f32 = frames.to(torch.float32)
     col = twf.scan(stream, pals[32], geom, 1920)
     ends = {"K1 skew u8": lambda: twf.skew_gather(frames, geom.s),
             "K7 skew_transpose u8": lambda: twf.skew_transpose(frames, geom.s),
+            "K7 skew_transpose u8 -> f32":
+                lambda: twf.skew_transpose(frames, geom.s, torch.float32),
+            "K7 skew_transpose float32": lambda: twf.skew_transpose(frames_f32, geom.s),
+            "K1 skew float32": lambda: twf.skew_gather(frames_f32, geom.s),
             "K6 skew_planar u8": lambda: twf.skew_planar_gather(planes, geom.s),
             "K3 unskew_unpack NHWC": lambda: twf.unskew_unpack(col, geom.s, 1080, 1920),
             "K3 unskew_unpack planar": lambda: twf.unskew_unpack(col, geom.s, 1080, 1920, True)}
     for label, fn in ends.items():
         print(f"{tree}: {label}, 16 x 1080p FS: ms {ms(fn, 9)} [{card}]", flush=True)
     k1 = twf.skew_gather(frames, geom.s)
-    for other in ("K7 skew_transpose u8", "K6 skew_planar u8"):
-        if not torch.equal(k1, ends[other]()):
+    for other in ("K7 skew_transpose u8", "K6 skew_planar u8", "K7 skew_transpose u8 -> f32",
+                  "K7 skew_transpose float32", "K1 skew float32"):
+        got = ends[other]()
+        if not torch.equal(k1.to(got.dtype), got):
             print(f"{tree}: K1's stream != {other}'s", file=sys.stderr)
             return 1
-    del k1, planes, planes4, col
+        del got
+    del k1, planes, planes4, col, frames_f32
     if index_lines(tree, card, twf, stream, pals[32], geom, ms):
         return 1
-    frames_f32 = frames.to(torch.float32)
-    print(f"{tree}: K1 skew float32, 16 x 1080p FS: ms "
-          f"{ms(lambda: twf.skew_gather(frames_f32, geom.s), 9)} [{card}]", flush=True)
-    del frames_f32
 
-    if ordered_lines(tree, card, dev, frames, ms) or probe_lines(tree, card, dev, frames):
+    if (ordered_lines(tree, card, dev, frames, ms) or search_lines(tree, card, dev, ms)
+            or probe_lines(tree, card, dev, frames)):
         return 1
 
     if sweep:
@@ -343,6 +355,31 @@ def loop_ms(fn, launches: int) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop) / launches)
     return statistics.median(times)
+
+
+def search_lines(tree, card, dev, ms) -> bool:
+    """T2's lines; True if an output differs from its plain version."""
+    import torch
+
+    from dither_pie_tpu_torch import convert
+    from dither_pie_tpu_torch.tools import proto_mxu_search as probe
+
+    for pp in (256, 1024):
+        cur, pal = (torch.from_numpy(a).to(dev) for a in probe.probe_inputs(pp))
+        aug = convert.augment_palette(pal)
+        for form, fn, arg, plain in (("exact", probe.search_exact, pal, probe.search_exact_plain),
+                                     ("score", probe.search_score, aug, probe.search_score_plain)):
+            same = torch.equal(fn(cur, arg, 64), plain(cur, arg))
+            t = ms(lambda: fn(cur, arg, 64), 5)
+            g = graph_ms(lambda: fn(cur, arg, 1))
+            n = probe.probe_cluster_size(pp) if hasattr(probe, "probe_cluster_size") else 1
+            print(f"{tree}: T2 search probe {form} pp={pp} n={n}: one launch of 64 repetitions "
+                  f"ms {t}, {t[0] * 1e3 / 64:.4f} us a repetition; one repetition {g:.5f} ms a "
+                  f"launch in a CUDA graph of 100; == plain {same} [{card}]", flush=True)
+            if not same:
+                print(f"{tree}: T2 {form} pp={pp} != its plain version", file=sys.stderr)
+                return True
+    return False
 
 
 def probe_lines(tree, card, dev, frames) -> bool:

@@ -1,7 +1,8 @@
 """The dense-search path of the port (``dense_search="mxu"`` and ``"auto"``,
 ``DITHER_PIE_TPU_DENSE_SEARCH``) on the CPU: the score search of the scan's
 plain version, the augmented palette, the first-batch gate, the fidelity
-metrics and the search probe's plain versions.
+metrics and the search probe's plain versions, with a numpy model of the
+probe kernel's cluster split (slices, per-slice extremum, rank-order merge).
 
 Tolerances:
 * ``augment_palette`` against the JAX package's ``_pad_palette_aug``:
@@ -124,6 +125,110 @@ def test_probe_plain_versions_equal_numpy_twins(pp):
         assert (got[0, :5] == 3).all() and (got[1, :5] == 7).all()
     assert 0.0 <= probe.flip_fraction(exact, score) <= 0.02
     assert not build.LAUNCHES  # CPU tensors never launch a kernel
+
+
+def cluster_search_model(cur, pal, n, score):
+    """numpy model of ``search_probe.cu``'s cluster split: cur (3, N)
+    float32, pal (P, 3) -> (N,). Rank r searches the slice [lo_r, lo_{r+1})
+    of ``twf.palette_slices(P, n)`` for its first strict extremum, with key
+    the distance or the negated score (exact), and the candidates merge in
+    rank order keeping the first strict minimum of the key."""
+    bounds = twf.palette_slices(len(pal), n)
+    best_key = best_idx = None
+    for r in range(n):
+        lo, hi = bounds[r], bounds[r + 1]
+        if score:
+            f = np.float32
+            sl = pal[lo:hi]
+            nrm = f(-0.5) * ((sl[:, 0] * sl[:, 0] + sl[:, 1] * sl[:, 1]) + sl[:, 2] * sl[:, 2])
+            val = ((sl[:, 0, None] * cur[0][None] + sl[:, 1, None] * cur[1][None])
+                   + sl[:, 2, None] * cur[2][None]) + nrm[:, None]
+            local = np.argmax(val, axis=0)
+            key = -val[local, np.arange(cur.shape[1])]
+        else:
+            d = cur[None] - pal[lo:hi, :, None]
+            sq = d * d
+            val = (sq[:, 0] + sq[:, 1]) + sq[:, 2]
+            local = np.argmin(val, axis=0)
+            key = val[local, np.arange(cur.shape[1])]
+        assert key.dtype == np.float32
+        if r == 0:
+            best_key, best_idx = key, lo + local
+        else:
+            take = key < best_key  # strict: a tie keeps the lower rank
+            best_key = np.where(take, key, best_key)
+            best_idx = np.where(take, lo + local, best_idx)
+    return best_idx
+
+
+@pytest.mark.parametrize("form", ["exact", "score"])
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+@pytest.mark.parametrize("pp", [65, 256, 1024])
+def test_probe_cluster_model_equals_plain(pp, n, form):
+    """The cluster split of T2 (slices, per-slice strict extremum,
+    rank-order merge) == the single sweep's plain version, bit for bit, on
+    a palette with duplicate colours planted across every slice border (the
+    lower index, in the lower rank, must win) and lanes on those colours."""
+    nb, lf = 8, 24
+    cur, pal = probe.probe_inputs(pp, nb, lf, seed=pp + n)
+    bounds = twf.palette_slices(pp, n)
+    planted = []
+    for k, lo in enumerate(bounds[1:-1]):
+        pal[lo] = pal[lo - 1]  # the first colour of rank k + 1 repeats the last of rank k
+        cur[[k % nb, nb + k % nb, 2 * nb + k % nb], 8 + k] = pal[lo]
+        planted.append(lo)
+    pal[pp - 1] = pal[2]  # a far copy in the last slice
+    cur[[0, nb, 2 * nb], :4] = pal[2][:, None]
+    planted.append(pp - 1)
+    cur_t, pal_t = torch.from_numpy(cur), torch.from_numpy(pal)
+    if form == "exact":
+        want = probe.search_exact(cur_t, pal_t)
+    else:
+        want = probe.search_score(cur_t, convert.augment_palette(pal_t))
+    got = cluster_search_model(cur.reshape(3, nb * lf), pal, n, form == "score")
+    np.testing.assert_array_equal(got, want.numpy().ravel())
+    assert not np.isin(got, planted).any()  # later copies never win
+    assert (want[0, :4] == 2).all()
+
+
+@pytest.mark.parametrize("form", ["exact", "score"])
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+def test_probe_cluster_model_on_kmeans_inputs(n, form):
+    """The second input set (a k-means palette of a photo-like frame and
+    its pixels plus a diffused error, not integers): the cluster model ==
+    the plain version, bit for bit."""
+    nb, lf, pp = 8, 24, 65
+    cur, pal = probe.kmeans_inputs(pp, nb, lf)
+    assert cur.shape == (3 * nb, lf) and pal.shape == (pp, 3)
+    assert (cur != np.round(cur)).mean() > 0.5 and 0 <= cur.min() and cur.max() <= 255
+    cur_t, pal_t = torch.from_numpy(cur), torch.from_numpy(pal)
+    if form == "exact":
+        want = probe.search_exact(cur_t, pal_t)
+    else:
+        want = probe.search_score(cur_t, convert.augment_palette(pal_t))
+    got = cluster_search_model(cur.reshape(3, nb * lf), pal, n, form == "score")
+    np.testing.assert_array_equal(got, want.numpy().ravel())
+
+
+def test_probe_cluster_sizes():
+    """The probe's blocks a frame: the scan's table unless given; a size the
+    kernel does not take, or more blocks than colours, is refused."""
+    assert [probe.probe_cluster_size(p) for p in (1, 55, 56, 127, 128, 1024)] == [
+        1, 1, 4, 4, 8, 8]
+    assert probe.probe_cluster_size(256, 2) == 2
+    with pytest.raises(ValueError):
+        probe.probe_cluster_size(256, 3)
+    with pytest.raises(ValueError):
+        probe.probe_cluster_size(4, 8)
+
+
+def test_probe_step_fit():
+    """``fit_step`` recovers c_n + k * P / n from times made by it."""
+    k, c = 0.035, {1: 1.6, 2: 2.7, 4: 2.9, 8: 3.5}
+    times = {n: {p: c[n] + k * p / n for p in (64, 256, 1024)} for n in c}
+    k_fit, c_fit, resid = probe.fit_step(times)
+    assert abs(k_fit - k) < 1e-9 and resid < 1e-9
+    assert all(abs(c_fit[n] - c[n]) < 1e-9 for n in c)
 
 
 def test_probe_refuses_bad_inputs():

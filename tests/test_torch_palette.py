@@ -10,6 +10,8 @@ package's, on the CPU.
   of the JAX palette's, in both directions.
 """
 
+import sys
+
 import numpy as np
 import pytest
 
@@ -74,3 +76,69 @@ def test_kmeans_inertia_close_to_jax():
     i_port, i_ref = _inertia(pts, port), _inertia(pts, ref)
     assert i_port <= INERTIA_RATIO_MAX * i_ref, (i_port, i_ref)
     assert i_ref <= INERTIA_RATIO_MAX * i_port, (i_port, i_ref)
+
+
+# ---------------------------------------------------------------------------
+# DITHER_PIE_TPU_KMEANS=sklearn: the reference's exact fit, as the JAX
+# package routes it. At <= sample_cap pixels no sampling happens, so the two
+# packages' palettes are equal.
+# ---------------------------------------------------------------------------
+
+SKLEARN_SWITCHES = ["sklearn", "reference", "SKLEARN", "Reference"]
+
+
+def _degenerate_image():
+    img = np.zeros((3, 4, 3), np.uint8)
+    img[0, 0] = (255, 0, 0)
+    img[1, 2] = (0, 9, 200)
+    return img
+
+
+@pytest.mark.parametrize("switch", SKLEARN_SWITCHES)
+@pytest.mark.parametrize("num_colors", [2, 16, 32])
+def test_kmeans_sklearn_switch_equals_jax(monkeypatch, switch, num_colors):
+    pytest.importorskip("sklearn")
+    monkeypatch.setenv(tpal.KMEANS_ENV, switch)
+    img = bench.synth_image(80, 125, 3)  # 10,000 pixels: no subsample
+    port = tpal.kmeans_palette(img, num_colors, random_state=5, device="cpu")
+    assert port == jpal.kmeans_palette(img, num_colors, random_state=5)
+    assert len(port) == num_colors
+
+
+@pytest.mark.parametrize("switch", SKLEARN_SWITCHES)
+def test_kmeans_sklearn_switch_degenerate_equals_jax(monkeypatch, switch):
+    pytest.importorskip("sklearn")
+    monkeypatch.setenv(tpal.KMEANS_ENV, switch)
+    img = _degenerate_image()
+    port = tpal.kmeans_palette(img, 16, device="cpu")
+    assert port == jpal.kmeans_palette(img, 16)
+    assert len(port) == 16 and (255, 0, 0) in port
+
+
+@pytest.mark.parametrize("value", [None, "", "torch", "exact"])
+def test_kmeans_without_switch_takes_torch_fit(monkeypatch, value):
+    def refuse(*a, **k):
+        raise AssertionError("sklearn route taken without the switch")
+
+    monkeypatch.setattr(tpal, "_kmeans_palette_sklearn", refuse)
+    img = bench.synth_image(60, 80, 1)
+    monkeypatch.delenv(tpal.KMEANS_ENV, raising=False)
+    want = tpal.kmeans_palette(img, 16, random_state=7, device="cpu")
+    if value is not None:
+        monkeypatch.setenv(tpal.KMEANS_ENV, value)
+    assert tpal.kmeans_palette(img, 16, random_state=7, device="cpu") == want
+
+
+@pytest.mark.parametrize("switch", ["sklearn", "REFERENCE"])
+def test_kmeans_sklearn_switch_without_sklearn_raises(monkeypatch, switch):
+    monkeypatch.setenv(tpal.KMEANS_ENV, switch)
+    # A None entry in sys.modules makes the import raise ImportError.
+    monkeypatch.setitem(sys.modules, "sklearn", None)
+    monkeypatch.setitem(sys.modules, "sklearn.cluster", None)
+
+    def refuse(*a, **k):
+        raise AssertionError("fell back to the torch fit")
+
+    monkeypatch.setattr(tpal, "_kmeans_fit", refuse)
+    with pytest.raises(ImportError, match=tpal.KMEANS_ENV):
+        tpal.kmeans_palette(bench.synth_image(20, 30, 1), 4, device="cpu")

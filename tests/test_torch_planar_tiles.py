@@ -10,7 +10,10 @@ numpy model of the kernel's walk (``test_torch_skew_tiles.skew_model``,
 the same walk with C = 1) reproduces ``skew_planar_plain`` bit for bit on
 flat byte buffers with the tensors off the 16-byte boundary and random
 bytes around them, every output byte written exactly once. The K1 cases
-(C = 3) stay in ``test_torch_skew_tiles.py``. Everything here is exact.
+(C = 3) stay in ``test_torch_skew_tiles.py``. K7's cast form (uint8 planes
+into a float32 stream, the float32 plan) is the same walk with a uint8
+load, held to ``skew_transpose_plain(..., torch.float32)``. Everything here
+is exact.
 """
 
 import numpy as np
@@ -32,11 +35,20 @@ def _planes(r, h, w, seed, dtype):
     return rng.uniform(-8.0, 263.0, (r, h, w)).astype(np.float32)
 
 
-def _hold_planar(r, h, w, s, dtype, in_off, out_off):
+def _hold_planar(r, h, w, s, dtype, in_off, out_off, out_dtype=None):
+    """The model == ``skew_planar_plain`` bitwise; with ``out_dtype``
+    float32 from uint8 planes (K7's cast form, the float32 plan), ==
+    ``skew_transpose_plain`` cast to float32."""
     planes = _planes(r, h, w, 5 * h + w + r, dtype)
-    plan = twf.skew_tile_plan(r, h, w, s, torch.from_numpy(planes).dtype, out_off % 32, 1)
-    got = skew_model(planes[..., None], s, plan, in_off, out_off)
-    want = twf.skew_planar_plain(torch.from_numpy(planes), s).numpy()
+    x = torch.from_numpy(planes)
+    if out_dtype is None:
+        plan = twf.skew_tile_plan(r, h, w, s, x.dtype, out_off % 32, 1)
+        want = twf.skew_planar_plain(x, s).numpy()
+    else:
+        plan = twf.skew_tile_plan(r, h, w, s, torch.float32, out_off % 32, 1)
+        want = twf.skew_transpose_plain(x, s, torch.float32).numpy()
+    got = skew_model(planes[..., None], s, plan, in_off, out_off, out_dtype=out_dtype)
+    assert got.dtype == want.dtype
     assert got.shape == want.shape and np.array_equal(got.view(np.uint8), want.view(np.uint8))
 
 
@@ -99,6 +111,17 @@ def test_planar_model_u8_equals_plain(h, s, layout):
 def test_planar_model_f32_equals_plain(h, s):
     for (r, in_off, out_off), w in zip(PLANAR_LAYOUTS * 2, WS):
         _hold_planar(r, h, w, s, np.float32, in_off - in_off % 4, out_off - out_off % 4)
+
+
+@pytest.mark.parametrize("layout", PLANAR_LAYOUTS, ids=lambda v: f"r{v[0]}-in{v[1]}-out{v[2]}")
+@pytest.mark.parametrize("s", (2, 3))
+@pytest.mark.parametrize("h", HS)
+def test_planar_model_u8_to_f32_equals_plain(h, s, layout):
+    """K7's cast form on planes (uint8 at any offset, a float32 stream on a
+    4-byte boundary)."""
+    r, in_off, out_off = layout
+    for w in WS:
+        _hold_planar(r, h, w, s, np.uint8, in_off, out_off - out_off % 4, np.float32)
 
 
 @pytest.mark.parametrize("case", [

@@ -1,5 +1,5 @@
 """The tile walks of K1 (``skew.cu``) and K3 (``unskew_unpack.cu``), held
-on the CPU.
+on the CPU; K7 is K1's walk with a uint8 load into a float32 stream.
 
 Neither CUDA kernel runs here, so this file holds what they are built
 from: the tile plans of ``dither_pie_tpu_torch.ops.wavefront``
@@ -117,20 +117,27 @@ def _funnel_read(smem32, blk, word_index, shift):
     return (q & np.uint64(0xFFFFFFFF)).astype(np.uint32)
 
 
-def skew_model(frames: np.ndarray, s: int, plan, in_off: int, out_off: int, seed=0):
+def skew_model(frames: np.ndarray, s: int, plan, in_off: int, out_off: int, seed=0,
+               out_dtype=None):
     """The walk of ``skew.cu``'s tile kernel: (B, H, W, C) uint8 or float32
-    frames at byte offset ``in_off`` -> the (D, C*B, H) stream written at
-    ``out_off``. C = 3 is K1; C = 1 is K6, its R planes as (R, H, W, 1)."""
+    frames at byte offset ``in_off`` -> the (D, C*B, H) stream of
+    ``out_dtype`` (the frames' dtype, or float32 from uint8: K7's cast)
+    written at ``out_off``. C = 3 is K1; C = 1 is K6, its R planes as
+    (R, H, W, 1). Shared memory holds the output type: the load widens each
+    element as it de-interleaves it, every size but the load's word count
+    is the output type's."""
     rng = np.random.RandomState(seed)
     b, h, w, nc = frames.shape
-    e = frames.dtype.itemsize
+    out_dtype = np.dtype(frames.dtype if out_dtype is None else out_dtype)
+    ei = frames.dtype.itemsize  # input element bytes
+    e = out_dtype.itemsize  # output and shared-memory element bytes
     td, ty, nt, lead = plan.td, plan.ty, plan.threads, plan.lead
     assert lead == twf.skew_lead_rows(h, e, out_off % 32)
     d_total = w + s * (h - 1)
     rows = nc * td  # stream rows (dd, c) of the tile, r = C*dd + c
     slots = rows + rows // 32  # row r sits in slot r + r/32
     pitch = (ty + 32 // e) * e + 4  # bytes of a stream row in shared memory
-    wpr = nc * td * e // 16 + 1  # most covering words of a frame-row run
+    wpr = nc * td * ei // 16 + 1  # most covering words of a frame-row run
     nwr = ty * e // 16 + 1  # most covering words of a stream run
     smem_bytes = 16 + slots * pitch + 32
     assert smem_bytes == plan.smem_bytes <= SMEM_STATIC_MAX
@@ -157,16 +164,16 @@ def skew_model(frames: np.ndarray, s: int, plan, in_off: int, out_off: int, seed
     y = y0[:, None] - lead + j
     xlo = np.maximum(0, d0[:, None] - s * y)
     xhi = np.minimum(w, d0[:, None] + td - s * y)
-    row = in_off + (bb[:, None] * h + y).astype(np.int64) * (w * nc * e)
-    addr, live = _covering_words(row + xlo * nc * e, row + xhi * nc * e, k)
+    row = in_off + (bb[:, None] * h + y).astype(np.int64) * (w * nc * ei)
+    addr, live = _covering_words(row + xlo * nc * ei, row + xhi * nc * ei, k)
     live &= (y >= ya[:, None]) & (y <= yb[:, None]) & ~empty[:, None]
     assert not live[:, (ty + lead) * wpr:].any()
     blk, item = np.nonzero(live)
     words = src.words(addr[blk, item])
-    vals = words.view(frames.dtype)  # (n, 16 / e)
+    vals = words.view(frames.dtype)  # (n, 16 / ei)
     yb_, jb = y[blk, item], j[item]
-    e0 = (addr[blk, item] - row[blk, item]) // e  # element of the row, may be < 0
-    el = e0[:, None] + np.arange(16 // e)
+    e0 = (addr[blk, item] - row[blk, item]) // ei  # element of the row, may be < 0
+    el = e0[:, None] + np.arange(16 // ei)
     ok = (el >= nc * xlo[blk, item][:, None]) & (el < nc * xhi[blk, item][:, None])
     # Element el = C*x + c of the row is pixel x, channel c, and goes to the
     # stream row r = C*dd + c with dd = x + s*y - d0: r = el + C*(s*y - d0),
@@ -174,11 +181,11 @@ def skew_model(frames: np.ndarray, s: int, plan, in_off: int, out_off: int, seed
     # slot once; element i sits i slots further, one more from i = t on.
     r0 = e0 + nc * (s * yb_ - d0[blk])
     t = 32 - (r0 & 31)
-    i = np.arange(16 // e)
+    i = np.arange(16 // ei)
     at = (16 + (r0 + (r0 >> 5)) * pitch + jb * e)[:, None] + (i + (i >= t[:, None])) * pitch
     r = r0[:, None] + i
     assert np.array_equal(at, 16 + (r + (r >> 5)) * pitch + jb[:, None] * e)
-    at, vb = at[ok], vals[ok]
+    at, vb = at[ok], vals[ok].astype(out_dtype)  # the cast: exact
     blk_el = np.broadcast_to(blk[:, None], ok.shape)[ok]
     assert np.all((r[ok] >= 0) & (r[ok] < rows))
     for byte in range(e):
@@ -209,7 +216,7 @@ def skew_model(frames: np.ndarray, s: int, plan, in_off: int, out_off: int, seed
     q = _funnel_read(smem.view(np.uint32), blk, word, o & 3)
     q[empty[blk]] = 0  # empty tiles store zeros without loading
     _store_words(dst, gs, ge, addr[blk, item], q.view(np.uint8).reshape(-1, 16))
-    return dst.tensor(frames.dtype, (d_total, nc * b, h))
+    return dst.tensor(out_dtype, (d_total, nc * b, h))
 
 
 def _byte_perm(x, y, sel):
@@ -491,11 +498,20 @@ def _frames(b, h, w, seed, dtype):
     return rng.uniform(-8.0, 263.0, (b, h, w, 3)).astype(np.float32)
 
 
-def _hold_skew(b, h, w, s, dtype, in_off, out_off):
+def _hold_skew(b, h, w, s, dtype, in_off, out_off, out_dtype=None):
+    """The model == ``skew_plain`` bitwise; with ``out_dtype`` float32 from
+    uint8 frames (K7's cast form, the float32 plan), == ``skew_transpose_plain``
+    cast to float32."""
     frames = _frames(b, h, w, 7 * h + w, dtype)
-    plan = twf.skew_tile_plan(b, h, w, s, torch.from_numpy(frames).dtype, out_off % 32)
-    got = skew_model(frames, s, plan, in_off, out_off)
-    want = twf.skew_plain(torch.from_numpy(frames), s).numpy()
+    x = torch.from_numpy(frames)
+    if out_dtype is None:
+        plan = twf.skew_tile_plan(b, h, w, s, x.dtype, out_off % 32)
+        want = twf.skew_plain(x, s).numpy()
+    else:
+        plan = twf.skew_tile_plan(b, h, w, s, torch.float32, out_off % 32)
+        want = twf.skew_transpose_plain(x, s, torch.float32).numpy()
+    got = skew_model(frames, s, plan, in_off, out_off, out_dtype=out_dtype)
+    assert got.dtype == want.dtype
     assert got.shape == want.shape and np.array_equal(got.view(np.uint8), want.view(np.uint8))
 
 
@@ -538,6 +554,17 @@ def test_skew_model_f32_equals_plain(h, s):
         _hold_skew(b, h, w, s, np.float32, in_off - in_off % 4, out_off - out_off % 4)
 
 
+@pytest.mark.parametrize("layout", LAYOUTS, ids=lambda v: f"b{v[0]}-in{v[1]}-out{v[2]}")
+@pytest.mark.parametrize("s", (2, 3))
+@pytest.mark.parametrize("h", HS)
+def test_skew_model_u8_to_f32_equals_plain(h, s, layout):
+    """K7's cast form (uint8 frames at any offset, a float32 stream on a
+    4-byte boundary): the walk of the float32 plan with a uint8 load."""
+    b, in_off, out_off = layout
+    for w in WS:
+        _hold_skew(b, h, w, s, np.uint8, in_off, out_off - out_off % 4, np.float32)
+
+
 @pytest.mark.parametrize("planar", (False, True), ids=("nhwc", "planar"))
 @pytest.mark.parametrize("layout", LAYOUTS, ids=lambda v: f"b{v[0]}-in{v[1]}-out{v[2]}")
 @pytest.mark.parametrize("s", (2, 3))
@@ -556,6 +583,14 @@ def test_skew_model_across_row_tiles(case):
     last row tile cut short."""
     b, h, w, s, dtype = case
     _hold_skew(b, h, w, s, dtype, 3 if dtype == np.uint8 else 4, 0)
+
+
+@pytest.mark.parametrize("case", [(2, 300, 70, 2), (1, 97, 130, 3)],
+                         ids=lambda v: f"{v[0]}x{v[1]}x{v[2]}-s{v[3]}")
+def test_skew_model_u8_to_f32_across_row_tiles(case):
+    """K7's cast form over several row and step tiles."""
+    b, h, w, s = case
+    _hold_skew(b, h, w, s, np.uint8, 5, 4, np.float32)
 
 
 @pytest.mark.parametrize("planar", (False, True), ids=("nhwc", "planar"))

@@ -1,7 +1,11 @@
 """K7, the transposing skew of the port (ops.wavefront.skew_transpose), on
-the CPU: its plain PyTorch version and the free stride-lemma view that the
-CUDA kernel reads, held against K1's and K6's plain versions and against
-the JAX package's Pallas kernel ``_skew_transpose_call`` in interpret mode.
+the CPU: its plain PyTorch version held against K1's and K6's plain
+versions and against the JAX package's Pallas kernel
+``_skew_transpose_call`` in interpret mode, and the routing: on the card
+K7 is the type pairs of K1's and K6's tile kernel (``skew.cu``), and
+``skew`` / ``skew_planar`` send frames of either dtype to K1 / K6 (the
+kernel's walk is held in test_torch_skew_tiles.py and
+test_torch_planar_tiles.py, widths W <= s here too).
 
 Tolerances: none. Skewing moves values and casts uint8 to float32, both
 exact, so every comparison is bitwise. The JAX kernel's input shows other
@@ -21,6 +25,7 @@ import dither_pie_tpu as jdpt
 import dither_pie_tpu_torch as tdpt
 from dither_pie_tpu_torch.kernels import build
 from dither_pie_tpu_torch.ops import wavefront as twf
+from test_torch_skew_tiles import skew_model
 
 DTYPES = {"u8": np.uint8, "f32": np.float32}
 
@@ -64,9 +69,12 @@ def test_plain_equals_k1_and_k6_everywhere(b, h, w, dtype, s):
     assert _same_bits(twf.skew_transpose_plain(nhwc, s), want)
     assert _same_bits(twf.skew_transpose_plain(planes, s), want)
     assert _same_bits(twf.skew_planar_plain(planes, s), want)
-    # The wrappers run the plain versions on CPU tensors and launch nothing.
+    # The wrappers run the plain versions on CPU tensors and launch nothing;
+    # float32 frames and planes too give K1's plain stream.
     assert _same_bits(twf.skew_transpose(nhwc, s), want)
     assert _same_bits(twf.skew_transpose(planes, s), want)
+    assert _same_bits(twf.skew(nhwc, s), want)
+    assert _same_bits(twf.skew_planar(planes, s), want)
     assert not build.LAUNCHES
 
 
@@ -85,43 +93,23 @@ def test_u8_to_f32_is_the_cast_of_the_u8_stream(layout, s):
 @pytest.mark.parametrize("w", [1, 2, 3])
 @pytest.mark.parametrize("dtype", DTYPES.values(), ids=DTYPES.keys())
 def test_narrow_widths(dtype, w, s):
-    """W <= s: the stride lemma's row stride W - s would be <= 0, which no
-    view has. The plain version pads every row to D + s and serves any
-    width; the view pads the frames to W = s + 1 first and K7 masks the
-    padding with the true width."""
+    """W <= s: the plain version pads every row to D + s and serves any
+    width; the card's tile kernel needs no view and serves them too: its
+    walk (the numpy model of ``skew.cu``, with the plan K7 launches) gives
+    the plain stream, NHWC and planes, in each of K7's type pairs."""
     b, h = 2, 6
     frames = _frames(b, h, w, 3, dtype)
     nhwc, planes = torch.from_numpy(frames), torch.from_numpy(_planes(frames))
     want = twf.skew_plain(nhwc, s)
     assert _same_bits(twf.skew_transpose_plain(nhwc, s), want)
     assert _same_bits(twf.skew_transpose_plain(planes, s), want)
-    inside = np.broadcast_to(_inside(h, w, s)[:, None, :], tuple(want.shape))
-    for x in (nhwc, planes):
-        view = twf._stride_lemma_view(x, s)
-        assert view.shape[-1] == twf.stream_length(h, w, s)
-        assert min(view.stride()) >= 0
-        stream = view.reshape(3 * b, h, -1).permute(2, 0, 1).numpy()
-        np.testing.assert_array_equal(stream[inside], want.numpy()[inside])
-
-
-@pytest.mark.parametrize("s", [2, 3])
-@pytest.mark.parametrize("dtype", DTYPES.values(), ids=DTYPES.keys())
-@pytest.mark.parametrize("layout", ["nhwc", "planes"])
-def test_view_is_free_and_shows_the_stream_on_the_parallelogram(layout, dtype, s):
-    """What the CUDA kernel reads: a view of the frames' own buffer (no
-    copy), whose element (r, y, d) is the pixel (y, d - s*y) inside the
-    image; with the kernel's mask it is the plain version's stream."""
-    b, h, w = 3, 11, 17
-    frames = _frames(b, h, w, 4, dtype)
-    x = torch.from_numpy(frames if layout == "nhwc" else _planes(frames))
-    view = twf._stride_lemma_view(x, s)
-    assert view.data_ptr() == x.data_ptr()  # the same buffer
-    assert view.shape == ((3, b, h, twf.stream_length(h, w, s)) if layout == "nhwc"
-                          else (3 * b, h, twf.stream_length(h, w, s)))
-    stream = view.reshape(3 * b, h, -1).permute(2, 0, 1)
-    inside = torch.from_numpy(_inside(h, w, s))[:, None, :]
-    masked = torch.where(inside, stream, torch.zeros((), dtype=stream.dtype))
-    assert _same_bits(masked.contiguous(), twf.skew_transpose_plain(x, s))
+    out_dtypes = (np.uint8, np.float32) if dtype == np.uint8 else (np.float32,)
+    for out_dtype in out_dtypes:
+        tdt = torch.from_numpy(np.zeros(1, out_dtype)).dtype
+        for x, channels in ((frames, 3), (_planes(frames)[..., None], 1)):
+            plan = twf.skew_tile_plan(x.shape[0], h, w, s, tdt, 0, channels)
+            got = skew_model(x, s, plan, 0, 0, out_dtype=out_dtype)
+            assert _same_bits(torch.from_numpy(got), want.to(tdt))
 
 
 @pytest.mark.parametrize("s", [2, 3])
@@ -155,6 +143,58 @@ def test_plain_matches_interpreted_pallas_kernel(case, s):
     assert not got[~inside].any()  # the port's stream: 0 outside the image
 
 
+@pytest.fixture
+def on_card(monkeypatch):
+    """The wrappers' CUDA branch on CPU tensors: ``build.on_cuda`` says
+    yes and the tile launch is replaced by a stand-in that records the
+    output type and channel count it was asked for, computes the plan the
+    binding would check, and returns the plain stream of that type."""
+    calls = []
+
+    def launch(x, s, out_dtype):
+        channels = 3 if x.dim() == 4 else 1
+        twf.skew_tile_plan(x.shape[0], x.shape[1], x.shape[2], s, out_dtype, 0, channels)
+        calls.append((x.dtype, out_dtype, channels))
+        return twf.skew_transpose_plain(x, s, out_dtype)
+
+    monkeypatch.setattr(build, "on_cuda", lambda t: True)
+    monkeypatch.setattr(twf, "_launch_skew", launch)
+    build.reset_launch_counts()
+    yield calls
+    build.reset_launch_counts()
+
+
+@pytest.mark.parametrize("dtype", DTYPES.values(), ids=DTYPES.keys())
+@pytest.mark.parametrize("layout", ["nhwc", "planes"])
+def test_card_routes_either_dtype_to_k1_and_k6(on_card, layout, dtype):
+    """On the card ``skew`` sends frames of either dtype to K1 and
+    ``skew_planar`` planes to K6 (their launch keys; never K7's), in the
+    frames' own type, with K1's plain stream as the result."""
+    frames = _frames(2, 7, 9, 11, dtype)
+    x = torch.from_numpy(frames if layout == "nhwc" else _planes(frames))
+    got = twf.skew(x, 2) if layout == "nhwc" else twf.skew_planar(x, 2)
+    assert _same_bits(got, twf.skew_plain(torch.from_numpy(frames), 2))
+    key = "skew" if layout == "nhwc" else "skew_planar"
+    assert dict(build.LAUNCHES) == {key: 1}
+    tdt = torch.from_numpy(frames).dtype
+    assert on_card == [(tdt, tdt, 3 if layout == "nhwc" else 1)]
+
+
+@pytest.mark.parametrize("pair", ["u8", "f32", "u8->f32"])
+@pytest.mark.parametrize("layout", ["nhwc", "planes"])
+def test_card_skew_transpose_is_the_tile_kernel(on_card, layout, pair):
+    """K7's wrapper on the card launches the tile kernel in its type pair,
+    C = 3 for frames and 1 for planes, and counts under its own key."""
+    frames = _frames(2, 7, 9, 12, np.float32 if pair == "f32" else np.uint8)
+    x = torch.from_numpy(frames if layout == "nhwc" else _planes(frames))
+    out_dtype = torch.float32 if pair == "u8->f32" else None
+    got = twf.skew_transpose(x, 3, out_dtype)
+    want_dtype = torch.float32 if pair != "u8" else torch.uint8
+    assert _same_bits(got, twf.skew_plain(torch.from_numpy(frames), 3).to(want_dtype))
+    assert dict(build.LAUNCHES) == {"skew_transpose": 1}
+    assert on_card == [(x.dtype, want_dtype, 3 if layout == "nhwc" else 1)]
+
+
 def test_refusals():
     with pytest.raises(ValueError, match="frames must be"):
         twf.skew_transpose(torch.zeros((2, 3, 4, 5), dtype=torch.uint8), 2)
@@ -170,9 +210,10 @@ def test_refusals():
 @pytest.mark.parametrize("planar", [False, True], ids=["nhwc", "planar"])
 @pytest.mark.parametrize("variant", ["floyd_steinberg", "jjn"])
 def test_float32_batches_are_unchanged(variant, planar):
-    """float32 frames reach the stream through K7 on the card; the function
-    is the one K1 and K6 compute, so on the CPU the output of a float32
-    batch equals that of the same batch through the stream built by hand."""
+    """float32 frames reach the stream through K1 (K6 for planes) on the
+    card, as uint8 ones do; the function is K7's, so on the CPU the output
+    of a float32 batch equals that of the same batch through K7's plain
+    stream built by hand."""
     frames = _frames(2, 12, 18, 6, np.float32)
     pal = torch.from_numpy(np.random.RandomState(7).randint(0, 256, (16, 3)).astype(np.float32))
     geom = twf.scan_geometry(variant)
@@ -185,9 +226,9 @@ def test_float32_batches_are_unchanged(variant, planar):
 
 
 def test_float32_facade_output_equals_jax_package():
-    """``apply_dithering`` hands the kernels one float32 frame (K7's path on
-    the card). Its output equals the JAX package's bit for bit (both equal
-    the golden engine's f32 twin)."""
+    """``apply_dithering`` hands the kernels one float32 frame (K1's float32
+    form on the card). Its output equals the JAX package's bit for bit
+    (both equal the golden engine's f32 twin)."""
     from PIL import Image
 
     rng = np.random.RandomState(8)
