@@ -75,6 +75,18 @@ a non-zero exit code and no result line:
    also beside the one PyTorch call that computes it, pal_u8[idx.as_strided
    (...)] over the truncated u8 palette table, its library_ms), and the
    k-means-256 batch wall (its traced call is phase 6's second trace);
+   then K9 (``select_phase``: the "select" kind of unskew_unpack.cu's tile
+   kernel after its palette-packing kernel) == plain bitwise at P in
+   (1025, 2048, 4096, 16384) on palettes with fractional entries and
+   planted duplicates, at phase 13's odd shapes (widths W <= s among them),
+   s = 2 and 3, streams whole and off the 16-byte boundary, into outputs
+   1-15 bytes off the boundary with random bytes around them (untouched),
+   and on the index scan's 480p streams at 2048 and 16384 colours; K9's
+   row times (kernel and library call in CUDA graphs of 100, the kernel
+   also by CUDA events) at 2048 and 16384 colours beside the bound, and in
+   the same run K3's NHWC kind and K5's u8 and u16 kinds of the same tile
+   kernel at 16 x 1080p FS k-means-32 (each == plain, in CUDA graphs of
+   100);
 9. the video pipeline's two transfer shapes, the index stream and planar
    batches: K5 (unskew of the index stream, u8 and u16), K6 (skew of
    compact planes) and K3's planar layout held to their plain versions
@@ -157,13 +169,25 @@ a non-zero exit code and no result line:
    (``device="cpu"``, the plain path) bitwise on 2 frames, identity with a
    numpy float64 twin of the mode on 2 frames (wavelet >= 0.98, halftone >=
    0.995) and the batch wall (median of 5); the device times of the
-   wavelet's stages and of halftone; T1, the gather probe: the gather held
-   to its plain version and to np.take_along_axis at 64, 512 and 4096
-   rows, the gather chain to its plain version at 256 to 16384 rows (k = 1
-   and 68), the select sweep to its plain version at P = 64, 256, 1024
-   (k = 3) and, at k = 1026, to the gather chain on its tile, then the
-   tool's lines (microseconds a gather by table height, a sweep step
-   beside a gather on the same tile) with the launch counts of that run;
+   wavelet's stages and of halftone; T1, the gather probe
+   (``gather_phase``; the forms of ``gather_slab_plan``: block, multicast
+   lane slabs, distributed lane slabs): the gather held to its plain
+   version and to np.take_along_axis at 64, 512, 1024, 4096 and 16384
+   rows, both chains ("chain" and "sweep") at 256 to 16384 rows (k = 1 and
+   68), the gather and the chains on output rows that are not the table's
+   ((512, 37), (1024, 333), (4096, 1001), (7169, 50), (16384, 777)), a
+   table off the 16-byte boundary, and the L2 line (the block body on the
+   table in device memory) at every height of the tool; the launcher's
+   refusals (a table off the boundary, lanes % 8 != 0, a plan that is not
+   the plan function's, a multicast cluster of 4, a cluster of 16, the
+   wrong form);
+   the select sweep to its plain version at P = 64, 256, 1024 (k = 3) and,
+   at k = 1026, to the gather chain on its tile, then the tool's lines
+   (microseconds a gather by table height and form beside the L2 line, a
+   sweep step beside a gather on the same tile) with the launch counts of
+   that run, and the row's times (the gather alone at 4096 rows,
+   torch.gather, the L2 line, an empty kernel and the 4 MB copy idx -> out,
+   each in a CUDA graph of 100);
    T3, the identity (``identity_phase``): == its input and == clone() at
    (3, 2160, 1920), an odd size, a view off the 16-byte boundary and 15
    bytes, and pairs of views into outputs at chosen offsets that agree and
@@ -243,6 +267,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import ctypes
+import dataclasses
 import json
 import os
 import re
@@ -319,7 +344,7 @@ KERNELS = [  # (launch-count key, source, replaced TPU kernel)
 IDX_KERNELS = [  # the path of palettes above 1024 colours, with K1
     ("ed_scan_idx", "dither_pie_tpu_torch/kernels/csrc/ed_scan.cu",
      "dither_pie_tpu/ops/wavefront.py:144"),
-    ("unskew_select", "dither_pie_tpu_torch/kernels/csrc/unskew_select.cu",
+    ("unskew_select", "dither_pie_tpu_torch/kernels/csrc/unskew_unpack.cu",
      "dither_pie_tpu/ops/wavefront.py:1709"),
 ]
 TRANSFER_KERNELS = [  # the index stream and the planar layout
@@ -1137,23 +1162,12 @@ def ed_modes_phase(torch, dev, card, lib, frames16, frame0, palette32, palette25
         new_rows.append({"name": key, "route": "cuda", "source": source, "replaces": replaces,
                          "launches": totals[key], "max_abs_err": errs[key], "ms": ms,
                          "plain_ms": plain_ms, **cluster, **bounds[key]})
-        if key == "unskew_select":
-            k9_out = got
     scan_row["max_abs_err"] = errs["ed_scan"]
-    # One PyTorch call computes K9: the truncated u8 palette table (a (P, 3)
-    # set-up cast, made once) indexed by a strided view of the stream. Timed
-    # here, used nowhere in the port.
-    pal_u8 = pals_t[2048].to(torch.int32).to(torch.uint8)
-    bh = BATCH * SD_H
-    lib_ms, lib_out = cuda_ms(torch, lambda: pal_u8[sd_idx.as_strided(
-        (BATCH, SD_H, SD_W), (SD_H, fs.s * bh + 1, bh))], 3)
-    hold(torch, "unskew_select", lib_out, k9_out, errs,
-         f"pal_u8[idx.as_strided(...)] against K9, {BATCH}x{SD_H}x{SD_W}")
-    new_rows[-1]["library_ms"] = lib_ms
-    log(f"[8] unskew_select as one PyTorch call, pal_u8[idx.as_strided((B, H, W), (H, "
-        f"s*B*H + 1, B*H))] over the truncated u8 palette table: {lib_ms:.3f} ms, equal to "
-        f"the kernel bitwise [{card}]")
-    del lib_out, k9_out
+    # K9's row: its times in CUDA graphs beside its library call (a device
+    # time shorter than its enqueue), its holds at every palette size.
+    new_rows[-1].update(select_phase(torch, dev, card, twf, sd_stream, sd_idx, pals_t[2048],
+                                     fs, errs, stream, pal32_t))
+    new_rows[-1]["max_abs_err"] = errs["unskew_select"]
 
     walls = []
     for _ in range(5):
@@ -1165,6 +1179,148 @@ def ed_modes_phase(torch, dev, card, lib, frames16, frame0, palette32, palette25
         f"{wall * 1e3:.3f} ms/batch{BATCH} -> {BATCH / wall:.2f} fps (5 runs: "
         f"{', '.join(f'{t * 1e3:.3f}' for t in walls)}) [{card}]")
     return new_rows
+
+
+SELECT_SIZES = (1025, 2048, 4096, 16384)  # K9's palettes: above K2's 1024, to K8's 16384
+
+
+def select_palette(rng, p):
+    """A K9 test palette: p random float32 colours in [0, 256) with
+    fractional entries (12.9, 255.5 and 0.3 truncate) and duplicate colours
+    planted at both ends and every 7th row."""
+    pal = np.minimum(rng.uniform(0.0, 256.0, (p, 3)), 255.99).astype(np.float32)
+    pal[:3] = [[12.9, 255.5, 0.3], [255.5, 12.9, 0.0], [0.3, 0.3, 255.0]]
+    pal[p - 1] = pal[0]
+    pal[p // 2] = pal[1]
+    pal[1::7] = pal[0::7][:len(pal[1::7])]
+    return pal
+
+
+def select_phase(torch, dev, card, twf, sd_stream, sd_idx, pal2048, fs, errs, stream,
+                 pal32):
+    """Phase 8's K9 checks and times: ``unskew_select`` (the "select" kind
+    of ``unskew_unpack.cu``'s tile kernel, after its palette-packing
+    kernel) == ``unskew_select_plain`` bitwise at P in SELECT_SIZES on
+    palettes with fractional entries and planted duplicates, at the odd
+    shapes of phase 13 (B in TILE_BS, H in TILE_HS, W in TILE_WS, widths
+    W <= s among them) with s = 2 and 3, on random indices of the palette,
+    streams whole and as slices off the 16-byte boundary, through the
+    wrapper and through ``launch_unskew`` into outputs 1-15 bytes off the
+    boundary with random bytes around them, which must stay as they were;
+    then K9's times at 16 x 480p on the index scan's own streams at 2048
+    and 16384 colours beside its library call, and in the same run the
+    other kinds of the tile kernel on the 16 x 1080p FS k-means-32 batch
+    (``stream``, ``pal32``): K3's NHWC kind on the scan's colours and K5's
+    u8 and u16 kinds on its indices, each held to its plain version, each
+    a launch in a CUDA graph of 100 (tools/time_ed_path.py times them on
+    the parent in the same call). Returns the row's extra entries."""
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(8)
+    pals = {p: torch.from_numpy(select_palette(rng, p)).to(dev) for p in SELECT_SIZES}
+    count = 0
+
+    def at_offset(col, pal, s, h, w, off):
+        """K9 through ``launch_unskew`` into an output ``off`` bytes into a
+        buffer of random bytes; the bytes around the output must not move."""
+        n = col.shape[1] * h * w * 3
+        buf = torch.from_numpy(rng.randint(0, 256, off + n + 32).astype(np.uint8)).to(dev)
+        before = buf.clone()
+        out = buf[off:off + n].view(col.shape[1], h, w, 3)
+        twf.launch_unskew(col, out, s, "select", pal)
+        check(torch.equal(buf[:off], before[:off]) and torch.equal(buf[off + n:],
+                                                                   before[off + n:]),
+              f"unskew_select wrote outside its output (offset {off}, {h}x{w} s={s})")
+        return out
+
+    i = 0
+    for s in (2, 3):
+        for b in TILE_BS:
+            for h in TILE_HS:
+                for w in TILE_WS:
+                    p = SELECT_SIZES[i % len(SELECT_SIZES)]
+                    off = 1 + i % 15
+                    i += 1
+                    d = twf.stream_length(h, w, s)
+                    buf = torch.from_numpy(
+                        rng.randint(0, p, d * b * h + 1).astype(np.int32)).to(dev)
+                    for col, name in ((buf[:-1].view(d, b, h), "whole"),
+                                      (buf[1:].view(d, b, h), "slice")):
+                        want = twf.unskew_select_plain(col, pals[p], s, h, w)
+                        what = f"B={b} {h}x{w} s={s} P={p} {name}"
+                        hold(torch, "unskew_select", twf.unskew_select(col, pals[p], s, h, w),
+                             want, errs, what)
+                        hold(torch, "unskew_select", at_offset(col, pals[p], s, h, w, off),
+                             want, errs, f"{what}, output {off} bytes off the boundary")
+                        count += 2
+    # The index scan's own streams at 480p: 2048 colours (the main path's)
+    # and 16384 (the largest K8 takes), on planted duplicates.
+    sd_idx16k = twf.scan_idx(sd_stream, pals[16384], fs, SD_W)
+    for idx, pal, p in ((sd_idx, pal2048, 2048), (sd_idx16k, pals[16384], 16384)):
+        hold(torch, "unskew_select", twf.unskew_select(idx, pal, fs.s, SD_H, SD_W),
+             twf.unskew_select_plain(idx, pal, fs.s, SD_H, SD_W), errs,
+             f"the index scan's stream, {BATCH}x{SD_H}x{SD_W} P={p}")
+        count += 1
+    sync(torch, dev)
+    log(f"[8] K9 (unskew_select: the select kind of K3's tile kernel) == plain, bitwise, at "
+        f"P in {SELECT_SIZES} (fractional entries, planted duplicates), B in {TILE_BS}, H in "
+        f"{TILE_HS}, W in {TILE_WS}, s = 2 and 3, whole and as slices off the 16-byte "
+        f"boundary, into fresh outputs and outputs 1-15 bytes off the boundary (the bytes "
+        f"around them untouched), and on the index scan's {BATCH}x{SD_H}x{SD_W} streams at "
+        f"2048 and 16384 colours: {count} comparisons ({time.perf_counter() - t0:.1f} s) "
+        f"[{card}]")
+
+    # K9's times at 2048 and 16384 colours, each call in a CUDA graph of 100
+    # (its device time is shorter than its enqueue), beside its library call
+    # and its bound. The library call is the truncated u8 palette table (a
+    # (P, 3) set-up cast, made once) indexed by a strided view of the
+    # stream, timed here and used nowhere in the port.
+    from dither_pie_tpu_torch.tools.time_ed_path import graph_ms
+
+    n_sd = BATCH * SD_H * SD_W
+    bh = BATCH * SD_H
+    extra = {}
+    for idx, pal, p in ((sd_idx, pal2048, 2048), (sd_idx16k, pals[16384], 16384)):
+        kernel = lambda: twf.unskew_select(idx, pal, fs.s, SD_H, SD_W)
+        got = kernel()
+        pal_u8 = pal.to(torch.int32).to(torch.uint8)
+        view = idx.as_strided((BATCH, SD_H, SD_W), (SD_H, fs.s * bh + 1, bh))
+        hold(torch, "unskew_select", pal_u8[view], got, errs, f"the library call, P={p}")
+        ms, lib_ms = graph_ms(kernel), graph_ms(lambda: pal_u8[view])
+        enq_ms, _ = cuda_ms(torch, kernel, 5)
+        b_ = bound(n_sd * 4 + p * 12 + n_sd * 3, 0)["bound_ms"]
+        log(f"[8] unskew_select {BATCH}x{SD_H}x{SD_W} P={p}, ms a launch in a CUDA graph of "
+            f"100: kernel {ms:.5f}, library call {lib_ms:.5f}; enqueued one call at a time "
+            f"(CUDA events) {enq_ms:.5f}; bound {b_:.5f} ms by bytes [{card}]")
+        extra.update({f"p{p}_ms": ms, f"p{p}_library_ms": lib_ms,
+                      f"p{p}_enqueued_ms": enq_ms, f"p{p}_bound_ms": b_})
+        del got
+    extra.update(ms=extra["p2048_ms"], library_ms=extra["p2048_library_ms"],
+                 enqueued_ms=extra["p2048_enqueued_ms"])
+    del sd_idx16k
+
+    # The other kinds of the same tile kernel, which the select kind must
+    # not slow: K3 NHWC and K5 u8 / u16 at 16 x 1080p.
+    col = twf.scan(stream, pal32, fs, FULL_W)
+    idx = twf.scan_idx(stream, pal32, fs, FULL_W)
+    kinds = {"K3 NHWC": ("unskew_unpack", lambda: twf.unskew_unpack(col, fs.s, FULL_H, FULL_W),
+                         lambda: twf.unskew_unpack_plain(col, fs.s, FULL_H, FULL_W)),
+             "K5 u8": ("unskew_idx",
+                       lambda: twf.unskew_idx(idx, fs.s, FULL_H, FULL_W, torch.uint8),
+                       lambda: twf.unskew_idx_plain(idx, fs.s, FULL_H, FULL_W, torch.uint8)),
+             "K5 u16": ("unskew_idx",
+                        lambda: twf.unskew_idx(idx, fs.s, FULL_H, FULL_W, torch.uint16),
+                        lambda: twf.unskew_idx_plain(idx, fs.s, FULL_H, FULL_W, torch.uint16))}
+    kind_ms = {}
+    for label, (key, kernel, plain) in kinds.items():
+        got, want = kernel(), plain()
+        hold(torch, key, got, want, errs, f"{label}, {BATCH}x{FULL_H}x{FULL_W} FS k-means-32")
+        kind_ms[label] = graph_ms(kernel)
+        del got, want
+    log(f"[8] the tile kernel's other kinds in the same run, {BATCH}x{FULL_H}x{FULL_W} FS "
+        f"k-means-32, each == plain, ms a launch in a CUDA graph of 100: "
+        f"{', '.join(f'{k} {v:.5f}' for k, v in kind_ms.items())} [{card}]")
+    extra["other_kinds_ms"] = kind_ms
+    return extra
 
 
 # ---------------------------------------------------------------------------
@@ -2311,6 +2467,7 @@ def cluster_phase(torch, dev, card, frames16, errs):
 # Phase 11: wavelet and halftone, K4 on float32 frames, the probes T1 and T3
 # ---------------------------------------------------------------------------
 
+T1_ROWS = 4096  # T1's row time: the gather alone on a 4096 x 128 table
 PROBE_KERNELS = [
     ("gather_probe", "dither_pie_tpu_torch/kernels/csrc/gather_probe.cu",
      "tools/gather_probe.py:24"),
@@ -2375,7 +2532,6 @@ def transform_phase(torch, dev, card, frames16, palette32, rows, errs):
     from dither_pie_tpu_torch.ops import ordered_fused as tof
     from dither_pie_tpu_torch.ops import wavelet as twav
     from dither_pie_tpu_torch.core import thresholds as thr
-    from dither_pie_tpu_torch.tools import gather_probe as gp
 
     def on_card(arr):
         return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
@@ -2557,22 +2713,110 @@ def transform_phase(torch, dev, card, frames16, palette32, rows, errs):
                   max_abs_err=max(k4_row["max_abs_err"], errs["ordered_fused"]))
     del rec, batch_t
 
-    # --- T1: the gather probe ---------------------------------------------
+    return [gather_phase(torch, dev, card, errs),
+            identity_phase(torch, dev, card, frames16, errs)]
+
+
+def gather_phase(torch, dev, card, errs):
+    """Phase 11's T1: the gather in its three forms (``gather_slab_plan``:
+    block, multicast, distributed) == its plain version and
+    np.take_along_axis at every table height of the tool, its chains at
+    k = 1 and 68 in both updates, output rows that are not the table's, a
+    table off the 16-byte boundary; the L2 line (``gather_chain_l2``, the
+    block body on the table in device memory) likewise; the launcher's
+    refusals; the select sweep == the gather on its tile; the tool's lines
+    with their launch counts; the row's times beside the floor (an empty
+    kernel, a 4 MB copy) and the L2 line in CUDA graphs of 100. Returns the
+    kernels-line row of T1."""
+    from dither_pie_tpu_torch.kernels import build
+    from dither_pie_tpu_torch.tools import gather_probe as gp
+
+    def on_card(arr):
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+
     t0 = time.perf_counter()
+    forms = {}
+
+    def form_of(tbl, idx):
+        """The default plan's form, recorded by table height."""
+        plan = gp.gather_slab_plan(tbl.shape[0], idx.shape[0], tbl.shape[1])
+        forms[(tbl.shape[0], plan.form)] = plan.cluster
+        return plan
+
+    # The plan's forms (gather_chain) and the L2 line (gather_chain_l2).
+    lines = (("gather_probe", gp.gather_chain, ""), ("gather_probe_l2", gp.gather_chain_l2,
+                                                     " (L2 line)"))
     for n_rows in gp.CHECK_ROWS:
         tbl_np, idx_np = gp.gather_inputs(n_rows)
         tbl, idx = on_card(tbl_np), on_card(idx_np)
-        got = gp.gather_chain(tbl, idx)
-        hold(torch, "gather_probe", got, gp.gather_chain_plain(tbl, idx), errs,
-             f"gather, rows={n_rows}")
-        check(np.array_equal(got.cpu().numpy(), np.take_along_axis(tbl_np, idx_np, axis=0)),
-              f"gather rows={n_rows} != np.take_along_axis")
+        form_of(tbl, idx)
+        for key, fn, what in lines:
+            got = fn(tbl, idx)
+            hold(torch, key, got, gp.gather_chain_plain(tbl, idx), errs,
+                 f"gather, rows={n_rows}{what}")
+            check(np.array_equal(got.cpu().numpy(), np.take_along_axis(tbl_np, idx_np, axis=0)),
+                  f"gather rows={n_rows}{what} != np.take_along_axis")
     for n_rows in gp.CHAIN_ROWS:
         tbl, idx = (on_card(a) for a in gp.chain_inputs(n_rows))
-        for k in (1, 68):
-            hold(torch, "gather_probe", gp.gather_chain(tbl, idx, k, "chain"),
-                 gp.gather_chain_plain(tbl, idx, k, "chain"), errs,
-                 f"gather chain, rows={n_rows}, k={k}")
+        form_of(tbl, idx)
+        for update in ("chain", "sweep"):
+            for k in (1, 68):
+                want = gp.gather_chain_plain(tbl, idx, k, update)
+                for key, fn, what in lines:
+                    hold(torch, key, fn(tbl, idx, k, update), want, errs,
+                         f"gather {update}, rows={n_rows}, k={k}{what}")
+    # Output rows that are not the table's, nor a multiple of 8.
+    rng = np.random.RandomState(11)
+    for n_rows, n in ((512, 37), (1024, 333), (4096, 1001), (7169, 50), (16384, 777)):
+        tbl_np = rng.randint(0, n_rows, (n_rows, gp.LF)).astype(np.int32)
+        idx_np = rng.randint(0, n_rows, (n, gp.LF)).astype(np.int32)
+        tbl, idx = on_card(tbl_np), on_card(idx_np)
+        form_of(tbl, idx)
+        got = gp.gather_chain(tbl, idx)
+        hold(torch, "gather_probe", got, gp.gather_chain_plain(tbl, idx), errs,
+             f"gather, rows={n_rows}, n={n}")
+        check(np.array_equal(got.cpu().numpy(), np.take_along_axis(tbl_np, idx_np, axis=0)),
+              f"gather rows={n_rows} n={n} != np.take_along_axis")
+        for update, k in (("chain", 68),) + ((("sweep", 68),) if n_rows & (n_rows - 1) == 0
+                                              else ()):
+            hold(torch, "gather_probe", gp.gather_chain(tbl, idx, k, update),
+                 gp.gather_chain_plain(tbl, idx, k, update), errs,
+                 f"gather {update}, rows={n_rows}, n={n}, k={k}")
+    # A table off the 16-byte boundary goes as a fresh copy; the launcher
+    # itself refuses it, a width that is not whole lane groups, a plan that
+    # is not the plan function's: among them a multicast cluster of 4 and a
+    # cluster above 8.
+    tbl, idx = (on_card(a) for a in gp.gather_inputs(4096))
+    shifted = torch.empty(tbl.numel() + 1, dtype=torch.int32, device=dev)[1:].view(tbl.shape)
+    shifted.copy_(tbl)
+    hold(torch, "gather_probe", gp.gather_chain(shifted, idx), gp.gather_chain_plain(tbl, idx),
+         errs, "gather, a table 4 bytes off the 16-byte boundary")
+    plan = gp.gather_slab_plan(4096, 4096, gp.LF)
+    narrow = tbl[:, :100].contiguous()
+    refusals = {"a table off the 16-byte boundary": (shifted, idx, plan),
+                "lanes % 8 != 0": (narrow, idx[:, :100].contiguous(), plan),
+                "a plan that is not the plan function's":
+                    (tbl, idx, dataclasses.replace(plan, rows_per_block=plan.rows_per_block + 1)),
+                "a multicast cluster of 4": (tbl, idx, dataclasses.replace(plan, cluster=4)),
+                "a cluster of 16": (tbl, idx, dataclasses.replace(plan, cluster=16)),
+                "a distributed plan for a multicast table":
+                    (tbl, idx, dataclasses.replace(plan, form="distributed", cluster=8))}
+    for what, (t, i, pl) in refusals.items():
+        try:
+            gp.launch_gather(t, i, torch.empty_like(i), 1, "none", pl)
+            refused = False
+        except RuntimeError:
+            refused = True
+        check(refused, f"the gather launcher took {what}")
+    sync(torch, dev)
+    log(f"[11] kernel == plain, bitwise: the gather at rows {gp.CHECK_ROWS} (== "
+        f"np.take_along_axis), the chains \"chain\" and \"sweep\" at rows {gp.CHAIN_ROWS} "
+        f"(k = 1 and 68), each also on the L2 line, the gather and both chains at "
+        f"(rows, n) = (512, 37), (1024, 333), (4096, 1001), (7169, 50), (16384, 777), and "
+        f"a table off the 16-byte boundary; the launcher refuses "
+        f"{', '.join(refusals)}; forms by table height "
+        f"{', '.join(f'{r}: {f} C={c}' for (r, f), c in sorted(forms.items()))} "
+        f"({time.perf_counter() - t0:.1f} s)")
     k_hi = gp.SWEEP_K[0] + gp.SWEEP_K[1] * 64
     for p in gp.SWEEP_SIZES:
         tbl, idx = (on_card(a) for a in gp.sweep_inputs(p))
@@ -2583,11 +2827,8 @@ def transform_phase(torch, dev, card, frames16, palette32, rows, errs):
              errs, f"gather on the sweep's tile, P={p}, k={k_hi}")
         hold(torch, "gather_probe", gp.sweep_chain(tbl, idx, k_hi), same_tile, errs,
              f"select sweep against the gather on its tile, P={p}, k={k_hi}")
-    log(f"[11] kernel == plain, bitwise: the gather at rows {gp.CHECK_ROWS} (== "
-        f"np.take_along_axis), the gather chain at rows {gp.CHAIN_ROWS} (k = 1 and 68), the "
-        f"select sweep at P {gp.SWEEP_SIZES} (k = 3), and at k = {k_hi} the sweep == the "
-        f"gather chain on its tile == that chain's plain version "
-        f"({time.perf_counter() - t0:.1f} s)")
+    log(f"[11] the select sweep == plain at P {gp.SWEEP_SIZES} (k = 3), and at k = {k_hi} the "
+        f"sweep == the gather chain on its tile == that chain's plain version")
     # The tool's lines, with the launch counts of its run.
     build.reset_launch_counts()
     checks = {n_rows: gp.check_gather(n_rows, dev) for n_rows in gp.CHECK_ROWS}
@@ -2595,42 +2836,61 @@ def transform_phase(torch, dev, card, frames16, palette32, rows, errs):
     sweeps = {str(p): gp.probe_sweep(p, 64, dev) for p in gp.SWEEP_SIZES}
     gather_launches = build.LAUNCHES["gather_probe"]
     sweep_launches = build.LAUNCHES["gather_probe_sweep"]
-    check(set(build.LAUNCHES) == {"gather_probe", "gather_probe_sweep"}
-          and gather_launches >= 1 and sweep_launches >= 1,
+    l2_launches = build.LAUNCHES["gather_probe_l2"]
+    check(set(build.LAUNCHES) == {"gather_probe", "gather_probe_sweep", "gather_probe_l2"}
+          and min(gather_launches, sweep_launches, l2_launches) >= 1,
           f"the gather probe launched {dict(build.LAUNCHES)}")
     for n_rows, ok in checks.items():
         check(ok, f"gather rows={n_rows}: WRONG")
         log(f"[11] gather rows={n_rows}: OK exact [{card}]")
     for n_rows, r in chains.items():
         log(f"[11] gather rows={n_rows}: {r['us_per_op']:.4f} us/op ({r['ns_per_row']:.4f} "
-            f"ns/row), table in {r['memory']} [{card}]")
+            f"ns/row), table in {r['memory']}; from L2 {r['l2_us_per_op']:.4f} us/op [{card}]")
     for p, r in sweeps.items():
         check(r["equal"], f"select sweep P={p} != the gather on its tile")
         log(f"[11] select-sweep P={p} ({gp.SWEEP_TILE_ROWS}-row tile): "
             f"{r['sweep_us_per_op']:.4f} us/op; gather on the same tile: "
             f"{r['gather_us_per_op']:.4f} us/op, sweep / gather "
-            f"{r['sweep_us_per_op'] / r['gather_us_per_op']:.1f}x, outputs equal, table in "
-            f"{r['memory']} [{card}]")
-    # The row's times: the gather alone at the tool's largest check table.
-    tbl, idx = (on_card(a) for a in gp.gather_inputs(gp.CHECK_ROWS[-1]))
+            f"{r['sweep_us_per_op'] / r['gather_us_per_op']:.1f}x, outputs equal, the sweep's "
+            f"table in {r['sweep_memory']}, the gather's in {r['memory']} [{card}]")
+    # The row's times: the gather alone on the 4096 x 128 table, each call in
+    # a CUDA graph of 100 (a launch is shorter than its enqueue), beside the
+    # floor: an empty kernel and a coalesced copy of the gather's own idx
+    # and out bytes (4 MB) in the same graph, and beside the L2 line.
+    from dither_pie_tpu_torch.tools.time_ed_path import graph_ms
+
+    tbl, idx = (on_card(a) for a in gp.gather_inputs(T1_ROWS))
     idx64 = idx.long()
-    t1_ms, got = cuda_ms(torch, lambda: gp.gather_chain(tbl, idx), 7)
+    copy_out = torch.empty_like(idx)
+    ext = build.extension()
+    t1_ms = graph_ms(lambda: gp.gather_chain(tbl, idx))
+    t1_lib_ms = graph_ms(lambda: torch.gather(tbl, 0, idx64))
+    l2_ms = graph_ms(lambda: gp.gather_chain_l2(tbl, idx))
+    empty_ms = graph_ms(lambda: ext.empty_kernel(idx))
+    copy_ms = graph_ms(lambda: copy_out.copy_(idx))
+    enq_ms, got = cuda_ms(torch, lambda: gp.gather_chain(tbl, idx), 7)
     t1_plain_ms, want = cuda_ms(torch, lambda: gp.gather_chain_plain(tbl, idx), 7)
-    t1_lib_ms, lib_out = cuda_ms(torch, lambda: torch.gather(tbl, 0, idx64), 7)
     hold(torch, "gather_probe", got, want, errs, "the timed gather")
-    check(torch.equal(got, lib_out), "the timed gather != torch.gather")
+    check(torch.equal(got, torch.gather(tbl, 0, idx64)), "the timed gather != torch.gather")
+    check(torch.equal(copy_out, idx), "the floor's copy != idx")
     t1_bound = bound(3 * tbl.numel() * 4, 0)
     t1_bound["library_ms"] = t1_lib_ms
-    log(f"[11] gather alone, rows={gp.CHECK_ROWS[-1]} x {gp.LF} int32: kernel {t1_ms:.4f} ms, "
-        f"plain PyTorch {t1_plain_ms:.4f} ms, torch.gather on int64 indices "
-        f"{t1_lib_ms:.4f} ms, bound {t1_bound['bound_ms']:.5f} ms by bytes [{card}]")
+    plan = gp.gather_slab_plan(T1_ROWS, T1_ROWS, gp.LF)
+    log(f"[11] gather alone, rows={T1_ROWS} x {gp.LF} int32 ({plan.form}, C={plan.cluster}), "
+        f"ms a launch in a CUDA graph of 100: kernel {t1_ms:.5f}, torch.gather on int64 "
+        f"indices {t1_lib_ms:.5f}, the L2 line {l2_ms:.5f}; the floor: an empty kernel "
+        f"{empty_ms:.5f}, the 4 MB copy "
+        f"idx -> out {copy_ms:.5f}; kernel - copy {t1_ms - copy_ms:.5f} ms; enqueued one call "
+        f"at a time (CUDA events) {enq_ms:.5f}; plain PyTorch {t1_plain_ms:.4f}; bound "
+        f"{t1_bound['bound_ms']:.5f} ms by bytes [{card}]")
 
-    return [{"name": "gather_probe", "route": "cuda", "source": PROBE_KERNELS[0][1],
+    return {"name": "gather_probe", "route": "cuda", "source": PROBE_KERNELS[0][1],
              "replaces": PROBE_KERNELS[0][2], "launches": gather_launches,
-             "sweep_launches": sweep_launches, "max_abs_err": errs["gather_probe"],
-             "ms": t1_ms, "plain_ms": t1_plain_ms, "chain": chains, "sweep": sweeps,
-             **t1_bound},
-            identity_phase(torch, dev, card, frames16, errs)]
+             "sweep_launches": sweep_launches, "l2_launches": l2_launches,
+             "l2_ms": l2_ms, "max_abs_err": errs["gather_probe"],
+             "ms": t1_ms, "plain_ms": t1_plain_ms, "enqueued_ms": enq_ms,
+             "empty_kernel_ms": empty_ms, "copy_ms": copy_ms, "form": plan.form,
+             "cluster": plan.cluster, "chain": chains, "sweep": sweeps, **t1_bound}
 
 
 def identity_phase(torch, dev, card, frames16, errs):

@@ -181,8 +181,10 @@ def _f32(x: float) -> float:
 
 
 def ign_thresholds(h: int, w: int, scale: float = 1.0, seed: int = 0,
-                   device: DeviceLike = "cpu") -> torch.Tensor:
-    """Per-pixel IGN threshold map of shape (h, w), float32, on ``device``.
+                   device: DeviceLike = "cuda") -> torch.Tensor:
+    """Per-pixel IGN threshold map of shape (h, w), float32, on ``device``
+    (the card unless the caller asks for the CPU, as every entry point of
+    the port).
 
     ``fract(52.9829189 * fract(0.06711056*x + 0.00583715*y))`` with the
     reference's seed offsets (x += seed*0.37, y += seed*0.73) and frequency

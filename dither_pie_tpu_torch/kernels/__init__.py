@@ -3,8 +3,8 @@
 ``csrc/`` holds the sources: ``skew.cu`` (K1, K6 and K7, one tile
 transpose over C = 3 or 1 channels, u8 or f32 in, u8 or f32 out),
 ``ed_scan.cu`` (K2 and K8, with the score branch), ``unskew_unpack.cu``
-(K3 and K5, one tile transpose by output kind), ``ordered.cu`` (K4),
-``unskew_select.cu`` (K9), ``search_probe.cu``, ``gather_probe.cu`` and
+(K3, K5 and K9, one tile transpose by output kind), ``ordered.cu`` (K4),
+``search_probe.cu``, ``gather_probe.cu`` and
 ``identity.cu`` (the probes T2, T1, T3) and the PyTorch binding
 ``bindings.cpp``;
 ``tile_copy.cuh`` holds the 16-byte word moves that the tile transposes

@@ -14,6 +14,7 @@
 #include <cuda_runtime_api.h>
 
 #include <algorithm>
+#include <optional>
 #include <vector>
 
 #include "launchers.h"
@@ -289,18 +290,23 @@ int64_t ed_scan_capacity(bool img_f32, int64_t mode, bool emit_idx,
     return clusters;
 }
 
-// K3 (kind 0 NHWC, 1 planar: uint8 colours) and K5 (kind 2, 3: the uint8
-// or uint16 index stream), one tile transpose of the (D, B, H) int32 stream.
+// K3 (kind 0 NHWC, 1 planar: uint8 colours), K5 (kind 2, 3: the uint8 or
+// uint16 index stream) and K9 (kind 4: the colours of palette indices, with
+// the (P, 3) float32 palette and a (P,) int32 scratch for its packed form),
+// one tile transpose of the (D, B, H) int32 stream.
 void unskew(torch::Tensor col, torch::Tensor out, int64_t s, int64_t kind, int64_t td,
             int64_t ty, int64_t lead, int64_t threads, std::vector<int64_t> grid,
-            int64_t smem_bytes) {
+            int64_t smem_bytes, std::optional<torch::Tensor> palette,
+            std::optional<torch::Tensor> table) {
     check_tensor(col, "col", col);
     check_tensor(out, "out", col);
     TORCH_CHECK(col.scalar_type() == torch::kInt32 && col.dim() == 3,
                 "col must be (D, B, H) int32");
-    TORCH_CHECK(kind >= 0 && kind <= 3, "kind must be 0 (NHWC), 1 (planar), 2 (u8) or 3 (u16)");
+    TORCH_CHECK(kind >= 0 && kind <= 4,
+                "kind must be 0 (NHWC), 1 (planar), 2 (u8), 3 (u16) or 4 (select)");
     const bool planar = kind == 1;
-    if (kind <= 1) {
+    const bool select = kind == 4;
+    if (kind <= 1 || select) {
         TORCH_CHECK(out.scalar_type() == torch::kUInt8 && out.dim() == 4 &&
                         out.size(planar ? 0 : 3) == 3,
                     planar ? "out must be (3, B, H, W) uint8"
@@ -310,6 +316,26 @@ void unskew(torch::Tensor col, torch::Tensor out, int64_t s, int64_t kind, int64
                                                                 ? torch::kUInt8
                                                                 : c10::ScalarType::UInt16),
                     kind == 2 ? "out must be (B, H, W) uint8" : "out must be (B, H, W) uint16");
+    }
+    TORCH_CHECK(select == (palette.has_value() && table.has_value()),
+                select ? "the select kind takes a palette and a table"
+                       : "only the select kind takes a palette and a table");
+    const float* pal = nullptr;
+    uint32_t* tab = nullptr;
+    int P = 0;
+    if (select) {
+        check_tensor(*palette, "palette", col);
+        check_tensor(*table, "table", col);
+        TORCH_CHECK(palette->scalar_type() == torch::kFloat32 && palette->dim() == 2 &&
+                        palette->size(1) == 3 && palette->size(0) >= 1 &&
+                        palette->size(0) <= DPT_IDX_MAX_PALETTE,
+                    "palette must be (P, 3) float32, P in 1..", DPT_IDX_MAX_PALETTE);
+        P = as_int(palette->size(0), "P");
+        TORCH_CHECK(table->scalar_type() == torch::kInt32 && table->dim() == 1 &&
+                        table->size(0) == P,
+                    "table must be (P,) int32");
+        pal = palette->data_ptr<float>();
+        tab = reinterpret_cast<uint32_t*>(table->data_ptr<int32_t>());
     }
     const int lead_dims = planar ? 1 : 0;
     const int B = as_int(out.size(lead_dims), "B");
@@ -321,8 +347,8 @@ void unskew(torch::Tensor col, torch::Tensor out, int64_t s, int64_t kind, int64
     const DptTilePlan plan = tile_plan(td, ty, lead, threads, grid, smem_bytes);
     const c10::cuda::CUDAGuard guard(col.device());
     check_launch(dpt_unskew(col.data_ptr<int32_t>(), out.data_ptr(), B, H, W, (int)s,
-                            (int)kind, plan, current_stream(col)),
-                 kind <= 1 ? "unskew_unpack" : "unskew_idx");
+                            (int)kind, plan, pal, P, tab, current_stream(col)),
+                 select ? "unskew_select" : kind <= 1 ? "unskew_unpack" : "unskew_idx");
 }
 
 void search_probe(torch::Tensor cur, torch::Tensor palette, torch::Tensor out,
@@ -358,34 +384,6 @@ void search_probe(torch::Tensor cur, torch::Tensor palette, torch::Tensor out,
                                   out.data_ptr<int32_t>(),
                                   current_stream(cur)),
                  "search_probe");
-}
-
-void unskew_select(torch::Tensor idx, torch::Tensor palette,
-                   torch::Tensor out, int64_t s) {
-    check_tensor(idx, "idx", idx);
-    check_tensor(palette, "palette", idx);
-    check_tensor(out, "out", idx);
-    TORCH_CHECK(idx.scalar_type() == torch::kInt32 && idx.dim() == 3,
-                "idx must be (D, B, H) int32");
-    TORCH_CHECK(palette.scalar_type() == torch::kFloat32 &&
-                    palette.dim() == 2 && palette.size(1) == 3 &&
-                    palette.size(0) >= 1,
-                "palette must be (P, 3) float32");
-    TORCH_CHECK(out.scalar_type() == torch::kUInt8 && out.dim() == 4 &&
-                    out.size(3) == 3,
-                "out must be (B, H, W, 3) uint8");
-    const int B = as_int(out.size(0), "B");
-    const int H = as_int(out.size(1), "H");
-    const int W = as_int(out.size(2), "W");
-    TORCH_CHECK(s >= 1 && idx.size(0) >= W + s * (H - 1) &&
-                    idx.size(1) == B && idx.size(2) == H,
-                "idx must be (>= W + s*(H-1), B, H)");
-    const c10::cuda::CUDAGuard guard(idx.device());
-    check_launch(dpt_unskew_select(idx.data_ptr<int32_t>(),
-                                   palette.data_ptr<float>(),
-                                   out.data_ptr<uint8_t>(), B, H, W, (int)s,
-                                   current_stream(idx)),
-                 "unskew_select");
 }
 
 void ordered_fused(torch::Tensor images, torch::Tensor palette,
@@ -449,7 +447,42 @@ void ordered_fused(torch::Tensor images, torch::Tensor palette,
 }
 
 void gather_chain(torch::Tensor table, torch::Tensor idx, torch::Tensor out,
-                  int64_t k, int64_t update, bool use_smem) {
+                  int64_t k, int64_t update, int64_t form, int64_t cluster,
+                  int64_t rows_per_block, int64_t slab_rows, int64_t threads, int64_t grid,
+                  int64_t smem_bytes) {
+    check_tensor(table, "table", table);
+    check_tensor(idx, "idx", table);
+    check_tensor(out, "out", table);
+    TORCH_CHECK(table.scalar_type() == torch::kInt32 && table.dim() == 2,
+                "table must be (rows, lanes) int32");
+    TORCH_CHECK(idx.scalar_type() == torch::kInt32 && idx.dim() == 2 &&
+                    idx.size(1) == table.size(1),
+                "idx must be (n, lanes) int32");
+    TORCH_CHECK(out.scalar_type() == torch::kInt32 &&
+                    out.sizes() == idx.sizes(),
+                "out must be (n, lanes) int32");
+    DptGatherPlan plan;
+    plan.form = as_int(form, "form");
+    plan.cluster = as_int(cluster, "cluster");
+    plan.rows_per_block = as_int(rows_per_block, "rows_per_block");
+    plan.slab_rows = as_int(slab_rows, "slab_rows");
+    plan.threads = as_int(threads, "threads");
+    plan.grid = as_int(grid, "grid");
+    plan.smem_bytes = as_int(smem_bytes, "smem_bytes");
+    const c10::cuda::CUDAGuard guard(table.device());
+    check_launch(dpt_gather_chain(table.data_ptr<int32_t>(),
+                                  idx.data_ptr<int32_t>(),
+                                  out.data_ptr<int32_t>(),
+                                  as_int(table.size(0), "rows"),
+                                  as_int(idx.size(0), "n"),
+                                  as_int(table.size(1), "lanes"),
+                                  as_int(k, "k"), as_int(update, "update"),
+                                  plan, current_stream(table)),
+                 "gather_chain");
+}
+
+void gather_chain_l2(torch::Tensor table, torch::Tensor idx, torch::Tensor out, int64_t k,
+                     int64_t update) {
     check_tensor(table, "table", table);
     check_tensor(idx, "idx", table);
     check_tensor(out, "out", table);
@@ -462,15 +495,18 @@ void gather_chain(torch::Tensor table, torch::Tensor idx, torch::Tensor out,
                     out.sizes() == idx.sizes(),
                 "out must be (n, lanes) int32");
     const c10::cuda::CUDAGuard guard(table.device());
-    check_launch(dpt_gather_chain(table.data_ptr<int32_t>(),
-                                  idx.data_ptr<int32_t>(),
-                                  out.data_ptr<int32_t>(),
-                                  as_int(table.size(0), "rows"),
-                                  as_int(idx.size(0), "n"),
-                                  as_int(table.size(1), "lanes"),
-                                  as_int(k, "k"), as_int(update, "update"),
-                                  use_smem ? 1 : 0, current_stream(table)),
-                 "gather_chain");
+    check_launch(dpt_gather_chain_l2(table.data_ptr<int32_t>(), idx.data_ptr<int32_t>(),
+                                     out.data_ptr<int32_t>(), as_int(table.size(0), "rows"),
+                                     as_int(idx.size(0), "n"), as_int(table.size(1), "lanes"),
+                                     as_int(k, "k"), as_int(update, "update"),
+                                     current_stream(table)),
+                 "gather_chain_l2");
+}
+
+void empty_kernel(torch::Tensor like) {
+    TORCH_CHECK(like.is_cuda(), "like must be a CUDA tensor");
+    const c10::cuda::CUDAGuard guard(like.device());
+    check_launch(dpt_empty_kernel(current_stream(like)), "empty_kernel");
 }
 
 void sweep_chain(torch::Tensor table, torch::Tensor idx, torch::Tensor out,
@@ -532,20 +568,26 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
     m.def("ed_scan_capacity", &ed_scan_capacity,
           "K2 / K8: clusters of n blocks the device holds at once");
     m.def("unskew", &unskew,
-          "K3 / K5: (D,B,H) int32 -> (B,H,W,3) or planar (3,B,H,W) uint8 colours, or the "
-          "(B,H,W) uint8 or uint16 index stream");
+          "K3 / K5 / K9: (D,B,H) int32 -> (B,H,W,3) or planar (3,B,H,W) uint8 colours, the "
+          "(B,H,W) uint8 or uint16 index stream, or the (B,H,W,3) colours of palette indices",
+          py::arg("col"), py::arg("out"), py::arg("s"), py::arg("kind"), py::arg("td"),
+          py::arg("ty"), py::arg("lead"), py::arg("threads"), py::arg("grid"),
+          py::arg("smem_bytes"), py::arg("palette") = py::none(),
+          py::arg("table") = py::none());
     m.def("search_probe", &search_probe,
           "T2: exact or scored palette search over a (3*nb, lf) tile, "
           "repeated iters times, a frame over a cluster of n blocks -> (nb, lf) "
           "int32");
-    m.def("unskew_select", &unskew_select,
-          "K9: (D,B,H) palette indices + palette -> (B,H,W,3) uint8");
     m.def("ordered_fused", &ordered_fused,
           "K4: ordered dither (B,H,W,3) uint8 or float32 -> colours or "
           "indices");
     m.def("gather_chain", &gather_chain,
           "T1: k dependent per-lane table gathers an element, (n, lanes) "
-          "int32");
+          "int32, in the plan's form (block, multicast or distributed slabs)");
+    m.def("gather_chain_l2", &gather_chain_l2,
+          "T1's L2 line: the gather's block body on the table in device memory");
+    m.def("empty_kernel", &empty_kernel,
+          "T1's floor: an empty kernel of one warp on the device of `like`");
     m.def("sweep_chain", &sweep_chain,
           "T1: k select sweeps over the table's P rows an element, "
           "(n, lanes) int32");

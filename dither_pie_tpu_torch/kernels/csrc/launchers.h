@@ -84,10 +84,10 @@ struct DptScanArgs {
                    // blocks the card holds at once
 };
 
-// One launch of the tile transposes K1, K3, K5 and K6, as the wrapper
+// One launch of the tile transposes K1, K3, K5, K6 and K9, as the wrapper
 // planned it (ops.wavefront.skew_tile_plan / unskew_tile_plan): tiles of td
 // steps by ty rows, `lead` rows above each tile (K1, K6: the sector phase of
-// its output rows) or steps before it (K3, K5: where its store windows
+// its output rows) or steps before it (K3, K5, K9: where its store windows
 // start) that a block also loads, blocks of `threads`, grid (row tiles,
 // step tiles, frames a pass) and the block's static shared memory. The
 // launcher computes its own and refuses a plan that differs
@@ -118,14 +118,19 @@ int dpt_skew_u8_f32(const uint8_t* in, float* out, int B, int C, int H, int W,
 // answers cudaOccupancyMaxActiveClusters for the launch it would make.
 int dpt_ed_scan(const DptScanArgs& a, void* stream);
 
-// K3 and K5, one tile transpose of the (D, B, H) int32 stream, by output
-// kind: 0, 1: K3, packed colours -> uint8 colours v = (col[x + s*y, b, y]
-// >> (16 - 8c)) & 255, NHWC out[b, y, x, c] (0) or the planes out[c, b, y, x]
-// (1); 2, 3: K5, palette indices -> the (B, H, W) index stream
-// out[b, y, x] = col[x + s*y, b, y], narrowed to uint8 (2; palettes of up to
-// 256 colours) or uint16 (3; out 2-byte aligned).
+// K3, K5 and K9, one tile transpose of the (D, B, H) int32 stream, by
+// output kind: 0, 1: K3, packed colours -> uint8 colours v = (col[x + s*y,
+// b, y] >> (16 - 8c)) & 255, NHWC out[b, y, x, c] (0) or the planes
+// out[c, b, y, x] (1); 2, 3: K5, palette indices -> the (B, H, W) index
+// stream out[b, y, x] = col[x + s*y, b, y], narrowed to uint8 (2; palettes
+// of up to 256 colours) or uint16 (3; out 2-byte aligned); 4: K9, palette
+// indices in 0..P-1 + the (P, 3) float32 palette `pal` -> (B, H, W, 3)
+// uint8 out[b, y, x, c] = (u8)(int)pal[col[x + s*y, b, y], c], through the
+// packed palette `table` (P uint32, scratch the launcher fills first). pal
+// and table are null for kinds 0-3.
 int dpt_unskew(const int32_t* col, void* out, int B, int H, int W, int s, int kind,
-               const DptTilePlan& plan, void* stream);
+               const DptTilePlan& plan, const float* pal, int P, uint32_t* table,
+               void* stream);
 
 // T2: the palette search alone, over a (3*nb, lf) float32 working tile (row
 // c*nb + b is channel c of frame b), repeated iters times; out (nb, lf)
@@ -139,11 +144,6 @@ constexpr int DPT_PROBE_MAX_PALETTE = 1024;
 int dpt_search_probe(const float* cur, const float* pal, int pp, int nb,
                      int lf, int iters, int score, int n, const DptSlices& sl,
                      int32_t* out, void* stream);
-
-// K9: (D, B, H) palette indices in 0..P-1 + (P, 3) float32 palette ->
-// (B, H, W, 3) uint8, out[b, y, x, c] = (int)pal[idx[x + s*y, b, y], c].
-int dpt_unskew_select(const int32_t* idx, const float* pal, uint8_t* out,
-                      int B, int H, int W, int s, void* stream);
 
 // One launch of the ordered kernel K4, as the wrapper planned it
 // (ops.ordered_fused.ordered_plan): blocks of `threads` threads, `pixels`
@@ -169,8 +169,7 @@ int dpt_ordered_fused_f32(const float* img, const float* pal, int P,
                           int emit_idx, const DptOrderedPlan& plan, void* stream);
 
 // T1: the gather probe, over a (rows, lanes) int32 table and an (n, lanes)
-// int32 tile of start values; element (r, l) runs its own chain on one
-// thread, blocks of up to 1024 threads (an (8, 128) tile is one block):
+// int32 tile of start values; element (r, l) runs its own chain:
 //   gather  update 0: out = table[idx, l] (k must be 1);
 //           update 1: k times acc = |table[acc, l] + step| mod rows;
 //           update 2: k times acc = |table[acc & (rows-1), l] + acc + step|
@@ -179,15 +178,39 @@ int dpt_ordered_fused_f32(const float* img, const float* pal, int P,
 //   sweep   k times best = 0; for p in 0..rows-1: best = (acc & (rows-1))
 //           == p ? table[p, l] : best; acc = |best + acc + step| mod 255
 //           (rows a power of two).
-// use_smem != 0 stages the table in dynamic shared memory (it must fit
-// DPT_PROBE_SMEM_BYTES); else every load goes to device memory.
+// The gather runs as its plan (tools/gather_probe.py `gather_slab_plan`)
+// says, by the form that holds the table in shared memory: block (the
+// table whole in each block, one thread an element), multicast (a block a
+// lane group of 8 lanes, the slab table[:, 8g:8g+8] in every block of a
+// cluster of 2, loaded once a cluster by TMA multicast), distributed (the
+// slab split by rows over a cluster of 8, `slab_rows` a block, read through
+// distributed shared memory). The slab forms take lanes % 8 == 0 and a
+// table on a 16-byte boundary. The launcher computes its own plan and
+// refuses one that differs (cudaErrorInvalidConfiguration).
+// gather_chain_l2 runs the block form's body on the table in device
+// memory, with no plan: the probe's L2 line. The sweep stages the table in
+// dynamic shared memory with use_smem != 0 (it must fit
+// DPT_PROBE_SMEM_BYTES) and reads device memory otherwise.
 constexpr int DPT_PROBE_SMEM_BYTES = 227 * 1024;
+constexpr int DPT_GATHER_BLOCK = 0;
+constexpr int DPT_GATHER_MULTICAST = 1;
+constexpr int DPT_GATHER_DISTRIBUTED = 2;
+struct DptGatherPlan {
+    int form, cluster;
+    int rows_per_block;  // output rows a block takes (block form: rows its threads start in)
+    int slab_rows;       // table rows a block holds
+    int threads, grid, smem_bytes;
+};
 int dpt_gather_chain(const int32_t* table, const int32_t* idx, int32_t* out,
                      int rows, int n, int lanes, int k, int update,
-                     int use_smem, void* stream);
+                     const DptGatherPlan& plan, void* stream);
+int dpt_gather_chain_l2(const int32_t* table, const int32_t* idx, int32_t* out,
+                        int rows, int n, int lanes, int k, int update, void* stream);
 int dpt_sweep_chain(const int32_t* table, const int32_t* idx, int32_t* out,
                     int rows, int n, int lanes, int k, int use_smem,
                     void* stream);
+// An empty kernel of one warp: the floor under the probe's launches.
+int dpt_empty_kernel(void* stream);
 
 // T3: identity copy of n bytes, as the wrapper planned it
 // (tools.layout_repro.identity_plan): `head` bytes one by one until out is

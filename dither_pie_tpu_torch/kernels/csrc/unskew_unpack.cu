@@ -1,25 +1,41 @@
-// K3 and K5: unskew the scan's (D, B, H) int32 stream into its output
+// K3, K5 and K9: unskew the scan's (D, B, H) int32 stream into its output
 // rows, a shared-memory tile transpose: K3 unpacks packed colours to uint8,
 // NHWC or planar; K5 narrows palette indices to the uint8 or uint16 index
-// stream.
+// stream; K9 looks palette indices up in the packed palette and writes
+// their colours, NHWC.
 //
 // Replaces the TPU kernels dither_pie_tpu/ops/wavefront.py
-// `_unskew_unpack_call` (K3, reached through `_unskew_unpack_colors`) and
-// `_unskew_transpose_call` (K5, reached through `_unskew_idx_packed`):
+// `_unskew_unpack_call` (K3, reached through `_unskew_unpack_colors`),
+// `_unskew_transpose_call` (K5, reached through `_unskew_idx_packed`) and
+// `_unskew_select_call` (K9, reached through `_unskew_select_colors`):
 // K3 out[b, y, x, c] = (col[x + s*y, b, y] >> (16 - 8c)) & 255, NHWC, or the
 // planes out[c, b, y, x] of the planar video flow (the TPU kernel emits the
 // three planes, which XLA restacks into NHWC); K5 out[b, y, x] =
 // idx[x + s*y, b, y], which the TPU kernel emits as int32 and XLA narrows
 // afterwards, written here in the stream's own type, uint8 for palettes of
 // up to 256 colours and uint16 above (K5 is the index scan's epilogue, whose
-// indices lie in 0..P-1; it does not check them). The output kind is a
-// template parameter: U bytes a pixel of an output row, 3 NHWC, 1 planar (a
-// row in each of the three planes), 1 u8, 2 u16.
+// indices lie in 0..P-1; it does not check them); K9 out[b, y, x, c] =
+// (u8)(int)palette[idx[x + s*y, b, y], c], the float32 -> int32 cast
+// truncating, for palettes of 1025 to 16384 colours (the TPU kernel served
+// at most 256 through a chain of selects and emitted three planes). K9 is
+// K3's NHWC kind with one table lookup at the load: a small kernel first
+// packs the palette as K2 packs its colours, table[p] = (u8)(int)r << 16 |
+// (u8)(int)g << 8 | (u8)(int)b, one thread a colour, and the tile kernel
+// puts table[v] in the tile where K3 puts v, so its store phase is K3's
+// NHWC one, unchanged. The lookup goes through the read-only path (__ldg):
+// 8 KB at 2048 colours, 64 KB at 16384, held in L1. It is made once a
+// pixel, at the load, never in the store phase, which reads each pixel
+// about twice. On an H100 a form that staged the table in each block's
+// shared memory ran 3 % faster at 2048 colours and 23 % slower at 16384
+// (PERF.md); this one keeps no table in shared memory. The output kind is a template parameter: U bytes a pixel of
+// an output row, 3 NHWC and select, 1 planar (a row in each of the three
+// planes), 1 u8, 2 u16.
 //
 // What bounds it: bytes, 4 read and U (planar 3) written per pixel, no
-// arithmetic beyond byte moves. It is K1's transpose reversed: one block
-// takes one tile of TD steps d by TY rows y of the (D, H) plane (the plan is
-// `ops.wavefront.unskew_tile_plan`; the launcher refuses any other):
+// arithmetic beyond byte moves (K9: and the table, read once). It is K1's
+// transpose reversed: one block takes one tile of TD steps d by TY rows y
+// of the (D, H) plane (the plan is `ops.wavefront.unskew_tile_plan`; the
+// launcher refuses any other):
 //
 // * Store along x, in whole sectors. Of each output row (b, y) (of each
 //   plane, planar) the block writes the window of U*TD bytes that starts at
@@ -27,20 +43,20 @@
 //   x0 = d0 - s*y: consecutive step tiles' windows tile the row, and only a
 //   row's first and last sectors are shared between blocks. The block walks
 //   the 16-byte words that cover its window, builds each from the tile's row
-//   j with __byte_perm (NHWC: the six pixels that hold a word, four
-//   selectors fixed by its first byte's channel; planar: channel c's byte of
-//   16 pixels; u8: the low byte of 16 indices, planar's selector for c = 2;
-//   u16: the low halves of 8 indices, selector 0x5410 over two) and stores
-//   whole words with one 16-byte store, head and tail words in 4-byte or
-//   single-byte pieces (tile_copy.cuh).
+//   j with __byte_perm (NHWC and select: the six pixels that hold a word,
+//   four selectors fixed by its first byte's channel; planar: channel c's
+//   byte of 16 pixels; u8: the low byte of 16 indices, planar's selector for
+//   c = 2; u16: the low halves of 8 indices, selector 0x5410 over two) and
+//   stores whole words with one 16-byte store, head and tail words in
+//   4-byte or single-byte pieces (tile_copy.cuh).
 // * Load along y. A window starts up to LEAD = ceil(31 / U) steps before
 //   d0, so a tile row holds the steps d0 - LEAD .. d0 + TD - 1 (column
 //   i = d - d0 + LEAD). Step d's run col[(d*B + b)*H + y0 ...] holds the
 //   tile's column; the block reads the 16-byte words that cover the rows j
 //   whose pixel x = d - s*(y0 + j) lies in the image (a table of those
 //   rows, one int a column, is made once a block: no division in the
-//   loop), and puts each int32 at tile[j][i + i/32]. Aligned at 1080p; any
-//   alignment is served.
+//   loop), and puts each int32 (select: its packed colour) at
+//   tile[j][i + i/32]. Aligned at 1080p; any alignment is served.
 // * The grid holds only the band of step tiles that own bytes of each row
 //   tile's rows; a block walks two frames and loads the second's words
 //   into registers while it stores the first's tile.
@@ -52,13 +68,13 @@
 // word and the shared sectors set its time: a first version of this walk
 // (a division per run and item, eight clamped pixel reads and a selector
 // computed per 4-byte word) was markedly slower at 16 x 1080p, and runs
-// cut at x0 cost more than the LEAD extra steps' loads. K5's earlier form,
-// one thread an output element, read one 32-byte sector a 4-byte index
-// (neighbouring x lie B*H int32 apart in the stream); this walk reads them
-// along y. Indexing inside a tile is 32-bit, with no per-element 64-bit
-// division. The numpy model of this walk in tests/test_torch_skew_tiles.py
-// holds it bit for bit to the plain versions (K5's kinds in
-// tests/test_torch_unskew_idx_tiles.py).
+// cut at x0 cost more than the LEAD extra steps' loads. K5's and K9's
+// earlier forms, one thread an output element, read one 32-byte sector a
+// 4-byte index (neighbouring x lie B*H int32 apart in the stream); this walk
+// reads them along y. Indexing inside a tile is 32-bit, with no per-element
+// 64-bit division. The numpy model of this walk in
+// tests/test_torch_skew_tiles.py holds it bit for bit to the plain versions
+// (K5's kinds in tests/test_torch_unskew_idx_tiles.py, K9's in both).
 
 #include <cuda_runtime.h>
 
@@ -77,10 +93,12 @@ constexpr int KIND_NHWC = 0;    // K3: (B, H, W, 3) uint8 colours
 constexpr int KIND_PLANAR = 1;  // K3: (3, B, H, W) uint8 planes
 constexpr int KIND_U8 = 2;      // K5: (B, H, W) uint8 indices
 constexpr int KIND_U16 = 3;     // K5: (B, H, W) uint16 indices
+constexpr int KIND_SELECT = 4;  // K9: (B, H, W, 3) uint8 colours of palette indices
 
 template <int KIND, int TD, int TY>
 struct UnskewTile {
-    static constexpr int U = KIND == KIND_NHWC ? 3 : KIND == KIND_U16 ? 2 : 1;  // bytes a pixel
+    static constexpr bool NHWC = KIND == KIND_NHWC || KIND == KIND_SELECT;  // NHWC's store
+    static constexpr int U = NHWC ? 3 : KIND == KIND_U16 ? 2 : 1;  // bytes a pixel
     static constexpr int PLANES = KIND == KIND_PLANAR ? 3 : 1;  // output rows a tile row
     static constexpr int LEAD = (SECTOR - 1 + U - 1) / U;  // steps before the tile
     static constexpr int COLS = LEAD + TD;              // steps a tile row holds
@@ -116,7 +134,7 @@ __device__ __forceinline__ void nhwc_word(const uint32_t v[6], uint32_t q[4]) {
 template <int KIND, int TD, int TY>
 __global__ void __launch_bounds__(THREADS, 4)
 unskew_tile_kernel(const int32_t* __restrict__ col, uint8_t* __restrict__ out,
-                   int B, int H, int W, int s) {
+                   int B, int H, int W, int s, const uint32_t* __restrict__ table) {
     using L = UnskewTile<KIND, TD, TY>;
     __shared__ int32_t tile[TY * L::PITCH];
     __shared__ int rows_of[L::COLS];  // column i's rows [jlo, jhi] as jlo | jhi << 16
@@ -168,7 +186,8 @@ unskew_tile_kernel(const int32_t* __restrict__ col, uint8_t* __restrict__ out,
     int b = blockIdx.z;
     if (b < B) load(b);
     for (; b < B; b += gridDim.z) {
-        // Put each loaded int32 at tile[j][i + i/32].
+        // Put each loaded int32 at tile[j][i + i/32]; select: its packed
+        // colour, looked up here once a pixel.
 #pragma unroll
         for (int it = 0; it < L::LOAD_ITEMS; ++it) {
             const int f = threadIdx.x + it * THREADS;
@@ -182,7 +201,11 @@ unskew_tile_kernel(const int32_t* __restrict__ col, uint8_t* __restrict__ out,
 #pragma unroll
             for (int m = 0; m < 4; ++m) {
                 const int j = j0 + m;
-                if (j >= jlo && j <= jhi) tile[j * L::PITCH + i + (i >> 5)] = vals[m];
+                if (j >= jlo && j <= jhi) {
+                    int32_t v = vals[m];
+                    if constexpr (KIND == KIND_SELECT) v = (int32_t)__ldg(table + v);
+                    tile[j * L::PITCH + i + (i >> 5)] = v;
+                }
             }
         }
         __syncthreads();
@@ -220,7 +243,7 @@ unskew_tile_kernel(const int32_t* __restrict__ col, uint8_t* __restrict__ out,
                 return (uint32_t)trow[i + (i >> 5)];
             };
             uint32_t q[4];
-            if constexpr (KIND == KIND_NHWC) {
+            if constexpr (L::NHWC) {
                 const int px0 = (e0 + 15) / 3 - 5;  // floor(e0 / 3): the word's first pixel
                 uint32_t px[6];
 #pragma unroll
@@ -267,9 +290,21 @@ int band_tiles(int H, int W, int s, int TD, int TY) {
     return widest;
 }
 
+// The packed palette of K9: table[p] = (u8)(int)r << 16 | (u8)(int)g << 8 |
+// (u8)(int)b, one thread a colour (the float32 -> int32 cast truncates).
+__global__ void pack_palette_kernel(const float* __restrict__ pal, int P,
+                                    uint32_t* __restrict__ table) {
+    const int p = blockIdx.x * blockDim.x + threadIdx.x;
+    if (p >= P) return;
+    const uint32_t r = (uint8_t)(int32_t)pal[3 * p];
+    const uint32_t g = (uint8_t)(int32_t)pal[3 * p + 1];
+    const uint32_t b = (uint8_t)(int32_t)pal[3 * p + 2];
+    table[p] = r << 16 | g << 8 | b;
+}
+
 template <int KIND>
 int launch(const int32_t* col, uint8_t* out, int B, int H, int W, int s,
-           const DptTilePlan& plan, void* stream) {
+           const DptTilePlan& plan, const uint32_t* table, void* stream) {
     constexpr int TD = 128, TY = 32;
     using L = UnskewTile<KIND, TD, TY>;
     if (B < 1 || H < 1 || W < 1 || s < 1) return (int)cudaErrorInvalidValue;
@@ -283,22 +318,32 @@ int launch(const int32_t* col, uint8_t* out, int B, int H, int W, int s,
         return (int)cudaErrorInvalidConfiguration;
     }
     unskew_tile_kernel<KIND, TD, TY><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        col, out, B, H, W, s);
+        col, out, B, H, W, s, table);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 int dpt_unskew(const int32_t* col, void* out, int B, int H, int W, int s, int kind,
-               const DptTilePlan& plan, void* stream) {
+               const DptTilePlan& plan, const float* pal, int P, uint32_t* table,
+               void* stream) {
     uint8_t* o = static_cast<uint8_t*>(out);
+    const bool select = kind == KIND_SELECT;
+    if (select != (pal != nullptr && table != nullptr)) return (int)cudaErrorInvalidValue;
+    if (select) {
+        if (P < 1 || P > DPT_IDX_MAX_PALETTE) return (int)cudaErrorInvalidValue;
+        pack_palette_kernel<<<(P + 255) / 256, 256, 0, (cudaStream_t)stream>>>(pal, P, table);
+        const cudaError_t rc = cudaGetLastError();
+        if (rc != cudaSuccess) return (int)rc;
+    }
     switch (kind) {
-        case KIND_NHWC: return launch<KIND_NHWC>(col, o, B, H, W, s, plan, stream);
-        case KIND_PLANAR: return launch<KIND_PLANAR>(col, o, B, H, W, s, plan, stream);
-        case KIND_U8: return launch<KIND_U8>(col, o, B, H, W, s, plan, stream);
+        case KIND_NHWC: return launch<KIND_NHWC>(col, o, B, H, W, s, plan, nullptr, stream);
+        case KIND_PLANAR: return launch<KIND_PLANAR>(col, o, B, H, W, s, plan, nullptr, stream);
+        case KIND_U8: return launch<KIND_U8>(col, o, B, H, W, s, plan, nullptr, stream);
         case KIND_U16:
             if (reinterpret_cast<uintptr_t>(out) % 2) return (int)cudaErrorMisalignedAddress;
-            return launch<KIND_U16>(col, o, B, H, W, s, plan, stream);
+            return launch<KIND_U16>(col, o, B, H, W, s, plan, nullptr, stream);
+        case KIND_SELECT: return launch<KIND_SELECT>(col, o, B, H, W, s, plan, table, stream);
         default: return (int)cudaErrorInvalidValue;
     }
 }

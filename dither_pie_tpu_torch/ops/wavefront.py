@@ -28,7 +28,9 @@ plain PyTorch version of the same function beside it here:
 * K5 ``unskew_idx``: (D, B, H) indices -> the (B, H, W) index stream, uint8
   for palettes of up to 256 colours, uint16 above. K3 and K5 are one tile
   transpose, by output kind (``unskew_tile_plan``).
-* K9 ``unskew_select``: (D, B, H) indices + palette -> (B, H, W, 3) uint8.
+* K9 ``unskew_select``: (D, B, H) indices + palette -> (B, H, W, 3) uint8:
+  the "select" kind of the same tile transpose, K3's NHWC kind with a
+  lookup in the packed palette at the load.
 * K7 ``skew_transpose``: the same stream as K1 and K6, uint8 -> uint8,
   float32 -> float32 or uint8 -> float32; on the card it is K1's and K6's
   tile kernel in those type pairs (``skew`` and ``skew_planar`` take
@@ -707,9 +709,11 @@ SKEW_TILES = {(torch.uint8, 3): (64, 128), (torch.float32, 3): (64, 32),
 UNSKEW_TILE = (128, 32)
 # The output kinds of the unskew tile kernel and their bytes a pixel of an
 # output row: K3's NHWC colours and planar planes (a row in each of three),
-# K5's uint8 and uint16 index streams. The order is the kernel's.
-UNSKEW_KINDS = ("nhwc", "planar", "u8", "u16")
-_UNSKEW_BYTES = {"nhwc": 3, "planar": 1, "u8": 1, "u16": 2}
+# K5's uint8 and uint16 index streams, K9's NHWC colours of palette indices
+# (the packed palette's lookup, then K3's NHWC store). The order is the
+# kernel's.
+UNSKEW_KINDS = ("nhwc", "planar", "u8", "u16", "select")
+_UNSKEW_BYTES = {"nhwc": 3, "planar": 1, "u8": 1, "u16": 2, "select": 3}
 # Frames a block of K3 and K5 walks: it loads the next one's words while it
 # stores this one's tile.
 UNSKEW_FRAMES_PER_BLOCK = 2
@@ -796,7 +800,8 @@ def unskew_band_tiles(h: int, w: int, s: int, td: int, ty: int) -> int:
 def unskew_tile_plan(b: int, h: int, w: int, s: int, kind: str) -> TilePlan:
     """The launch of the unskew tile kernel for B (H, W) frames and skew s,
     by output ``kind`` (``UNSKEW_KINDS``): K3's "nhwc" and "planar" colours,
-    K5's "u8" and "u16" index streams.
+    K5's "u8" and "u16" index streams, K9's "select" colours (planned as
+    "nhwc": three bytes a pixel, the same store phase).
 
     Of each output row (of each plane, planar), step tile k writes the
     window of U*TD bytes (U = 3 nhwc, 2 u16, else 1 byte a pixel) that
@@ -819,14 +824,20 @@ def unskew_tile_plan(b: int, h: int, w: int, s: int, kind: str) -> TilePlan:
                     4 * ty * ((cols + cols // 32) | 1) + 4 * cols)
 
 
-def launch_unskew(col: torch.Tensor, out: torch.Tensor, s: int, kind: str) -> None:
+def launch_unskew(col: torch.Tensor, out: torch.Tensor, s: int, kind: str,
+                  palette: Optional[torch.Tensor] = None) -> None:
     """The unskew tile kernel from the (D, B, H) int32 stream ``col`` into
     ``out`` (any base address; u16 on a 2-byte boundary), by ``kind``, with
-    the plan the kernel checks."""
+    the plan the kernel checks. The select kind takes the (P, 3) float32
+    ``palette``, which the same call first packs into a fresh (P,) int32
+    table, one colour a thread."""
     h, w = (out.shape[2:4] if kind == "planar" else out.shape[1:3])
     plan = unskew_tile_plan(col.shape[1], h, w, s, kind)
+    table = (None if palette is None else
+             torch.empty(palette.shape[0], dtype=torch.int32, device=palette.device))
     build.extension().unskew(col, out, s, UNSKEW_KINDS.index(kind), plan.td, plan.ty,
-                             plan.lead, plan.threads, list(plan.grid), plan.smem_bytes)
+                             plan.lead, plan.threads, list(plan.grid), plan.smem_bytes,
+                             palette, table)
 
 
 def _check_aux(geom: ScanGeometry, aux: Optional[torch.Tensor],
@@ -962,12 +973,15 @@ def unskew_select_plain(idx: torch.Tensor, palette: torch.Tensor, s: int,
 
 def unskew_select(idx: torch.Tensor, palette: torch.Tensor, s: int, h: int,
                   w: int) -> torch.Tensor:
-    """K9 on CUDA tensors, its plain version on CPU tensors."""
+    """K9 on CUDA tensors (the "select" kind of K3's tile transpose,
+    ``unskew_tile_plan``, after the palette's packing kernel), its plain
+    version on CPU tensors. The indices are the index scan's, 0..P-1: they
+    are not checked."""
     if not build.on_cuda(idx):
         return unskew_select_plain(idx, palette, s, h, w)
     out = torch.empty((idx.shape[1], h, w, 3), dtype=torch.uint8,
                       device=idx.device)
-    build.extension().unskew_select(idx, palette, out, s)
+    launch_unskew(idx, out, s, "select", palette.contiguous())
     build.LAUNCHES["unskew_select"] += 1
     return out
 

@@ -43,9 +43,16 @@ min, max) milliseconds of CUDA events after one warm-up:
   colours on its random inputs, one launch of 64 repetitions, 5 runs,
   and one launch of one repetition as a CUDA graph of 100, each output
   held to its plain version;
+* K9 (``unskew_select``) of the index scan's 480p stream at 2048 and
+  16384 colours, 9 runs each, beside the one PyTorch call that computes it,
+  ``pal_u8[idx.as_strided(...)]``, each held to both;
 * the probes T1 and T3 beside their library calls: T1's gather
   (``gather_probe.gather_chain``) on the 4096 x 128 int32 table against
-  ``torch.gather`` on the same int64 indices, and T3's identity
+  ``torch.gather`` on the same int64 indices and a 4 MB copy ``idx -> out``
+  (``copy_``, the floor of the gather's own bytes), T1's microseconds a
+  dependent gather at 256, 1024, 4096 and 16384 rows with the form that
+  holds each table and, where the tree has it, the L2 line beside it
+  (``gather_chain_l2``, the table read from device memory), and T3's identity
   (``layout_repro.identity_copy``) on one 100 x 1080p plane against
   ``clone()``. A T1 launch is shorter than its Python enqueue, so both T1
   forms are timed as a CUDA graph of 100 launches (device time a launch,
@@ -86,6 +93,9 @@ SIZES = (32, 64, 256, 1024)
 MODES = ("ostromoukhov", "hybrid", "perceptual", "adaptive")
 SWEEP_SIZES = (32, 64, 256, 1024, 2048)
 CLUSTER_SIZES = (1, 2, 4, 8)
+T1_ROWS = 4096  # T1's row time: the gather alone on a 4096 x 128 table
+T1_CHAIN_ROWS = (256, 1024, 4096, 16384)
+K9_SIZES = (2048, 16384)
 
 
 def main() -> int:
@@ -180,7 +190,8 @@ def main() -> int:
             "K3 unskew_unpack NHWC": lambda: twf.unskew_unpack(col, geom.s, 1080, 1920),
             "K3 unskew_unpack planar": lambda: twf.unskew_unpack(col, geom.s, 1080, 1920, True)}
     for label, fn in ends.items():
-        print(f"{tree}: {label}, 16 x 1080p FS: ms {ms(fn, 9)} [{card}]", flush=True)
+        graph = f", {graph_ms(fn):.5f} ms a launch in a CUDA graph of 100" if "K3" in label else ""
+        print(f"{tree}: {label}, 16 x 1080p FS: ms {ms(fn, 9)}{graph} [{card}]", flush=True)
     k1 = twf.skew_gather(frames, geom.s)
     for other in ("K7 skew_transpose u8", "K6 skew_planar u8", "K7 skew_transpose u8 -> f32",
                   "K7 skew_transpose float32", "K1 skew float32"):
@@ -191,6 +202,8 @@ def main() -> int:
         del got
     del k1, planes, planes4, col, frames_f32
     if index_lines(tree, card, twf, stream, pals[32], geom, ms):
+        return 1
+    if select_lines(tree, card, twf, sd_stream, pals, geom, ms, rng):
         return 1
 
     if (ordered_lines(tree, card, dev, frames, ms) or search_lines(tree, card, dev, ms)
@@ -292,18 +305,54 @@ def index_lines(tree, card, twf, stream, pal, geom, ms) -> bool:
         got = kernel()
         ok = same(got, twf.unskew_idx_plain(idx, geom.s, 1080, 1920, dtype))
         t = ms(kernel, 9)
+        g = graph_ms(kernel)
         try:
             lib_t = ms(lambda: view.to(dtype), 9)
             ok &= same(view.to(dtype), got)
         except (RuntimeError, NotImplementedError) as e:
             lib_t = f"not taken on CUDA ({e})"
-        print(f"{tree}: K5 unskew_idx {str(dtype)[6:]}, 16 x 1080p FS P=32: ms {t}; "
+        print(f"{tree}: K5 unskew_idx {str(dtype)[6:]}, 16 x 1080p FS P=32: ms {t}, {g:.5f} ms a "
+              f"launch in a CUDA graph of 100; "
               f"as_strided(...).to({str(dtype)[6:]}) ms {lib_t}; == plain and library {ok} "
               f"[{card}]", flush=True)
         if not ok:
             print(f"{tree}: K5 {dtype} != its plain version or the library call",
                   file=sys.stderr)
             return True
+    return False
+
+
+def select_lines(tree, card, twf, sd_stream, pals, geom, ms, rng) -> bool:
+    """K9's lines at 16 x 480p: the index scan's own stream at 2048 colours
+    and at 16384 (the index scan's largest palette); True if an output
+    differs from the plain version's or the library call's."""
+    import torch
+
+    for p in K9_SIZES:
+        pal = pals.get(p)
+        if pal is None:
+            pal = torch.from_numpy(rng.randint(0, 256, (p, 3)).astype(np.float32)).to(
+                sd_stream.device)
+        idx = twf.scan_idx(sd_stream, pal, geom, 854)
+        b, bh = idx.shape[1], idx.shape[1] * 480
+        pal_u8 = pal.to(torch.int32).to(torch.uint8)
+        view = idx.as_strided((b, 480, 854), (480, geom.s * bh + 1, bh))
+        kernel = lambda: twf.unskew_select(idx, pal, geom.s, 480, 854)
+        got = kernel()
+        ok = (torch.equal(got, twf.unskew_select_plain(idx, pal, geom.s, 480, 854))
+              and torch.equal(got, pal_u8[view]))
+        t = ms(kernel, 9)
+        g = graph_ms(kernel)
+        lib_t = ms(lambda: pal_u8[view], 9)
+        lib_g = graph_ms(lambda: pal_u8[view])
+        print(f"{tree}: K9 unskew_select, 16 x 480p FS P={p}: ms {t}, {g:.5f} ms a launch in a "
+              f"CUDA graph of 100; pal_u8[idx.as_strided(...)] ms {lib_t}, {lib_g:.5f} ms in a "
+              f"graph; == plain and library {ok} [{card}]", flush=True)
+        if not ok:
+            print(f"{tree}: K9 P={p} != its plain version or the library call",
+                  file=sys.stderr)
+            return True
+        del idx, got
     return False
 
 
@@ -390,16 +439,23 @@ def probe_lines(tree, card, dev, frames) -> bool:
     from dither_pie_tpu_torch.tools import gather_probe as gp
     from dither_pie_tpu_torch.tools import layout_repro as lr
 
-    tbl, idx = (torch.from_numpy(a).to(dev) for a in gp.gather_inputs(gp.CHECK_ROWS[-1]))
+    tbl, idx = (torch.from_numpy(a).to(dev) for a in gp.gather_inputs(T1_ROWS))
     idx64 = idx.long()
-    t1 = (lambda: gp.gather_chain(tbl, idx), lambda: torch.gather(tbl, 0, idx64))
+    copy_out = torch.empty_like(idx)
+    t1 = (lambda: gp.gather_chain(tbl, idx), lambda: torch.gather(tbl, 0, idx64),
+          lambda: copy_out.copy_(idx))
     same = torch.equal(t1[0](), t1[1]())
     g = [graph_ms(f) for f in t1]
-    loop = [loop_ms(f, 100) for f in t1]
+    loop = [loop_ms(f, 100) for f in t1[:2]]
     print(f"{tree}: T1 gather {tuple(tbl.shape)} int32: kernel {g[0]:.5f} ms, torch.gather "
-          f"{g[1]:.5f} ms a launch in a CUDA graph of 100; enqueued from Python: kernel "
-          f"{loop[0]:.5f} ms, torch.gather {loop[1]:.5f} ms; == torch.gather {same} [{card}]",
-          flush=True)
+          f"{g[1]:.5f} ms, the 4 MB copy idx -> out {g[2]:.5f} ms a launch in a CUDA graph of "
+          f"100; enqueued from Python: kernel {loop[0]:.5f} ms, torch.gather {loop[1]:.5f} ms; "
+          f"== torch.gather {same} [{card}]", flush=True)
+    chains = {rows: gp.probe_chain(rows, 64, dev) for rows in T1_CHAIN_ROWS}
+    print(f"{tree}: T1 chain, us a dependent gather: "
+          + ", ".join(f"rows={rows} {r['us_per_op']:.4f} ({r['memory']}"
+                      + (f"; from L2 {r['l2_us_per_op']:.4f}" if "l2_us_per_op" in r else "")
+                      + ")" for rows, r in chains.items()) + f" [{card}]", flush=True)
     plane = lr.planarize(torch.cat([frames.roll(37 * k, dims=2) for k in range(7)])[:100])
     kernel = lambda: lr.identity_copy(plane)
     turns = [("clone()", lambda: plane.clone()), ("kernel", kernel)]

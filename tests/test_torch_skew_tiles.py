@@ -233,22 +233,34 @@ def _byte_perm(x, y, sel):
 # Of each output kind of the unskew tile kernel: bytes a pixel of an output
 # row, output rows a tile row (planar: one in each plane), and the output's
 # dtype and shape.
-UNSKEW_U = {"nhwc": 3, "planar": 1, "u8": 1, "u16": 2}
-UNSKEW_PLANES = {"nhwc": 1, "planar": 3, "u8": 1, "u16": 1}
+UNSKEW_U = {"nhwc": 3, "planar": 1, "u8": 1, "u16": 2, "select": 3}
+UNSKEW_PLANES = {"nhwc": 1, "planar": 3, "u8": 1, "u16": 1, "select": 1}
 
 
 def unskew_out(kind, b, h, w):
     """(dtype, shape) of the unskew's output of ``kind``."""
     return {"nhwc": (np.uint8, (b, h, w, 3)), "planar": (np.uint8, (3, b, h, w)),
-            "u8": (np.uint8, (b, h, w)), "u16": (np.uint16, (b, h, w))}[kind]
+            "u8": (np.uint8, (b, h, w)), "u16": (np.uint16, (b, h, w)),
+            "select": (np.uint8, (b, h, w, 3))}[kind]
+
+
+def packed_palette(palette: np.ndarray) -> np.ndarray:
+    """K9's packing kernel: (P, 3) float32 -> (P,) uint32
+    (u8)(int)r << 16 | (u8)(int)g << 8 | (u8)(int)b, the float32 -> int32
+    cast truncating and the int32 -> uint8 one keeping the low byte."""
+    c = palette.astype(np.int32).astype(np.uint8).astype(np.uint32)
+    return (c[:, 0] << np.uint32(16)) | (c[:, 1] << np.uint32(8)) | c[:, 2]
 
 
 def unskew_model(col: np.ndarray, s: int, h: int, w: int, plan, kind: str,
-                 in_off: int, out_off: int, seed=0):
+                 in_off: int, out_off: int, seed=0, palette=None):
     """The walk of ``unskew_unpack.cu``'s tile kernel: the (D', B, H) int32
     stream at byte offset ``in_off`` -> at ``out_off``, by output ``kind``:
     K3's (B, H, W, 3) uint8 ("nhwc") or (3, B, H, W) ("planar"), K5's
-    (B, H, W) uint8 ("u8") or uint16 ("u16") index stream."""
+    (B, H, W) uint8 ("u8") or uint16 ("u16") index stream, K9's (B, H, W, 3)
+    uint8 colours of the indices in the (P, 3) float32 ``palette``
+    ("select": each loaded index is looked up in the packed palette as it
+    goes into the tile, then the store is NHWC's)."""
     rng = np.random.RandomState(seed)
     _, b, _ = col.shape
     td, ty, nt, lead = plan.td, plan.ty, plan.threads, plan.lead
@@ -289,7 +301,13 @@ def unskew_model(col: np.ndarray, s: int, h: int, w: int, plan, kind: str,
     at = (jj * pitch + ib + ib // 32)[ok]
     blk_el = np.broadcast_to(blk[:, None], ok.shape)[ok]
     assert np.all((at >= 0) & (at < ty * pitch))
-    tile[blk_el, at] = vals[ok]
+    put = vals[ok]
+    if kind == "select":
+        # One lookup a pixel, of indices inside the image only: the
+        # palette's rows, every one of them.
+        assert np.all((put >= 0) & (put < len(palette)))
+        put = packed_palette(palette)[put].view(np.int32)
+    tile[blk_el, at] = put
     np.add.at(written, (blk_el, at), 1)
     assert written.max() <= 1
 
@@ -371,7 +389,7 @@ def _plans(b, h, w, s):
         yield f"skew u8 phase {phase}", twf.skew_tile_plan(b, h, w, s, torch.uint8, phase)
     for phase in (0, 4, 12):
         yield f"skew f32 phase {phase}", twf.skew_tile_plan(b, h, w, s, torch.float32, phase)
-    for kind in ("nhwc", "planar"):
+    for kind in ("nhwc", "planar", "select"):
         yield f"unskew {kind}", twf.unskew_tile_plan(b, h, w, s, kind)
 
 
@@ -454,6 +472,7 @@ def test_tile_plans_at_1080p():
     assert (k3.td, k3.ty, k3.lead, k3.grid, k3.smem_bytes) == (128, 32, 11, (34, 17, 8), 18860)
     k3p = twf.unskew_tile_plan(b, h, w, s, "planar")
     assert (k3p.td, k3p.ty, k3p.lead, k3p.grid, k3p.smem_bytes) == (128, 32, 31, (34, 17, 8), 21500)
+    assert twf.unskew_tile_plan(b, h, w, s, "select") == k3  # K9 plans as K3 NHWC
 
 
 def test_tile_classes_match_the_parallelogram():
@@ -520,17 +539,26 @@ def _hold_skew(b, h, w, s, dtype, in_off, out_off, out_dtype=None):
 UNSKEW_VALUES = {"nhwc": 1 << 24, "planar": 1 << 24, "u8": 256, "u16": 1 << 16}
 
 
-def hold_unskew(b, h, w, s, kind, in_off, out_off, extra_steps=0):
+def hold_unskew(b, h, w, s, kind, in_off, out_off, extra_steps=0, palette=None):
     """The model of the unskew's walk of ``kind`` == its plain version
-    (K3's ``unskew_unpack_plain``, K5's ``unskew_idx_plain``), bitwise."""
+    (K3's ``unskew_unpack_plain``, K5's ``unskew_idx_plain``, K9's
+    ``unskew_select_plain`` over ``palette``), bitwise. K9's stream holds
+    indices of the palette inside the image and -1 outside, which the
+    model refuses to look up."""
     rng = np.random.RandomState(11 * h + w)
     d_total = twf.stream_length(h, w, s) + extra_steps
-    col = rng.randint(0, UNSKEW_VALUES[kind], (d_total, b, h)).astype(np.int32)
+    top = UNSKEW_VALUES[kind] if palette is None else len(palette)
+    col = rng.randint(0, top, (d_total, b, h)).astype(np.int32)
+    if kind == "select":
+        x = np.arange(d_total)[:, None, None] - s * np.arange(h)[None, None, :]
+        col = np.where((x >= 0) & (x < w), col, -1).astype(np.int32)
     plan = twf.unskew_tile_plan(b, h, w, s, kind)
-    got = unskew_model(col, s, h, w, plan, kind, in_off, out_off)
+    got = unskew_model(col, s, h, w, plan, kind, in_off, out_off, palette=palette)
     col_t = torch.from_numpy(col)
     if kind in ("nhwc", "planar"):
         want = twf.unskew_unpack_plain(col_t, s, h, w, kind == "planar").numpy()
+    elif kind == "select":
+        want = twf.unskew_select_plain(col_t, torch.from_numpy(palette), s, h, w).numpy()
     else:
         dtype = torch.uint8 if kind == "u8" else torch.uint16
         want = twf.unskew_idx_plain(col_t, s, h, w, dtype).view(

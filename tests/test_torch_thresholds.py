@@ -7,6 +7,8 @@ done op for op as the JAX package does it, and the ordered contract is
 bit-exact.
 """
 
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -62,6 +64,13 @@ def test_ign_torch_equals_numpy_and_jax(h, w, scale, seed):
     np.testing.assert_array_equal(_bits(ours), _bits(tthr.ign_thresholds_np(h, w, scale, seed)))
     np.testing.assert_array_equal(_bits(ours), _bits(jthr.ign_thresholds_np(h, w, scale, seed)))
     np.testing.assert_array_equal(_bits(ours), _bits(jthr.ign_thresholds(h, w, scale, seed)))
+
+
+def test_ign_defaults_to_the_card():
+    """Like every entry point of the port, the IGN map lands on the card
+    unless the caller asks for the CPU (the signature is read, not called:
+    a CPU-only machine has no card)."""
+    assert inspect.signature(tthr.ign_thresholds).parameters["device"].default == "cuda"
 
 
 @pytest.mark.parametrize("h,w", [(17, 30), (8, 8), (3, 70)])
