@@ -236,8 +236,29 @@ a non-zero exit code and no result line:
    13, on indices each type holds, whole and as slices off the 16-byte
    boundary, into fresh outputs and outputs off the boundary (through the
    binding), on 2 x 1080 x 1919 slices, and on the index scan's uint16
-   streams of 16 x 1080p at 300 and 1024 colours; and what the whole run
-   took of its 1200 s limit.
+   streams of 16 x 1080p at 300 and 1024 colours;
+16. the host engine (the scans with no wavefront): the port's
+   dither_pie_tpu_torch/native/ed_scan.cpp built with g++, then FS,
+   Stucki and Ostromoukhov serpentine and Riemersma on the 16 1080p frames
+   at k-means-32 through apply_dithering_batch, every frame == the golden
+   engine's float32 twin (Riemersma along the port's hilbert_path), and
+   one serpentine 1080p image through apply_dithering == the golden
+   engine's float64 ed_fixed; fps and the thread count;
+17. the streaming video pipeline: process_frames on synthetic 720p frames
+   (moving gradients and noise from --seed, default 0), legs (a)
+   BASELINE.md config 4 (101 frames, Stucki, median-cut 16 from frame 0),
+   (b) examples/video_basic.json's settings (regular pixelize to 240, x2
+   final resize, 37 frames), (c) Bayer 8x8 pico8, (d) FS serpentine (17
+   frames), (e) the planar FS flow, each with overlap on and off: every
+   frame == apply_dithering_batch in the same batches, (a) == the golden
+   engine on 2 frames, planar == interleaved, overlap == serial, no batch
+   call raised (nothing retried or patched), K1, K2, K3, K4 and K6
+   launched; fps serial and overlapped (leg (a) is traced in phase 6, as
+   a late trace loses its device records: its idle share), and, where
+   ffmpeg is on PATH, leg (a) end to end through
+   VideoProcessor on a clip ffmpeg encodes from the frames (else one line
+   says that leg did not run); and what the whole run took of its 1200 s
+   limit.
 
 Phases 1-8 run with DITHER_PIE_TPU_INDEX_TRANSFER=0 (the RGB path, whatever
 the link probe would say); phases 9 to 11 set it as each check needs.
@@ -443,8 +464,9 @@ def compare_kernels(torch, twf, dev, frames, pal, variants, errs):
 
 
 def golden_engine(build_dir: Path):
-    """ed_fixed_f32 from dither_pie_tpu/native/ed_scan.cpp, compiled with
-    the JAX package's own flags (no FMA contraction) and loaded by ctypes."""
+    """The float32 twins of every mode and the float64 ed_fixed from
+    dither_pie_tpu/native/ed_scan.cpp, compiled with the JAX package's own
+    flags (no FMA contraction) and loaded by ctypes."""
     cxx = os.environ.get("CXX") or shutil.which("g++")
     check(cxx is not None, "no C++ compiler for the golden engine")
     build_dir.mkdir(parents=True, exist_ok=True)
@@ -463,18 +485,24 @@ def golden_engine(build_dir: Path):
     lib.ed_hybrid_f32.argtypes = head + [c_f, c_f, c_i]
     lib.ed_perceptual_f32.argtypes = head + [f32p]
     lib.ed_adaptive_f32.argtypes = head + [u8p]
+    lib.ed_riemersma_f32.argtypes = head + [i32p, ctypes.c_int64]
+    lib.ed_fixed.argtypes = head + [i32p, f32p, c_i, c_i]
     for fn in (lib.ed_fixed_f32, lib.ed_ostromoukhov_f32, lib.ed_hybrid_f32,
-               lib.ed_perceptual_f32, lib.ed_adaptive_f32):
+               lib.ed_perceptual_f32, lib.ed_adaptive_f32, lib.ed_riemersma_f32,
+               lib.ed_fixed):
         fn.restype = None
     return lib
 
 
-def golden_frame(lib, kernel_arrays, frame, pal, variant):
+def golden_frame(lib, kernel_arrays, frame, pal, variant, serpentine=False, exact=False):
+    """One frame through the golden engine's ed_fixed_f32 (``exact``: the
+    float64 ed_fixed), row-major or serpentine."""
     work = np.ascontiguousarray(frame, dtype=np.float32).copy()
     offs, wts = kernel_arrays(variant)
     h, w, _ = work.shape
-    lib.ed_fixed_f32(work, h, w, np.ascontiguousarray(pal, np.float32),
-                     pal.shape[0], offs, wts, len(wts), 0)
+    fn = lib.ed_fixed if exact else lib.ed_fixed_f32
+    fn(work, h, w, np.ascontiguousarray(pal, np.float32), pal.shape[0], offs, wts, len(wts),
+       int(serpentine))
     return work.astype(np.uint8)
 
 
@@ -487,15 +515,22 @@ def sensitivity_np(frames):
     return np.float32(0.5) + np.float32(0.5) * (gray / np.float32(255.0))
 
 
-def golden_mode_frame(lib, frame, pal, mode, lum_factor=1.0, col_factor=0.2, gate=None):
-    """One frame through the golden engine's f32 twin of a non-fixed mode."""
+def golden_mode_frame(lib, frame, pal, mode, lum_factor=1.0, col_factor=0.2, gate=None,
+                      serpentine=False):
+    """One frame through the golden engine's f32 twin of a non-fixed mode;
+    Riemersma along the port's Hilbert path."""
     from dither_pie_tpu_torch.ops.ed_kernels import OSTROMOUKHOV_ARRAY
+    from dither_pie_tpu_torch.ops.hilbert import hilbert_path, next_power_of_two
 
     work = np.ascontiguousarray(frame, dtype=np.float32).copy()
     h, w, _ = work.shape
     head = (work, h, w, np.ascontiguousarray(pal, np.float32), pal.shape[0])
     if mode == "ostromoukhov":
-        lib.ed_ostromoukhov_f32(*head, np.ascontiguousarray(OSTROMOUKHOV_ARRAY), 0)
+        lib.ed_ostromoukhov_f32(*head, np.ascontiguousarray(OSTROMOUKHOV_ARRAY),
+                                int(serpentine))
+    elif mode == "riemersma":
+        path = np.ascontiguousarray(hilbert_path(next_power_of_two(max(h, w))))
+        lib.ed_riemersma_f32(*head, path, path.shape[0])
     elif mode == "hybrid":
         lib.ed_hybrid_f32(*head, lum_factor, col_factor, 1)
     elif mode == "perceptual":
@@ -3396,8 +3431,329 @@ def index_tile_phase(torch, dev, card, frames16, errs):
     return count
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the host engine (serpentine scans and Riemersma)
+# ---------------------------------------------------------------------------
+
+HOST_MODES = [  # (label, mode, parameters)
+    ("FS serpentine", "error_diffusion", {"variant": "floyd_steinberg", "serpentine": "true"}),
+    ("Stucki serpentine", "error_diffusion", {"variant": "stucki", "serpentine": "true"}),
+    ("Ostromoukhov serpentine", "ostromoukhov", {"serpentine": "true"}),
+    ("Riemersma", "riemersma", {}),
+]
+
+
+def host_golden(lib, frame, pal, mode, params):
+    """One frame of a HOST_MODES entry through the golden float32 twin."""
+    from dither_pie_tpu_torch.ops.ed_kernels import kernel_arrays
+
+    if mode == "error_diffusion":
+        return golden_frame(lib, kernel_arrays, frame, pal, params["variant"], serpentine=True)
+    return golden_mode_frame(lib, frame, pal, mode, serpentine=mode == "ostromoukhov")
+
+
+def golden_frames(fn, frames):
+    """fn over the frames on every core (the ctypes calls release the GIL)."""
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 1) as ex:
+        return list(ex.map(fn, frames))
+
+
+def host_engine_phase(torch, dev, card, lib, frames16, frame0, palette):
+    """The port's host engine, built from dither_pie_tpu_torch/native/
+    ed_scan.cpp: FS, Stucki and Ostromoukhov serpentine and Riemersma on
+    the 16 1080p frames at k-means-32 through apply_dithering_batch, every
+    frame == the golden engine's float32 twin; one serpentine 1080p image
+    through apply_dithering == the golden engine's float64 ed_fixed. Returns
+    {label: fps}."""
+    from PIL import Image
+
+    import dither_pie_tpu_torch as dpt
+    from dither_pie_tpu_torch.api.ditherer import _native_thread_cap
+    from dither_pie_tpu_torch.native import build as native_build
+    from dither_pie_tpu_torch.ops.ed_kernels import kernel_arrays
+
+    t0 = time.perf_counter()
+    native_build.get_lib()
+    log(f"[16] host engine built from "
+        f"{native_build.SRC.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s "
+        f"(g++ {' '.join(native_build.CFLAGS)})")
+    pal_np = np.asarray(palette, np.float32)
+    threads = _native_thread_cap()
+    fps = {}
+    for label, mode, params in HOST_MODES:
+        d = dpt.ImageDitherer(num_colors=N_COLORS, dither_mode=dpt.DitherMode(mode),
+                              palette=palette, dither_params=params, device=dev)
+        walls = []
+        for _ in range(2):  # the first call also builds Riemersma's Hilbert path
+            t0 = time.perf_counter()
+            out = d.apply_dithering_batch(frames16)
+            walls.append(time.perf_counter() - t0)
+            check(out.shape == frames16.shape and out.dtype == np.uint8,
+                  f"{label}: batch output {out.shape} {out.dtype}")
+        golds = golden_frames(lambda f: host_golden(lib, f, pal_np, mode, params),
+                              list(frames16))
+        idents = [identity(o, g) for o, g in zip(out, golds)]
+        check(all(v == 1.0 for v in idents), f"{label}: golden identity {idents}")
+        fps[label] = BATCH / walls[1]
+        log(f"[16] {label} k-means-{N_COLORS}, {BATCH}x{FULL_H}x{FULL_W} through "
+            f"apply_dithering_batch: all {BATCH} frames == the golden engine's float32 twin "
+            f"bitwise; first call {walls[0] * 1e3:.3f} ms, second {walls[1] * 1e3:.3f} ms "
+            f"-> {BATCH / walls[1]:.3f} fps on {threads} threads (os.cpu_count() "
+            f"{os.cpu_count()}) [{card}]")
+    d = dpt.ImageDitherer(num_colors=N_COLORS, dither_mode=dpt.DitherMode.ERROR_DIFFUSION,
+                          palette=palette, dither_params=HOST_MODES[0][2], device=dev)
+    t0 = time.perf_counter()
+    single = np.asarray(d.apply_dithering(Image.fromarray(frame0)))
+    wall = time.perf_counter() - t0
+    want = golden_frame(lib, kernel_arrays, frame0, pal_np, "floyd_steinberg",
+                        serpentine=True, exact=True)
+    check(np.array_equal(single, want),
+          f"serpentine apply_dithering != the golden ed_fixed (identity "
+          f"{identity(single, want)})")
+    log(f"[16] FS serpentine apply_dithering(PIL {FULL_W}x{FULL_H}) == the golden engine's "
+        f"float64 ed_fixed bitwise; {wall * 1e3:.3f} ms on one thread [{card}]")
+    return fps
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the streaming video pipeline
+# ---------------------------------------------------------------------------
+
+VIDEO_H, VIDEO_W = 720, 1280  # BASELINE.md config 4: 720p video, Stucki
+VIDEO_FRAMES = 101  # 6 batches of 16 and a tail of 5
+VIDEO_BATCH = 16
+VIDEO_TIMED_RUNS = 5
+
+
+def moving_frames(n, h, w, seed):
+    """n synthetic video frames: gradients that move from frame to frame,
+    plus noise, from ``seed``."""
+    rng = np.random.RandomState(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    frames = []
+    for t in range(n):
+        img = np.stack([
+            128 + 110 * np.sin(2 * np.pi * (x / w + t / 40 + 0.1 * np.sin(y / 97.0))),
+            128 + 90 * np.cos(2 * np.pi * (y / h - t / 60)),
+            128 + 100 * np.sin(2 * np.pi * ((x + y) / (h + w) + t / 25)),
+        ], axis=-1)
+        img += rng.normal(0, 8, img.shape).astype(np.float32)
+        frames.append(np.clip(img, 0, 255).astype(np.uint8))
+    return frames
+
+
+class CountingDitherer:
+    """Wraps a ditherer's apply_dithering_batch: counts its calls and its
+    raises, so a batch that failed and was retried or patched is seen."""
+
+    def __init__(self, d):
+        self.calls, self.raises, self.orig = 0, 0, d.apply_dithering_batch
+        d.apply_dithering_batch = self
+        self.d = d
+
+    def __call__(self, *a, **kw):
+        self.calls += 1
+        try:
+            return self.orig(*a, **kw)
+        except Exception:
+            self.raises += 1
+            raise
+
+
+def batched_reference(d, frames, planar=False):
+    """The frames through the ditherer's own apply_dithering_batch, in the
+    pipeline's batches of VIDEO_BATCH (the last one short)."""
+    out = []
+    for i in range(0, len(frames), VIDEO_BATCH):
+        chunk = frames[i:i + VIDEO_BATCH]
+        if planar:
+            res = d.apply_dithering_batch(np.stack(chunk, axis=1), planar=True)
+            out.extend(res[:, j] for j in range(len(chunk)))
+        else:
+            res = d.apply_dithering_batch(np.stack(chunk))
+            out.extend(res)
+    return out
+
+
+def video_leg_a(dev, frames):
+    """Leg (a)'s ditherer: Stucki, median-cut 16 from frame 0."""
+    from PIL import Image
+
+    import dither_pie_tpu_torch as dpt
+
+    return dpt.ImageDitherer(num_colors=16, dither_mode=dpt.DitherMode.ERROR_DIFFUSION,
+                             palette=dpt.ColorReducer.reduce_colors(
+                                 Image.fromarray(frames[0]), 16),
+                             dither_params={"variant": "stucki"}, device=dev)
+
+
+def trace_video_leg(torch, dev, card, frames):
+    """One overlapped process_frames run of leg (a) under torch.profiler,
+    after a warm-up run: the video idle share."""
+    from dither_pie_tpu_torch.pipeline.video import process_frames
+
+    d = video_leg_a(dev, frames)
+
+    def leg():
+        for _ in process_frames(iter(frames), d, batch_size=VIDEO_BATCH):
+            pass
+
+    leg()
+    report_trace(torch, "6-video", f"process_frames leg (a), overlap, {len(frames)} frames "
+                 f"of {VIDEO_W}x{VIDEO_H}", leg, len(frames) * VIDEO_H * VIDEO_W * 3, card)
+
+
+def video_phase(torch, dev, card, lib, frames, fps_host):
+    """process_frames on synthetic 720p frames: legs (a) Stucki median-cut
+    16 from frame 0 (BASELINE.md config 4; 101 frames), (b)
+    examples/video_basic.json (regular pixelize to 240, x2 final resize;
+    37 frames), (c) Bayer 8x8 pico8, (d) FS serpentine (17 frames), (e) the
+    planar FS flow, each with overlap on and off. Holds: every frame ==
+    apply_dithering_batch in the same batches; (a) == the golden engine on
+    2 frames; planar == interleaved; overlap == serial; no batch raised
+    (nothing retried or patched); K1, K2, K3, K4 and K6 launched. Prints
+    fps (leg (a)'s traced run and idle share are phase 6's, from
+    trace_video_leg), and, where ffmpeg is on PATH, runs leg (a) end to end
+    through VideoProcessor on an encoded clip. ``frames``: the 720p frames
+    of ``moving_frames``."""
+    from PIL import Image
+
+    import dither_pie_tpu_torch as dpt
+    from dither_pie_tpu_torch.api import profiling
+    from dither_pie_tpu_torch.kernels import build
+    from dither_pie_tpu_torch.ops.ed_kernels import kernel_arrays
+    from dither_pie_tpu_torch.pipeline import ffio
+    from dither_pie_tpu_torch.pipeline.pixelize import pixelize_regular
+    from dither_pie_tpu_torch.pipeline.video import VideoProcessor, process_frames
+
+    t_phase = time.perf_counter()
+    d_a = video_leg_a(dev, frames)
+    pal16 = d_a.palette  # median cut from frame 0
+    ed = dpt.DitherMode.ERROR_DIFFUSION
+
+    def ditherer(mode, palette, params):
+        return dpt.ImageDitherer(num_colors=len(palette), dither_mode=mode, palette=palette,
+                                 dither_params=params, device=dev)
+
+    legs = [  # (tag, ditherer, frames, pixelize, final resize, planar)
+        ("a", d_a, frames, None, None, False),
+        ("b", ditherer(ed, pal16, {"variant": "stucki"}), frames[:37], ("regular", 240), 2,
+         False),
+        ("c", ditherer(dpt.DitherMode.BAYER, pico8_palette(), {"size": "8x8"}), frames[:37],
+         None, None, False),
+        ("d", ditherer(ed, pal16, {"variant": "floyd_steinberg", "serpentine": "true"}),
+         frames[:17], None, None, False),
+        ("e-nhwc", ditherer(ed, pal16, {"variant": "floyd_steinberg"}), frames[:37], None,
+         None, False),
+        ("e", ditherer(ed, pal16, {"variant": "floyd_steinberg"}),
+         [np.ascontiguousarray(f.transpose(2, 0, 1)) for f in frames[:37]], None, None, True),
+    ]
+    counters = {tag: CountingDitherer(d) for tag, d, *_ in legs}
+    outs, walls = {}, {}
+    build.reset_launch_counts()
+    for tag, d, fr, pix, resize, planar in legs:
+        for overlap in (False, True):
+            t0 = time.perf_counter()
+            outs[tag, overlap] = list(process_frames(
+                iter(fr), d, pixelize_func=pix, final_resize_multiplier=resize,
+                batch_size=VIDEO_BATCH, overlap=overlap, planar=planar))
+            walls[tag, overlap] = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    log(f"[17] video main path launches: {launches}")
+    for key in ("skew", "ed_scan", "unskew_unpack", "ordered_fused", "skew_planar"):
+        check(launches.get(key, 0) >= 1, f"video path: kernel {key} not launched")
+    for tag, d, fr, pix, resize, planar in legs:
+        c = counters[tag]
+        n_batches = -(-len(fr) // VIDEO_BATCH)
+        check(c.raises == 0 and c.calls == 2 * n_batches,
+              f"leg ({tag}): {c.raises} raises in {c.calls} calls of apply_dithering_batch "
+              f"(want 0 in {2 * n_batches}): frames were retried or patched")
+        serial, overlapped = outs[tag, False], outs[tag, True]
+        check(len(serial) == len(overlapped) == len(fr),
+              f"leg ({tag}): {len(serial)} / {len(overlapped)} frames of {len(fr)}")
+        check(all(np.array_equal(a, b) for a, b in zip(serial, overlapped)),
+              f"leg ({tag}): overlap != serial")
+        src = [np.asarray(pixelize_regular(Image.fromarray(f), pix[1])) for f in fr] if pix \
+            else fr
+        want = batched_reference(d, src, planar)
+        if resize:
+            want = [np.repeat(np.repeat(w, resize, axis=0), resize, axis=1) for w in want]
+        check(all(np.array_equal(a, b) for a, b in zip(serial, want)),
+              f"leg ({tag}): process_frames != apply_dithering_batch in the same batches")
+        shape = serial[0].shape
+        log(f"[17] ({tag}) {len(fr)} frames -> {shape}: == apply_dithering_batch in batches "
+            f"of {VIDEO_BATCH} (tail {len(fr) % VIDEO_BATCH or VIDEO_BATCH}), overlap == "
+            f"serial, 0 raises in {c.calls} batch calls; serial {walls[tag, False]:.3f} s "
+            f"-> {len(fr) / walls[tag, False]:.3f} fps, overlapped {walls[tag, True]:.3f} s "
+            f"-> {len(fr) / walls[tag, True]:.3f} fps [{card}]")
+    planar = [np.ascontiguousarray(p.transpose(1, 2, 0)) for p in outs["e", False]]
+    check(all(np.array_equal(a, b) for a, b in zip(planar, outs["e-nhwc", False])),
+          "leg (e): planar != interleaved")
+    pal16_np = np.asarray(pal16, np.float32)
+    for i in (0, VIDEO_FRAMES - 1):
+        gold = golden_frame(lib, kernel_arrays, frames[i], pal16_np, "stucki")
+        check(np.array_equal(outs["a", False][i], gold),
+              f"leg (a) frame {i} != the golden engine (identity "
+              f"{identity(outs['a', False][i], gold)})")
+    log(f"[17] (e) planar == interleaved on all {len(planar)} frames; (a) frames 0 and "
+        f"{VIDEO_FRAMES - 1} == the golden engine's ed_fixed_f32 (stucki) bitwise")
+
+    # fps of leg (a), serial against overlapped, in turns.
+    timed = {False: [], True: []}
+    for overlap in (False, True) * VIDEO_TIMED_RUNS:
+        t0 = time.perf_counter()
+        for _ in process_frames(iter(frames), d_a, batch_size=VIDEO_BATCH, overlap=overlap):
+            pass
+        timed[overlap].append(time.perf_counter() - t0)
+    fps = {k: VIDEO_FRAMES / statistics.median(v) for k, v in timed.items()}
+    log(f"[17] leg (a) {VIDEO_FRAMES}x{VIDEO_W}x{VIDEO_H} Stucki median-cut 16: serial "
+        f"{fps[False]:.3f} fps, overlapped {fps[True]:.3f} fps (medians of "
+        f"{VIDEO_TIMED_RUNS} runs in turns; serial "
+        f"{', '.join(f'{t:.3f}' for t in timed[False])} s, overlapped "
+        f"{', '.join(f'{t:.3f}' for t in timed[True])} s) [{card}]")
+    log("[17] leg (a)'s traced run, overlapped, and its idle share: phase 6's line "
+        "[6-video] (a trace taken late in the run loses its device records)")
+    log(profiling.stage_report())
+
+    if ffio.ffmpeg_available():
+        work = build.BUILD_DIR / "video"
+        work.mkdir(parents=True, exist_ok=True)
+        clip, out_path = work / "clip.mp4", work / "clip_dithered.mp4"
+        writer = ffio.FrameWriter(str(clip), VIDEO_W, VIDEO_H, 30.0)
+        for f in frames:
+            writer.write(f)
+        check(writer.close(), "ffmpeg failed to encode the synthetic clip")
+        d = ditherer(ed, pal16, {"variant": "stucki"})
+        progress = []
+        t0 = time.perf_counter()
+        ok = VideoProcessor(progress_callback=lambda f, m: progress.append(f)) \
+            .process_video_streaming(str(clip), str(out_path), d)
+        wall = time.perf_counter() - t0
+        check(ok, "VideoProcessor.process_video_streaming failed")
+        info = ffio.probe_video(str(out_path))
+        n_out = sum(1 for _ in ffio.read_frames(str(out_path), info["width"], info["height"]))
+        check((info["width"], info["height"], n_out) == (VIDEO_W, VIDEO_H, VIDEO_FRAMES),
+              f"encoded output {info['width']}x{info['height']}, {n_out} frames")
+        log(f"[17] ffmpeg leg: {VIDEO_FRAMES}-frame clip -> VideoProcessor.process_video_"
+            f"streaming (planar flow {d.supports_planar_batch()}) -> {n_out} frames "
+            f"{info['width']}x{info['height']} in {wall:.3f} s, decode and encode "
+            f"included [{card}]")
+    else:
+        log("[17] ffmpeg leg did not run: ffmpeg or ffprobe is not on PATH")
+    log(f"[17] host engine fps by mode: {fps_host}; video phase took "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return fps
+
+
 def main() -> int:
+    import argparse
+
     import torch
+
+    parser = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the synthetic video frames of phase 17")
+    args = parser.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -3407,7 +3763,7 @@ def main() -> int:
     # all the same, so no reduced-precision path can enter a comparison.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return run(torch, torch.device("cuda"), card_line())
+    return run(torch, torch.device("cuda"), card_line(), args.seed)
 
 
 def sync(torch, dev):
@@ -3415,9 +3771,9 @@ def sync(torch, dev):
         torch.cuda.synchronize(dev)
 
 
-def run(torch, dev, card) -> int:
-    """Phases 1-15 on ``dev``; prints the result lines and returns 0, or
-    raises on the first failure."""
+def run(torch, dev, card, seed=0) -> int:
+    """Phases 1-17 on ``dev``; prints the result lines and returns 0, or
+    raises on the first failure. ``seed`` makes phase 17's video frames."""
     from PIL import Image
 
     t_run = time.perf_counter()
@@ -3664,6 +4020,10 @@ def run(torch, dev, card) -> int:
             d.apply_dithering_batch(frames16)
             report_trace(torch, tag, f"apply_dithering_batch {what}",
                          lambda: d.apply_dithering_batch(frames16), frames16.nbytes, card)
+    # Phase 17's leg (a), the video pipeline, is traced here for the same
+    # reason.
+    video_frames = moving_frames(VIDEO_FRAMES, VIDEO_H, VIDEO_W, seed)
+    trace_video_leg(torch, dev, card, video_frames)
 
     # 7. The ordered path.
     ordered_row, out_bayer = ordered_phase(torch, dev, card, frames16, gold_frames)
@@ -3695,13 +4055,22 @@ def run(torch, dev, card) -> int:
 
     # 15. K5, redesigned, at the odd shapes and on the uint16 streams.
     index_tile_phase(torch, dev, card, frames16, errs)
+
+    # 16. The host engine: serpentine scans and Riemersma.
+    t0 = time.perf_counter()
+    fps_host = host_engine_phase(torch, dev, card, lib, frames16, frame0, palette)
+    log(f"[16] phase 16 took {time.perf_counter() - t0:.1f} s")
+
+    # 17. The streaming video pipeline (the RGB path, as phases 1-8).
+    with index_transfer("0"):
+        video_phase(torch, dev, card, lib, video_frames, fps_host)
     for row in rows:
         if row["name"] in ("ed_scan", "ed_scan_idx", "skew", "unskew_unpack", "skew_planar",
                            "ordered_fused", "unskew_idx", "unskew_select", "identity",
                            "skew_transpose"):
             row["max_abs_err"] = max(row["max_abs_err"], errs.get(row["name"], 0.0))
     took = time.perf_counter() - t_run
-    log(f"[15] the whole run took {took:.1f} s, {took / RUN_LIMIT_S:.2f} of its "
+    log(f"[17] the whole run took {took:.1f} s, {took / RUN_LIMIT_S:.2f} of its "
         f"{RUN_LIMIT_S} s limit")
 
     print(json.dumps({"kernels": rows}), flush=True)

@@ -6,9 +6,9 @@ mirrors its layout (``core/palette.py``, ``ops/wavefront.py``,
 ``api/ditherer.py``, ...). It imports torch, numpy and PIL, never jax and
 never ``dither_pie_tpu``.
 
-It serves 12 of the 13 dither modes (all but Riemersma) on NHWC uint8
-batches and single images, through hand-written Hopper kernels
-(``kernels/csrc``):
+It serves all 13 dither modes on NHWC uint8 batches and single images,
+through hand-written Hopper kernels (``kernels/csrc``) and, for the scans
+that have no wavefront, the host engine:
 
 * the ordered family (none, Bayer 2x2/4x4/8x8/16x16/PSX, blue noise, IGN,
   polka dot; Bayer 4x4 is ``ImageDitherer()``'s default) on K4, palettes of
@@ -19,7 +19,15 @@ batches and single images, through hand-written Hopper kernels
   and K9 above;
 * wavelet (DWT, randomized subband quantization and IDWT as torch ops, the
   randomized pick on K4's float32 input) and halftone (torch ops), both
-  also through the u8 index stream.
+  also through the u8 index stream;
+* serpentine error diffusion (8 variants, Ostromoukhov) and Riemersma on
+  the host engine (``native/ed_scan.cpp``, compiled with g++ at first use),
+  as in the JAX package.
+
+Above the facade sit the config-driven image pipeline
+(``pipeline/image.py``) and the streaming video pipeline
+(``pipeline/video.py``: ``process_frames``, ``VideoProcessor``,
+``process_single_video``; ffmpeg rawvideo pipes in ``pipeline/ffio.py``).
 
 Up to 1024 colours ``apply_dithering_batch`` also speaks the video
 pipeline's two transfer shapes: planar (3, B, H, W) batches in and out
@@ -32,9 +40,7 @@ or ``auto`` replaces the scan's exact palette search by the score search
 for palettes of 65 to 1024 colours (outside the bit contract; ``auto`` gates
 it on the first batch).
 
-Every mode's parameter metadata is served (``get_mode_parameters``);
-Riemersma and serpentine scans raise NotImplementedError naming their
-ROADMAP item.
+Every mode's parameter metadata is served (``get_mode_parameters``).
 The device is explicit: ``ImageDitherer(..., device="cuda")`` (the
 default) launches the kernels, ``device="cpu"`` runs their plain PyTorch
 versions.
@@ -59,7 +65,9 @@ from dither_pie_tpu_torch.api.ditherer import (
     OstromoukhovDitherStrategy,
     PaletteSource,
     PerceptualDitherStrategy,
+    PixelizeMethod,
     PolkaDotDitherStrategy,
+    RiemersmaDitherStrategy,
     WaveletDitherStrategy,
 )
 from dither_pie_tpu_torch.api.runtime import resolve_device
@@ -83,7 +91,9 @@ __all__ = [
     "OstromoukhovDitherStrategy",
     "PaletteSource",
     "PerceptualDitherStrategy",
+    "PixelizeMethod",
     "PolkaDotDitherStrategy",
+    "RiemersmaDitherStrategy",
     "WaveletDitherStrategy",
     "resolve_device",
 ]

@@ -1,13 +1,17 @@
 """Public dithering API of the port: enums, the ordered and
 error-diffusion strategies, palette building and the ImageDitherer facade.
 
-Mirrors ``dither_pie_tpu/api/ditherer.py`` for the modes it ports: NONE,
+Mirrors ``dither_pie_tpu/api/ditherer.py`` for all 13 modes: NONE,
 BAYER (the default), BLUE_NOISE, INTERLEAVED_GRADIENT_NOISE and POLKA_DOT
 on the ordered kernel K4, ERROR_DIFFUSION, OSTROMOUKHOV, HYBRID,
 PERCEPTUAL and ADAPTIVE_VARIANCE on the wavefront kernels (K1-K3 for
 palettes of up to 1024 colours, K1, K8 and K9 above), WAVELET (torch ops
 for the transform and the subband quantiser, K4 on the float32
-reconstruction for the pick) and HALFTONE (torch ops); ``ImageDitherer``
+reconstruction for the pick) and HALFTONE (torch ops); the scans with no
+wavefront, serpentine ERROR_DIFFUSION and OSTROMOUKHOV and RIEMERSMA, on
+the host engine (``ops/ed_host.py``: the float64 engine for a single
+image, the float32 twins for a batch, one thread a frame, at most
+``DITHER_PIE_TPU_NATIVE_THREADS``), as the JAX package runs them; ``ImageDitherer``
 with ``apply_dithering``,
 ``apply_dithering_array`` and ``apply_dithering_batch``;
 ``ColorReducer``'s palettes; and every mode's parameter metadata. Frames
@@ -50,6 +54,7 @@ from dither_pie_tpu_torch.core import colors as _colors
 from dither_pie_tpu_torch.core import palette as _palette
 from dither_pie_tpu_torch.core import thresholds as _thresholds
 from dither_pie_tpu_torch.ops import adaptive as _adaptive
+from dither_pie_tpu_torch.ops import ed_host as _ed_host
 from dither_pie_tpu_torch.ops import ed_kernels as _ed_kernels
 from dither_pie_tpu_torch.ops import halftone as _halftone
 from dither_pie_tpu_torch.ops import idxpack as _idxpack
@@ -59,8 +64,7 @@ from dither_pie_tpu_torch.ops import wavelet as _wavelet
 
 
 class DitherMode(Enum):
-    """Dithering algorithms (names are the config-file vocabulary). The
-    port serves all but RIEMERSMA, which raises NotImplementedError."""
+    """Dithering algorithms (names are the config-file vocabulary)."""
 
     NONE = "none"
     BAYER = "bayer"
@@ -75,6 +79,12 @@ class DitherMode(Enum):
     HYBRID = "hybrid"
     HALFTONE = "halftone"
     OSTROMOUKHOV = "ostromoukhov"
+
+
+class PixelizeMethod(Enum):
+    NONE = "none"
+    REGULAR = "regular"
+    NEURAL = "neural"
 
 
 class PaletteSource(Enum):
@@ -161,11 +171,15 @@ class BaseDitherStrategy:
         return {}
 
 
+def _palette_array(palette_arr) -> np.ndarray:
+    """(P, 3) float32 host palette, a singleton padded by duplicating its
+    colour (as the JAX package's ``as_palette_array``)."""
+    return _palette.as_palette_array([tuple(c) for c in np.asarray(palette_arr)])
+
+
 def _palette_tensor(palette_arr, device: torch.device) -> torch.Tensor:
-    """(P, 3) float32 palette on ``device``, a singleton padded by
-    duplicating its colour (as the JAX package's ``as_palette_array``)."""
-    pal = _palette.as_palette_array([tuple(c) for c in np.asarray(palette_arr)])
-    return convert.palette_to_torch(pal, device)
+    """``_palette_array`` on ``device``."""
+    return convert.palette_to_torch(_palette_array(palette_arr), device)
 
 
 def _frames_tensor(images, device: torch.device) -> torch.Tensor:
@@ -397,22 +411,59 @@ def _serpentine_choice() -> Dict[str, Any]:
     }
 
 
-def _refuse_serpentine(serpentine: str) -> None:
-    if serpentine == "true":
-        # A reversed row depends on the LAST pixel of the row above, so no
-        # wavefront exists; the JAX package runs it on its host engine,
-        # which the port does not bind yet.
-        raise NotImplementedError(
-            "serpentine error diffusion is not ported yet (ROADMAP A5)")
+def _native_thread_cap() -> int:
+    """Worker cap of the threaded host-engine frame map: every core (the
+    ctypes calls release the GIL for the whole scan), or
+    DITHER_PIE_TPU_NATIVE_THREADS."""
+    env = os.environ.get("DITHER_PIE_TPU_NATIVE_THREADS")
+    if env:
+        return max(1, int(env))
+    return max(1, os.cpu_count() or 1)
+
+
+def _host_frame(pixels, palette_arr, image_size):
+    """A single image for the host engine: the (H, W, 3) float32 frame and
+    the (P, 3) float32 palette."""
+    h, w = image_size
+    img = np.asarray(pixels, dtype=np.float32).reshape(h, w, 3)
+    return img, _palette_array(palette_arr)
+
+
+def _host_batch(scan, images, palette_arr) -> np.ndarray:
+    """A (B, H, W, 3) batch through ``scan(frame f32, palette)`` on the
+    host engine, one thread a frame (the ctypes calls release the GIL).
+    The output has the input's dtype: uint8 frames in, the float32 results
+    truncated into it, as in the JAX package."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    pal = _palette_array(palette_arr)
+    images = np.asarray(images)
+    out = np.empty_like(images)
+    with ThreadPoolExecutor(max_workers=min(_native_thread_cap(), len(images))) as ex:
+        for i, res in enumerate(ex.map(lambda im: scan(im.astype(np.float32), pal), images)):
+            out[i] = res
+    return out
 
 
 class _WavefrontDitherStrategy(BaseDitherStrategy):
     """Error diffusion of one wavefront mode on ``self.device``: single
     images go to the card as one float32 frame, batches as they are,
-    (B, H, W, 3) or planar (3, B, H, W)."""
+    (B, H, W, 3) or planar (3, B, H, W).
+
+    A serpentine scan has no wavefront: it runs on the host engine, as in
+    the JAX package, and never moves a frame to the device. A single image
+    takes the float64 engine (``_host_scan(..., exact=True)``), a batch the
+    float32 twin, one thread a frame; it has no planar and no index
+    output."""
 
     device: torch.device
     mode: str
+    serpentine = False
+
+    def _host_scan(self, work: np.ndarray, pal: np.ndarray, exact: bool) -> np.ndarray:
+        """One float32 (H, W, 3) frame through the host engine's serpentine
+        scan of this mode."""
+        raise NotImplementedError
 
     def _mode_args(self, images: np.ndarray, planar: bool = False) -> Dict[str, Any]:
         """Keyword arguments of ``ed_batch_wavefront`` beyond the mode and
@@ -440,6 +491,9 @@ class _WavefrontDitherStrategy(BaseDitherStrategy):
         return out, pal
 
     def dither(self, pixels, palette_arr, image_size):
+        if self.serpentine:
+            img, pal = _host_frame(pixels, palette_arr, image_size)
+            return self._host_scan(img, pal, exact=True).reshape(-1, 3)
         # One float32 frame; as in the JAX package a single image never
         # enters the first-batch gate.
         h, w = image_size
@@ -448,19 +502,26 @@ class _WavefrontDitherStrategy(BaseDitherStrategy):
         return out[0].astype(np.float32).reshape(-1, 3)
 
     def dither_batch(self, images, palette_arr):
+        if self.serpentine:
+            return _host_batch(lambda im, pal: self._host_scan(im, pal, exact=False),
+                               images, palette_arr)
         return self._on_device(images, palette_arr)[0].cpu().numpy()
 
     def dither_batch_planar(self, planes, palette_arr):
         """(3, B, H, W) channel-major planes in, planes out: the layout of
-        the video pipeline's zero-copy flow."""
+        the video pipeline's zero-copy flow (the wavefront kernels only)."""
+        if self.serpentine:
+            raise RuntimeError("planar batches require the wavefront kernels, and a "
+                               "serpentine scan has none: ask supports_planar_batch() first")
         return self._on_device(planes, palette_arr, planar=True)[0].cpu().numpy()
 
     def dither_batch_indices(self, images, palette_arr, planar=False):
         """Host (B, H, W) palette indices, uint8 up to 256 colours and
         uint16 up to 1024: a third (two thirds) of the RGB path's
         device-to-host bytes, less when bit-packed (up to 16 colours).
-        ``None`` above ``PACKED_PALETTE_MAX`` colours."""
-        if len(palette_arr) > _wf.PACKED_PALETTE_MAX:
+        ``None`` above ``PACKED_PALETTE_MAX`` colours and for a serpentine
+        scan."""
+        if self.serpentine or len(palette_arr) > _wf.PACKED_PALETTE_MAX:
             return None
         idx, pal = self._on_device(images, palette_arr, planar, return_indices=True)
         return _idxpack.packed_transfer(idx, pal.shape[0], idx.shape[2])
@@ -468,7 +529,7 @@ class _WavefrontDitherStrategy(BaseDitherStrategy):
 
 class ErrorDiffusionDitherStrategy(_WavefrontDitherStrategy):
     """Unified 8-variant fixed-weight error diffusion on the wavefront
-    kernels of ``device``."""
+    kernels of ``device``; serpentine on the host engine."""
 
     mode = "fixed"
 
@@ -487,15 +548,20 @@ class ErrorDiffusionDitherStrategy(_WavefrontDitherStrategy):
 
     def __init__(self, variant: str = "atkinson", serpentine: str = "false",
                  device: DeviceLike = "cuda"):
-        _refuse_serpentine(serpentine)
         self.variant = variant
+        self.serpentine = serpentine == "true"
         self.device = resolve_device(device)
 
     def get_current_parameters(self) -> Dict[str, Any]:
-        return {"variant": self.variant, "serpentine": "false"}
+        return {"variant": self.variant,
+                "serpentine": "true" if self.serpentine else "false"}
 
     def _mode_args(self, images, planar=False):
         return {"variant": self.variant}
+
+    def _host_scan(self, work, pal, exact):
+        scan = _ed_host.ed_fixed if exact else _ed_host.ed_fixed_fast
+        return scan(work, pal, self.variant, True)
 
 
 class OstromoukhovDitherStrategy(_WavefrontDitherStrategy):
@@ -509,11 +575,15 @@ class OstromoukhovDitherStrategy(_WavefrontDitherStrategy):
         return {"serpentine": _serpentine_choice()}
 
     def __init__(self, serpentine: str = "false", device: DeviceLike = "cuda"):
-        _refuse_serpentine(serpentine)
+        self.serpentine = serpentine == "true"
         self.device = resolve_device(device)
 
     def get_current_parameters(self) -> Dict[str, Any]:
-        return {"serpentine": "false"}
+        return {"serpentine": "true" if self.serpentine else "false"}
+
+    def _host_scan(self, work, pal, exact):
+        scan = _ed_host.ed_ostromoukhov if exact else _ed_host.ed_ostromoukhov_fast
+        return scan(work, pal, True)
 
 
 class HybridDitherStrategy(_WavefrontDitherStrategy):
@@ -617,6 +687,24 @@ class AdaptiveVarianceDitherStrategy(_WavefrontDitherStrategy):
     def _mode_args(self, images, planar=False):
         gates = torch.from_numpy(self._gates(images, planar).astype(np.uint8))
         return {"aux": gates.to(self.device).to(torch.float32)}
+
+
+class RiemersmaDitherStrategy(BaseDitherStrategy):
+    """Error diffusion along a Hilbert curve: one dependency chain through
+    the frame, so it runs on the host engine (no parameters, as the
+    reference), as in the JAX package. A single image takes the float64
+    engine, a batch the float32 twin, one thread a frame; ``device`` is
+    accepted and no frame moves to it."""
+
+    def __init__(self, device: DeviceLike = "cuda"):
+        self.device = resolve_device(device)
+
+    def dither(self, pixels, palette_arr, image_size):
+        img, pal = _host_frame(pixels, palette_arr, image_size)
+        return _ed_host.ed_riemersma(img, pal).reshape(-1, 3)
+
+    def dither_batch(self, images, palette_arr):
+        return _host_batch(_ed_host.ed_riemersma_fast, images, palette_arr)
 
 
 # -------------------- Wavelet --------------------
@@ -875,6 +963,7 @@ _STRATEGY_CLASSES = {
     DitherMode.INTERLEAVED_GRADIENT_NOISE: InterleavedGradientNoiseDitherStrategy,
     DitherMode.POLKA_DOT: PolkaDotDitherStrategy,
     DitherMode.ERROR_DIFFUSION: ErrorDiffusionDitherStrategy,
+    DitherMode.RIEMERSMA: RiemersmaDitherStrategy,
     DitherMode.OSTROMOUKHOV: OstromoukhovDitherStrategy,
     DitherMode.HYBRID: HybridDitherStrategy,
     DitherMode.PERCEPTUAL: PerceptualDitherStrategy,
@@ -898,12 +987,6 @@ _PARAM_MODES = {
     DitherMode.ERROR_DIFFUSION: ErrorDiffusionDitherStrategy.get_parameter_info,
     DitherMode.OSTROMOUKHOV: OstromoukhovDitherStrategy.get_parameter_info,
 }
-
-# Where each mode that the port does not serve yet sits in ROADMAP Queue A.
-_NOT_PORTED = {
-    DitherMode.RIEMERSMA: "A5",
-}
-
 
 class ImageDitherer:
     """Orchestrates palette building plus dithering with a chosen strategy.
@@ -947,10 +1030,6 @@ class ImageDitherer:
     def _get_dither_strategy(self, mode: DitherMode) -> BaseDitherStrategy:
         strategy_class = _STRATEGY_CLASSES.get(mode)
         if strategy_class is None:
-            if mode in _NOT_PORTED:
-                raise NotImplementedError(
-                    f"dither mode {mode.value!r} is not ported yet "
-                    f"(ROADMAP {_NOT_PORTED[mode]})")
             raise ValueError(f"Unrecognized DitherMode: {mode}")
         param_info = strategy_class.get_parameter_info()
         if param_info:

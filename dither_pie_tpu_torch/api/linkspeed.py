@@ -22,6 +22,7 @@ CUDA device a failing copy raises.
 from __future__ import annotations
 
 import os
+import threading
 import time
 from typing import Dict, List, Optional
 
@@ -35,6 +36,9 @@ _GATHER_PIXELS = 1080 * 1920  # one full-HD frame of indices
 _SAVED_BYTES_PER_PX = 2.0  # RGB's three bytes less the uint8 stream's one
 _cache: Dict[torch.device, float] = {}
 _gather_cache: List[float] = []
+# The video pipeline's two workers may ask at once: one probe runs, the
+# other waits for its verdict (two copies at once would time each other).
+_probe_lock = threading.RLock()
 
 
 def d2h_bandwidth_mb_s(device: DeviceLike) -> Optional[float]:
@@ -45,17 +49,18 @@ def d2h_bandwidth_mb_s(device: DeviceLike) -> Optional[float]:
     dev = resolve_device(device)
     if dev.type == "cpu":
         return None
-    if dev not in _cache:
-        best = float("inf")
-        for i in range(2):
-            x = (torch.arange(_PROBE_BYTES, dtype=torch.int32, device=dev)
-                 * (i + 40503)).to(torch.uint8)
-            torch.cuda.synchronize(dev)
-            t0 = time.perf_counter()
-            x.cpu()
-            best = min(best, time.perf_counter() - t0)
-        _cache[dev] = _PROBE_BYTES / best / 1e6
-    return _cache[dev]
+    with _probe_lock:
+        if dev not in _cache:
+            best = float("inf")
+            for i in range(2):
+                x = (torch.arange(_PROBE_BYTES, dtype=torch.int32, device=dev)
+                     * (i + 40503)).to(torch.uint8)
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                x.cpu()
+                best = min(best, time.perf_counter() - t0)
+            _cache[dev] = _PROBE_BYTES / best / 1e6
+        return _cache[dev]
 
 
 def host_gather_ns_per_px() -> float:
@@ -63,17 +68,18 @@ def host_gather_ns_per_px() -> float:
     pixel: the best of two ``pal_u8[idx]`` gathers (the facade's form) of
     one full-HD frame of scattered uint8 indices into a 32-colour palette.
     Cached for the life of the process."""
-    if not _gather_cache:
-        idx = (np.arange(_GATHER_PIXELS, dtype=np.uint32) * np.uint32(40503) >> 7).astype(
-            np.uint8) & np.uint8(31)
-        pal_u8 = np.arange(96, dtype=np.uint8).reshape(32, 3)
-        best = float("inf")
-        for _ in range(2):
-            t0 = time.perf_counter()
-            pal_u8[idx]
-            best = min(best, time.perf_counter() - t0)
-        _gather_cache.append(best / _GATHER_PIXELS * 1e9)
-    return _gather_cache[0]
+    with _probe_lock:
+        if not _gather_cache:
+            idx = (np.arange(_GATHER_PIXELS, dtype=np.uint32) * np.uint32(40503) >> 7).astype(
+                np.uint8) & np.uint8(31)
+            pal_u8 = np.arange(96, dtype=np.uint8).reshape(32, 3)
+            best = float("inf")
+            for _ in range(2):
+                t0 = time.perf_counter()
+                pal_u8[idx]
+                best = min(best, time.perf_counter() - t0)
+            _gather_cache.append(best / _GATHER_PIXELS * 1e9)
+        return _gather_cache[0]
 
 
 def break_even_mb_s() -> float:

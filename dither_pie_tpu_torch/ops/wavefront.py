@@ -80,6 +80,7 @@ from __future__ import annotations
 
 import functools
 import math
+import threading
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
@@ -156,8 +157,13 @@ def _ostro_weight_table() -> np.ndarray:
 
 @functools.lru_cache(maxsize=8)
 def ostro_lut(device) -> torch.Tensor:
-    """The (256, 3) float32 weight table on ``device``, sent there once."""
-    return convert.weight_table_to_torch(_ostro_weight_table(), device)
+    """The (256, 3) float32 weight table on ``device``, sent there once.
+    The copy is waited for: the cached table is read on other threads'
+    streams too (the video pipeline's overlap workers)."""
+    lut = convert.weight_table_to_torch(_ostro_weight_table(), device)
+    if lut.device.type == "cuda":
+        torch.cuda.current_stream(lut.device).synchronize()
+    return lut
 
 
 def _check_mode(mode: str) -> None:
@@ -1069,6 +1075,9 @@ def _run(mode: str, images: torch.Tensor, palette: torch.Tensor,
 # The first-batch gate of dense_search="auto": (mode, variant, factors,
 # palette bytes) -> "mxu" or "exact", decided once for the process.
 _DENSE_GATE_CACHE: Dict[tuple, str] = {}
+# Held while a key is undecided, so that two threads (the video pipeline's
+# overlap workers) decide it once.
+_DENSE_GATE_LOCK = threading.Lock()
 _DENSE_GATE_MAX_KEYS = 64
 _DENSE_GATE_MIN_IDENTITY = 0.98
 _DENSE_GATE_MAX_BLOCK_MEAN = 2.0
@@ -1102,11 +1111,21 @@ def _dense_gated_run(mode: str, images: torch.Tensor, palette: torch.Tensor,
     if palette_key is None:
         palette_key = palette.detach().cpu().numpy().tobytes()
     key = (mode, variant, float(kw["lum_factor"]), float(kw["col_factor"]), palette_key)
-    if len(_DENSE_GATE_CACHE) > _DENSE_GATE_MAX_KEYS:
-        _DENSE_GATE_CACHE.clear()
     choice = _DENSE_GATE_CACHE.get(key)
-    if choice is not None:
-        return _run(mode, images, palette, variant, dense_search=choice, **kw)
+    if choice is None:
+        with _DENSE_GATE_LOCK:
+            choice = _DENSE_GATE_CACHE.get(key)
+            if choice is None:
+                if len(_DENSE_GATE_CACHE) > _DENSE_GATE_MAX_KEYS:
+                    _DENSE_GATE_CACHE.clear()
+                return _dense_gate_decide(mode, images, palette, variant, kw, key)
+    return _run(mode, images, palette, variant, dense_search=choice, **kw)
+
+
+def _dense_gate_decide(mode: str, images: torch.Tensor, palette: torch.Tensor,
+                       variant: str, kw: dict, key: tuple) -> torch.Tensor:
+    """Both searches on the gate's first batch; records and applies the
+    verdict."""
     out_exact = _run(mode, images, palette, variant, dense_search="exact", **kw)
     out_score = _run(mode, images, palette, variant, dense_search="mxu", **kw)
     frames_exact, frames_score = (

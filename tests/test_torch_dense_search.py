@@ -21,6 +21,8 @@ Tolerances:
 chip_smoke.py holds the CUDA kernels to the same plain versions on the card.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -460,6 +462,39 @@ def test_dense_search_auto_gate_propagates_a_failing_score_run(fake_run):
     with pytest.raises(RuntimeError, match="the score run failed"):
         twf.ed_batch_wavefront(imgs, pal, dense_search="auto")
     assert fake_run.calls == ["exact", "mxu"] and not twf._DENSE_GATE_CACHE
+
+
+def test_dense_search_auto_gate_decides_once_under_threads(fake_run):
+    """The video pipeline's overlap workers reach the gate at once: more
+    threads than cores on one undecided key run both searches once, and
+    every other call takes the verdict."""
+    import sys
+    import threading
+
+    imgs = torch.from_numpy(_frames(2, 12, 16, 5, np.uint8))
+    pal = torch.from_numpy(_unique_palette(100, 4))
+    n_threads = 4 * (os.cpu_count() or 1)
+    start = threading.Barrier(n_threads)
+    outs = []
+
+    def call():
+        start.wait(timeout=60)
+        outs.append(twf.ed_batch_wavefront(imgs, pal, dense_search="auto"))
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=call) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert len(outs) == n_threads and all(torch.equal(o, fake_run.base) for o in outs)
+    assert sorted(fake_run.calls) == ["exact"] + ["mxu"] * n_threads
+    assert fake_run.calls[:2] == ["exact", "mxu"]
 
 
 def test_dense_search_auto_gate_cache_is_bounded(fake_run):

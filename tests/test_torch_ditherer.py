@@ -22,9 +22,12 @@ test_torch_halftone.py) and join the index-stream cases here.
   package's rules;
 * parameter metadata: get_mode_parameters equals the JAX package's for
   every mode;
-* failure behaviour: CUDA without a GPU raises, unported modes and options
-  raise NotImplementedError naming their ROADMAP item, and importing the
-  port loads no jax.
+* serpentine scans and Riemersma (the host engine): apply_dithering and
+  apply_dithering_batch bitwise equal to the JAX package's, gamma off and
+  on, with no index or planar output;
+* failure behaviour: CUDA without a GPU raises, planar batches of a
+  strategy without a planar path raise, and importing the port (its
+  pipelines and host engine included) loads no jax.
 """
 
 import os
@@ -296,14 +299,61 @@ def test_cuda_without_gpu_raises():
 TRANSFORM_MODES = {tdpt.DitherMode.WAVELET, tdpt.DitherMode.HALFTONE}
 
 
-@pytest.mark.parametrize("mode", [m for m in tdpt.DitherMode
-                                  if m not in ED_MODES | ORDERED_MODES | TRANSFORM_MODES])
-def test_unported_modes_raise(mode):
-    assert mode is tdpt.DitherMode.RIEMERSMA  # the one mode still to port
-    d = tdpt.ImageDitherer(dither_mode=mode, palette=[(0, 0, 0), (255, 255, 255)],
-                           device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A5"):
-        d.apply_dithering_batch(np.zeros((1, 4, 4, 3), np.uint8))
+HOST_ENGINE_CASES = [  # the scans with no wavefront, on the host engine
+    ("error_diffusion", {"variant": "floyd_steinberg", "serpentine": "true"}),
+    ("error_diffusion", {"variant": "stucki", "serpentine": "true"}),
+    ("ostromoukhov", {"serpentine": "true"}),
+    ("riemersma", {}),
+]
+
+
+@pytest.mark.parametrize("use_gamma", [False, True], ids=["srgb", "gamma"])
+@pytest.mark.parametrize("entry", ["apply_dithering", "apply_dithering_batch"])
+@pytest.mark.parametrize("mode,params", HOST_ENGINE_CASES,
+                         ids=["fs-serpentine", "stucki-serpentine", "ostromoukhov-serpentine",
+                              "riemersma"])
+def test_serpentine_and_riemersma_vs_jax(mode, params, entry, use_gamma,
+                                         golden_engine_batches):
+    """Serpentine scans and Riemersma run on the host engine, as in the
+    JAX package: a single image on the float64 engine, a batch on the
+    float32 twins; both bitwise equal to the JAX package's."""
+    frames = _frames(3, 37, 53)
+    palette = tpal.median_cut_palette(frames[0], 16)
+    kw = dict(num_colors=16, palette=list(palette), use_gamma=use_gamma, dither_params=params)
+    ours = tdpt.ImageDitherer(dither_mode=tdpt.DitherMode(mode), device="cpu", **kw)
+    theirs = jdpt.ImageDitherer(dither_mode=jdpt.DitherMode(mode), **kw)
+    if entry == "apply_dithering":
+        got = np.asarray(ours.apply_dithering(Image.fromarray(frames[1])))
+        want = np.asarray(theirs.apply_dithering(Image.fromarray(frames[1])))
+    else:
+        got = ours.apply_dithering_batch(frames)
+        want = theirs.apply_dithering_batch(frames)
+    assert got.dtype == np.uint8 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    assert not ours.supports_planar_batch()
+
+
+def test_serpentine_with_the_index_stream_forced_vs_jax(monkeypatch):
+    """A serpentine strategy has no index output: with the index stream
+    forced on, the batch still comes back as RGB, equal to the JAX
+    package's, and its planar path raises."""
+    monkeypatch.setenv("DITHER_PIE_TPU_ED_BACKEND", "native")
+    monkeypatch.setenv("DITHER_PIE_TPU_INDEX_TRANSFER", "1")
+    frames = _frames(3, 37, 53)
+    palette = tpal.median_cut_palette(frames[0], 16)
+    kw = dict(num_colors=16, palette=list(palette),
+              dither_params={"variant": "jjn", "serpentine": "true"})
+    ours = tdpt.ImageDitherer(dither_mode=tdpt.DitherMode.ERROR_DIFFUSION, device="cpu", **kw)
+    calls = _spy_indices(monkeypatch, tdpt.ErrorDiffusionDitherStrategy)
+    got = ours.apply_dithering_batch(frames)
+    assert calls == [None]  # asked, and the strategy has no index output
+    np.testing.assert_array_equal(
+        got, jdpt.ImageDitherer(dither_mode=jdpt.DitherMode.ERROR_DIFFUSION,
+                                **kw).apply_dithering_batch(frames))
+    strategy = ours._get_dither_strategy(tdpt.DitherMode.ERROR_DIFFUSION)
+    assert strategy.dither_batch_indices(frames, np.asarray(palette, np.float32)) is None
+    with pytest.raises(RuntimeError, match="supports_planar_batch"):
+        ours.apply_dithering_batch(np.moveaxis(frames, -1, 0), planar=True)
 
 
 @pytest.mark.parametrize("mode", sorted(TRANSFORM_MODES, key=lambda m: m.value),
@@ -327,14 +377,6 @@ def test_unported_options_raise():
     frames = np.zeros((1, 4, 4, 3), np.uint8)
     pal = [(0, 0, 0), (255, 255, 255)]
     ed = tdpt.DitherMode.ERROR_DIFFUSION
-    serp = tdpt.ImageDitherer(dither_mode=ed, palette=pal, device="cpu",
-                              dither_params={"serpentine": "true"})
-    with pytest.raises(NotImplementedError, match="A5"):
-        serp.apply_dithering_batch(frames)
-    serp = tdpt.ImageDitherer(dither_mode=tdpt.DitherMode.OSTROMOUKHOV, palette=pal,
-                              device="cpu", dither_params={"serpentine": "true"})
-    with pytest.raises(NotImplementedError, match="A5"):
-        serp.apply_dithering_batch(frames)
     # Planar batches are served by the error-diffusion strategies only.
     bayer = tdpt.ImageDitherer(dither_mode=tdpt.DitherMode.BAYER, palette=pal, device="cpu")
     with pytest.raises(ValueError, match="supports_planar_batch"):
@@ -546,7 +588,9 @@ def test_facade_follows_the_probe(monkeypatch):
 
 
 def test_import_loads_no_jax():
-    code = ("import sys, dither_pie_tpu_torch; "
+    code = ("import sys, dither_pie_tpu_torch, dither_pie_tpu_torch.pipeline.video, "
+            "dither_pie_tpu_torch.pipeline.image, dither_pie_tpu_torch.ops.ed_host, "
+            "dither_pie_tpu_torch.native.build, dither_pie_tpu_torch.video_processor; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('dither_pie_tpu.') or m == 'dither_pie_tpu']; "
             "assert not bad, bad")
