@@ -257,8 +257,22 @@ a non-zero exit code and no result line:
    a late trace loses its device records: its idle share), and, where
    ffmpeg is on PATH, leg (a) end to end through
    VideoProcessor on a clip ffmpeg encodes from the frames (else one line
-   says that leg did not run); and what the whole run took of its 1200 s
-   limit.
+   says that leg did not run);
+18. the neural pixelizer, BASELINE.md config 5 (bench.py's): 8 synthetic
+   1080p frames through process_frames(..., pixelize_func=("neural",
+   128), batch_size=8) with load_random(0) weights installed as the card's
+   pixelizer (the net's input 8 x 512x912 at the model's full widths),
+   then HYBRID at k-means-32 from the pixelized frame 0. Holds: K1, K2 and
+   K3 launched; the output == apply_dithering_batch of the same pixelized
+   frames bitwise and 2 frames == the golden engine's hybrid twin; ds4 on
+   == ds4 off bitwise in float32; the card's float32 forward == the port's
+   CPU forward within 1e-4 (u8 within one step) at 2 x 64x96. Prints what
+   the first-batch gates locked, fps (best of 2 warm runs) with ds4 on and
+   off, the device ms of one batched forward in float32, tensorfloat32 and
+   bfloat16 (CUDA events) with their mean |u8 delta| against float32, the
+   stage report, the idle share of one traced run (traced in phase 6, as
+   leg (a) is) and the phase's seconds; and what the whole run took of its
+   1200 s limit.
 
 Phases 1-8 run with DITHER_PIE_TPU_INDEX_TRANSFER=0 (the RGB path, whatever
 the link probe would say); phases 9 to 11 set it as each check needs.
@@ -3745,6 +3759,234 @@ def video_phase(torch, dev, card, lib, frames, fps_host):
     return fps
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the neural pixelizer, BASELINE.md config 5
+# ---------------------------------------------------------------------------
+
+NEURAL_FRAMES = 8  # BASELINE.md config 5: 8 x 1080p, neural pixelize to 128, hybrid
+NEURAL_MAX_SIZE = 128
+NEURAL_SMALL = (2, 64, 96)  # the card-against-CPU check's input
+NEURAL_PRECISIONS = ("float32", "tensorfloat32", "bfloat16")
+
+
+class RecordingDitherer(CountingDitherer):
+    """CountingDitherer that also keeps the frames of each call."""
+
+    def __init__(self, d):
+        super().__init__(d)
+        self.seen = []
+
+    def __call__(self, stacked, *a, **kw):
+        self.seen.append(np.array(stacked))
+        return super().__call__(stacked, *a, **kw)
+
+
+@dataclasses.dataclass
+class NeuralRun:
+    """What neural_setup made for phase 18."""
+    model: object
+    frames: list
+    ditherer: object
+    recorder: RecordingDitherer
+    palette: list
+
+
+def neural_frames_run(run, **kw):
+    """config 5 through process_frames: the frames in one batch of 8."""
+    from dither_pie_tpu_torch.pipeline.video import process_frames
+
+    return list(process_frames(iter(run.frames), run.ditherer,
+                               pixelize_func=("neural", NEURAL_MAX_SIZE),
+                               batch_size=NEURAL_FRAMES, prefetch=False, **kw))
+
+
+def neural_input(run):
+    """The 8 frames as the batch path prepares them: (8, 512, 912, 3) u8."""
+    from PIL import Image
+
+    from dither_pie_tpu_torch.models import inference as inf
+
+    return np.concatenate([inf.process_u8(inf.resize_image_nearest(
+        Image.fromarray(f).convert("RGB"), NEURAL_MAX_SIZE * 4)) for f in run.frames])
+
+
+def neural_setup(torch, dev, card):
+    """Config 5 (bench.py's): load_random(0) weights installed as the
+    card's neural pixelizer, 8 synthetic 1080p frames, the k-means-32
+    palette of the pixelized frame 0, a HYBRID ditherer; then a warm-up
+    process_frames run, which runs the first-batch gates (their verdicts
+    and seconds are printed), and one traced run: the idle share. Traced
+    here, early in the run, as phase 6's traces are."""
+    from PIL import Image
+
+    import dither_pie_tpu_torch as dpt
+    from dither_pie_tpu_torch.models.inference import PixelizationModel
+    from dither_pie_tpu_torch.models.pixelizer import NeuralPixelizer
+    from dither_pie_tpu_torch.pipeline.pixelize import install_neural_pixelizer
+
+    for name in ("PRECISION", "U8_IN", "DS4", "DS4_STRIDE"):
+        os.environ.pop(f"DITHER_PIE_TPU_NEURAL_{name}", None)
+    t0 = time.perf_counter()
+    model = PixelizationModel(device=dev)
+    model.load_random(0)
+    pix = NeuralPixelizer.from_model(model)
+    install_neural_pixelizer(pix)
+    frames = [synth_image(FULL_H, FULL_W, 500 + i) for i in range(NEURAL_FRAMES)]
+    px0 = np.array(pix.pixelize(Image.fromarray(frames[0]), NEURAL_MAX_SIZE).convert("RGB"))
+    palette = dpt.ColorReducer.generate_kmeans_palette(Image.fromarray(px0), N_COLORS,
+                                                       device=dev)
+    d = dpt.ImageDitherer(num_colors=N_COLORS, dither_mode=dpt.DitherMode.HYBRID,
+                          palette=palette, device=dev)
+    run = NeuralRun(model, frames, d, RecordingDitherer(d), palette)
+    sync(torch, dev)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    neural_frames_run(run)
+    sync(torch, dev)
+    log(f"[18] config 5 set-up: weights, the reference's style code, frame 0 pixelized "
+        f"alone and its k-means-{N_COLORS} palette {setup_s:.3f} s; the first "
+        f"process_frames run (the gates run float32 and bfloat16, then the ds4 stride "
+        f"candidate) {time.perf_counter() - t0:.3f} s; the gates locked precision "
+        f"{model._video_prec!r}, ds4 stride {model._ds4_stride} [{card}]")
+    pre = neural_input(run)
+    report_trace(torch, "6-neural", f"process_frames config 5 ({NEURAL_FRAMES} x "
+                 f"{FULL_W}x{FULL_H}, neural {NEURAL_MAX_SIZE} -> hybrid k-means-{N_COLORS}, "
+                 f"the net's input {pre.shape[1]}x{pre.shape[2]})",
+                 lambda: neural_frames_run(run), pre.nbytes, card)
+    return run
+
+
+def neural_phase(torch, dev, card, lib, run):
+    """Phase 18: BASELINE.md config 5 on the card (``run`` from
+    neural_setup). Holds: the main path launches K1, K2 and K3; its output
+    == apply_dithering_batch of the same pixelized frames, bitwise, and 2
+    frames == the golden engine's hybrid twin; no batch call raised; ds4 on
+    == ds4 off bitwise in float32 (fresh gates); the card's float32 forward
+    == the port's CPU forward within 1e-4 (u8 within one step) at
+    NEURAL_SMALL. Prints fps (best of 2 warm runs) with ds4 on and off, the
+    device ms of one batched forward by precision with bf16's and TF32's
+    mean |u8 delta| against float32, the stage report and the phase's
+    seconds."""
+    import copy
+
+    from PIL import Image
+
+    from dither_pie_tpu_torch.api import profiling
+    from dither_pie_tpu_torch.kernels import build
+    from dither_pie_tpu_torch.models import inference as inf
+
+    t_phase = time.perf_counter()
+    model, rec = run.model, run.recorder
+    calls = rec.calls
+    rec.seen.clear()
+    build.reset_launch_counts()
+    outs = neural_frames_run(run)
+    sync(torch, dev)
+    launches = dict(build.LAUNCHES)
+    log(f"[18] config 5 main path launches: {launches}")
+    for key in ("skew", "ed_scan", "unskew_unpack"):
+        check(launches.get(key, 0) >= 1, f"config 5: kernel {key} not launched")
+    check(rec.raises == 0 and rec.calls == calls + 1,
+          f"config 5: {rec.raises} raises in {rec.calls - calls} batch calls (want 0 in 1)")
+    px = rec.seen[-1]
+    h, w = px.shape[1:3]
+    check(len(outs) == NEURAL_FRAMES and all(o.shape == (h, w, 3) and o.dtype == np.uint8
+                                             for o in outs),
+          f"config 5 output: {len(outs)} frames, {outs[0].shape} {outs[0].dtype}")
+    want = rec.orig(px)
+    check(all(np.array_equal(o, wf) for o, wf in zip(outs, want)),
+          "config 5: process_frames != apply_dithering_batch of the same pixelized frames")
+    pal_np = np.asarray(run.palette, np.float32)
+    for i in (0, NEURAL_FRAMES - 1):
+        gold = golden_mode_frame(lib, px[i], pal_np, "hybrid")
+        check(np.array_equal(outs[i], gold),
+              f"config 5 frame {i} != the golden engine's hybrid twin (identity "
+              f"{identity(outs[i], gold)})")
+    log(f"[18] config 5: {NEURAL_FRAMES} frames pixelized to {w}x{h}, == "
+        f"apply_dithering_batch of the same pixelized frames on all {NEURAL_FRAMES}, frames "
+        f"0 and {NEURAL_FRAMES - 1} == the golden engine's ed_hybrid_f32 bitwise; 0 raises")
+
+    # ds4 on == ds4 off, float32, each with fresh gates.
+    imgs = [Image.fromarray(f) for f in run.frames]
+    ds4_out, stride_f32 = {}, None
+    with env_var("DITHER_PIE_TPU_NEURAL_PRECISION", "float32"):
+        for ds4 in ("1", "0"):
+            fresh = copy.copy(model)
+            fresh._video_prec = fresh._ds4_stride = None
+            with env_var("DITHER_PIE_TPU_NEURAL_DS4", ds4):
+                ds4_out[ds4] = [np.asarray(o) for o in fresh.pixelize_images_batch(
+                    imgs, NEURAL_MAX_SIZE)]
+            if ds4 == "1":
+                stride_f32 = fresh._ds4_stride
+    check(all(np.array_equal(a, b) for a, b in zip(ds4_out["1"], ds4_out["0"])),
+          "config 5: ds4 on != ds4 off in float32")
+    log(f"[18] ds4 on == ds4 off bitwise on all {NEURAL_FRAMES} frames in float32; the "
+        f"float32 ds4 stride gate (strided final conv == the dense slice bitwise?) "
+        f"said {stride_f32}")
+
+    # The card's float32 forward against the port's CPU forward.
+    cpu_model = inf.PixelizationModel(device="cpu")
+    cpu_model.load_random(0)
+    x_small = np.random.RandomState(18).uniform(-1, 1, (*NEURAL_SMALL, 3)).astype(np.float32)
+    cpu_f = cpu_model.forward_tensor(cpu_model._tensor(x_small), "float32")
+    errs = {}
+    for prec in ("float32", "tensorfloat32"):
+        card_f = model.forward_tensor(model._tensor(x_small), prec).cpu()
+        errs[prec] = (card_f - cpu_f).abs().max().item()
+    u8_card = model.forward_u8(x_small, precision="float32")
+    u8_cpu = cpu_model.forward_u8(x_small, precision="float32")
+    u8_err = int(np.abs(u8_card.astype(np.int16) - u8_cpu.astype(np.int16)).max())
+    check(errs["float32"] <= 1e-4 and u8_err <= 1,
+          f"card float32 forward vs CPU: max abs err {errs['float32']} (limit 1e-4), u8 "
+          f"|delta| {u8_err} (limit 1)")
+    log(f"[18] card vs the port's CPU forward at {NEURAL_SMALL[0]}x{NEURAL_SMALL[1]}x"
+        f"{NEURAL_SMALL[2]}, same weights: float32 max abs err {errs['float32']:.3e} "
+        f"(limit 1e-4), u8 max |delta| {u8_err} (limit 1); tensorfloat32 on the card "
+        f"{errs['tensorfloat32']:.3e} (not held: what a TF32 leak would look like)")
+
+    # fps, best of 2 warm runs, ds4 on (the default) and off, the gates as
+    # locked by the first run.
+    profiling.reset()
+    fps = {}
+    for ds4 in ("1", "0"):
+        with env_var("DITHER_PIE_TPU_NEURAL_DS4", ds4):
+            walls = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                got = neural_frames_run(run)
+                walls.append(time.perf_counter() - t0)
+                check(len(got) == NEURAL_FRAMES, "config 5: frames lost")
+            fps[ds4] = NEURAL_FRAMES / min(walls)
+            log(f"[18] config 5 process_frames, ds4 {'on' if ds4 == '1' else 'off'}: "
+                f"{fps[ds4]:.3f} fps (best of 2 warm runs: "
+                f"{', '.join(f'{t:.3f}' for t in walls)} s; precision "
+                f"{model._video_prec!r}, ds4 stride {model._ds4_stride}) [{card}]")
+        if ds4 == "1":
+            log(profiling.stage_report())
+
+    # Device ms of one batched forward by precision (CUDA events).
+    pre = neural_input(run)
+    x = model._tensor(pre)
+    outs_u8, times = {}, {}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    for prec in NEURAL_PRECISIONS:
+        times[prec], out = cuda_ms(torch, lambda: model.forward_tensor(x, prec), 3)
+        outs_u8[prec] = inf._to_u8(out).to(torch.int16)
+    peak = (f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB" if dev.type == "cuda"
+            else "not measured")
+    deltas = {p: (outs_u8[p] - outs_u8["float32"]).abs().float().mean().item()
+              for p in NEURAL_PRECISIONS[1:]}
+    log(f"[18] one batched forward (C2PGen + AliasNet, {pre.shape[0]} x {pre.shape[1]}x"
+        f"{pre.shape[2]}, CUDA events, median of 3): "
+        + ", ".join(f"{p} {times[p]:.3f} ms" for p in NEURAL_PRECISIONS)
+        + f"; mean |u8 delta| against float32: "
+        + ", ".join(f"{p} {d:.4f}" for p, d in deltas.items())
+        + f"; peak device memory {peak} [{card}]")
+    log(f"[18] phase 18 took {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return fps
+
+
 def main() -> int:
     import argparse
 
@@ -3759,8 +4001,9 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "run needs a CUDA device", file=sys.stderr)
         return 2
-    # The port uses no matmul or convolution; pin both TF32 switches off
-    # all the same, so no reduced-precision path can enter a comparison.
+    # Pin both TF32 switches off, so no reduced-precision path can enter a
+    # comparison; the neural pixelizer sets cuDNN's switch for its own
+    # calls by its precision (models/layers.py, precision_scope).
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return run(torch, torch.device("cuda"), card_line(), args.seed)
@@ -3772,7 +4015,7 @@ def sync(torch, dev):
 
 
 def run(torch, dev, card, seed=0) -> int:
-    """Phases 1-17 on ``dev``; prints the result lines and returns 0, or
+    """Phases 1-18 on ``dev``; prints the result lines and returns 0, or
     raises on the first failure. ``seed`` makes phase 17's video frames."""
     from PIL import Image
 
@@ -4020,6 +4263,11 @@ def run(torch, dev, card, seed=0) -> int:
             d.apply_dithering_batch(frames16)
             report_trace(torch, tag, f"apply_dithering_batch {what}",
                          lambda: d.apply_dithering_batch(frames16), frames16.nbytes, card)
+    # Phase 18's config 5 is traced here for the same reason, before the
+    # video leg: traced after it, its frames' H2D copy went missing from
+    # the trace (seven config-5 traces in a row all keep it).
+    with index_transfer("0"):
+        neural_run = neural_setup(torch, dev, card)
     # Phase 17's leg (a), the video pipeline, is traced here for the same
     # reason.
     video_frames = moving_frames(VIDEO_FRAMES, VIDEO_H, VIDEO_W, seed)
@@ -4064,13 +4312,17 @@ def run(torch, dev, card, seed=0) -> int:
     # 17. The streaming video pipeline (the RGB path, as phases 1-8).
     with index_transfer("0"):
         video_phase(torch, dev, card, lib, video_frames, fps_host)
+
+    # 18. The neural pixelizer: BASELINE.md config 5 (the RGB path).
+    with index_transfer("0"):
+        neural_phase(torch, dev, card, lib, neural_run)
     for row in rows:
         if row["name"] in ("ed_scan", "ed_scan_idx", "skew", "unskew_unpack", "skew_planar",
                            "ordered_fused", "unskew_idx", "unskew_select", "identity",
                            "skew_transpose"):
             row["max_abs_err"] = max(row["max_abs_err"], errs.get(row["name"], 0.0))
     took = time.perf_counter() - t_run
-    log(f"[17] the whole run took {took:.1f} s, {took / RUN_LIMIT_S:.2f} of its "
+    log(f"[18] the whole run took {took:.1f} s, {took / RUN_LIMIT_S:.2f} of its "
         f"{RUN_LIMIT_S} s limit")
 
     print(json.dumps({"kernels": rows}), flush=True)

@@ -27,7 +27,13 @@ that have no wavefront, the host engine:
 Above the facade sit the config-driven image pipeline
 (``pipeline/image.py``) and the streaming video pipeline
 (``pipeline/video.py``: ``process_frames``, ``VideoProcessor``,
-``process_single_video``; ffmpeg rawvideo pipes in ``pipeline/ffio.py``).
+``process_single_video``; ffmpeg rawvideo pipes in ``pipeline/ffio.py``),
+both with regular and neural pixelization. The neural pixelizer
+(``models/``: C2PGen, AliasNet and the VGG19 taps as torch modules with
+the reference checkpoints' keys; ``PixelizationModel``,
+``NeuralPixelizer``, ``get_neural_pixelizer``) runs on the card in
+"float32" (TF32 off), "tensorfloat32" or "bfloat16", behind the JAX
+package's first-batch gates.
 
 Up to 1024 colours ``apply_dithering_batch`` also speaks the video
 pipeline's two transfer shapes: planar (3, B, H, W) batches in and out
@@ -71,6 +77,9 @@ from dither_pie_tpu_torch.api.ditherer import (
     WaveletDitherStrategy,
 )
 from dither_pie_tpu_torch.api.runtime import resolve_device
+from dither_pie_tpu_torch.models.inference import PixelizationModel
+from dither_pie_tpu_torch.models.pixelizer import NeuralPixelizer
+from dither_pie_tpu_torch.pipeline.pixelize import get_neural_pixelizer
 
 __all__ = [
     "AdaptiveVarianceDitherStrategy",
@@ -87,14 +96,17 @@ __all__ = [
     "ImageDitherer",
     "InterleavedGradientNoiseDitherStrategy",
     "MatrixDitherStrategy",
+    "NeuralPixelizer",
     "NoDitherStrategy",
     "OstromoukhovDitherStrategy",
     "PaletteSource",
     "PerceptualDitherStrategy",
+    "PixelizationModel",
     "PixelizeMethod",
     "PolkaDotDitherStrategy",
     "RiemersmaDitherStrategy",
     "WaveletDitherStrategy",
+    "get_neural_pixelizer",
     "resolve_device",
 ]
 

@@ -1,7 +1,8 @@
 """Single-image pipeline: load -> pixelize -> palette -> dither -> final
 resize -> save, driven by a validated config (``api/config.py``). The port
-of ``dither_pie_tpu/pipeline/image.py``; the ditherer and the k-means
-palette run on ``device`` ("cuda" unless the caller asks for the CPU).
+of ``dither_pie_tpu/pipeline/image.py``; the neural pixelizer, the
+ditherer and the k-means palette run on ``device`` ("cuda" unless the
+caller asks for the CPU).
 """
 
 from __future__ import annotations
@@ -75,7 +76,9 @@ def setup_palette_from_config(palette_config: Dict[str, Any], source_image: Imag
     return palette, actual
 
 
-def apply_pixelization(image: Image.Image, pix_config: Dict[str, Any]) -> Image.Image:
+def apply_pixelization(image: Image.Image, pix_config: Dict[str, Any],
+                       device: DeviceLike = "cuda") -> Image.Image:
+    """Pixelize per config; the neural pixelizer runs on ``device``."""
     if not pix_config.get("enabled"):
         return image
     method = pix_config["method"]
@@ -83,7 +86,7 @@ def apply_pixelization(image: Image.Image, pix_config: Dict[str, Any]) -> Image.
     if method == PixelizeMethod.REGULAR.value:
         return pixelize_regular(image, max_size)
     if method == PixelizeMethod.NEURAL.value:
-        return get_neural_pixelizer().pixelize(image, max_size)
+        return get_neural_pixelizer(device=device).pixelize(image, max_size)
     return image
 
 
@@ -120,7 +123,7 @@ def process_single_image(config: Dict[str, Any], device: DeviceLike = "cuda") ->
         image = Image.open(input_path).convert("RGB")
         logger.info(f"Image size: {image.size[0]}x{image.size[1]}")
 
-        processed = apply_pixelization(image, config["pixelization"])
+        processed = apply_pixelization(image, config["pixelization"], device)
         if processed is not image:
             logger.info(f"Pixelized to {processed.size[0]}x{processed.size[1]}")
 

@@ -15,11 +15,15 @@ Semantics kept from the original application:
     subtitle stream copy);
   * the progress callback protocol ``(fraction: float, message: str)``.
 
+The neural pixelizer (``pipeline/pixelize.py``, ``models/``) runs on the
+ditherer's device, on the main thread: a batch of frames is one stacked
+forward, and its frames reach the dither workers as numpy arrays.
+
 Where it differs from the JAX package: a tail batch runs at its own size
 (the kernels take any batch, so nothing is padded); with ``overlap`` each
 of the two workers runs its batches on a CUDA stream of its own; multi-host
-sharding (``host_count > 1``, ROADMAP A11) and the neural pixelizer (A9)
-are not ported and raise NotImplementedError.
+sharding (``host_count > 1``, ROADMAP A11) is not ported and raises
+NotImplementedError.
 
 Frame sources are pluggable: any iterator of (H, W, 3) uint8 arrays works,
 so the pipeline runs without ffmpeg (the tests feed synthetic frames).
@@ -68,15 +72,26 @@ def _apply_final_resize_to_frame(arr: np.ndarray, multiplier: int,
     return out
 
 
-def _pixelize_frames(arrs: List[np.ndarray], method: Optional[str],
-                     max_size: int) -> List[np.ndarray]:
-    """Regular pixelization a frame at a time (a host resize); the neural
-    pixelizer raises, as it is not ported."""
-    if method == PixelizeMethod.NEURAL.value:
-        get_neural_pixelizer()
+def _pixelize_frame(arr: np.ndarray, method: Optional[str], max_size: int,
+                    device: DeviceLike = "cuda") -> np.ndarray:
     if method == PixelizeMethod.REGULAR.value:
-        return [np.array(pixelize_regular(Image.fromarray(a), max_size)) for a in arrs]
-    return arrs
+        return np.array(pixelize_regular(Image.fromarray(arr), max_size))
+    if method == PixelizeMethod.NEURAL.value:
+        out = get_neural_pixelizer(device=device).pixelize(Image.fromarray(arr), max_size)
+        return np.array(out.convert("RGB"))
+    return arr
+
+
+def _pixelize_frames(arrs: List[np.ndarray], method: Optional[str], max_size: int,
+                     device: DeviceLike = "cuda") -> List[np.ndarray]:
+    """Pixelize a batch of frames: the neural pixelizer (on ``device``)
+    stacks several frames into one forward; regular pixelization is a host
+    resize a frame."""
+    if method == PixelizeMethod.NEURAL.value and len(arrs) > 1:
+        outs = get_neural_pixelizer(device=device).pixelize_batch(
+            [Image.fromarray(a) for a in arrs], max_size)
+        return [np.array(o.convert("RGB")) for o in outs]
+    return [_pixelize_frame(a, method, max_size, device) for a in arrs]
 
 
 def _prefetch(iterable: Iterable, depth: int) -> Iterator:
@@ -145,6 +160,7 @@ def process_frames(
     if prefetch:
         frames = _prefetch(frames, depth=2 * batch_size)
     method, max_size = pixelize_func if pixelize_func else (None, 64)
+    device = getattr(ditherer, "device", None)
     batch: List[np.ndarray] = []
     done = 0
     last_good: Optional[np.ndarray] = None
@@ -204,7 +220,7 @@ def process_frames(
 
     def pixelized(arrs):
         with stage("video.pixelize"):
-            return _pixelize_frames(arrs, method, max_size)
+            return _pixelize_frames(arrs, method, max_size, device or "cuda")
 
     if not overlap:
         for frame in frames:
@@ -216,7 +232,6 @@ def process_frames(
             yield from emit_results(run_batch(pixelized(batch)))
         return
 
-    device = getattr(ditherer, "device", None)
     local = threading.local()
 
     def run_on_own_stream(arrs):
@@ -233,8 +248,8 @@ def process_frames(
         for frame in frames:
             batch.append(np.asarray(frame))
             if len(batch) >= batch_size:
-                # Pixelize on the main thread, then hand the dither to the
-                # pool.
+                # Pixelize on the main thread (the neural pixelizer's
+                # forward), then hand the dither to the pool.
                 pending.append(ex.submit(run_on_own_stream, pixelized(batch)))
                 batch = []
                 while len(pending) > 2:
@@ -505,8 +520,9 @@ def process_single_video(config: Dict[str, Any], neural_pixelizer=None,
             method = config["pixelization"]["method"]
             if method in (PixelizeMethod.REGULAR.value, PixelizeMethod.NEURAL.value):
                 pixelize_func = (method, config["pixelization"]["max_size"])
-                if method == PixelizeMethod.NEURAL.value:
-                    get_neural_pixelizer()
+                if method == PixelizeMethod.NEURAL.value and neural_pixelizer is None:
+                    logger.info("Loading neural pixelization models...")
+                    get_neural_pixelizer(device=ditherer.device)
 
         final_resize = (config["final_resize"]["multiplier"]
                         if config["final_resize"]["enabled"] else None)

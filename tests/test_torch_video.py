@@ -11,8 +11,9 @@ CPU, bitwise.
 * overlap == serial, a tail batch == full batches, planar == interleaved,
   final resize and regular pixelize == the JAX package's, retry and
   patching of failed frames;
-* what is not ported raises: the neural pixelizer (A9), multi-host
-  sharding (A11); the entry points default to the card;
+* the neural pixelizer without its checkpoints raises, and what is not
+  ported raises: multi-host sharding (A11); the entry points default to
+  the card;
 * the resume plan and manifest, the config validation and
   ``process_single_image``'s PNG equal the JAX package's;
 * ``stage_report`` lists the pipeline's stages.
@@ -196,13 +197,23 @@ def test_failed_frames_are_retried_and_patched(monkeypatch, overlap):
     assert sorted(calls).count(2) == 4 and calls.count(1) == 4
 
 
-def test_neural_pixelizer_raises_a9():
-    with pytest.raises(NotImplementedError, match="A9"):
+def test_neural_pixelizer_raises_a9(tmp_path, monkeypatch):
+    """The neural pixelizer is served (ROADMAP A9, tests/test_torch_neural*.py);
+    without the released checkpoints it raises, on the ditherer's device,
+    instead of running anything else."""
+    from dither_pie_tpu_torch.pipeline import pixelize as tpix
+
+    monkeypatch.setattr(tpix, "_neural_singletons", {})
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("DITHER_PIE_TPU_CKPT_DIR", str(tmp_path))
+    with pytest.raises(FileNotFoundError, match="checkpoints not found"):
         list(tvideo.process_frames(iter(_frames(2)), _ours("none", {}),
                                    pixelize_func=("neural", 16)))
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(FileNotFoundError, match="checkpoints not found"):
         timage.apply_pixelization(Image.fromarray(_frames(1)[0]),
-                                  {"enabled": True, "method": "neural", "max_size": 8})
+                                  {"enabled": True, "method": "neural", "max_size": 8},
+                                  device="cpu")
+    assert tpix._neural_singletons == {}
 
 
 def test_multi_host_raises_a11(tmp_path):
