@@ -271,8 +271,30 @@ a non-zero exit code and no result line:
    off, the device ms of one batched forward in float32, tensorfloat32 and
    bfloat16 (CUDA events) with their mean |u8 delta| against float32, the
    stage report, the idle share of one traced run (traced in phase 6, as
-   leg (a) is) and the phase's seconds; and what the whole run took of its
-   1200 s limit.
+   leg (a) is) and the phase's seconds;
+19. the GAN trainer (models/training.py, tools/train_gan.py), which runs
+   no hand-written kernel: (a) one and two lsgan steps (dim 8, conv-dim 8,
+   2 x 32x32, lambda_L1 100) on the card against the port's CPU steps from
+   the same initial state copied to the card, with cuDNN's TF32 switch on
+   (PyTorch's default) outside the step, held to: metrics rtol 1e-4, u/v
+   atol 1e-5, every parameter within 2 lr steps + 1e-6 and those whose
+   gradient exceeds 1e-3 of their net's largest within 1e-6, Adam's
+   moments rtol 1e-4 with an atol of 1e-5 (step 2: 1e-4) of the tensor's
+   largest moment (a TF32 leak into the backward rounds the gradients,
+   which the moments keep), each maximum printed; (b) the trainer's defaults at full
+   width, P2CGen(64, 3) and CPDis(64), 8 x 256x256, lsgan, lr 2e-4: one
+   step traced in phase 6 (top device operations, the shares of
+   convolution, reductions, elementwise work, pads and Adam, the idle
+   share), then ms a step (CUDA events, median of 10) and images/s with
+   cuDNN's deterministic algorithms (the trainer's default) and without,
+   in turns, and the peak device memory; a resume at full width (one
+   step, checkpoint, load into a fresh state, the second step) bitwise
+   equal to two steps straight with the deterministic algorithms, and its
+   difference printed without them; (c) tools.train_gan.main on 16
+   seed-made 256x256 pairs: 2 epochs saving each, a resume to 3, and 3
+   epochs straight all exit 0, and the checkpoint holds step 3 and equals
+   the straight run's bitwise; the phase's seconds; and what the whole run
+   took of its 1200 s limit.
 
 Phases 1-8 run with DITHER_PIE_TPU_INDEX_TRANSFER=0 (the RGB path, whatever
 the link probe would say); phases 9 to 11 set it as each check needs.
@@ -3987,6 +4009,282 @@ def neural_phase(torch, dev, card, lib, run):
     return fps
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the GAN trainer (P2CGen, CPDis, Adam; models/training.py and
+# tools/train_gan.py)
+# ---------------------------------------------------------------------------
+
+TRAIN_SMALL = (2, 32, 32)  # (a): dim 8 / conv-dim 8, the card against the CPU
+TRAIN_FULL = (8, 256, 256)  # (b): P2CGen-64 / CPDis-64 at the trainer's defaults
+TRAIN_WARM, TRAIN_TIMED = 2, 10
+TRAIN_PAIRS = 16  # (c): 256x256 pairs, 2 steps an epoch at batch 8
+TRAIN_LR = 2e-4
+# Adam's moments after step t against the tensor's largest moment (the
+# CPU tests' limits, tests/test_torch_training.py): what catches a TF32
+# leak into the backward, which rounds the gradients while the metrics
+# come from the forward and Adam's first steps are near their sign.
+TRAIN_MOMENT_ATOL = {1: 1e-5, 2: 1e-4}
+# Device kernels counted as convolution in the trace's breakdown.
+CONV_CATS = ("xmma", "cudnn", "fft", "DSE::", "winograd", "convolve", "gemm",
+             "pointwise_mult_and_sum_complex", "cutlass")
+
+
+@dataclasses.dataclass
+class TrainRun:
+    """What train_setup made for phase 19 (b)."""
+    state: object
+    src: object
+    real: object
+    step: object
+
+
+def train_batch(torch, seed, shape, dev):
+    """(src, real): (B, 3, H, W) float32 in [-1, 1] from ``seed``."""
+    rng = np.random.RandomState(seed)
+    b, h, w = shape
+    return tuple(torch.from_numpy(rng.uniform(-1, 1, (b, 3, h, w)).astype(np.float32)).to(dev)
+                 for _ in range(2))
+
+
+def kernel_category(name: str) -> str:
+    if any(c in name for c in CONV_CATS):
+        return "convolution (cuDNN, its GEMMs and FFTs)"
+    if "multi_tensor_apply" in name:
+        return "Adam (foreach)"
+    if "reduce_kernel" in name or "norm" in name.lower():
+        return "reductions (norm statistics, bias grads, losses)"
+    if "reflection" in name or "index" in name or "CatArray" in name:
+        return "pads, upsampling, cat"
+    if "elementwise" in name or "Memset" in name or "Memcpy" in name:
+        return "elementwise and copies"
+    return "other"
+
+
+def train_setup(torch, dev, card):
+    """Phase 19 (b)'s state: P2CGen(64, 3) and CPDis(64) from seed 0 with
+    Adam(2e-4, (0.5, 0.999)), a batch of 8 x 256x256 made from a seed,
+    lsgan, lambda_L1 100; TRAIN_WARM warm steps, then one step traced with
+    torch.profiler: the top device operations, the shares of convolution,
+    reductions, elementwise, pads and Adam, and the idle share (traced
+    here, early in the run, as phase 6's traces are)."""
+    from dither_pie_tpu_torch.kernels import build
+    from dither_pie_tpu_torch.models import training as tt
+
+    t0 = time.perf_counter()
+    state = tt.gan_init(lr=TRAIN_LR, dim=64, conv_dim=64, seed=0, device=dev)
+    src, real = train_batch(torch, 190, TRAIN_FULL, dev)
+    step = tt.make_gan_train_step("lsgan", 100.0)
+    for _ in range(TRAIN_WARM):
+        step(state, src, real)
+    sync(torch, dev)
+    log(f"[19] train set-up: P2CGen(64, 3) + CPDis(64), {TRAIN_FULL[0]} x "
+        f"{TRAIN_FULL[1]}x{TRAIN_FULL[2]}, {TRAIN_WARM} warm steps: "
+        f"{time.perf_counter() - t0:.3f} s [{card}]")
+    t_wall, t_busy, by_name, _, _, _ = traced_call(
+        torch, lambda: step(state, src, real), build.BUILD_DIR / "traces" / "phase6-train.json")
+    total = sum(by_name.values())
+    cats = {}
+    for name, ms in by_name.items():
+        cat = kernel_category(name)
+        cats[cat] = cats.get(cat, 0.0) + ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    idle = f"{1 - t_busy / t_wall:.4f}" if t_busy else "not measured (no device events)"
+    log(f"[6-train] traced one train step (torch.profiler), P2CGen-64 / CPDis-64, "
+        f"{TRAIN_FULL[0]} x {TRAIN_FULL[1]}x{TRAIN_FULL[2]}: wall {t_wall:.3f} ms, device busy "
+        f"{t_busy:.3f} ms (union of kernel intervals), idle share {idle}; "
+        f"device time by kind: " + "; ".join(
+            f"{c} {ms:.3f} ms ({ms / total:.1%})" for c, ms in sorted(cats.items(),
+                                                                      key=lambda kv: -kv[1]))
+        + "; top operations: " + "; ".join(f"{n[:60]} {ms:.3f} ms" for n, ms in top)
+        + f" [{card}]")
+    return TrainRun(state, src, real, step)
+
+
+def train_errors(tt, cpu_state, card_state, grads, t):
+    """Phase 19 (a)'s comparisons after step t: {name: (max error,
+    limit)}; every entry must be within its limit. ``grads``: the CPU's
+    gradients of steps 1..t by state key. Parameters: within 2 lr t +
+    1e-6, and 1e-6 where the gradient exceeded 1e-3 of its net's largest
+    at every step; u/v within 1e-5; Adam's moments rtol 1e-4 and atol 1e-7
+    or TRAIN_MOMENT_ATOL[t] of the tensor's largest (the net's, for a bias
+    under instance norm)."""
+    x, y = tt.state_arrays(cpu_state), tt.state_arrays(card_state)
+    errs = {"params": (0.0, 2 * TRAIN_LR * t + 1e-6), "params, large gradient": (0.0, 1e-6),
+            "u/v": (0.0, 1e-5), "moments (excess over rtol 1e-4 + atol)": (0.0, 0.0)}
+
+    def worst(name, err):
+        errs[name] = (max(errs[name][0], float(err)), errs[name][1])
+
+    net_max = {}  # by (optimizer, moment)
+    for k, v in x.items():
+        if k.endswith(("exp_avg", "exp_avg_sq")):
+            net = (k.split(".", 1)[0], k.rsplit(".", 1)[1])
+            net_max[net] = max(net_max.get(net, 0.0), float(np.abs(v).max()))
+    gmax = [{n: max(float(np.abs(g).max()) for k, g in gs.items() if k[0] == n) for n in "GD"}
+            for gs in grads]
+    for k, v in x.items():
+        d = np.abs(v - y[k])
+        if k.endswith((".weight_u", ".weight_v")):
+            worst("u/v", d.max())
+        elif k[:2] in ("G.", "D."):
+            worst("params", d.max())
+            big = np.all([np.abs(gs[k]) > 1e-3 * m[k[0]] for gs, m in zip(grads, gmax)], axis=0)
+            worst("params, large gradient", d[big].max() if big.any() else 0.0)
+        elif k.endswith(("exp_avg", "exp_avg_sq")):
+            name = k.split(".", 1)[1].rsplit(".", 1)[0]
+            noise = (k.startswith("g_adam.") and name.endswith(".conv.bias")
+                     and not name.startswith("RGBDec.conv_"))
+            scale = (net_max[(k.split(".", 1)[0], k.rsplit(".", 1)[1])] if noise
+                     else np.abs(v).max())
+            atol = max(1e-7, TRAIN_MOMENT_ATOL[t] * float(scale))
+            worst("moments (excess over rtol 1e-4 + atol)", (d - 1e-4 * np.abs(v) - atol).max())
+    return errs
+
+
+def train_hold(torch, dev, card):
+    """Phase 19 (a): one and two lsgan steps on the card (dim 8, conv-dim 8,
+    2 x 32x32, lambda_L1 100) against the port's CPU steps from the same
+    initial state, made on the CPU and copied to the card, with cuDNN's
+    TF32 switch on (PyTorch's default) outside the step: the step's own
+    float32 scope must cover its backward and Adam. Metrics rtol 1e-4,
+    then ``train_errors``."""
+    import copy
+
+    from dither_pie_tpu_torch.models import training as tt
+
+    cpu = torch.device("cpu")
+    c = tt.gan_init(lr=TRAIN_LR, dim=8, conv_dim=8, seed=0, device=cpu)
+    g = tt.train_state(copy.deepcopy(c.G).to(dev), copy.deepcopy(c.D).to(dev), TRAIN_LR)
+    src, real = train_batch(torch, 19, TRAIN_SMALL, cpu)
+    step = tt.make_gan_train_step("lsgan", 100.0)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    grads = []
+    for t in (1, 2):
+        mc = step(c, src, real)
+        mg = step(g, src.to(dev), real.to(dev))
+        grads.append({f"{tag}.{k}": p.grad.numpy().copy() for tag, net in (("G", c.G), ("D", c.D))
+                      for k, p in net.named_parameters()})
+        merr = max(abs(mg[k].item() - mc[k].item()) / abs(mc[k].item()) for k in mc)
+        errs = {"metrics (relative)": (merr, 1e-4), **train_errors(tt, c, g, grads, t)}
+        log(f"[19] (a) card vs the port's CPU after step {t} (lsgan, dim 8 / conv-dim 8, "
+            f"{TRAIN_SMALL[0]} x {TRAIN_SMALL[1]}x{TRAIN_SMALL[2]}, cuDNN TF32 on outside the "
+            f"step): " + "; ".join(f"{n} max {e:.3e} (limit {lim:.1e})"
+                                   for n, (e, lim) in errs.items()) + f" [{card}]")
+        for n, (e, lim) in errs.items():
+            check(e <= lim, f"train step {t} card vs CPU: {n} {e} > {lim}")
+    torch.backends.cudnn.allow_tf32 = prev
+
+
+def resume_diff(torch, tt, state, src, real, deterministic, path):
+    """Two steps from a copy of ``state`` straight, against one step, a
+    checkpoint, a load into a fresh state and the second step: (max |delta|
+    over the state, its entries that differ, max relative metric delta)."""
+    import copy
+
+    step = tt.make_gan_train_step("lsgan", 100.0, deterministic=deterministic)
+    straight = copy.deepcopy(state)
+    step(straight, src, real)
+    tt.save_train_state(str(path), straight, step=1)
+    m_straight = step(straight, src, real)
+    fresh = tt.gan_init(lr=TRAIN_LR, dim=64, conv_dim=64, seed=1, device=src.device)
+    resumed, _, _ = tt.load_train_state(str(path), fresh)
+    path.unlink()
+    m_resumed = step(resumed, src, real)
+    x, y = tt.state_arrays(straight), tt.state_arrays(resumed)
+    bad = [k for k in x if not np.array_equal(x[k], y[k])]
+    md = max(abs(m_straight[k].item() - m_resumed[k].item()) / abs(m_straight[k].item())
+             for k in m_straight)
+    return max((float(np.abs(x[k] - y[k]).max()) for k in bad), default=0.0), len(bad), md
+
+
+def train_phase(torch, dev, card, run):
+    """Phase 19: the GAN trainer on the card. (a) ``train_hold``. (b) the
+    full width (``run`` from train_setup): ms a step (CUDA events, median
+    of TRAIN_TIMED) and images/s, with cuDNN's deterministic algorithms
+    (the trainer's default) and without, in turns, and the peak device
+    memory; a resume at full width (one step, checkpoint, load, the second
+    step) against two steps straight: bitwise with the deterministic
+    algorithms; without them the metrics within rtol 1e-4 and the state's
+    difference printed. (c)
+    ``tools.train_gan.main`` on TRAIN_PAIRS seed-made 256x256 pairs: 2
+    epochs saving each, a resume to 3, and 3 epochs straight; both exit
+    0, the checkpoint holds step 3 and equals the straight run's
+    bitwise."""
+    from PIL import Image
+
+    from dither_pie_tpu_torch.kernels import build
+    from dither_pie_tpu_torch.models import training as tt
+    from dither_pie_tpu_torch.tools.train_gan import main as train_main
+
+    t_phase = time.perf_counter()
+    train_hold(torch, dev, card)
+
+    # (b) ms a step at full width, the deterministic algorithms on and off
+    # in turns.
+    b = TRAIN_FULL[0]
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = {True: [], False: []}
+    for det in (True, False, True, False):
+        step = run.step if det else tt.make_gan_train_step("lsgan", 100.0, deterministic=False)
+        step(run.state, run.src, run.real)  # the first step after a switch: not timed
+        for _ in range(TRAIN_TIMED // 2):
+            ms, m = cuda_ms(torch, lambda: step(run.state, run.src, run.real), 1,
+                            warmup=False)
+            times[det].append(ms)
+    check(all(np.isfinite(v.item()) for v in m.values()), f"train metrics not finite: {m}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    med = {det: statistics.median(v) for det, v in times.items()}
+    log(f"[19] (b) train step, P2CGen-64 / CPDis-64, {b} x {TRAIN_FULL[1]}x{TRAIN_FULL[2]}, "
+        f"lsgan, float32 (TF32 off), CUDA events, {TRAIN_TIMED} steps each in turns: "
+        f"deterministic cuDNN (the trainer's default) median {med[True]:.3f} ms a step "
+        f"({b / med[True] * 1e3:.2f} images/s; {', '.join(f'{t:.3f}' for t in times[True])}); "
+        f"without {med[False]:.3f} ms ({b / med[False] * 1e3:.2f} images/s; "
+        f"{', '.join(f'{t:.3f}' for t in times[False])}); the deterministic algorithms cost "
+        f"{med[True] / med[False] - 1:+.2%}; peak device memory {peak:.3f} GiB; last metrics "
+        f"{ {k: round(v.item(), 6) for k, v in m.items()} } [{card}]")
+    ck_dir = build.BUILD_DIR / "train"
+    ck_dir.mkdir(parents=True, exist_ok=True)
+    for det in (True, False):
+        err, n_bad, md = resume_diff(torch, tt, run.state, run.src, run.real, det,
+                                     ck_dir / f"resume_{det}.npz")
+        log(f"[19] (b) resume at full width, deterministic {det}: the resumed second step "
+            f"against two steps straight: {n_bad} of the state's entries differ, max |delta| "
+            f"{err:.3e}, metrics max relative delta {md:.3e} [{card}]")
+        check(md <= 1e-4, f"resume, deterministic {det}: metrics differ by {md}")
+        check(n_bad == 0 or not det, f"resume with deterministic algorithms not bitwise: "
+                                     f"{n_bad} entries, max {err}")
+
+    # (c) the entry point.
+    d = build.BUILD_DIR / "train_gan"
+    shutil.rmtree(d, ignore_errors=True)
+    (d / "src").mkdir(parents=True)
+    (d / "real").mkdir()
+    for i in range(TRAIN_PAIRS):
+        Image.fromarray(synth_image(256, 256, 1900 + i)).save(d / "src" / f"{i:02d}.png")
+        Image.fromarray(synth_image(256, 256, 1950 + i)).save(d / "real" / f"{i:02d}.png")
+    common = ["--src", str(d / "src"), "--real", str(d / "real"), "--lr-policy", "step",
+              "--decay-epochs", "2"]
+    ck, ck3 = d / "ck.npz", d / "straight.npz"
+    t0 = time.perf_counter()
+    rcs = [train_main(["--epochs", "2", "--save-every", "1", "--ckpt", str(ck)] + common),
+           train_main(["--epochs", "3", "--ckpt", str(ck)] + common),
+           train_main(["--epochs", "3", "--ckpt", str(ck3)] + common)]
+    sync(torch, dev)
+    cli_s = time.perf_counter() - t0
+    check(rcs == [0, 0, 0], f"train_gan exit codes {rcs}")
+    with np.load(ck) as z, np.load(ck3) as z3:
+        check(int(z["__step__"]) == 3, f"checkpoint at step {int(z['__step__'])}, want 3")
+        same = z.files == z3.files and all(np.array_equal(z[k], z3[k]) for k in z.files)
+    check(same, "train_gan: 2 epochs and a resume to 3 != 3 epochs straight")
+    shutil.rmtree(d)
+    log(f"[19] (c) tools.train_gan.main on {TRAIN_PAIRS} 256x256 pairs (batch 8, dim 64, "
+        f"conv-dim 64, step schedule cut at epoch 2): 2 epochs saving each, a resume to 3, "
+        f"and 3 epochs straight all exit 0 in {cli_s:.3f} s; the checkpoint holds step 3 and "
+        f"equals the straight run's bitwise [{card}]")
+    log(f"[19] phase 19 took {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
 def main() -> int:
     import argparse
 
@@ -4015,7 +4313,7 @@ def sync(torch, dev):
 
 
 def run(torch, dev, card, seed=0) -> int:
-    """Phases 1-18 on ``dev``; prints the result lines and returns 0, or
+    """Phases 1-19 on ``dev``; prints the result lines and returns 0, or
     raises on the first failure. ``seed`` makes phase 17's video frames."""
     from PIL import Image
 
@@ -4272,6 +4570,8 @@ def run(torch, dev, card, seed=0) -> int:
     # reason.
     video_frames = moving_frames(VIDEO_FRAMES, VIDEO_H, VIDEO_W, seed)
     trace_video_leg(torch, dev, card, video_frames)
+    # Phase 19's full-width train step is traced here for the same reason.
+    train_run = train_setup(torch, dev, card)
 
     # 7. The ordered path.
     ordered_row, out_bayer = ordered_phase(torch, dev, card, frames16, gold_frames)
@@ -4316,13 +4616,16 @@ def run(torch, dev, card, seed=0) -> int:
     # 18. The neural pixelizer: BASELINE.md config 5 (the RGB path).
     with index_transfer("0"):
         neural_phase(torch, dev, card, lib, neural_run)
+
+    # 19. The GAN trainer.
+    train_phase(torch, dev, card, train_run)
     for row in rows:
         if row["name"] in ("ed_scan", "ed_scan_idx", "skew", "unskew_unpack", "skew_planar",
                            "ordered_fused", "unskew_idx", "unskew_select", "identity",
                            "skew_transpose"):
             row["max_abs_err"] = max(row["max_abs_err"], errs.get(row["name"], 0.0))
     took = time.perf_counter() - t_run
-    log(f"[18] the whole run took {took:.1f} s, {took / RUN_LIMIT_S:.2f} of its "
+    log(f"[19] the whole run took {took:.1f} s, {took / RUN_LIMIT_S:.2f} of its "
         f"{RUN_LIMIT_S} s limit")
 
     print(json.dumps({"kernels": rows}), flush=True)

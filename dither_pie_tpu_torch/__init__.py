@@ -33,7 +33,9 @@ both with regular and neural pixelization. The neural pixelizer
 the reference checkpoints' keys; ``PixelizationModel``,
 ``NeuralPixelizer``, ``get_neural_pixelizer``) runs on the card in
 "float32" (TF32 off), "tensorfloat32" or "bfloat16", behind the JAX
-package's first-batch gates.
+package's first-batch gates. The GAN trainer (``models/p2cgen.py``,
+``models/discriminator.py``, ``models/losses.py``, ``models/training.py``,
+``tools/train_gan.py``) trains P2CGen against CPDis in float32 on one card.
 
 Up to 1024 colours ``apply_dithering_batch`` also speaks the video
 pipeline's two transfer shapes: planar (3, B, H, W) batches in and out
@@ -77,8 +79,11 @@ from dither_pie_tpu_torch.api.ditherer import (
     WaveletDitherStrategy,
 )
 from dither_pie_tpu_torch.api.runtime import resolve_device
+from dither_pie_tpu_torch.models.discriminator import CPDis, CPDis_cls
 from dither_pie_tpu_torch.models.inference import PixelizationModel
+from dither_pie_tpu_torch.models.p2cgen import P2CGen
 from dither_pie_tpu_torch.models.pixelizer import NeuralPixelizer
+from dither_pie_tpu_torch.models.training import GANTrainState, gan_init, make_gan_train_step
 from dither_pie_tpu_torch.pipeline.pixelize import get_neural_pixelizer
 
 __all__ = [
@@ -86,11 +91,14 @@ __all__ = [
     "BaseDitherStrategy",
     "BayerDitherStrategy",
     "BlueNoiseDitherStrategy",
+    "CPDis",
+    "CPDis_cls",
     "ColorReducer",
     "DitherMode",
     "DitherUtils",
     "ErrorDiffusionDitherStrategy",
     "ErrorDiffusionKernel",
+    "GANTrainState",
     "HalftoneDitherStrategy",
     "HybridDitherStrategy",
     "ImageDitherer",
@@ -99,6 +107,7 @@ __all__ = [
     "NeuralPixelizer",
     "NoDitherStrategy",
     "OstromoukhovDitherStrategy",
+    "P2CGen",
     "PaletteSource",
     "PerceptualDitherStrategy",
     "PixelizationModel",
@@ -106,7 +115,9 @@ __all__ = [
     "PolkaDotDitherStrategy",
     "RiemersmaDitherStrategy",
     "WaveletDitherStrategy",
+    "gan_init",
     "get_neural_pixelizer",
+    "make_gan_train_step",
     "resolve_device",
 ]
 

@@ -83,15 +83,15 @@ class VGGFeatures(nn.Module):
 
 class RGBEncoder(nn.Module):
     """7x7 conv, two stride-2 downs, ``n_res`` resblocks; instance norm,
-    reflect padding."""
+    reflect padding; widths dim, 2 dim, 4 dim."""
 
-    def __init__(self, n_res: int):
+    def __init__(self, n_res: int, dim: int = 64):
         super().__init__()
         self.model = nn.Sequential(
-            ConvBlock(3, 64, 7, 1, 3, "in", "relu", "reflect"),
-            ConvBlock(64, 128, 4, 2, 1, "in", "relu", "reflect"),
-            ConvBlock(128, 256, 4, 2, 1, "in", "relu", "reflect"),
-            ResBlocks(n_res, 256, "in", "relu", "reflect"))
+            ConvBlock(3, dim, 7, 1, 3, "in", "relu", "reflect"),
+            ConvBlock(dim, 2 * dim, 4, 2, 1, "in", "relu", "reflect"),
+            ConvBlock(2 * dim, 4 * dim, 4, 2, 1, "in", "relu", "reflect"),
+            ResBlocks(n_res, 4 * dim, "in", "relu", "reflect"))
 
     @parity_precision
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -181,12 +181,16 @@ class AliasRGBEncoder(nn.Module):
 
 
 class AliasRGBDecoder(nn.Module):
-    def __init__(self):
+    """``n_res`` resblocks (instance norm), then twice a 2x nearest upsample
+    and a 5x5 LayerNorm conv, then a 7x7 tanh conv; widths 4 dim, 2 dim,
+    dim. P2CGen's decoder is the same stack (``models/p2cgen.py``)."""
+
+    def __init__(self, n_res: int = 3, dim: int = 64):
         super().__init__()
-        self.Res_Blocks = ResBlocks(3, 256, "in", "relu", "reflect")
-        self.conv_1 = ConvBlock(256, 128, 5, 1, 2, "ln", "relu", "reflect")
-        self.conv_2 = ConvBlock(128, 64, 5, 1, 2, "ln", "relu", "reflect")
-        self.conv_3 = ConvBlock(64, 3, 7, 1, 3, "none", "tanh", "reflect")
+        self.Res_Blocks = ResBlocks(n_res, 4 * dim, "in", "relu", "reflect")
+        self.conv_1 = ConvBlock(4 * dim, 2 * dim, 5, 1, 2, "ln", "relu", "reflect")
+        self.conv_2 = ConvBlock(2 * dim, dim, 5, 1, 2, "ln", "relu", "reflect")
+        self.conv_3 = ConvBlock(dim, 3, 7, 1, 3, "none", "tanh", "reflect")
 
 
 class AliasNet(nn.Module):

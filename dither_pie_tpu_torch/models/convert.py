@@ -16,16 +16,27 @@ reference state dict needs only its keys sorted out:
 layout: HWIO -> OIHW, (I, O) -> (O, I), the modulated convs' (k, k, I, O)
 back through the raw reshape to (O, I, k, k), ``vgg.<idx>`` ->
 ``PBEnc.vgg.<idx>``.
+
+The GAN trainer's nets: ``p2cgen_state_from_jax`` transposes P2CGen's
+HWIO convs to OIHW; ``cpdis_state_from_jax`` passes every tensor through
+untransposed, since the JAX package keeps the discriminator in torch
+layout (its power iteration is defined on the (O, I*kh*kw) flattening).
+``train_state_from_jax`` builds a port ``GANTrainState`` from a JAX one.
 """
 
 from __future__ import annotations
 
 import os
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from dither_pie_tpu_torch.api.runtime import resolve_device
+from dither_pie_tpu_torch.models.discriminator import CPDis
+from dither_pie_tpu_torch.models.p2cgen import P2CGen
+from dither_pie_tpu_torch.models.training import BETAS, set_adam_state, train_state, uninitialised
 
 VGG_MAX_INDEX = 19  # conv4_1, the deepest tap used at inference
 CACHE_NAME = "dither_pie_tpu_params.npz"  # the JAX package's converted cache
@@ -38,7 +49,7 @@ def _keep(key: str) -> bool:
 
 
 def _f32(v) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(v, dtype=np.float32)).clone()
+    return torch.from_numpy(np.array(v, dtype=np.float32))
 
 
 def _from_jax_tensor(key: str, w: np.ndarray) -> torch.Tensor:
@@ -131,3 +142,40 @@ def find_checkpoint_dir() -> str:
         "alias_net.pth and pixelart_vgg19.pth in the working directory or "
         "set DITHER_PIE_TPU_CKPT_DIR. (The reference distributes them "
         "out-of-band — see its README 'Download pretrained models'.)")
+
+
+def p2cgen_state_from_jax(params: Dict[str, np.ndarray]) -> State:
+    """The JAX package's P2CGen params (HWIO convs) as the port's state dict."""
+    return {k: _from_jax_tensor(k, v) for k, v in params.items()}
+
+
+def cpdis_state_from_jax(params: Dict[str, np.ndarray]) -> State:
+    """The JAX package's CPDis / CPDis_cls params (torch layout already) as
+    the port's state dict, every tensor untransposed."""
+    return {k: _f32(v) for k, v in params.items()}
+
+
+def train_state_from_jax(g_params: Dict[str, np.ndarray], d_params: Dict[str, np.ndarray],
+                         g_adam: Sequence, d_adam: Sequence, lr: float = 2e-4,
+                         betas=BETAS, device="cuda"):
+    """A port ``GANTrainState`` from numpy copies of a JAX one: the nets'
+    params, and each Adam state as (count, mu, nu), the fields of optax's
+    ``ScaleByAdamState``. count becomes torch Adam's ``step`` and mu / nu
+    its ``exp_avg`` / ``exp_avg_sq``, laid out as their weights; the
+    moments of ``weight_u`` / ``weight_v`` (zeros: they take no gradient)
+    are dropped, as these are buffers in the port. The state is built on
+    ``device``, the card unless the caller asks for the CPU."""
+    dev = resolve_device(device)
+    dim = int(np.shape(g_params["RGBEnc.model.0.conv.weight"])[-1])
+    conv_dim = int(np.shape(d_params["main.0.weight_bar"])[0])
+    G = uninitialised(lambda: P2CGen(dim))
+    G.load_state_dict(p2cgen_state_from_jax(g_params))
+    D = uninitialised(lambda: CPDis(conv_dim))
+    D.load_state_dict(cpdis_state_from_jax(d_params))
+    state = train_state(G.to(dev), D.to(dev), lr, betas)
+    for net, opt, adam, conv in ((state.G, state.g_opt, g_adam, p2cgen_state_from_jax),
+                                 (state.D, state.d_opt, d_adam, cpdis_state_from_jax)):
+        count, mu, nu = adam
+        steps = {k: float(np.asarray(count)) for k, _ in net.named_parameters()}
+        set_adam_state(opt, net, steps, conv(mu), conv(nu))
+    return state

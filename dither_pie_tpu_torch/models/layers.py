@@ -99,10 +99,40 @@ def parity_precision(fn):
     return wrapped
 
 
+def _fold_reflect(g: torch.Tensor, p: int, dim: int) -> torch.Tensor:
+    """The gradient of a reflect pad of ``p`` along ``dim``: padded index
+    i < p mirrors input index p - i, padded index p + n + k input index
+    n - 2 - k; their gradients are added to those entries in a fixed
+    order."""
+    n = g.shape[dim] - 2 * p
+    core = g.narrow(dim, p, n).clone()
+    core.narrow(dim, 1, p).add_(g.narrow(dim, 0, p).flip(dim))
+    core.narrow(dim, n - 1 - p, p).add_(g.narrow(dim, p + n, p).flip(dim))
+    return core
+
+
+class _ReflectPad2d(torch.autograd.Function):
+    """``F.pad(x, (p, p, p, p), mode="reflect")`` with a deterministic
+    backward: CUDA's reflect-pad backward adds the up to four gradients of
+    a border entry with atomics in any order, so two runs of a train step
+    differ in the last bits."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, p: int) -> torch.Tensor:
+        ctx.p = p
+        return F.pad(x, (p, p, p, p), mode="reflect")
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return _fold_reflect(_fold_reflect(g, ctx.p, 3), ctx.p, 2), None
+
+
 def pad2d(x: torch.Tensor, pad: int, pad_type: str) -> torch.Tensor:
     if pad == 0:
         return x
-    mode = {"reflect": "reflect", "replicate": "replicate"}.get(pad_type, "constant")
+    if pad_type == "reflect":
+        return _ReflectPad2d.apply(x, pad)
+    mode = "replicate" if pad_type == "replicate" else "constant"
     return F.pad(x, (pad, pad, pad, pad), mode=mode)
 
 
