@@ -293,8 +293,30 @@ a non-zero exit code and no result line:
    difference printed without them; (c) tools.train_gan.main on 16
    seed-made 256x256 pairs: 2 epochs saving each, a resume to 3, and 3
    epochs straight all exit 0, and the checkpoint holds step 3 and equals
-   the straight run's bitwise; the phase's seconds; and what the whole run
-   took of its 1200 s limit.
+   the straight run's bitwise; the phase's seconds;
+20. the command line (cli/main.py, the port's ``python -m
+   dither_pie_tpu_torch``): (a) ``--example-config`` (JSON that parses) and
+   ``python -m dither_pie_tpu_torch.cli --help`` as subprocesses, exit 0;
+   (b) image mode through ``cli.main.main`` in this process, ``--device
+   cuda``, a distinct 1080p PNG as the input override, with the settings of
+   examples/image_error_diffusion.json (FS k-means-32),
+   image_dense_palette.json (FS k-means-256) and image_basic.json (Bayer
+   median-cut 16): exit 0, the smart output name, the PNG equal bitwise to
+   ImageDitherer(..., device="cuda").apply_dithering of the same image with
+   setup_palette_from_config's palette, error diffusion at identity 1.0
+   with the golden engine, K1-K3 (K4 for Bayer) launched in the CLI's run;
+   the CLI's wall beside its parts (PNG decode, palette, apply_dithering,
+   PNG encode); (c) folder mode on 16 distinct 1080p PNGs at the
+   image_error_diffusion settings, unsharded and as ``--shard 0:2`` and
+   ``1:2`` into a second folder: exit 0, each shard the strided 8 files,
+   disjoint, their union equal to the unsharded run file by file, bitwise;
+   images/s; (d) where ffmpeg is on PATH, a 37-frame 720p clip of phase
+   17's frames through VideoProcessor with Stucki median-cut 16 and
+   segment_size=8 as host 0 and host 1 of 2: host 0 returns True with the
+   concat pending, host 1 concatenates 37 frames equal to a single-host
+   resume run's, then the CLI in video mode with --resume exits 0 (else
+   one line says the leg did not run); the phase's seconds; and what the
+   whole run took of its 1200 s limit.
 
 Phases 1-8 run with DITHER_PIE_TPU_INDEX_TRANSFER=0 (the RGB path, whatever
 the link probe would say); phases 9 to 11 set it as each check needs.
@@ -4285,6 +4307,258 @@ def train_phase(torch, dev, card, run):
     log(f"[19] phase 19 took {time.perf_counter() - t_phase:.1f} s [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the command line
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ROOT / "examples"
+CLI_IMAGE_CONFIGS = (  # (examples/*.json, kernels its image path launches)
+    ("image_error_diffusion", ("skew", "ed_scan", "unskew_unpack")),
+    ("image_dense_palette", ("skew", "ed_scan", "unskew_unpack")),
+    ("image_basic", ("ordered_fused",)),
+)
+CLI_FOLDER_IMAGES = 16
+CLI_CLIP_FRAMES, CLI_SEGMENT = 37, 8  # 5 segments, the last of 5 frames
+
+
+def run_cli(args, log_path):
+    """``cli.main.main(args)`` in this process, its log (stdout) into
+    ``log_path``; (exit code, wall seconds, the log's text). The root
+    logger's handlers are dropped after it, so nothing later writes to the
+    closed file."""
+    import contextlib
+    import logging
+
+    from dither_pie_tpu_torch.cli import main as cli
+
+    with open(log_path, "w") as f, contextlib.redirect_stdout(f):
+        t0 = time.perf_counter()
+        rc = cli.main([str(a) for a in args])
+        wall = time.perf_counter() - t0
+    logging.getLogger().handlers.clear()
+    return rc, wall, Path(log_path).read_text()
+
+
+def cli_reference(torch, dev, cfg, path):
+    """What the CLI's image mode must write, computed by the facade: the
+    image, setup_palette_from_config's palette on the card, then
+    ImageDitherer(..., device=dev).apply_dithering; with the seconds of each
+    part (PNG decode, palette, median apply_dithering of 3, PNG encode)."""
+    import io
+
+    from PIL import Image
+
+    import dither_pie_tpu_torch as dpt
+    from dither_pie_tpu_torch.pipeline.image import setup_palette_from_config
+
+    t = {}
+    t0 = time.perf_counter()
+    pil = Image.open(path).convert("RGB")
+    t["decode"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    palette, n = setup_palette_from_config(cfg["palette"], pil, dev)
+    sync(torch, dev)
+    t["palette"] = time.perf_counter() - t0
+    d = dpt.ImageDitherer(num_colors=n, dither_mode=dpt.DitherMode(cfg["dithering"]["mode"]),
+                          palette=palette, use_gamma=cfg["palette"]["use_gamma"],
+                          dither_params=cfg["dithering"].get("parameters", {}), device=dev)
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = d.apply_dithering(pil)
+        walls.append(time.perf_counter() - t0)
+    t["apply_dithering"] = statistics.median(walls)
+    t0 = time.perf_counter()
+    out.save(io.BytesIO(), format="PNG")
+    t["encode"] = time.perf_counter() - t0
+    return np.asarray(out), np.asarray(palette, np.float32), t
+
+
+def cli_phase(torch, dev, card, lib, video_frames, rows):
+    """Phase 20: the port's command line on the card (see the module
+    docstring). ``video_frames``: phase 17's 720p frames."""
+    from PIL import Image
+
+    from dither_pie_tpu_torch.api.config import load_config
+    from dither_pie_tpu_torch.cli import main as cli
+    from dither_pie_tpu_torch.kernels import build
+    from dither_pie_tpu_torch.ops.ed_kernels import kernel_arrays
+    from dither_pie_tpu_torch.pipeline import ffio
+
+    t_phase = time.perf_counter()
+    work = build.BUILD_DIR / "cli"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+
+    # (a) The entry points as a user starts them.
+    r = subprocess.run([sys.executable, "-m", "dither_pie_tpu_torch", "--example-config"],
+                       cwd=ROOT, capture_output=True, text=True, timeout=300)
+    check(r.returncode == 0, f"--example-config exit {r.returncode}: {r.stderr[-500:]}")
+    example = json.loads(r.stdout)
+    r = subprocess.run([sys.executable, "-m", "dither_pie_tpu_torch.cli", "--help"],
+                       cwd=ROOT, capture_output=True, text=True, timeout=300)
+    check(r.returncode == 0 and "python -m dither_pie_tpu_torch" in r.stdout,
+          f"--help exit {r.returncode}: {r.stderr[-500:]}")
+    log(f"[20] (a) python -m dither_pie_tpu_torch --example-config: exit 0, JSON with keys "
+        f"{sorted(k for k in example if not k.startswith('_'))}; python -m "
+        f"dither_pie_tpu_torch.cli --help: exit 0")
+
+    # (b) Image mode, one distinct 1080p image a config.
+    cli_launches = {}
+    for i, (name, keys) in enumerate(CLI_IMAGE_CONFIGS):
+        cfg_path = EXAMPLES / f"{name}.json"
+        src = work / f"photo_{name}.png"
+        Image.fromarray(synth_image(FULL_H, FULL_W, 600 + i)).save(src)
+        build.reset_launch_counts()
+        rc, wall, text = run_cli([cfg_path, src, "--device", "cuda"], work / f"{name}.log")
+        sync(torch, dev)
+        launches = dict(build.LAUNCHES)
+        check(rc == 0, f"cli {name}: exit {rc}\n{text[-2000:]}")
+        for key in keys:
+            check(launches.get(key, 0) >= 1, f"cli {name}: kernel {key} not launched "
+                  f"({launches})")
+            cli_launches[key] = cli_launches.get(key, 0) + launches[key]
+        device_line = next((ln for ln in text.splitlines() if "Compute device:" in ln), "")
+        check("cuda" in device_line, f"cli {name}: no CUDA device line in its log")
+        cfg = load_config(cfg_path, skip_input_check=True)
+        out_path = cli.generate_output_filename(src, cfg)
+        check(out_path.exists(), f"cli {name}: no output at the smart name {out_path.name}")
+        got = np.asarray(Image.open(out_path))
+        want, pal, parts = cli_reference(torch, dev, cfg, src)
+        check(got.shape == want.shape and np.array_equal(got, want),
+              f"cli {name}: output != ImageDitherer.apply_dithering (identity "
+              f"{identity(got, want) if got.shape == want.shape else 'shape'})")
+        gold = ""
+        if cfg["dithering"]["mode"] == "error_diffusion":
+            variant = cfg["dithering"]["parameters"]["variant"]
+            ident = identity(got, golden_frame(lib, kernel_arrays, np.asarray(
+                Image.open(src).convert("RGB")), pal, variant))
+            check(ident == 1.0, f"cli {name}: golden identity {ident}")
+            gold = f", golden identity {ident} ({variant}, {len(pal)} colours)"
+        parts_s = sum(parts.values())
+        log(f"[20] (b) {name}: exit 0, {out_path.name} {got.shape} == apply_dithering "
+            f"bitwise{gold}; launches {launches}; CLI wall {wall * 1e3:.3f} ms; its parts "
+            f"by the facade: PNG decode {parts['decode'] * 1e3:.3f}, palette "
+            f"{parts['palette'] * 1e3:.3f}, apply_dithering {parts['apply_dithering'] * 1e3:.3f}"
+            f" (median of 3), PNG encode {parts['encode'] * 1e3:.3f} ms (sum "
+            f"{parts_s * 1e3:.3f}; decode + palette + encode {(parts_s - parts['apply_dithering']) / wall:.3f} "
+            f"of the CLI wall) [{card}]")
+    for row in rows:
+        if row["name"] in cli_launches:
+            row["cli_launches"] = cli_launches[row["name"]]
+
+    # (c) Folder mode, unsharded and as two shards.
+    folder = work / "photos"
+    folder.mkdir()
+    for i in range(CLI_FOLDER_IMAGES):
+        Image.fromarray(synth_image(FULL_H, FULL_W, 700 + i)).save(folder / f"f{i:02d}.png")
+    settings = json.loads((EXAMPLES / "image_error_diffusion.json").read_text())
+    configs = {}
+    for tag in ("whole", "shard"):
+        configs[tag] = work / f"folder_{tag}.json"
+        configs[tag].write_text(json.dumps({
+            **{k: v for k, v in settings.items() if not k.startswith("_")},
+            "input": str(folder), "output": str(work / f"out_{tag}"), "mode": "folder"}))
+    names = sorted(p.name for p in folder.iterdir())
+    build.reset_launch_counts()
+    rc, wall_whole, text = run_cli([configs["whole"], "--device", "cuda"],
+                                   work / "folder_whole.log")
+    sync(torch, dev)
+    launches = dict(build.LAUNCHES)
+    check(rc == 0, f"cli folder: exit {rc}\n{text[-2000:]}")
+    for key in ("skew", "ed_scan", "unskew_unpack"):
+        check(launches.get(key, 0) >= CLI_FOLDER_IMAGES,
+              f"cli folder: kernel {key} launched {launches.get(key, 0)} times")
+    whole = sorted(p.name for p in (work / "out_whole").iterdir())
+    check(whole == names, f"cli folder wrote {whole}")
+    walls, seen = {}, set()
+    for k in range(2):
+        rc, walls[k], text = run_cli([configs["shard"], "--device", "cuda", "--shard", f"{k}:2"],
+                                     work / f"folder_shard{k}.log")
+        check(rc == 0, f"cli folder --shard {k}:2: exit {rc}\n{text[-2000:]}")
+        now = {p.name for p in (work / "out_shard").iterdir()}
+        share = now - seen
+        check(share == set(names[k::2]) and not (seen & share),
+              f"--shard {k}:2 wrote {sorted(share)}, want {names[k::2]}")
+        seen |= share
+    check(seen == set(names), "the shards' union != the folder")
+    for name in names:
+        a = np.asarray(Image.open(work / "out_shard" / name))
+        b = np.asarray(Image.open(work / "out_whole" / name))
+        check(np.array_equal(a, b), f"{name}: sharded output != unsharded")
+    log(f"[20] (c) folder of {CLI_FOLDER_IMAGES} {FULL_W}x{FULL_H} PNGs, FS k-means-32: "
+        f"unsharded exit 0 "
+        f"in {wall_whole:.3f} s -> {CLI_FOLDER_IMAGES / wall_whole:.3f} images/s (launches "
+        f"{launches}); --shard 0:2 {walls[0]:.3f} s -> {8 / walls[0]:.3f} images/s, --shard "
+        f"1:2 {walls[1]:.3f} s -> {8 / walls[1]:.3f} images/s; each shard wrote its strided 8, "
+        f"disjoint, union == unsharded file by file, bitwise [{card}]")
+
+    # (d) A video over two hosts' segments.
+    if ffio.ffmpeg_available():
+        cli_video_leg(torch, dev, card, video_frames[:CLI_CLIP_FRAMES], work)
+    else:
+        log("[20] (d) the ffmpeg leg did not run: ffmpeg or ffprobe is not on PATH")
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"[20] phase 20 took {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
+def decoded(path):
+    from dither_pie_tpu_torch.pipeline import ffio
+
+    info = ffio.probe_video(str(path))
+    return list(ffio.read_frames(str(path), info["width"], info["height"]))
+
+
+def cli_video_leg(torch, dev, card, frames, work):
+    """Phase 20 (d): ``frames`` encoded to a clip, then dithered as host 0
+    and host 1 of 2 (Stucki median-cut 16 from frame 0, segments of
+    CLI_SEGMENT frames) against a single-host resume run, then the CLI in
+    video mode with --resume."""
+    from dither_pie_tpu_torch.pipeline import ffio
+    from dither_pie_tpu_torch.pipeline.video import VideoProcessor
+
+    h, w = frames[0].shape[:2]
+    clip = work / "clip.mp4"
+    writer = ffio.FrameWriter(str(clip), w, h, 30.0)
+    for f in frames:
+        writer.write(f)
+    check(writer.close(), "ffmpeg failed to encode the clip")
+    d = video_leg_a(dev, frames)
+    hosts = work / "hosts.mp4"
+    t0 = time.perf_counter()
+    ok0 = VideoProcessor().process_video_streaming(str(clip), str(hosts), d,
+                                                   segment_size=CLI_SEGMENT,
+                                                   host_index=0, host_count=2)
+    check(ok0 and not hosts.exists(), f"host 0: returned {ok0}, output exists "
+          f"{hosts.exists()} (want True, concat pending)")
+    ok1 = VideoProcessor().process_video_streaming(str(clip), str(hosts), d,
+                                                   segment_size=CLI_SEGMENT,
+                                                   host_index=1, host_count=2)
+    wall = time.perf_counter() - t0
+    check(ok1 and hosts.exists(), f"host 1: returned {ok1}, no concatenated output")
+    single = work / "single.mp4"
+    check(VideoProcessor().process_video_streaming(str(clip), str(single), d, resume=True,
+                                                   segment_size=CLI_SEGMENT),
+          "single-host resume run failed")
+    got, want = decoded(hosts), decoded(single)
+    check(len(got) == len(frames), f"two-host output has {len(got)} frames")
+    check(len(got) == len(want) and all(np.array_equal(a, b) for a, b in zip(got, want)),
+          "two-host output != the single-host resume run's, decoded")
+    cfg = work / "video.json"
+    cfg.write_text(json.dumps({
+        "input": str(clip), "output": str(work / "cli.mp4"), "mode": "video",
+        "dithering": {"enabled": True, "mode": "error_diffusion",
+                      "parameters": {"variant": "stucki"}},
+        "palette": {"source": "median_cut", "num_colors": 16}}))
+    rc, cli_wall, text = run_cli([cfg, "--device", "cuda", "--resume"], work / "video.log")
+    check(rc == 0 and (work / "cli.mp4").exists(), f"cli video --resume: exit {rc}\n"
+          f"{text[-2000:]}")
+    log(f"[20] (d) {len(frames)}-frame {w}x{h} clip, Stucki median-cut 16, segments of "
+        f"{CLI_SEGMENT}: host 0 of 2 True with the concat pending, host 1 concatenated "
+        f"{len(got)} frames == the single-host resume run's, decoded ({wall:.3f} s for both "
+        f"hosts); the CLI in video mode with --resume exit 0 in {cli_wall:.3f} s [{card}]")
+
+
 def main() -> int:
     import argparse
 
@@ -4313,7 +4587,7 @@ def sync(torch, dev):
 
 
 def run(torch, dev, card, seed=0) -> int:
-    """Phases 1-19 on ``dev``; prints the result lines and returns 0, or
+    """Phases 1-20 on ``dev``; prints the result lines and returns 0, or
     raises on the first failure. ``seed`` makes phase 17's video frames."""
     from PIL import Image
 
@@ -4619,13 +4893,17 @@ def run(torch, dev, card, seed=0) -> int:
 
     # 19. The GAN trainer.
     train_phase(torch, dev, card, train_run)
+
+    # 20. The command line (the RGB path, as phases 1-8).
+    with index_transfer("0"):
+        cli_phase(torch, dev, card, lib, video_frames, rows)
     for row in rows:
         if row["name"] in ("ed_scan", "ed_scan_idx", "skew", "unskew_unpack", "skew_planar",
                            "ordered_fused", "unskew_idx", "unskew_select", "identity",
                            "skew_transpose"):
             row["max_abs_err"] = max(row["max_abs_err"], errs.get(row["name"], 0.0))
     took = time.perf_counter() - t_run
-    log(f"[19] the whole run took {took:.1f} s, {took / RUN_LIMIT_S:.2f} of its "
+    log(f"[20] the whole run took {took:.1f} s, {took / RUN_LIMIT_S:.2f} of its "
         f"{RUN_LIMIT_S} s limit")
 
     print(json.dumps({"kernels": rows}), flush=True)

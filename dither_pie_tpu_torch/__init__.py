@@ -48,6 +48,13 @@ or ``auto`` replaces the scan's exact palette search by the score search
 for palettes of 65 to 1024 colours (outside the bit contract; ``auto`` gates
 it on the first batch).
 
+Above the pipelines sit the command line (``python -m
+dither_pie_tpu_torch <config.json> [input]``, ``cli/main.py``; ``--device``,
+``--resume``, ``--shard INDEX:COUNT``), the multi-host split of a video's
+segments and a folder's files (``parallel/multihost.py``), the preference
+store (``api/config_manager.py``) and the tools ``tools/{pixelize,resizer,
+vid_conc}.py``.
+
 Every mode's parameter metadata is served (``get_mode_parameters``).
 The device is explicit: ``ImageDitherer(..., device="cuda")`` (the
 default) launches the kernels, ``device="cpu"`` runs their plain PyTorch
@@ -79,6 +86,7 @@ from dither_pie_tpu_torch.api.ditherer import (
     WaveletDitherStrategy,
 )
 from dither_pie_tpu_torch.api.runtime import resolve_device
+from dither_pie_tpu_torch.core.thresholds import generate_blue_noise
 from dither_pie_tpu_torch.models.discriminator import CPDis, CPDis_cls
 from dither_pie_tpu_torch.models.inference import PixelizationModel
 from dither_pie_tpu_torch.models.p2cgen import P2CGen
@@ -116,6 +124,7 @@ __all__ = [
     "RiemersmaDitherStrategy",
     "WaveletDitherStrategy",
     "gan_init",
+    "generate_blue_noise",
     "get_neural_pixelizer",
     "make_gan_train_step",
     "resolve_device",

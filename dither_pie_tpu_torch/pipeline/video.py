@@ -19,11 +19,13 @@ The neural pixelizer (``pipeline/pixelize.py``, ``models/``) runs on the
 ditherer's device, on the main thread: a batch of frames is one stacked
 forward, and its frames reach the dither workers as numpy arrays.
 
+Multi-host sharding (``host_count > 1``, ``parallel/multihost.py``): each
+host encodes its strided share of the segment grid, and the host that sees
+every part present concatenates them under an O_EXCL lock.
+
 Where it differs from the JAX package: a tail batch runs at its own size
 (the kernels take any batch, so nothing is padded); with ``overlap`` each
-of the two workers runs its batches on a CUDA stream of its own; multi-host
-sharding (``host_count > 1``, ROADMAP A11) is not ported and raises
-NotImplementedError.
+of the two workers runs its batches on a CUDA stream of its own.
 
 Frame sources are pluggable: any iterator of (H, W, 3) uint8 arrays works,
 so the pipeline runs without ffmpeg (the tests feed synthetic frames).
@@ -36,7 +38,9 @@ import itertools
 import logging
 import os
 import queue
+import socket
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Tuple
@@ -48,13 +52,15 @@ from PIL import Image
 from dither_pie_tpu_torch.api.ditherer import ImageDitherer, PixelizeMethod
 from dither_pie_tpu_torch.api.profiling import stage
 from dither_pie_tpu_torch.api.runtime import DeviceLike
+from dither_pie_tpu_torch.parallel.multihost import host_segments
 from dither_pie_tpu_torch.pipeline import ffio
 from dither_pie_tpu_torch.pipeline import resume as rz
 from dither_pie_tpu_torch.pipeline.pixelize import get_neural_pixelizer, pixelize_regular
 
 logger = logging.getLogger("dither_pie_tpu_torch")
 
-__all__ = ["VideoProcessor", "pixelize_regular", "process_single_video", "process_frames"]
+__all__ = ["NeuralPixelizer", "VideoProcessor", "pixelize_regular", "process_single_video",
+           "process_frames"]
 
 
 def _apply_final_resize_to_frame(arr: np.ndarray, multiplier: int,
@@ -262,12 +268,6 @@ def process_frames(
         ex.shutdown(wait=False, cancel_futures=True)
 
 
-def _require_one_host(host_count: int) -> None:
-    if host_count > 1:
-        raise NotImplementedError(
-            "multi-host segment sharding is not ported yet (ROADMAP A11)")
-
-
 class VideoProcessor:
     """Streaming video processing with batched dithering on the card.
 
@@ -306,17 +306,20 @@ class VideoProcessor:
         """Decode ``input_path``, dither every frame, encode
         ``output_path``; returns success. ``resume`` takes the segmented
         path (part files and a manifest; a rerun skips finished segments).
-        ``host_count > 1`` (multi-host sharding) raises
-        NotImplementedError."""
-        _require_one_host(host_count)
+        ``host_index``/``host_count`` shard the segment grid across hosts
+        (``parallel/multihost.py``): host k processes segments
+        ``i % host_count == k`` only, and the final concat runs on whichever
+        host sees every part file present (shared filesystem). A count above
+        1 implies the segmented path."""
         if not ffio.video_available():
             logger.error("No video backend available (need ffmpeg on PATH, "
                          "or OpenCV as a video-only fallback)")
             return False
-        if resume:
+        if resume or host_count > 1:
             return self._process_segmented(
                 input_path, output_path, ditherer, pixelize_func,
-                batch_size or self.batch_size, final_resize_multiplier, segment_size)
+                batch_size or self.batch_size, final_resize_multiplier, segment_size,
+                host_index=host_index, host_count=host_count)
         try:
             info = self.get_video_info(input_path)
             fps, w, h = info["fps"], info["width"], info["height"]
@@ -358,6 +361,55 @@ class VideoProcessor:
             logger.error(f"Video processing error: {e}", exc_info=True)
             return False
 
+    # A concat of even a long video is minutes; an hour-old lock means the
+    # holder is gone (crashed or SIGKILLed mid-concat).
+    CONCAT_LOCK_STALE_S = 3600.0
+
+    @classmethod
+    def _claim_concat_lock(cls, lock: str) -> bool:
+        """Atomically claim ``lock``, reclaiming stale locks.
+
+        The lock file records ``pid hostname``. It is dead (and reclaimed)
+        when the recorded pid no longer exists on THIS host, or when the
+        file is older than CONCAT_LOCK_STALE_S on any host. Returns True
+        when this process holds the lock."""
+        for _ in range(2):  # initial try + one retry after reclaiming
+            try:
+                fd = os.open(lock, os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+                with os.fdopen(fd, "w") as f:
+                    f.write(f"{os.getpid()} {socket.gethostname()}")
+                return True
+            except FileExistsError:
+                pass
+            try:
+                stat = os.stat(lock)
+                holder_pid, holder_host = None, None
+                with open(lock) as f:
+                    parts = f.read().split()
+                    if len(parts) >= 2:
+                        holder_pid, holder_host = int(parts[0]), parts[1]
+            except (OSError, ValueError):
+                continue  # holder finished (file gone) or mid-write: retry
+            stale = (time.time() - stat.st_mtime) > cls.CONCAT_LOCK_STALE_S
+            dead_local = False
+            if holder_pid is not None and holder_host == socket.gethostname():
+                try:
+                    os.kill(holder_pid, 0)
+                except ProcessLookupError:
+                    dead_local = True
+                except OSError:
+                    pass
+            if stale or dead_local:
+                logger.warning(f"Reclaiming dead concat lock {lock} "
+                               f"(holder pid={holder_pid} host={holder_host})")
+                try:
+                    os.remove(lock)
+                except OSError:
+                    pass
+                continue
+            return False
+        return False
+
     @staticmethod
     def _settings_fingerprint(ditherer: ImageDitherer, pixelize_func,
                               final_resize_multiplier) -> str:
@@ -396,13 +448,23 @@ class VideoProcessor:
 
     def _process_segmented(self, input_path: str, output_path: str,
                            ditherer: ImageDitherer, pixelize_func, batch_size: int,
-                           final_resize_multiplier, segment_size: int) -> bool:
+                           final_resize_multiplier, segment_size: int,
+                           host_index: int = 0, host_count: int = 1) -> bool:
         """Checkpoint/resume path: encode fixed-size segments to part files
         with a manifest; re-running skips completed segments; parts are
-        concatenated (stream copy) with the original audio mapped in."""
+        concatenated (stream copy) with the original audio mapped in.
+
+        With ``host_count > 1`` this host processes only its strided share
+        of the segment grid and records it in a per-host manifest; the
+        concat runs only once every segment's part exists, so each host
+        returns True when ITS share is done."""
         single_pass = dict(pixelize_func=pixelize_func, batch_size=batch_size,
                            final_resize_multiplier=final_resize_multiplier)
         if not ffio.ffmpeg_available():
+            if host_count > 1:
+                logger.error("Multi-host sharding needs ffmpeg "
+                             "(segment encode/concat)")
+                return False
             logger.warning("Resume mode needs ffmpeg (segment concat); "
                            "falling back to single-pass processing")
             return self.process_video_streaming(input_path, output_path, ditherer,
@@ -412,6 +474,9 @@ class VideoProcessor:
             fps, w, h = info["fps"], info["width"], info["height"]
             total = info.get("frame_count")
             if not total:
+                if host_count > 1:
+                    logger.error("Unknown frame count; cannot shard video")
+                    return False
                 logger.warning("Unknown frame count; resume unavailable — "
                                "falling back to single-pass processing")
                 return self.process_video_streaming(input_path, output_path, ditherer,
@@ -422,10 +487,12 @@ class VideoProcessor:
                       "total_frames": total,
                       "settings": self._settings_fingerprint(
                           ditherer, pixelize_func, final_resize_multiplier)}
-            completed = rz.load_manifest(output_path, expect)
+            completed = rz.load_manifest(output_path, expect, host_index=host_index)
             n_seg = rz.n_segments(total, segment_size)
+            mine = host_segments(n_seg, host_index, host_count)
             if completed:
-                logger.info(f"Resuming: {len(completed)}/{n_seg} segments done")
+                logger.info(f"Resuming: {len(completed)}/{len(mine)} "
+                            f"of this host's segments done")
 
             use_planar = pixelize_func is None and ditherer.supports_planar_batch()
             reader = (ffio.read_frames_planar(input_path, w, h) if use_planar
@@ -433,14 +500,16 @@ class VideoProcessor:
             frames_done = 0
             for seg, start, end in rz.plan_segments(total, segment_size, set()):
                 count = end - start
-                if seg in completed:
-                    # Already encoded: decode and discard to stay aligned.
+                if seg not in mine or seg in completed:
+                    # Another host's segment, or already encoded: decode and
+                    # discard to stay aligned.
                     for _ in itertools.islice(reader, count):
                         pass
                     frames_done += count
                     continue
                 # Encode to a tmp name and rename when complete: a part file
-                # is never visible half-written.
+                # is never visible half-written (other hosts gate the concat
+                # on part existence).
                 part = rz.segment_part_path(output_path, seg)
                 tmp = rz.segment_tmp_path(output_path, seg)
                 writer = None
@@ -460,11 +529,14 @@ class VideoProcessor:
                     return False
                 os.replace(tmp, part)
                 completed.add(seg)
-                rz.save_manifest(output_path, expect, completed)
+                rz.save_manifest(output_path, expect, completed, host_index=host_index)
                 frames_done += count
                 self._report_progress(0.05 + 0.85 * frames_done / total,
                                       f"Segment {seg + 1}/{n_seg} done")
 
+            if host_count > 1:
+                return self._concat_when_complete(input_path, output_path, expect,
+                                                  n_seg, host_count)
             self._report_progress(0.92, "Concatenating segments...")
             ok = rz.concat_segments(output_path, n_seg, source_path=input_path)
             self._report_progress(1.0, "Video processing complete!" if ok else "Concat failed")
@@ -474,20 +546,64 @@ class VideoProcessor:
             logger.error(f"Segmented video processing error: {e}", exc_info=True)
             return False
 
+    def _concat_when_complete(self, input_path: str, output_path: str, expect: Dict,
+                              n_seg: int, host_count: int) -> bool:
+        """A multi-host job's last step on this host: concatenate only when
+        every segment is covered by a manifest MATCHING this job's settings
+        fingerprint and its part exists (stale parts of an older run with
+        other settings are never concatenated), and only under the concat
+        lock (two hosts can finish at once; the loser reports its share
+        done). True when this host's share is done or the concat
+        succeeded."""
+        covered = rz.load_all_manifests(output_path, expect, host_count)
+        if covered != set(range(n_seg)) or not rz.all_parts_present(output_path, n_seg):
+            logger.info("This host's segments are done; waiting on "
+                        "other hosts' parts before concat")
+            self._report_progress(1.0, "Host share complete (concat pending)")
+            return True
+        # The lock is reclaimable: a holder that died mid-concat (dead local
+        # pid, or a lock older than the stale age from any host) would
+        # otherwise block every future rerun.
+        lock = output_path + ".concat.lock"
+        if not self._claim_concat_lock(lock):
+            logger.info("Another host is concatenating")
+            self._report_progress(1.0, "Host share complete (concat in progress)")
+            return True
+        try:
+            self._report_progress(0.92, "Concatenating segments...")
+            ok = rz.concat_segments(output_path, n_seg, source_path=input_path)
+        finally:
+            try:
+                os.remove(lock)
+            except OSError:
+                pass
+        self._report_progress(1.0, "Video processing complete!" if ok else "Concat failed")
+        return ok
 
-def _log_progress(fraction: float, message: str) -> None:
-    logger.info(f"[{fraction * 100:5.1f}%] {message}")
+
+class NeuralPixelizer:
+    """The original application's video-level neural pixelizer: a thin
+    wrapper of the process-wide pixelizer of ``device``
+    (``pipeline/pixelize.get_neural_pixelizer``). Distinct from
+    ``models.pixelizer.NeuralPixelizer``, which it wraps."""
+
+    def __init__(self, device: DeviceLike = "cuda"):
+        self._impl = get_neural_pixelizer(device=device)
+
+    def pixelize(self, image: Image.Image, max_size: int) -> Image.Image:
+        return self._impl.pixelize(image, max_size)
 
 
 def process_single_video(config: Dict[str, Any], neural_pixelizer=None,
                          resume: bool = False, host_index: int = 0,
                          host_count: int = 1, device: DeviceLike = "cuda") -> bool:
     """Config-driven video processing on ``device``: palette from the first
-    frame, then stream; progress goes to the log. ``host_count > 1`` raises
-    NotImplementedError (ROADMAP A11)."""
+    frame, then stream, with the command line's progress bar.
+    ``host_index``/``host_count`` shard the segment grid across hosts
+    (CLI ``--shard INDEX:COUNT``; see ``parallel/multihost.py``)."""
+    from dither_pie_tpu_torch.cli.main import CLIProgressCallback
     from dither_pie_tpu_torch.pipeline.image import build_ditherer
 
-    _require_one_host(host_count)
     try:
         input_path = Path(config["input"])
         output_path = Path(config["output"])
@@ -498,7 +614,8 @@ def process_single_video(config: Dict[str, Any], neural_pixelizer=None,
                          "or OpenCV as a video-only fallback)")
             return False
 
-        processor = VideoProcessor(progress_callback=_log_progress)
+        cb = CLIProgressCallback()
+        processor = VideoProcessor(progress_callback=cb.update)
         info = processor.get_video_info(str(input_path))
         logger.info(f"Video: {info['width']}x{info['height']}, "
                     f"{info['fps']:.2f} fps, {info['frame_count']} frames")
@@ -529,20 +646,25 @@ def process_single_video(config: Dict[str, Any], neural_pixelizer=None,
 
         output_path.parent.mkdir(parents=True, exist_ok=True)
         logger.info("Processing video frames...")
-        ok = processor.process_video_streaming(
-            str(input_path), str(output_path), ditherer,
-            pixelize_func=pixelize_func, final_resize_multiplier=final_resize,
-            resume=resume)
+        with cb:
+            ok = processor.process_video_streaming(
+                str(input_path), str(output_path), ditherer,
+                pixelize_func=pixelize_func, final_resize_multiplier=final_resize,
+                resume=resume, host_index=host_index, host_count=host_count)
         if ok:
-            size_mb = output_path.stat().st_size / (1024 * 1024)
-            logger.info(f"Video processed successfully ({size_mb:.1f} MB)")
+            if output_path.exists():
+                size_mb = output_path.stat().st_size / (1024 * 1024)
+                logger.info(f"Video processed successfully ({size_mb:.1f} MB)")
+            else:
+                # Multi-host: this host's share is done; the final concat
+                # runs on whichever host sees every part present.
+                logger.info("Host share complete (final concat pending on "
+                            "other hosts)")
             return True
         logger.error("Video processing failed")
         return False
     except KeyboardInterrupt:
         logger.warning("Video processing interrupted by user")
-        raise
-    except NotImplementedError:
         raise
     except Exception as e:
         logger.error(f"Failed to process video: {e}", exc_info=True)

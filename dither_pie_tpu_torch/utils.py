@@ -1,12 +1,12 @@
-"""Support utilities of the image and video pipelines: palette files and
-hex colours, even output dimensions, RGB images and the file extensions the
-config's mode detection reads.
+"""Support utilities of the pipelines and the command line: palette files
+and hex colours, lospec import, even output dimensions, file validation,
+RGB images and the file extensions the config's mode detection and the
+command line's folder mode read.
 
-The framework-free parts of ``dither_pie_tpu/utils.py`` that the port's
-pipelines and config use, copied rather than imported (the port imports
+A copy of ``dither_pie_tpu/utils.py`` (framework-free; the port imports
 nothing of the JAX package). The palette set is the port's copy of the
 built-in palettes (``core/builtin_palettes.py``); ``import_lospec_palette``
-needs the network and is not here.
+needs the network.
 """
 
 from __future__ import annotations
@@ -26,11 +26,16 @@ __all__ = [
     "compute_even_dimensions",
     "default_palette_file",
     "ensure_rgb",
+    "estimate_video_memory_usage",
+    "get_image_info",
     "hex_to_rgb",
+    "import_lospec_palette",
     "load_palettes_from_file",
     "palette_from_hex_list",
     "rgb_to_hex",
     "save_palettes_to_file",
+    "validate_image_file",
+    "validate_video_file",
 ]
 
 _BUILTIN_SENTINEL = "<builtin>"
@@ -84,6 +89,26 @@ def save_palettes_to_file(palettes: List[Dict], filepath: str = "palette.json"):
         json.dump(palettes, f, indent=4)
 
 
+def import_lospec_palette(url: str) -> Optional[Dict]:
+    """Import a palette from a lospec.com URL (requires network access)."""
+    try:
+        import requests
+
+        slug = url.rstrip("/").split("/")[-1]
+        api_url = f"https://lospec.com/palette-list/{slug}.json"
+        response = requests.get(api_url, timeout=10)
+        response.raise_for_status()
+        data = response.json()
+        colors = [hex_to_rgb(f"#{c}") for c in data.get("colors", [])]
+        if not colors:
+            return None
+        return {"name": data.get("name", slug),
+                "colors": [rgb_to_hex(c) for c in colors]}
+    except Exception as e:
+        print(f"Error importing from Lospec: {e}")
+        return None
+
+
 def compute_even_dimensions(orig_w: int, orig_h: int, max_size: int) -> Tuple[int, int]:
     """Target dims: smaller side ~= max_size, both even (libx264/yuv420p)."""
     if orig_w >= orig_h:
@@ -97,6 +122,32 @@ def compute_even_dimensions(orig_w: int, orig_h: int, max_size: int) -> Tuple[in
         if target_h % 2 != 0:
             target_h += 1
     return target_w, target_h
+
+
+def estimate_video_memory_usage(width: int, height: int, frame_count: int) -> float:
+    """Rough MB estimate: 3 B/px RGB x1.5 overhead."""
+    bytes_per_frame = width * height * 3 * 1.5
+    return (bytes_per_frame * frame_count) / (1024 * 1024)
+
+
+def validate_video_file(filepath: str) -> bool:
+    ext = os.path.splitext(filepath)[1].lower()
+    return ext in VIDEO_EXTENSIONS and os.path.exists(filepath)
+
+
+def validate_image_file(filepath: str) -> bool:
+    ext = os.path.splitext(filepath)[1].lower()
+    return ext in IMAGE_EXTENSIONS and os.path.exists(filepath)
+
+
+def get_image_info(filepath: str) -> Optional[Dict]:
+    try:
+        with Image.open(filepath) as img:
+            return {"width": img.width, "height": img.height,
+                    "mode": img.mode, "format": img.format}
+    except Exception as e:
+        print(f"Error getting image info: {e}")
+        return None
 
 
 def ensure_rgb(image: Image.Image) -> Image.Image:

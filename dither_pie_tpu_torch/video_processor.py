@@ -2,4 +2,4 @@
 module."""
 
 from dither_pie_tpu_torch.pipeline.video import (  # noqa: F401
-    VideoProcessor, pixelize_regular, process_frames)
+    NeuralPixelizer, VideoProcessor, pixelize_regular, process_frames)

@@ -590,7 +590,11 @@ def test_facade_follows_the_probe(monkeypatch):
 def test_import_loads_no_jax():
     code = ("import sys, dither_pie_tpu_torch, dither_pie_tpu_torch.pipeline.video, "
             "dither_pie_tpu_torch.pipeline.image, dither_pie_tpu_torch.ops.ed_host, "
-            "dither_pie_tpu_torch.native.build, dither_pie_tpu_torch.video_processor; "
+            "dither_pie_tpu_torch.native.build, dither_pie_tpu_torch.video_processor, "
+            "dither_pie_tpu_torch.cli.main, dither_pie_tpu_torch.parallel.multihost, "
+            "dither_pie_tpu_torch.api.config_manager, dither_pie_tpu_torch.config_manager, "
+            "dither_pie_tpu_torch.dithering_lib, dither_pie_tpu_torch.tools.pixelize, "
+            "dither_pie_tpu_torch.tools.resizer, dither_pie_tpu_torch.tools.vid_conc; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('dither_pie_tpu.') or m == 'dither_pie_tpu']; "
             "assert not bad, bad")

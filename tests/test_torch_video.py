@@ -11,8 +11,9 @@ CPU, bitwise.
 * overlap == serial, a tail batch == full batches, planar == interleaved,
   final resize and regular pixelize == the JAX package's, retry and
   patching of failed frames;
-* the neural pixelizer without its checkpoints raises, and what is not
-  ported raises: multi-host sharding (A11); the entry points default to
+* the neural pixelizer without its checkpoints raises; multi-host
+  sharding (A11a) runs: a two-host flow and ``process_single_video`` on a
+  host whose share is done both return True; the entry points default to
   the card;
 * the resume plan and manifest, the config validation and
   ``process_single_image``'s PNG equal the JAX package's;
@@ -42,6 +43,7 @@ from dither_pie_tpu_torch.pipeline import ffio as tffio
 from dither_pie_tpu_torch.pipeline import image as timage
 from dither_pie_tpu_torch.pipeline import resume as tresume
 from dither_pie_tpu_torch.pipeline import video as tvideo
+from test_torch_multihost import fake_concat, fake_io, video_config
 
 PAL = [(0, 0, 0), (250, 250, 250), (200, 40, 40), (30, 90, 200), (240, 200, 60)]
 
@@ -216,14 +218,31 @@ def test_neural_pixelizer_raises_a9(tmp_path, monkeypatch):
     assert tpix._neural_singletons == {}
 
 
-def test_multi_host_raises_a11(tmp_path):
-    with pytest.raises(NotImplementedError, match="A11"):
-        tvideo.VideoProcessor().process_video_streaming(
-            str(tmp_path / "in.mp4"), str(tmp_path / "out.mp4"), _ours("none", {}),
-            host_index=0, host_count=2)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tvideo.process_single_video({"input": "in.mp4", "output": "out.mp4"},
-                                    host_count=2)
+def test_multi_host_two_host_flow(tmp_path, monkeypatch):
+    """host_count > 1 is served (A11a; tests/test_torch_multihost.py holds it
+    in full): each host encodes its share and returns True, the second one
+    concatenates every part."""
+    fake_io(monkeypatch, _frames(5))
+    concats = fake_concat(monkeypatch)
+    out = str(tmp_path / "out.mp4")
+    vp = tvideo.VideoProcessor(batch_size=2)
+    d = _ours("bayer", {"size": "8x8"})
+    assert vp.process_video_streaming("in.mp4", out, d, segment_size=2,
+                                      host_index=0, host_count=2)
+    assert not concats
+    assert vp.process_video_streaming("in.mp4", out, d, segment_size=2,
+                                      host_index=1, host_count=2)
+    assert [n for n, _ in concats] == [3]
+
+
+def test_multi_host_process_single_video_share_done(tmp_path, monkeypatch):
+    """A host whose share is done before the output exists returns True
+    (it does not stat the missing output)."""
+    fake_io(monkeypatch, _frames(3))
+    concats = fake_concat(monkeypatch)
+    cfg = video_config(tmp_path)
+    assert tvideo.process_single_video(cfg, host_index=1, host_count=2, device="cpu")
+    assert not concats and not Path(cfg["output"]).exists()
 
 
 def test_without_a_video_backend_nothing_runs(monkeypatch, tmp_path):
