@@ -315,8 +315,32 @@ a non-zero exit code and no result line:
    segment_size=8 as host 0 and host 1 of 2: host 0 returns True with the
    concat pending, host 1 concatenates 37 frames equal to a single-host
    resume run's, then the CLI in video mode with --resume exits 0 (else
-   one line says the leg did not run); the phase's seconds; and what the
-   whole run took of its 1200 s limit.
+   one line says the leg did not run); the phase's seconds;
+21. the GUI's view-model (gui/viewmodel.py) headless, with no Tk, as the
+   app's dialogs and worker threads drive it: AppViewModel(config in a
+   temporary file, device="cuda") opens a 1080p PNG (synth_image(1080,
+   1920, 800)); (a) palette_options at 32 and at 16 colours, each option
+   timed (median cut, k-means, uniform, the palette.json entries), then
+   previews of FS with its K-means-32 (K1 -> K2 -> K3), Bayer 8x8 with
+   pico8 (K4), WAVELET with Median Cut 16 (K4 on the float32
+   reconstruction) and HALFTONE with Median Cut 16 (torch ops, no kernel),
+   each equal bitwise to ImageDitherer(..., device="cuda").apply_dithering
+   of the same source, FS at identity 1.0 with the golden engine, each with
+   the launch counts set to 0 before it and read after it; then adopt,
+   save_result at x2 (== the preview repeated, bitwise), toggle and
+   persist_settings (read back); (b) pixelize("regular") at 128, the
+   palette options on the small source (timed), an FS preview held as in
+   (a); pixelize("neural") at 128 on the load_random(0) pixelizer of phase
+   18, within one u8 step of the pixelizer's own output, then a HYBRID
+   K-means-32 preview held to apply_dithering and to the golden engine's
+   hybrid twin; (c) the FS and Bayer previews rendered on a worker thread,
+   one at a time and then both at once from two threads, each equal to the
+   main thread's bitwise. Printed beside the card: the ms of each palette
+   option at 1080p and at the pixelized size, the warm preview ms by mode
+   (median of 3), save_result's ms and the phase's seconds. apply_to_video
+   needs ffmpeg; one line says it did not run. K1-K4 must be launched in
+   the phase (row key ``gui_launches``); and what the whole run took of its
+   1200 s limit.
 
 Phases 1-8 run with DITHER_PIE_TPU_INDEX_TRANSFER=0 (the RGB path, whatever
 the link probe would say); phases 9 to 11 set it as each check needs.
@@ -345,6 +369,7 @@ card's name and power limit; the last line is
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -4559,6 +4584,316 @@ def cli_video_leg(torch, dev, card, frames, work):
         f"hosts); the CLI in video mode with --resume exit 0 in {cli_wall:.3f} s [{card}]")
 
 
+GUI_SEED = 800  # the phase's 1080p PNG: synth_image(1080, 1920, 800)
+GUI_MAX_SIZE = 128
+GUI_PREVIEW_REPS = 3
+GUI_PREVIEWS = (  # (label, mode, parameters, palette option, colours, kernels it launches)
+    ("FS", "error_diffusion", {"variant": "floyd_steinberg"}, "K-means", 32,
+     ("skew", "ed_scan", "unskew_unpack")),
+    ("Bayer 8x8", "bayer", {"size": "8x8"}, "pico8_palette", 32, ("ordered_fused",)),
+    ("WAVELET", "wavelet", {}, "Median Cut", 16, ("ordered_fused",)),
+    ("HALFTONE", "halftone", {}, "Median Cut", 16, ()),
+)
+
+
+@contextlib.contextmanager
+def timed_palette_parts(times):
+    """ColorReducer's three generators wrapped to record their seconds into
+    ``times`` while AppViewModel.palette_options calls them."""
+    from dither_pie_tpu_torch.api.ditherer import ColorReducer
+
+    names = {"reduce_colors": "Median Cut", "generate_kmeans_palette": "K-means",
+             "generate_uniform_palette": "Uniform"}
+    saved = {name: ColorReducer.__dict__[name] for name in names}
+
+    def wrap(name, fn):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)  # a list on the host: the device work is done
+            times[names[name]] = time.perf_counter() - t0
+            return out
+        return staticmethod(timed)
+
+    for name, sm in saved.items():
+        setattr(ColorReducer, name, wrap(name, sm.__func__))
+    try:
+        yield times
+    finally:
+        for name, sm in saved.items():
+            setattr(ColorReducer, name, sm)
+
+
+def gui_palette_options(vm, source, n):
+    """palette_options(source) at ``n`` colours, with the seconds of the
+    call and of each option (the palette.json entries: the rest)."""
+    vm.num_colors = n
+    times = {}
+    with timed_palette_parts(times):
+        t0 = time.perf_counter()
+        opts = vm.palette_options(source)
+        total = time.perf_counter() - t0
+    times["palette.json entries"] = total - sum(times.values())
+    check([label for label, _ in opts[:3]] == ["Median Cut", "K-means", "Uniform"]
+          and len(opts) > 20, f"palette_options labels {[label for label, _ in opts]}")
+    for label, colors in opts:
+        arr = np.asarray(colors)
+        check(arr.ndim == 2 and arr.shape[1] == 3 and arr.min() >= 0 and arr.max() <= 255,
+              f"palette option {label}: {arr.shape}")
+    return dict(opts), total, times
+
+
+def gui_preview(torch, dev, vm, label, colors, source, keys):
+    """One render_preview with the launch counts set to 0 just before it
+    and read just after: (preview as an array, launches, wall seconds)."""
+    from dither_pie_tpu_torch.kernels import build
+
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = vm.render_preview(label, colors, source)
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    for key in keys:
+        check(launches.get(key, 0) >= 1, f"preview {vm.mode} {label}: kernel {key} not "
+              f"launched ({launches})")
+    arr = np.asarray(out)
+    check(arr.shape == np.asarray(source).shape and arr.dtype == np.uint8,
+          f"preview {vm.mode} {label}: {arr.shape} {arr.dtype}")
+    return arr, launches, wall
+
+
+def gui_hold(torch, dev, vm, colors, source, got, what):
+    """The preview == ImageDitherer(..., device=dev).apply_dithering of the
+    same source with the same settings, bitwise."""
+    import dither_pie_tpu_torch as dpt
+
+    d = dpt.ImageDitherer(num_colors=len(colors), dither_mode=dpt.DitherMode(vm.mode),
+                          palette=list(colors), use_gamma=vm.use_gamma,
+                          dither_params=dict(vm.dither_parameters.get(vm.mode, {})),
+                          device=dev)
+    want = np.asarray(d.apply_dithering(source))
+    check(np.array_equal(got, want), f"{what}: preview != apply_dithering (identity "
+          f"{identity(got, want)})")
+
+
+def on_thread(fns):
+    """Run each fn on a thread of its own, all started together; their
+    results in order (a raise on a thread fails the phase)."""
+    import threading
+
+    results, errors = [None] * len(fns), []
+
+    def body(i, fn):
+        try:
+            results[i] = fn()
+        except Exception as e:  # raised again on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=body, args=(i, fn)) for i, fn in enumerate(fns)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return results
+
+
+def gui_phase(torch, dev, card, lib, neural_run, rows):
+    """Phase 21: the GUI's view-model headless on the card (see the module
+    docstring). ``neural_run``: phase 18's, whose model holds the
+    load_random(0) weights on the card."""
+    from PIL import Image
+
+    from dither_pie_tpu_torch.api.config_manager import ConfigManager
+    from dither_pie_tpu_torch.gui.viewmodel import AppViewModel
+    from dither_pie_tpu_torch.kernels import build
+    from dither_pie_tpu_torch.models.pixelizer import NeuralPixelizer
+    from dither_pie_tpu_torch.ops.ed_kernels import kernel_arrays
+    from dither_pie_tpu_torch.pipeline import ffio
+    from dither_pie_tpu_torch.pipeline.pixelize import (install_neural_pixelizer,
+                                                        pixelize_regular)
+
+    t_phase = time.perf_counter()
+    check("tkinter" not in sys.modules, "the view-model's import loaded tkinter")
+    work = build.BUILD_DIR / "gui"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    photo = work / "photo.png"
+    frame = synth_image(FULL_H, FULL_W, GUI_SEED)
+    Image.fromarray(frame).save(photo)
+    vm = AppViewModel(ConfigManager(str(work / "config.json")), device=dev)
+    check(vm.device == dev, f"view-model device {vm.device}, asked for {dev}")
+    gui_launches = {}
+
+    def count(launches):
+        for key, n in launches.items():
+            gui_launches[key] = gui_launches.get(key, 0) + n
+
+    # (a) Full resolution: "Dither only, full resolution".
+    src = vm.load_image(str(photo))
+    check(np.array_equal(np.asarray(src), frame), "load_image != the PNG's pixels")
+    options, palette_s, palette_parts = {}, {}, {}
+    for n in (32, 16):
+        options[n], palette_s[n], palette_parts[n] = gui_palette_options(vm, src, n)
+        log(f"[21] (a) palette_options at {FULL_W}x{FULL_H}, {n} colours: "
+            f"{palette_s[n] * 1e3:.3f} ms, of which "
+            + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in palette_parts[n].items())
+            + f" ms [{card}]")
+    previews, walls = {}, {}
+    for label, mode, params, option, n, keys in GUI_PREVIEWS:
+        vm.mode = mode
+        vm.dither_parameters[mode] = dict(params)
+        colors = options[n][option]
+        got, launches, cold = gui_preview(torch, dev, vm, option, colors, src, keys)
+        count(launches)
+        gui_hold(torch, dev, vm, colors, src, got, f"{label} {option}")
+        warm = []
+        for _ in range(GUI_PREVIEW_REPS):
+            again, more, wall = gui_preview(torch, dev, vm, option, colors, src, keys)
+            count(more)
+            check(np.array_equal(again, got), f"{label}: a repeated preview differs")
+            warm.append(wall)
+        gold = ""
+        if mode == "error_diffusion":
+            pal = np.asarray(colors, np.float32)
+            ident = identity(got, golden_frame(lib, kernel_arrays, frame, pal,
+                                               "floyd_steinberg"))
+            check(ident == 1.0, f"FS preview golden identity {ident}")
+            gold = f", golden identity {ident}"
+        previews[label] = (got, colors, option)
+        walls[label] = statistics.median(warm)
+        log(f"[21] (a) preview {label} {option} {len(colors)}: == apply_dithering bitwise"
+            f"{gold}; launches {launches}; first {cold * 1e3:.3f} ms, warm "
+            f"{walls[label] * 1e3:.3f} ms (median of {GUI_PREVIEW_REPS}) [{card}]")
+    fs, fs_colors, _ = previews["FS"]
+    vm.mode = "error_diffusion"
+    vm.adopt_preview(fs_colors, Image.fromarray(fs))
+    check(vm.display_state == "dithered" and vm.last_palette == list(fs_colors),
+          "adopt_preview did not adopt")
+    vm.final_resize_multiplier = 2
+    saved = work / "result.png"
+    t0 = time.perf_counter()
+    check(vm.save_result(str(saved)), "save_result returned False")
+    save_s = time.perf_counter() - t0
+    check(np.array_equal(np.asarray(Image.open(saved)), np.repeat(np.repeat(fs, 2, 0), 2, 1)),
+          "save_result x2 != the preview repeated")
+    toggles = [vm.toggle_state()[0] for _ in range(3)]
+    check(toggles == ["current", "dithered", "current"], f"toggle {toggles}")
+    vm.persist_settings()
+    back = ConfigManager(str(work / "config.json"))
+    check(back.get("defaults", "dither_mode") == "error_diffusion"
+          and back.get("defaults", "final_resize_multiplier") == 2,
+          "persist_settings did not persist")
+    log(f"[21] (a) adopt; save_result x2 ({2 * FULL_W}x{2 * FULL_H} PNG, == the preview "
+        f"repeated) {save_s * 1e3:.3f} ms; toggle {toggles}; persist_settings read back "
+        f"[{card}]")
+
+    # (b) The pixelized flow, regular then neural.
+    vm.pixelize_max_size = GUI_MAX_SIZE
+    small = vm.pixelize("regular")
+    check(np.array_equal(np.asarray(small), np.asarray(pixelize_regular(src, GUI_MAX_SIZE))),
+          "pixelize('regular') != pixelize_regular")
+    opts_small, small_s, small_parts = gui_palette_options(vm, small, 32)
+    log(f"[21] (b) pixelize('regular') at {GUI_MAX_SIZE}: {small.size[0]}x{small.size[1]}; "
+        f"palette_options, 32 colours: {small_s * 1e3:.3f} ms, of which "
+        + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in small_parts.items()) + f" ms [{card}]")
+    vm.mode = "error_diffusion"
+    colors = opts_small["K-means"]
+    got, launches, _ = gui_preview(torch, dev, vm, "K-means", colors, small,
+                                   GUI_PREVIEWS[0][5])
+    count(launches)
+    gui_hold(torch, dev, vm, colors, small, got, "FS on the pixelized source")
+    ident = identity(got, golden_frame(lib, kernel_arrays, np.asarray(small),
+                                       np.asarray(colors, np.float32), "floyd_steinberg"))
+    check(ident == 1.0, f"pixelized FS golden identity {ident}")
+    log(f"[21] (b) FS K-means-32 preview of the pixelized source: == apply_dithering "
+        f"bitwise, golden identity {ident}; launches {launches}")
+    pixelizer = NeuralPixelizer.from_model(neural_run.model)
+    install_neural_pixelizer(pixelizer)
+    t0 = time.perf_counter()
+    neural = vm.pixelize("neural")
+    sync(torch, dev)
+    neural_s = time.perf_counter() - t0
+    direct = np.asarray(pixelizer.pixelize(src, GUI_MAX_SIZE).convert("RGB"))
+    got_n = np.asarray(neural)
+    check(got_n.shape == direct.shape and min(neural.size) == GUI_MAX_SIZE,
+          f"pixelize('neural') {got_n.shape}, the pixelizer's {direct.shape}")
+    delta = int(np.abs(got_n.astype(np.int16) - direct.astype(np.int16)).max())
+    check(delta <= 1, f"pixelize('neural') differs from the pixelizer by {delta} u8 steps")
+    vm.mode = "hybrid"
+    vm.dither_parameters["hybrid"] = {}
+    opts_neural, _, _ = gui_palette_options(vm, neural, 32)
+    colors = opts_neural["K-means"]
+    got, launches, _ = gui_preview(torch, dev, vm, "K-means", colors, neural,
+                                   GUI_PREVIEWS[0][5])
+    count(launches)
+    gui_hold(torch, dev, vm, colors, neural, got, "HYBRID on the neural pixelization")
+    ident = identity(got, golden_mode_frame(lib, got_n, np.asarray(colors, np.float32),
+                                            "hybrid"))
+    check(ident == 1.0, f"neural HYBRID golden identity {ident}")
+    log(f"[21] (b) pixelize('neural') at {GUI_MAX_SIZE} (load_random(0)): {neural.size[0]}x"
+        f"{neural.size[1]} in {neural_s * 1e3:.3f} ms, within {delta} u8 step of the "
+        f"pixelizer's own call; HYBRID K-means-32 preview == apply_dithering bitwise, golden "
+        f"identity {ident}; launches {launches} [{card}]")
+
+    # (c) Worker threads, as the app's palette dialog runs its previews: the
+    # view-model's render_preview on a thread; two at once from two
+    # view-models (the mode is view-model state).
+    def render(label, model):
+        _, mode, params, option, _, _ = next(p for p in GUI_PREVIEWS if p[0] == label)
+        want, colors, _ = previews[label]
+        model.mode = mode
+        model.dither_parameters[mode] = dict(params)
+
+        def fn():
+            out = np.asarray(model.render_preview(option, colors, src))
+            sync(torch, dev)
+            return out
+        return fn, want
+
+    build.reset_launch_counts()
+    for label in ("FS", "Bayer 8x8"):
+        fn, want = render(label, vm)
+        got, = on_thread([fn])
+        check(np.array_equal(got, want), f"{label} on a worker thread != the main thread's")
+    pair = [render(label, AppViewModel(ConfigManager(str(work / f"config{i}.json")),
+                                       device=dev))
+            for i, label in enumerate(("FS", "Bayer 8x8"))]
+    t0 = time.perf_counter()
+    got = on_thread([fn for fn, _ in pair])
+    both_s = time.perf_counter() - t0
+    for (_, want), out, label in zip(pair, got, ("FS", "Bayer 8x8")):
+        check(np.array_equal(out, want), f"{label} from two threads at once != the main "
+              f"thread's")
+    launches = dict(build.LAUNCHES)
+    count(launches)
+    for key in ("skew", "ed_scan", "unskew_unpack", "ordered_fused"):
+        check(launches.get(key, 0) >= 2, f"threads: kernel {key} launched "
+              f"{launches.get(key, 0)} times")
+    log(f"[21] (c) FS and Bayer 8x8 previews on a worker thread, one at a time and then "
+        f"both at once from two threads ({both_s * 1e3:.3f} ms): == the main thread's, "
+        f"bitwise; launches {launches} [{card}]")
+
+    if ffio.ffmpeg_available():
+        log("[21] apply_to_video did not run: this phase does not drive the video path "
+            "(phase 20 (d) does)")
+    else:
+        log("[21] apply_to_video did not run: it needs ffmpeg, which is not on PATH")
+    for key in ("skew", "ed_scan", "unskew_unpack", "ordered_fused"):
+        check(gui_launches.get(key, 0) >= 1, f"phase 21 launched no {key}")
+    for row in rows:
+        if row["name"] in gui_launches:
+            row["gui_launches"] = gui_launches[row["name"]]
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"[21] the GUI's view-model: warm previews by mode "
+        + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in walls.items())
+        + f" ms; palette_options at {FULL_W}x{FULL_H} {palette_s[32] * 1e3:.3f} (32) and "
+        f"{palette_s[16] * 1e3:.3f} (16) ms, at {small.size[0]}x{small.size[1]} "
+        f"{small_s * 1e3:.3f} ms; launches in the phase {gui_launches}; phase 21 took "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
 def main() -> int:
     import argparse
 
@@ -4587,7 +4922,7 @@ def sync(torch, dev):
 
 
 def run(torch, dev, card, seed=0) -> int:
-    """Phases 1-20 on ``dev``; prints the result lines and returns 0, or
+    """Phases 1-21 on ``dev``; prints the result lines and returns 0, or
     raises on the first failure. ``seed`` makes phase 17's video frames."""
     from PIL import Image
 
@@ -4897,13 +5232,17 @@ def run(torch, dev, card, seed=0) -> int:
     # 20. The command line (the RGB path, as phases 1-8).
     with index_transfer("0"):
         cli_phase(torch, dev, card, lib, video_frames, rows)
+
+    # 21. The GUI's view-model (the RGB path, as phases 1-8).
+    with index_transfer("0"):
+        gui_phase(torch, dev, card, lib, neural_run, rows)
     for row in rows:
         if row["name"] in ("ed_scan", "ed_scan_idx", "skew", "unskew_unpack", "skew_planar",
                            "ordered_fused", "unskew_idx", "unskew_select", "identity",
                            "skew_transpose"):
             row["max_abs_err"] = max(row["max_abs_err"], errs.get(row["name"], 0.0))
     took = time.perf_counter() - t_run
-    log(f"[20] the whole run took {took:.1f} s, {took / RUN_LIMIT_S:.2f} of its "
+    log(f"[21] the whole run took {took:.1f} s, {took / RUN_LIMIT_S:.2f} of its "
         f"{RUN_LIMIT_S} s limit")
 
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,6 +1,6 @@
 """Entry router: arguments -> the command line (``cli/main.py``); no
-arguments -> the GUI, which the port does not have yet (ROADMAP A12b), so
-it says so and exits 1."""
+arguments -> the GUI (``gui/app.py``) on the card, as the JAX package's
+router does."""
 
 import sys
 
@@ -10,10 +10,14 @@ def main():
         from dither_pie_tpu_torch.cli.main import main as cli_main
 
         sys.exit(cli_main())
-    print("The GUI is not ported to dither_pie_tpu_torch yet (ROADMAP A12b); "
-          "run the command line: python -m dither_pie_tpu_torch <config.json> [input]",
-          file=sys.stderr)
-    sys.exit(1)
+    try:
+        from dither_pie_tpu_torch.gui.app import launch_gui
+    except ModuleNotFoundError as e:
+        if e.name not in ("tkinter", "_tkinter"):
+            raise
+        sys.exit(f"Cannot start GUI ({e}): this Python has no Tk. Use the command line: "
+                 "python -m dither_pie_tpu_torch <config.json> [input] [--device cpu]")
+    launch_gui()
 
 
 if __name__ == "__main__":

@@ -5,7 +5,8 @@ pipelines.
 
 * ``--example-config`` through the three module entry points parses to the
   JAX package's JSON (its ``_comment`` names the port's module); ``--help``
-  exits 0; the router with no arguments exits 1 and names A12b;
+  exits 0; the router with no arguments calls the GUI's ``launch_gui``,
+  which without a card or a display exits 1 naming the command line;
 * exit 1 for a missing config, an invalid config, a missing override, bad
   ``--shard`` specs and ``--device cuda`` without a card (which writes
   nothing: nothing falls back to the CPU); 130 on Ctrl+C;
@@ -99,10 +100,27 @@ def test_example_config_equals_jax(module, capsys):
     assert ours == theirs
 
 
-def test_router_without_arguments_names_a12b():
-    r = _run("-m", "dither_pie_tpu_torch")
-    assert r.returncode == 1
-    assert "A12b" in r.stderr and not r.stdout
+def test_router_without_arguments_launches_the_gui(monkeypatch):
+    """No arguments: the router calls gui.app.launch_gui (the GUI's own
+    checks are in tests/test_torch_gui_*.py); arguments go to the CLI."""
+    from dither_pie_tpu_torch import __main__ as router
+    from dither_pie_tpu_torch.gui import app
+
+    calls = []
+    monkeypatch.setattr(app, "launch_gui", lambda *a, **k: calls.append((a, k)))
+    monkeypatch.setattr(sys, "argv", ["dither_pie_tpu_torch"])
+    router.main()
+    assert calls == [((), {})]
+
+
+def test_router_without_a_card_or_display_exits_1():
+    """Here, with no card and no display, the GUI does not start: exit 1,
+    a message that names the command line, and no traceback."""
+    r = _run("-m", "dither_pie_tpu_torch", env={"DISPLAY": ""})
+    assert r.returncode == 1 and not r.stdout
+    assert "Cannot start GUI" in r.stderr
+    assert "python -m dither_pie_tpu_torch <config.json>" in r.stderr
+    assert "Traceback" not in r.stderr
 
 
 def test_help_exits_0(capsys):
