@@ -339,11 +339,32 @@ a non-zero exit code and no result line:
    option at 1080p and at the pixelized size, the warm preview ms by mode
    (median of 3), save_result's ms and the phase's seconds. apply_to_video
    needs ffmpeg; one line says it did not run. K1-K4 must be launched in
-   the phase (row key ``gui_launches``); and what the whole run took of its
-   1200 s limit.
+   the phase (row key ``gui_launches``);
+22. data parallelism (parallel/mesh.py, sharding.py, auto.py; the
+   facade's auto-mesh; the data-parallel GAN step) on the one card as a
+   mesh of two positions of it, [cuda:0, cuda:0] (``parallel.auto.
+   local_devices`` answering it, the seam the CPU tests set to eight CPU
+   positions): (a) the JAX package's multichip dry run: the ordered gamma
+   step on a (2 x 1) mesh at 4 x 16x32 and at 16 x 480p (histogram total
+   b*h*w), the ED step with balanced 2-frame shards and its mean error,
+   adaptive's gates sharded with their frames, each == one device bitwise;
+   (b) the main path: 16 x 1080p FS k-means-32 and Bayer 8x8 pico8
+   through apply_dithering_batch with the mesh on by default, each with
+   the launch counts set to 0 before it and read after it (row key
+   ``mesh_launches``), == DITHER_PIE_TPU_AUTO_MESH=0's output bitwise, FS
+   == phase 5's and at golden identity 1.0 on 2 frames, the walls of both
+   in turns; (c) the GAN step at the trainer's defaults (P2CGen-64 /
+   CPDis-64, lsgan, 8 x 256x256) on the mesh against one device from one
+   state, the metrics of two steps held to phase 19 (a)'s rtol 1e-4 and
+   the state to its parameter and u/v limits, G's L1 gradient one device
+   against the mesh's reduction and both against float64, ms a step and
+   peak memory of each, and a mesh resume at dim 8, bitwise; and what the
+   whole run took of its 1200 s limit.
 
 Phases 1-8 run with DITHER_PIE_TPU_INDEX_TRANSFER=0 (the RGB path, whatever
 the link probe would say); phases 9 to 11 set it as each check needs.
+Phases 1-21 run with DITHER_PIE_TPU_AUTO_MESH=0 (one device, however many
+are visible); phase 22 sets it as each check needs.
 DITHER_PIE_TPU_DENSE_SEARCH is unset (the exact search) outside phase 10's
 main paths and phase 6's one score-mode trace. Phases 3-9 hold K1 and K6
 themselves (``skew_gather``, ``skew_planar_gather``) where they hold a skew
@@ -4894,6 +4915,296 @@ def gui_phase(torch, dev, card, lib, neural_run, rows):
         f"{time.perf_counter() - t_phase:.1f} s [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: data parallelism over a mesh (parallel/, the facade's auto-mesh,
+# the data-parallel GAN step), on the one card as a mesh of [dev, dev]
+# ---------------------------------------------------------------------------
+
+MESH_MEDIUM = (16, 480, 640)  # (a): the ordered step at 16 x 480p, Bayer 8x8
+MESH_WALL_TURNS = 2  # (b): walls, single device and mesh in turns (0, 1, 1, 0)
+MESH_TRAIN_STEPS = 2  # (c): held steps, mesh against one device
+MESH_TRAIN_TIMED = 4  # (c): timed steps of each, in turns
+MESH_RESUME = (4, 32, 32)  # (c): the mesh resume at dim 8 / conv-dim 8
+
+
+@contextlib.contextmanager
+def mesh_seam(devices):
+    """``parallel.auto.local_devices`` answering ``devices`` for a block:
+    the seam the CPU tests set to ``[cpu] * 8``."""
+    from dither_pie_tpu_torch.parallel import auto
+
+    real = auto.local_devices
+    auto.local_devices = lambda device: list(devices)
+    try:
+        yield
+    finally:
+        auto.local_devices = real
+
+
+def mesh_dryrun(torch, dev, card, mdevs):
+    """Phase 22 (a): the JAX package's multichip dry run
+    (``__graft_entry__._dryrun_multichip_impl``) on the mesh ``mdevs``:
+    the ordered gamma step on a (n x 1) mesh (histogram total b*h*w), the
+    ED step with balanced 2-frame shards and its mean error, adaptive's
+    gates sharded with their frames, and the ordered step at 16 x 480p;
+    each output equal to one device's bitwise."""
+    from dither_pie_tpu_torch.core import thresholds as thr
+    from dither_pie_tpu_torch.ops import adaptive, ordered as tord, wavefront as twf
+    from dither_pie_tpu_torch.parallel.mesh import make_mesh
+    from dither_pie_tpu_torch.parallel.sharding import (make_sharded_ed_step,
+                                                         make_sharded_ordered_step, shard_frames)
+
+    n = len(mdevs)
+    rng = np.random.RandomState(22)
+    mesh = make_mesh((n, 1), ("data", "space"), mdevs)
+    one_step = make_sharded_ordered_step(make_mesh((1, 1), ("data", "space"), mdevs[:1]),
+                                         use_gamma=True)
+    step = make_sharded_ordered_step(mesh, use_gamma=True)
+    pal = torch.from_numpy(rng.randint(0, 256, (8, 3)).astype(np.float32)).to(dev)
+    for (b, h, w), size in (((2 * n, 16, 32), "4x4"), (MESH_MEDIUM, "8x8")):
+        frames = rng.randint(0, 256, (b, h, w, 3), dtype=np.uint8)
+        screen = tord.screen_for_matrix(thr.bayer_matrix(size), h, w, dev)
+        out, hist = step(shard_frames(mesh, frames), pal, screen)
+        got = out.gather().numpy()
+        ref, ref_hist = one_step(frames, pal, screen)
+        check(got.shape == frames.shape and got.dtype == np.uint8,
+              f"sharded ordered step output {got.shape} {got.dtype}")
+        check(int(hist.sum()) == b * h * w, f"histogram total {int(hist.sum())} != {b * h * w}")
+        check(len({s.device for s in out.shards}) == 1 and len(out.shards) == n,
+              f"ordered step: {len(out.shards)} shards, want {n}")
+        check(np.array_equal(got, ref.gather().numpy()) and torch.equal(hist, ref_hist),
+              f"sharded ordered step at {b} x {h}x{w} != one device")
+        log(f"[22] (a) ordered gamma step, mesh ({n}x1) of {[str(d) for d in mdevs]}, Bayer "
+            f"{size}: frames {frames.shape}, histogram total {int(hist.sum())}, output and "
+            f"histogram == one device's bitwise")
+
+    ed_mesh = make_mesh((n,), ("data",), mdevs)
+    ed_frames = rng.randint(0, 256, (2 * n, 16, 24, 3), dtype=np.uint8)
+    ed_pal = rng.randint(0, 256, (8, 3)).astype(np.float32)
+    frames_t, pal_t = torch.from_numpy(ed_frames).to(dev), torch.from_numpy(ed_pal).to(dev)
+    gray = (np.float32(0.299) * ed_frames[..., 0] + np.float32(0.587) * ed_frames[..., 1]
+            + np.float32(0.114) * ed_frames[..., 2])
+    gates = np.stack([adaptive.variance_map_np(g, 1) >= 300.0 for g in gray]).astype(np.float32)
+    for mode, aux in (("fixed", None), ("adaptive", gates)):
+        out, err = make_sharded_ed_step(ed_mesh, 16, 24, 8, 2, mode=mode)(ed_frames, ed_pal, aux)
+        sizes = [s.shape[0] for s in out.shards]
+        single = twf.ed_batch_wavefront(
+            frames_t, pal_t, mode, aux=None if aux is None else torch.from_numpy(aux).to(dev))
+        check(sizes == [2] * n, f"ED step shards {sizes}, want {[2] * n}")
+        check(np.isfinite(float(err)) and float(err) > 0, f"ED step mean error {float(err)}")
+        check(np.array_equal(out.gather().numpy(), single.cpu().numpy()),
+              f"sharded ED step ({mode}) != one device")
+        log(f"[22] (a) ED step ({mode}{', gates sharded with their frames' if aux is not None else ''}), "
+            f"mesh ({n},): frames {ed_frames.shape}, shards {sizes}, mean quantisation error "
+            f"{float(err):.4f}, == one device bitwise")
+
+
+def mesh_facade(torch, dev, card, lib, mdevs, frames16, palette, out16, rows):
+    """Phase 22 (b), the main path: 16 x 1080p FS k-means-32 (the headline)
+    and Bayer 8x8 pico8 through ``apply_dithering_batch`` with the mesh on
+    (the seam answering ``mdevs``), each with the launch counts set to 0
+    before it and read after it; outputs == the single device's
+    (DITHER_PIE_TPU_AUTO_MESH=0) bitwise, FS == phase 5's (golden identity
+    1.0 on all 16 frames) and at identity 1.0 with the golden engine on 2
+    frames; the walls of both, in turns. Returns the launch counts."""
+    import dither_pie_tpu_torch as dpt
+    from dither_pie_tpu_torch.kernels import build
+    from dither_pie_tpu_torch.ops import ed_kernels
+
+    pal_np = np.asarray(palette, np.float32)
+    cases = (("FS k-means-32", dpt.ImageDitherer(
+                 num_colors=N_COLORS, dither_mode=dpt.DitherMode.ERROR_DIFFUSION,
+                 palette=palette, dither_params={"variant": "floyd_steinberg"}, device=dev),
+              ("skew", "ed_scan", "unskew_unpack")),
+             ("Bayer 8x8 pico8", dpt.ImageDitherer(
+                 num_colors=16, dither_mode=dpt.DitherMode.BAYER, palette=pico8_palette(),
+                 dither_params={"size": "8x8"}, device=dev), ("ordered_fused",)))
+    launches = {}
+    with mesh_seam(mdevs):
+        for what, d, keys in cases:
+            with env_var("DITHER_PIE_TPU_AUTO_MESH", "0"):
+                single = d.apply_dithering_batch(frames16)
+            with env_var("DITHER_PIE_TPU_AUTO_MESH", None):  # on by default with 2 devices
+                sync(torch, dev)
+                build.reset_launch_counts()
+                meshed = d.apply_dithering_batch(frames16)
+                sync(torch, dev)
+                got = dict(build.LAUNCHES)
+            for key in keys:
+                check(got.get(key, 0) >= 1, f"the mesh path ({what}) launched no {key}")
+                launches[key] = launches.get(key, 0) + got[key]
+            check(np.array_equal(meshed, single), f"{what}: mesh != single device")
+            walls = {"single": [], "mesh": []}
+            for mode in ("0", "1", "1", "0") * MESH_WALL_TURNS:
+                with env_var("DITHER_PIE_TPU_AUTO_MESH", mode):
+                    t0 = time.perf_counter()
+                    d.apply_dithering_batch(frames16)
+                    walls["mesh" if mode == "1" else "single"].append(time.perf_counter() - t0)
+            med = {k: statistics.median(v) * 1e3 for k, v in walls.items()}
+            extra = ""
+            if what.startswith("FS"):
+                check(np.array_equal(meshed, out16), "FS mesh output != phase 5's")
+                idents = [identity(meshed[i], golden_frame(lib, ed_kernels.kernel_arrays,
+                                                           frames16[i], pal_np,
+                                                           "floyd_steinberg"))
+                          for i in range(2)]
+                check(all(v == 1.0 for v in idents), f"FS mesh golden identity {idents}")
+                extra = f", == phase 5's output, golden identity {idents}"
+            log(f"[22] (b) apply_dithering_batch {what}, {BATCH} x {FULL_H}x{FULL_W}, mesh of "
+                f"{[str(x) for x in mdevs]}: launches {got}; == one device bitwise{extra}; "
+                f"wall median of {len(walls['mesh'])} in turns: single {med['single']:.3f} ms, "
+                f"mesh {med['mesh']:.3f} ms (single {', '.join(f'{t * 1e3:.3f}' for t in walls['single'])}; "
+                f"mesh {', '.join(f'{t * 1e3:.3f}' for t in walls['mesh'])}) [{card}]")
+    for row in rows:
+        if row["name"] in launches:
+            row["mesh_launches"] = launches[row["name"]]
+    return launches
+
+
+def mesh_grad_accuracy(torch, dev, card, tt, G, src, real, n):
+    """G's gradient of lambda_L1 * L1(G(src), real) at full width in three
+    ways: float32 on the whole batch (one device), float32 as the mean of
+    n shards' gradients (the mesh's reduction), and float64 (cuDNN's
+    double convs) on the whole batch. Prints, over G's weights (not the
+    biases under instance norm, whose gradient is rounding noise), the
+    largest difference of each pair against the tensor's largest float64
+    gradient, and checks that the mesh lies no further from the one
+    device than the one device lies from float64."""
+    import copy
+
+    from dither_pie_tpu_torch.models.p2cgen import p2cgen_forward
+
+    def grads(net, s, r, deterministic=True):
+        net.zero_grad(set_to_none=True)
+        with tt.step_scope(deterministic):
+            (100.0 * (p2cgen_forward(net, s) - r).abs().mean()).backward()
+        return {k: p.grad.detach().to(torch.float64).cpu().numpy()
+                for k, p in net.named_parameters()}
+
+    whole = grads(G, src, real)
+    b = src.shape[0] // n
+    parts = [grads(G, src[i * b:(i + 1) * b], real[i * b:(i + 1) * b]) for i in range(n)]
+    shards = {k: sum(p[k] for p in parts) / n for k in whole}
+    G64 = copy.deepcopy(G).to(torch.float64)
+    exact = grads(G64, src.to(torch.float64), real.to(torch.float64))
+    del G64
+    worst = {"one device vs mesh": 0.0, "one device vs float64": 0.0, "mesh vs float64": 0.0}
+    for k, g in exact.items():
+        if k.endswith(".conv.bias") and not k.startswith("RGBDec.conv_"):
+            continue
+        scale = float(np.abs(g).max())
+        for name, (a, c) in (("one device vs mesh", (whole, shards)),
+                             ("one device vs float64", (whole, exact)),
+                             ("mesh vs float64", (shards, exact))):
+            worst[name] = max(worst[name], float(np.abs(a[k] - c[k]).max()) / scale)
+    log(f"[22] (c) G's lambda_L1 * L1 gradient at full width, largest difference over its "
+        f"weights against the tensor's largest float64 gradient: " + "; ".join(
+            f"{name} {e:.3e}" for name, e in worst.items()) + f" [{card}]")
+    check(worst["one device vs mesh"] <= max(worst["one device vs float64"],
+                                             worst["mesh vs float64"]),
+          f"the mesh's gradient is further from one device's than float32 is from "
+          f"float64: {worst}")
+
+
+def mesh_train(torch, dev, card, mdevs):
+    """Phase 22 (c): the GAN step at the trainer's defaults (P2CGen(64, 3),
+    CPDis(64), lsgan, 8 x 256x256) on the mesh ``mdevs`` against one
+    device from the same state: MESH_TRAIN_STEPS steps, the metrics of
+    each held to phase 19 (a)'s rtol 1e-4 and the state to its parameter
+    and u/v limits (its gradient-scale limits printed);
+    ``mesh_grad_accuracy``; ms a step (CUDA
+    events, MESH_TRAIN_TIMED each, in turns) and peak device memory of
+    each; then a mesh resume at dim 8 (one step, checkpoint, load, the
+    second step) against two steps straight, bitwise."""
+    import copy
+
+    from dither_pie_tpu_torch.kernels import build
+    from dither_pie_tpu_torch.models import training as tt
+    from dither_pie_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh((len(mdevs),), ("data",), mdevs)
+    base = tt.gan_init(lr=TRAIN_LR, dim=64, conv_dim=64, seed=0, device=dev)
+    base_copy = copy.deepcopy(base.G)
+    states = {"one": copy.deepcopy(base), "mesh": base}
+    steps = {"one": tt.make_gan_train_step("lsgan", 100.0),
+             "mesh": tt.make_gan_train_step("lsgan", 100.0, mesh=mesh)}
+    src, real = train_batch(torch, 220, TRAIN_FULL, dev)
+    grads = []
+    for t in range(1, MESH_TRAIN_STEPS + 1):
+        m = {k: steps[k](states[k], src, real) for k in ("one", "mesh")}
+        grads.append({f"{tag}.{k}": p.grad.cpu().numpy().copy()
+                      for tag, net in (("G", states["one"].G), ("D", states["one"].D))
+                      for k, p in net.named_parameters()})
+        merr = max(abs(m["mesh"][k].item() - m["one"][k].item()) / abs(m["one"][k].item())
+                   for k in m["one"])
+        errs = {"metrics (relative)": (merr, 1e-4),
+                **train_errors(tt, states["one"], states["mesh"], grads, t)}
+        log(f"[22] (c) train step {t}, mesh of {len(mdevs)} against one device (lsgan, "
+            f"P2CGen-64 / CPDis-64, {TRAIN_FULL[0]} x {TRAIN_FULL[1]}x{TRAIN_FULL[2]}): "
+            + "; ".join(f"{n} max {e:.3e} (limit {lim:.1e})" for n, (e, lim) in errs.items())
+            + f" [{card}]")
+        # The metrics, the parameters' 2 lr t bound and u/v at every step.
+        # The gradient-scale holds are printed only: a shard's convs run at
+        # another batch size, and L1's sign flips at near-zero residuals
+        # turn that rounding into gradient differences of ~1e-3 of a
+        # tensor's largest, below either side's distance from float64
+        # (``mesh_grad_accuracy``, checked).
+        for n, (e, lim) in errs.items():
+            check(e <= lim or n in ("params, large gradient",
+                                    "moments (excess over rtol 1e-4 + atol)"),
+                  f"mesh train step {t}: {n} {e} > {lim}")
+    mesh_grad_accuracy(torch, dev, card, tt, base_copy, src, real, len(mdevs))
+    times, peak = {"one": [], "mesh": []}, {}
+    for k in ("one", "mesh", "mesh", "one"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        for _ in range(MESH_TRAIN_TIMED // 2):
+            ms, _ = cuda_ms(torch, lambda: steps[k](states[k], src, real), 1, warmup=False)
+            times[k].append(ms)
+        peak[k] = max(peak.get(k, 0.0), torch.cuda.max_memory_allocated(dev) / 2**30)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    b = TRAIN_FULL[0]
+    log(f"[22] (c) train step ms (CUDA events, {MESH_TRAIN_TIMED} each in turns): one device "
+        f"median {med['one']:.3f} ms ({b / med['one'] * 1e3:.2f} images/s; "
+        f"{', '.join(f'{x:.3f}' for x in times['one'])}), peak {peak['one']:.3f} GiB; mesh of "
+        f"{len(mdevs)} median {med['mesh']:.3f} ms ({b / med['mesh'] * 1e3:.2f} images/s; "
+        f"{', '.join(f'{x:.3f}' for x in times['mesh'])}), peak {peak['mesh']:.3f} GiB [{card}]")
+
+    small = tt.gan_init(lr=TRAIN_LR, dim=8, conv_dim=8, seed=3, device=dev)
+    s_src, s_real = train_batch(torch, 221, MESH_RESUME, dev)
+    step = steps["mesh"] = tt.make_gan_train_step("lsgan", 100.0, mesh=mesh)
+    step(small, s_src, s_real)
+    path = build.BUILD_DIR / "mesh_resume.npz"
+    tt.save_train_state(str(path), small, step=1)
+    m_straight = step(small, s_src, s_real)
+    resumed, _, _ = tt.load_train_state(
+        str(path), tt.gan_init(lr=TRAIN_LR, dim=8, conv_dim=8, seed=4, device=dev))
+    path.unlink()
+    m_resumed = step(resumed, s_src, s_real)
+    x, y = tt.state_arrays(small), tt.state_arrays(resumed)
+    bad = [k for k in x if not np.array_equal(x[k], y[k])]
+    same_m = all(torch.equal(m_straight[k], m_resumed[k]) for k in m_straight)
+    check(not bad and same_m, f"mesh resume not bitwise: {len(bad)} entries, metrics {same_m}")
+    log(f"[22] (c) mesh resume (dim 8 / conv-dim 8, {MESH_RESUME[0]} x "
+        f"{MESH_RESUME[1]}x{MESH_RESUME[2]}): the resumed second step == two steps straight, "
+        f"bitwise (state and metrics) [{card}]")
+
+
+def mesh_phase(torch, dev, card, lib, frames16, palette, out16, rows):
+    """Phase 22: data parallelism on the one card, as a mesh of two
+    positions of it (``[dev, dev]``): (a) ``mesh_dryrun``, (b)
+    ``mesh_facade`` (the main path; row key ``mesh_launches``), (c)
+    ``mesh_train``."""
+    from dither_pie_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    mdevs = list(make_mesh(devices=[dev, dev]).devices.flat)
+    mesh_dryrun(torch, dev, card, mdevs)
+    launches = mesh_facade(torch, dev, card, lib, mdevs, frames16, palette, out16, rows)
+    mesh_train(torch, dev, card, mdevs)
+    log(f"[22] mesh launches in the main path {launches}; phase 22 took "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
 def main() -> int:
     import argparse
 
@@ -4922,7 +5233,7 @@ def sync(torch, dev):
 
 
 def run(torch, dev, card, seed=0) -> int:
-    """Phases 1-21 on ``dev``; prints the result lines and returns 0, or
+    """Phases 1-22 on ``dev``; prints the result lines and returns 0, or
     raises on the first failure. ``seed`` makes phase 17's video frames."""
     from PIL import Image
 
@@ -4938,6 +5249,9 @@ def run(torch, dev, card, seed=0) -> int:
     variants = ed_kernels.KERNEL_NAMES
     # Phases 1-8 hold the RGB path, whatever the link probe would say.
     os.environ["DITHER_PIE_TPU_INDEX_TRANSFER"] = "0"
+    # Phases 1-21 hold one device, however many are visible; phase 22 sets
+    # the mesh as each check needs.
+    os.environ["DITHER_PIE_TPU_AUTO_MESH"] = "0"
     os.environ.pop("DITHER_PIE_TPU_DENSE_SEARCH", None)  # the exact search
 
     # 1. The card.
@@ -5236,13 +5550,18 @@ def run(torch, dev, card, seed=0) -> int:
     # 21. The GUI's view-model (the RGB path, as phases 1-8).
     with index_transfer("0"):
         gui_phase(torch, dev, card, lib, neural_run, rows)
+
+    # 22. Data parallelism on the one card as a mesh of two positions (the
+    # RGB path, as phases 1-8).
+    with index_transfer("0"):
+        mesh_phase(torch, dev, card, lib, frames16, palette, out16, rows)
     for row in rows:
         if row["name"] in ("ed_scan", "ed_scan_idx", "skew", "unskew_unpack", "skew_planar",
                            "ordered_fused", "unskew_idx", "unskew_select", "identity",
                            "skew_transpose"):
             row["max_abs_err"] = max(row["max_abs_err"], errs.get(row["name"], 0.0))
     took = time.perf_counter() - t_run
-    log(f"[21] the whole run took {took:.1f} s, {took / RUN_LIMIT_S:.2f} of its "
+    log(f"[22] the whole run took {took:.1f} s, {took / RUN_LIMIT_S:.2f} of its "
         f"{RUN_LIMIT_S} s limit")
 
     print(json.dumps({"kernels": rows}), flush=True)

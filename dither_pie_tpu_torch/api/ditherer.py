@@ -35,6 +35,14 @@ contract with the golden engine), ``mxu`` (the score search: near ties may
 flip) or ``auto`` (batches run both on the first call and keep the score
 search only if its output matches the exact one perceptually; single images
 stay exact). It is read here; the entry points in ``ops/`` take an argument.
+
+With more than one local device (or ``DITHER_PIE_TPU_AUTO_MESH=1``; ``=0``
+turns it off) ``apply_dithering_batch`` shards the batch over every local
+device, as the JAX package does (``parallel/auto.py``): the ordered family,
+the wavefront ED modes on NHWC colours, wavelet and halftone, bit for bit
+the single-device output. Where the mesh can serve a batch it wins over the
+index stream, unless ``DITHER_PIE_TPU_INDEX_TRANSFER=1`` forces the stream
+or the batch is planar.
 """
 
 from __future__ import annotations
@@ -61,6 +69,8 @@ from dither_pie_tpu_torch.ops import idxpack as _idxpack
 from dither_pie_tpu_torch.ops import ordered as _ordered
 from dither_pie_tpu_torch.ops import wavefront as _wf
 from dither_pie_tpu_torch.ops import wavelet as _wavelet
+from dither_pie_tpu_torch.parallel import auto as _auto
+from dither_pie_tpu_torch.parallel import sharding as _sharding
 
 
 class DitherMode(Enum):
@@ -185,10 +195,7 @@ def _palette_tensor(palette_arr, device: torch.device) -> torch.Tensor:
 def _frames_tensor(images, device: torch.device) -> torch.Tensor:
     """(B, H, W, 3) frames on ``device``: uint8 stays uint8, anything else
     becomes float32."""
-    arr = np.asarray(images)
-    if arr.dtype != np.uint8:
-        arr = arr.astype(np.float32)
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    return torch.from_numpy(np.ascontiguousarray(_sharding.host_frames(images))).to(device)
 
 
 class _ScreenDitherStrategy(BaseDitherStrategy):
@@ -209,10 +216,12 @@ class _ScreenDitherStrategy(BaseDitherStrategy):
 
     def dither_batch(self, images, palette_arr):
         _, h, w, _ = np.shape(images)
+        pal, screen = _palette_tensor(palette_arr, self.device), self._screen(h, w)
+        out = _auto.maybe_sharded_ordered(images, pal, screen, self.device)
+        if out is not None:
+            return out
         frames = _frames_tensor(images, self.device)
-        out = _ordered.dispatch_ordered_batch(
-            frames, _palette_tensor(palette_arr, self.device), self._screen(h, w))
-        return out.cpu().numpy()
+        return _ordered.dispatch_ordered_batch(frames, pal, screen).cpu().numpy()
 
     def dither_batch_indices(self, images, palette_arr, planar=False):
         """Host (B, H, W) uint8 palette indices from K4's index output, or
@@ -467,17 +476,23 @@ class _WavefrontDitherStrategy(BaseDitherStrategy):
 
     def _mode_args(self, images: np.ndarray, planar: bool = False) -> Dict[str, Any]:
         """Keyword arguments of ``ed_batch_wavefront`` beyond the mode and
-        the layout, for a (B, H, W, 3) or planar (3, B, H, W) numpy batch."""
+        the layout, for a (B, H, W, 3) or planar (3, B, H, W) numpy batch;
+        an ``aux`` stream stays a host array here."""
         return {}
 
     def _on_device(self, images, palette_arr, planar: bool = False,
-                   return_indices: bool = False, gate: bool = True):
+                   return_indices: bool = False, gate: bool = True,
+                   args: Optional[Dict[str, Any]] = None):
         """One batch through ``ed_batch_wavefront`` with the environment's
         dense search; without ``gate``, "auto" means "exact". Returns the
         output and the palette tensor it ran with. The gate is keyed by the
-        host palette's bytes, so a decided batch reads nothing back."""
+        host palette's bytes, so a decided batch reads nothing back.
+        ``args``: ``_mode_args`` of this batch, where the caller has them."""
         images = np.asarray(images)
         pal = _palette_tensor(palette_arr, self.device)
+        args = dict(self._mode_args(images, planar) if args is None else args)
+        if args.get("aux") is not None:
+            args["aux"] = torch.from_numpy(args["aux"]).to(self.device).to(torch.float32)
         dense_search = _dense_search_mode()
         if dense_search == "auto" and not gate:
             dense_search = "exact"
@@ -487,7 +502,7 @@ class _WavefrontDitherStrategy(BaseDitherStrategy):
         out = _wf.ed_batch_wavefront(
             _frames_tensor(images, self.device), pal, self.mode, planar=planar,
             return_indices=return_indices, dense_search=dense_search,
-            palette_key=palette_key, **self._mode_args(images, planar))
+            palette_key=palette_key, **args)
         return out, pal
 
     def dither(self, pixels, palette_arr, image_size):
@@ -505,7 +520,16 @@ class _WavefrontDitherStrategy(BaseDitherStrategy):
         if self.serpentine:
             return _host_batch(lambda im, pal: self._host_scan(im, pal, exact=False),
                                images, palette_arr)
-        return self._on_device(images, palette_arr)[0].cpu().numpy()
+        # NHWC colours shard over the local mesh where it is on (the JAX
+        # package's rule: never planar, never the index stream).
+        images = np.asarray(images)
+        args = self._mode_args(images)
+        out = _auto.maybe_sharded_ed(images, _palette_array(palette_arr), mode=self.mode,
+                                     dense_search=_dense_search_mode(), device=self.device,
+                                     **args)
+        if out is not None:
+            return out
+        return self._on_device(images, palette_arr, args=args)[0].cpu().numpy()
 
     def dither_batch_planar(self, planes, palette_arr):
         """(3, B, H, W) channel-major planes in, planes out: the layout of
@@ -685,8 +709,8 @@ class AdaptiveVarianceDitherStrategy(_WavefrontDitherStrategy):
             for g in gray])
 
     def _mode_args(self, images, planar=False):
-        gates = torch.from_numpy(self._gates(images, planar).astype(np.uint8))
-        return {"aux": gates.to(self.device).to(torch.float32)}
+        # One byte a pixel crosses to the device; float32 there.
+        return {"aux": self._gates(images, planar).astype(np.uint8)}
 
 
 class RiemersmaDitherStrategy(BaseDitherStrategy):
@@ -727,6 +751,32 @@ def _quant_subband(sub: torch.Tensor, noise: torch.Tensor, q_levels: int) -> tor
     qn = q / torch.tensor(q_levels - 1 + 1e-9, dtype=torch.float32, device=sub.device)
     out = qn * scale + mn
     return torch.where(scale == 0, sub, out)
+
+
+def wavelet_reconstruct(frames: torch.Tensor, noises: torch.Tensor, wavelet: str,
+                        q_levels: int) -> torch.Tensor:
+    """(B, H, W, 3) frames on the device -> the (B, H, W, 3) float32
+    reconstruction the pick runs on: DWT, quantized subbands, IDWT,
+    cropped to the image and clipped to 0..255. Not integer-valued."""
+    _, h, w, _ = frames.shape
+    planes = frames.permute(0, 3, 1, 2).to(torch.float32)  # (B, 3, H, W)
+    cA, details = _wavelet.dwt2(planes, wavelet)
+    subs = [_quant_subband(sub, noises[:, k], q_levels)
+            for k, sub in enumerate((cA, *details))]
+    rec = _wavelet.idwt2(subs[0], subs[1:], wavelet)
+    rec = rec[:, :, :h, :w].clamp(0, 255)
+    return rec.permute(0, 2, 3, 1).contiguous()
+
+
+def wavelet_batch(frames: torch.Tensor, palette: torch.Tensor, noises: torch.Tensor,
+                  thr: torch.Tensor, wavelet: str, q_levels: int,
+                  return_indices: bool = False) -> torch.Tensor:
+    """The wavelet mode on a batch on one device: ``wavelet_reconstruct``,
+    then K4's randomized pick against the (H, W) thresholds ``thr``;
+    (B, H, W, 3) uint8 colours, or with ``return_indices`` (B, H, W) uint8
+    indices."""
+    rec = wavelet_reconstruct(frames, noises, wavelet, q_levels)
+    return _ordered.dispatch_ordered_batch(rec, palette, thr, return_indices=return_indices)
 
 
 class WaveletDitherStrategy(BaseDitherStrategy):
@@ -794,26 +844,17 @@ class WaveletDitherStrategy(BaseDitherStrategy):
         return noises, thr
 
     def reconstruct(self, frames: torch.Tensor, noises: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) frames on the device -> the (B, H, W, 3) float32
-        reconstruction the pick runs on: DWT, quantized subbands, IDWT,
-        cropped to the image and clipped to 0..255. Not integer-valued."""
-        _, h, w, _ = frames.shape
-        planes = frames.permute(0, 3, 1, 2).to(torch.float32)  # (B, 3, H, W)
-        cA, details = _wavelet.dwt2(planes, self.wavelet)
-        subs = [_quant_subband(sub, noises[:, k], self.subband_quant)
-                for k, sub in enumerate((cA, *details))]
-        rec = _wavelet.idwt2(subs[0], subs[1:], self.wavelet)
-        rec = rec[:, :, :h, :w].clamp(0, 255)
-        return rec.permute(0, 2, 3, 1).contiguous()
+        """``wavelet_reconstruct`` with this strategy's wavelet and levels."""
+        return wavelet_reconstruct(frames, noises, self.wavelet, self.subband_quant)
 
-    def _on_device(self, images, palette_arr, return_indices: bool) -> torch.Tensor:
+    def _on_device(self, images, palette_arr, return_indices: bool,
+                   noise=None) -> torch.Tensor:
         _, h, w, _ = np.shape(images)
-        noises, thr = self._draw_noise(h, w)
-        rec = self.reconstruct(_frames_tensor(images, self.device),
-                               torch.from_numpy(noises).to(self.device))
-        return _ordered.dispatch_ordered_batch(
-            rec, _palette_tensor(palette_arr, self.device),
-            torch.from_numpy(thr).to(self.device), return_indices=return_indices)
+        noises, thr = self._draw_noise(h, w) if noise is None else noise
+        return wavelet_batch(
+            _frames_tensor(images, self.device), _palette_tensor(palette_arr, self.device),
+            torch.from_numpy(noises).to(self.device), torch.from_numpy(thr).to(self.device),
+            self.wavelet, self.subband_quant, return_indices)
 
     def dither(self, pixels, palette_arr, image_size):
         h, w = image_size
@@ -821,7 +862,15 @@ class WaveletDitherStrategy(BaseDitherStrategy):
         return self.dither_batch(img, palette_arr).astype(np.float32).reshape(-1, 3)
 
     def dither_batch(self, images, palette_arr):
-        return self._on_device(images, palette_arr, False).cpu().numpy()
+        # Over the local mesh where it is on: the noise and the thresholds
+        # depend only on (seed, h, w), so they replicate.
+        _, h, w, _ = np.shape(images)
+        noise = self._draw_noise(h, w)
+        out = _auto.maybe_sharded_map("wavelet", (self.wavelet, self.subband_quant), images,
+                                      _palette_array(palette_arr), *noise, device=self.device)
+        if out is not None:
+            return out
+        return self._on_device(images, palette_arr, False, noise).cpu().numpy()
 
     def dither_batch_indices(self, images, palette_arr, planar=False):
         if planar or len(palette_arr) > 256:
@@ -898,14 +947,18 @@ class HalftoneDitherStrategy(BaseDitherStrategy):
             "sharpness": self.sharpness,
         }
 
+    def _layout(self, h: int, w: int):
+        """(screen, cell_idx, n_cells) of an (h, w) frame (host, cached)."""
+        return _halftone.halftone_screen(
+            h, w, self.cell_size, self.angle, self.dot_gain,
+            self.min_dot_size, self.max_dot_size, self.shape, self.sharpness,
+        )
+
     def _on_device(self, images, palette_arr, op) -> torch.Tensor:
         """``op`` (``halftone_dither_batch`` or its index twin) on the
         batch, with this strategy's screen and cell layout."""
         _, h, w, _ = np.shape(images)
-        screen, cell_idx, n_cells = _halftone.halftone_screen(
-            h, w, self.cell_size, self.angle, self.dot_gain,
-            self.min_dot_size, self.max_dot_size, self.shape, self.sharpness,
-        )
+        screen, cell_idx, n_cells = self._layout(h, w)
         return op(_frames_tensor(images, self.device),
                   _palette_tensor(palette_arr, self.device),
                   torch.from_numpy(screen).to(self.device),
@@ -917,6 +970,15 @@ class HalftoneDitherStrategy(BaseDitherStrategy):
         return self.dither_batch(img, palette_arr).astype(np.float32).reshape(-1, 3)
 
     def dither_batch(self, images, palette_arr):
+        # Over the local mesh where it is on: the screen and the cell layout
+        # depend only on the shape, so they replicate.
+        _, h, w, _ = np.shape(images)
+        screen, cell_idx, n_cells = self._layout(h, w)
+        out = _auto.maybe_sharded_map("halftone", (n_cells,), images,
+                                      _palette_array(palette_arr), screen, cell_idx,
+                                      device=self.device)
+        if out is not None:
+            return out
         return self._on_device(images, palette_arr,
                                _halftone.halftone_dither_batch).cpu().numpy()
 
@@ -1011,12 +1073,6 @@ class ImageDitherer:
         self.use_gamma = use_gamma
         self.dither_params = dither_params or {}
         self.device = resolve_device(device)
-        if os.environ.get("DITHER_PIE_TPU_AUTO_MESH") == "1":
-            # The JAX package's switch for sharding batches over every local
-            # device; the port runs on the one device it is given.
-            raise NotImplementedError(
-                "DITHER_PIE_TPU_AUTO_MESH=1: multi-GPU sharding is not ported "
-                "yet (ROADMAP A11)")
 
     @staticmethod
     def get_mode_parameters(mode: DitherMode) -> Optional[Dict[str, Any]]:
@@ -1096,7 +1152,12 @@ class ImageDitherer:
         bytes or less, and one palette gather on the host rebuilds the
         colour output bit for bit. Gamma folds into the palette: output
         pixels only ever take palette values, so the per-entry
-        linear-to-sRGB map equals the per-pixel map exactly."""
+        linear-to-sRGB map equals the per-pixel map exactly.
+
+        The local mesh (``parallel/auto.py``) returns colours, and where it
+        may serve the batch it wins over a measured link: the index stream
+        runs under the mesh only where ``DITHER_PIE_TPU_INDEX_TRANSFER=1``
+        asks for it or the batch is planar, which the mesh never serves."""
         if self.palette is None:
             raise ValueError("apply_dithering_batch requires a palette; "
                              "compute one from the first frame first")
@@ -1107,7 +1168,10 @@ class ImageDitherer:
             work = arrs_srgb_8
         palette_arr = self._palette_for_dither()
         strategy = self._get_dither_strategy(self.dither_mode or DitherMode.NONE)
-        if _linkspeed.index_transfer_wins(self.device):
+        index_forced = os.environ.get("DITHER_PIE_TPU_INDEX_TRANSFER") == "1"
+        mesh_may_serve = _auto.auto_mesh_enabled(self.device) and not planar
+        if ((index_forced or not mesh_may_serve)
+                and _linkspeed.index_transfer_wins(self.device)):
             idx = strategy.dither_batch_indices(work, palette_arr, planar=planar)
             if idx is not None:
                 # Truncation, as the device epilogue's float32 -> int cast.

@@ -20,6 +20,16 @@ train step and exact checkpoints, as the JAX package's
   walks again from there and normalises with that sigma, the twice-walked
   state is stored after D's Adam step, and G's D forward walks once more
   for its sigma and discards the walk.
+* ``make_gan_train_step(mesh=)``: the same step data-parallel over the
+  mesh's 'data' devices in one process (``shard_batch`` places a batch).
+  The state stays on the first device; the others hold replicas of G and
+  D, refreshed from it before each step and again after D's update (G's
+  loss runs through the updated D). Each replica runs its shard, the
+  gradients are summed onto the first device in device order and divided
+  by the number of shards, and each Adam steps once there. The spectral
+  norm's u/v come from the first device; the metrics are the mean over
+  the shards. Equal shards make this the one-device step on the whole
+  batch up to float32 rounding.
 * ``save_train_state`` / ``load_train_state``: one ``.npz`` by name
   (parameters, buffers, Adam's step and moments, the step, scalar
   side-state), so a resumed run continues exactly.
@@ -28,9 +38,10 @@ train step and exact checkpoints, as the JAX package's
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import math
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +58,14 @@ from dither_pie_tpu_torch.models.discriminator import (
 from dither_pie_tpu_torch.models.layers import LayerNorm, precision_scope
 from dither_pie_tpu_torch.models.losses import GAN_MODES, gan_loss
 from dither_pie_tpu_torch.models.p2cgen import P2CGen, p2cgen_forward
+from dither_pie_tpu_torch.parallel.mesh import (
+    Mesh,
+    NamedSharding,
+    Sharded,
+    axis_pieces,
+    device_put,
+    mean_in_order,
+)
 
 BETAS = (0.5, 0.999)
 INIT_TYPES = ("normal", "xavier", "kaiming", "orthogonal")
@@ -229,8 +248,28 @@ def step_scope(deterministic: bool):
         yield
 
 
-def make_gan_train_step(gan_mode: str = "lsgan", lambda_l1: float = 100.0, mesh=None,
-                        deterministic: bool = True):
+def _d_loss(G: P2CGen, D: CPDis, src: torch.Tensor, real: torch.Tensor, gan_mode: str):
+    """G's fake and D's loss on one batch: (fake, d_loss, the walked u/v)."""
+    fake = p2cgen_forward(G, src)
+    pred_real, uv = cpdis_forward(D, real)
+    pred_fake, uv = cpdis_forward(D, fake.detach(), uv)
+    d_loss = 0.5 * (gan_loss(pred_real, True, gan_mode) + gan_loss(pred_fake, False, gan_mode))
+    return fake, d_loss, uv
+
+
+def _g_loss(D: CPDis, fake: torch.Tensor, real: torch.Tensor, gan_mode: str,
+            lambda_l1: float):
+    """G's loss through D (whose parameters take no gradient here):
+    (g_loss, adv, l1)."""
+    pred_fake, _ = cpdis_forward(D, fake)
+    adv = gan_loss(pred_fake, True, gan_mode)
+    l1 = (fake - real).abs().mean()
+    return adv + lambda_l1 * l1, adv, l1
+
+
+def make_gan_train_step(gan_mode: str = "lsgan", lambda_l1: float = 100.0,
+                        mesh: Optional[Mesh] = None, deterministic: bool = True,
+                        data_axis: str = "data"):
     """``step(state, src, real) -> metrics``: one D update then one G update
     in place, on (B, 3, H, W) batches in [-1, 1] on the state's device.
     The metrics are 0-dim tensors: d_loss, g_loss, g_adv, g_l1.
@@ -239,22 +278,21 @@ def make_gan_train_step(gan_mode: str = "lsgan", lambda_l1: float = 100.0, mesh=
     fake through the updated D, whose parameters take no gradient there.
     ``deterministic`` pins cuDNN to its deterministic algorithms, so that
     a resumed run repeats an uninterrupted one bitwise on the card (the
-    CPU is deterministic either way). ``mesh`` (data parallelism over
-    several cards) is ROADMAP A11."""
-    if mesh is not None:
-        raise NotImplementedError("a data-parallel train step (mesh=) is ROADMAP A11")
+    CPU is deterministic either way).
+
+    ``mesh``: the batch splits over ``data_axis`` (the state on the mesh's
+    first device; ``src`` and ``real`` host arrays, tensors or
+    ``shard_batch``'s result; see the module docstring)."""
     if gan_mode not in GAN_MODES:
         raise NotImplementedError(f"gan mode {gan_mode} not implemented")
+    if mesh is not None:
+        return _mesh_train_step(gan_mode, lambda_l1, mesh, deterministic, data_axis)
 
     def step(state: GANTrainState, src: torch.Tensor, real: torch.Tensor
              ) -> Dict[str, torch.Tensor]:
         G, D = state.G, state.D
         with step_scope(deterministic):
-            fake = p2cgen_forward(G, src)
-            pred_real, uv = cpdis_forward(D, real)
-            pred_fake, uv = cpdis_forward(D, fake.detach(), uv)
-            d_loss = 0.5 * (gan_loss(pred_real, True, gan_mode)
-                             + gan_loss(pred_fake, False, gan_mode))
+            fake, d_loss, uv = _d_loss(G, D, src, real, gan_mode)
             state.d_opt.zero_grad(set_to_none=True)
             d_loss.backward()
             state.d_opt.step()
@@ -262,10 +300,7 @@ def make_gan_train_step(gan_mode: str = "lsgan", lambda_l1: float = 100.0, mesh=
 
             D.requires_grad_(False)
             try:
-                pred_fake, _ = cpdis_forward(D, fake)
-                adv = gan_loss(pred_fake, True, gan_mode)
-                l1 = (fake - real).abs().mean()
-                g_loss = adv + lambda_l1 * l1
+                g_loss, adv, l1 = _g_loss(D, fake, real, gan_mode, lambda_l1)
                 state.g_opt.zero_grad(set_to_none=True)
                 g_loss.backward()
             finally:
@@ -275,6 +310,92 @@ def make_gan_train_step(gan_mode: str = "lsgan", lambda_l1: float = 100.0, mesh=
                 "g_adv": adv.detach(), "g_l1": l1.detach()}
 
     return step
+
+
+@torch.no_grad()
+def _refresh(src: nn.Module, dst: nn.Module) -> None:
+    """``dst``'s parameters and buffers set to ``src``'s."""
+    for a, b in zip(src.parameters(), dst.parameters()):
+        b.copy_(a)
+    for a, b in zip(src.buffers(), dst.buffers()):
+        b.copy_(a)
+
+
+def _reduce_grads(primary: nn.Module, replicas: List[nn.Module]) -> None:
+    """Each of ``primary``'s gradients set to the mean of its own and the
+    replicas' (summed in device order on the primary's device); the
+    replicas' gradients are dropped."""
+    for p, *qs in zip(primary.parameters(), *(r.parameters() for r in replicas)):
+        p.grad = mean_in_order([p.grad] + [q.grad for q in qs], p.device)
+    for r in replicas:
+        r.zero_grad(set_to_none=True)
+
+
+def _mesh_train_step(gan_mode: str, lambda_l1: float, mesh: Mesh, deterministic: bool,
+                     data_axis: str):
+    devices = mesh.axis_devices(data_axis)
+    # The primary pair the replicas were copied from (held, so that a new
+    # state is never taken for it), and [(G_k, D_k) for k >= 1].
+    cache = {"primary": None, "replicas": []}
+
+    def nets(state: GANTrainState):
+        dev = next(state.G.parameters()).device
+        if dev != devices[0]:
+            raise ValueError(f"the train state is on {dev}, the mesh's first device is "
+                             f"{devices[0]}")
+        primary = cache["primary"]
+        if primary is None or primary[0] is not state.G or primary[1] is not state.D:
+            cache["primary"] = (state.G, state.D)
+            cache["replicas"] = [(copy.deepcopy(state.G).to(d), copy.deepcopy(state.D).to(d))
+                                 for d in devices[1:]]
+        return [(state.G, state.D)] + cache["replicas"]
+
+    def step(state: GANTrainState, src, real) -> Dict[str, torch.Tensor]:
+        pairs = nets(state)
+        Gs, Ds = [g for g, _ in pairs], [d for _, d in pairs]
+        srcs = axis_pieces(src, mesh, data_axis)
+        reals = axis_pieces(real, mesh, data_axis)
+        with step_scope(deterministic):
+            for G_k, D_k in pairs[1:]:
+                _refresh(state.G, G_k)
+                _refresh(state.D, D_k)
+            fakes, d_losses, uvs = zip(*(_d_loss(G_k, D_k, s, r, gan_mode)
+                                         for (G_k, D_k), s, r in zip(pairs, srcs, reals)))
+            for D_k in Ds:
+                D_k.zero_grad(set_to_none=True)
+            torch.autograd.backward(list(d_losses))
+            _reduce_grads(state.D, Ds[1:])
+            state.d_opt.step()
+            state.D.store_uv(uvs[0])
+            for D_k in Ds[1:]:
+                _refresh(state.D, D_k)  # G's loss runs through the updated D
+
+            for D_k in Ds:
+                D_k.requires_grad_(False)
+            try:
+                g_terms = [_g_loss(D_k, f, r, gan_mode, lambda_l1)
+                           for D_k, f, r in zip(Ds, fakes, reals)]
+                for G_k in Gs:
+                    G_k.zero_grad(set_to_none=True)
+                torch.autograd.backward([g for g, _, _ in g_terms])
+            finally:
+                for D_k in Ds:
+                    D_k.requires_grad_(True)
+            _reduce_grads(state.G, Gs[1:])
+            state.g_opt.step()
+        first = devices[0]
+        mean = lambda vals: mean_in_order([v.detach() for v in vals], first)  # noqa: E731
+        return {"d_loss": mean(d_losses), "g_loss": mean([g for g, _, _ in g_terms]),
+                "g_adv": mean([a for _, a, _ in g_terms]),
+                "g_l1": mean([l1 for _, _, l1 in g_terms])}
+
+    return step
+
+
+def shard_batch(mesh: Mesh, arr, data_axis: str = "data") -> Sharded:
+    """A host batch placed on the mesh, split over its data axis (and
+    replicated over any other)."""
+    return device_put(arr, NamedSharding(mesh, (data_axis,)))
 
 
 # ---------------------------------------------------------------------------

@@ -12,10 +12,11 @@ flags, on ``models/training.py``:
   resized (bicubic) so its short side is --size, centre-cropped to a
   square and scaled to [-1, 1];
 * the train step runs in float32 with TF32 off and cuDNN's deterministic
-  algorithms, on one card (``--device cuda``, the default; a machine
-  without one raises) or on the CPU (``--device cpu``); more than one
-  visible card raises, since data parallelism is ROADMAP A11, unless
-  --no-mesh asks for one card;
+  algorithms, on the card (``--device cuda``, the default; a machine
+  without one raises) or on the CPU (``--device cpu``); with more than one
+  visible card the step is data-parallel over all of them
+  (``make_gan_train_step(mesh=)``, the batch rounded up to a multiple of
+  the cards), unless --no-mesh asks for one card;
 * --ckpt resumes from / saves the whole state (parameters, the spectral
   norm's u/v, Adam's moments, the plateau scheduler's side-state), every
   --save-every epochs and at the end, so an interrupted run continues
@@ -109,13 +110,22 @@ def main(argv=None):
         lr_schedule,
         make_gan_train_step,
         save_train_state,
+        shard_batch,
     )
+    from dither_pie_tpu_torch.parallel.auto import local_devices
+    from dither_pie_tpu_torch.parallel.mesh import make_mesh
 
     dev = resolve_device(args.device)
-    if dev.type == "cuda" and torch.cuda.device_count() > 1 and not args.no_mesh:
-        raise NotImplementedError(
-            f"{torch.cuda.device_count()} CUDA devices are visible: data-parallel training "
-            "over them is ROADMAP A11; pass --no-mesh to train on one")
+    devices = local_devices(dev)
+    mesh = None
+    batch = args.batch
+    if len(devices) > 1 and not args.no_mesh:
+        mesh = make_mesh((len(devices),), ("data",), devices)
+        dev = devices[0]  # the state lives on the mesh's first device
+        if batch % len(devices):
+            batch = -(-batch // len(devices)) * len(devices)
+            print(f"batch rounded up to {batch} (multiple of {len(devices)} devices)")
+        print(f"data-parallel over {len(devices)} devices")
     state = gan_init(lr=args.lr, dim=args.dim, conv_dim=args.conv_dim, seed=args.seed,
                      device=dev)
     start_epoch = 0
@@ -126,7 +136,7 @@ def main(argv=None):
         state, start_epoch, ck_extra = load_train_state(args.ckpt, state)
         print(f"resumed {args.ckpt} at epoch {start_epoch}")
 
-    step = make_gan_train_step(gan_mode=args.gan_mode, lambda_l1=args.lambda_l1)
+    step = make_gan_train_step(gan_mode=args.gan_mode, lambda_l1=args.lambda_l1, mesh=mesh)
 
     decay = args.decay_epochs if args.decay_epochs is not None else args.epochs // 2
     plateau = lr_of = None
@@ -153,7 +163,8 @@ def main(argv=None):
 
     def batch_tensor(paths):
         arr = np.stack([_load_image(p, args.size) for p in paths])
-        return torch.from_numpy(arr).permute(0, 3, 1, 2).contiguous().to(dev)
+        nchw = torch.from_numpy(arr).permute(0, 3, 1, 2).contiguous()
+        return nchw.to(dev) if mesh is None else shard_batch(mesh, nchw)
 
     rng = np.random.RandomState(args.seed)
     order = np.arange(len(pairs))
@@ -168,8 +179,8 @@ def main(argv=None):
         t0 = time.time()
         epoch_g = epoch_d = 0.0
         n_steps = 0
-        for i in range(0, len(order) - args.batch + 1, args.batch):
-            idx = order[i:i + args.batch]
+        for i in range(0, len(order) - batch + 1, batch):
+            idx = order[i:i + batch]
             src = batch_tensor([pairs[j][0] for j in idx])
             real = batch_tensor([pairs[j][1] for j in idx])
             metrics = step(state, src, real)
@@ -177,7 +188,7 @@ def main(argv=None):
             epoch_d += float(metrics["d_loss"])
             n_steps += 1
         if not n_steps:
-            print(f"batch {args.batch} exceeds dataset size {len(pairs)}", file=sys.stderr)
+            print(f"batch {batch} exceeds dataset size {len(pairs)}", file=sys.stderr)
             return 1
         g_avg, d_avg = epoch_g / n_steps, epoch_d / n_steps
         if plateau:

@@ -596,7 +596,9 @@ def test_import_loads_no_jax():
             "dither_pie_tpu_torch.dithering_lib, dither_pie_tpu_torch.tools.pixelize, "
             "dither_pie_tpu_torch.tools.resizer, dither_pie_tpu_torch.tools.vid_conc, "
             "dither_pie_tpu_torch.gui.viewmodel, dither_pie_tpu_torch.gui.logic, "
-            "dither_pie_tpu_torch.gui.widgets, dither_pie_tpu_torch.gui.app; "
+            "dither_pie_tpu_torch.gui.widgets, dither_pie_tpu_torch.gui.app, "
+            "dither_pie_tpu_torch.parallel.mesh, dither_pie_tpu_torch.parallel.sharding, "
+            "dither_pie_tpu_torch.parallel.auto; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('dither_pie_tpu.') or m == 'dither_pie_tpu']; "
             "assert not bad, bad")

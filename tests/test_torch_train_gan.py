@@ -5,7 +5,7 @@ resumed epoch runs at another lr) and the plateau schedule (whose
 side-state rides in the checkpoint); the linear and cosine schedules
 depend on --epochs, so a run of 2 epochs is not the start of a run of 3
 under them; the error exits; the card by default;
-several cards refused (ROADMAP A11). 4 pairs of 40x40 images, --size 32,
+several devices data-parallel with the batch rounded up. 4 pairs of 40x40 images, --size 32,
 dim 8 / conv-dim 8, batch 2."""
 
 import numpy as np
@@ -81,13 +81,25 @@ def test_card_by_default(pairs, tmp_path):
         main(["--epochs", "1"] + args)
 
 
-def test_several_cards_are_a11(pairs, tmp_path, monkeypatch):
+def test_several_cards_are_a11(pairs, tmp_path, monkeypatch, capsys):
+    """Several local devices (two CPU positions through the mesh's seam,
+    ``parallel.auto.local_devices``): the step is data-parallel, the batch
+    rounded up to a multiple of the devices, with the JAX trainer's two
+    lines; --no-mesh trains on one device at the batch asked for."""
+    from dither_pie_tpu_torch.parallel import auto
+
     src_d, real_d = pairs
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    args = common(src_d, real_d, tmp_path / "ck")[:-2] + ["--device", "cuda"]
-    with pytest.raises(NotImplementedError, match="A11"):
-        main(["--epochs", "1"] + args)
+    monkeypatch.setattr(auto, "local_devices", lambda device: [torch.device("cpu")] * 2)
+    args = common(src_d, real_d, tmp_path / "ck")
+    args[args.index("--batch") + 1] = "3"
+    assert main(["--epochs", "1"] + args) == 0
+    out = capsys.readouterr().out
+    assert "batch rounded up to 4 (multiple of 2 devices)\ndata-parallel over 2 devices\n" in out
+    assert "1 steps)" in out  # 4 pairs at batch 4
+    args[args.index("--ckpt") + 1] = str(tmp_path / "ck1")
+    assert main(["--epochs", "1", "--no-mesh"] + args) == 0
+    out = capsys.readouterr().out
+    assert "data-parallel" not in out and "1 steps)" in out
 
 
 def test_load_image_crops_and_scales(tmp_path):

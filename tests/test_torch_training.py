@@ -314,9 +314,14 @@ def port_runs(jax_runs):
 @pytest.mark.parametrize("t", range(1, N_STEPS + 1))
 def test_train_step_matches_jax(jax_runs, port_runs, mode, t):
     _, _, runs = jax_runs
-    seq = runs[mode]
+    assert_matches_jax(runs[mode], t, *port_runs[mode][t - 1])
+
+
+def assert_matches_jax(seq, t, metrics, arrs):
+    """The port's metrics and state arrays after step t against the JAX
+    run ``seq`` ([(state, metrics)] from the initial state on), at the
+    limits of the module docstring."""
     jstate, jmetrics = seq[t]
-    metrics, arrs = port_runs[mode][t - 1]
     for k, v in jmetrics.items():
         np.testing.assert_allclose(metrics[k], v, rtol=1e-4, err_msg=k)
 
@@ -381,8 +386,20 @@ def test_g_step_leaves_d_grads_alone():
 
 
 def test_mesh_is_a11():
-    with pytest.raises(NotImplementedError, match="A11"):
-        tt.make_gan_train_step(mesh=object())
+    """A data-parallel step (mesh=) is served: on two CPU positions it
+    trains the state in place and returns finite metrics
+    (tests/test_torch_mesh_train.py holds it to the one-device step and to
+    JAX's mesh step)."""
+    from dither_pie_tpu_torch.parallel.mesh import make_mesh
+
+    state, before = _fresh(0), tt.state_arrays(_fresh(0))
+    mesh = make_mesh(devices=[torch.device("cpu")] * 2)
+    m = tt.make_gan_train_step(mesh=mesh)(state, nchw(images(60, (4, 32, 32))),
+                                          nchw(images(61, (4, 32, 32))))
+    assert all(np.isfinite(v.item()) for v in m.values())
+    after = tt.state_arrays(state)
+    assert not np.array_equal(before["G.RGBDec.conv_3.conv.weight"],
+                              after["G.RGBDec.conv_3.conv.weight"])
 
 
 def test_gan_init_needs_the_card_unless_asked():

@@ -310,11 +310,19 @@ def test_large_palette_and_auto_mesh_raise(monkeypatch):
         out = twf.wavefront_device_fn("fixed", "jjn", 4, 5, p, 1)(
             frames, torch.zeros((p, 3)))
         assert out.shape == frames.shape and not out.any()
+    # DITHER_PIE_TPU_AUTO_MESH=1 is served: the facade builds, and with one
+    # local device (a CPU ditherer) its batches run on that device
+    # (tests/test_torch_parallel.py holds the mesh itself).
     monkeypatch.setenv("DITHER_PIE_TPU_AUTO_MESH", "1")
-    with pytest.raises(NotImplementedError, match="A11"):
-        tdpt.ImageDitherer(dither_mode=tdpt.DitherMode.ERROR_DIFFUSION,
+    d = tdpt.ImageDitherer(num_colors=4, dither_mode=tdpt.DitherMode.ERROR_DIFFUSION,
+                           palette=[(0, 0, 0), (255, 255, 255), (255, 0, 0), (0, 0, 255)],
                            device="cpu")
-    # The drivers read no environment: the refusal is the facade's.
+    batch = np.random.RandomState(0).randint(0, 256, (2, 4, 5, 3), dtype=np.uint8)
+    monkeypatch.setenv("DITHER_PIE_TPU_AUTO_MESH", "0")
+    single = d.apply_dithering_batch(batch)
+    monkeypatch.setenv("DITHER_PIE_TPU_AUTO_MESH", "1")
+    np.testing.assert_array_equal(d.apply_dithering_batch(batch), single)
+    # The entry points in ops/ read no environment: the switch is the facade's.
     out = twf.ed_batch_wavefront(frames, torch.zeros((4, 3)))
     assert out.shape == frames.shape
 
