@@ -34,8 +34,9 @@ a non-zero exit code and no result line:
    and one apply_dithering_batch call traced with torch.profiler for the
    device's busy and idle shares (read only from a trace that holds the
    frames' host-to-device copy), then the same call with the k-means-256
-   palette of phase 8 traced likewise; each number is printed beside the
-   card's name and power limit;
+   palette of phase 8 traced likewise, and (for phase 11) clone() and the
+   identity kernel on one 100 x 1080p plane; each number is printed beside
+   the card's name and power limit;
 7. the ordered path on the pico8 palette: K4 held to its plain version
    bitwise (colours, and indices where P <= 256) at B=3 37x53 with
    P in {2, 16, 33, 300}, on flat frames of exact ties, at 16 x 1080p
@@ -170,33 +171,41 @@ a non-zero exit code and no result line:
    numpy float64 twin of the mode on 2 frames (wavelet >= 0.98, halftone >=
    0.995) and the batch wall (median of 5); the device times of the
    wavelet's stages and of halftone; T1, the gather probe
-   (``gather_phase``; the forms of ``gather_slab_plan``: block, multicast
-   lane slabs, distributed lane slabs): the gather held to its plain
-   version and to np.take_along_axis at 64, 512, 1024, 4096 and 16384
-   rows, both chains ("chain" and "sweep") at 256 to 16384 rows (k = 1 and
-   68), the gather and the chains on output rows that are not the table's
-   ((512, 37), (1024, 333), (4096, 1001), (7169, 50), (16384, 777)), a
-   table off the 16-byte boundary, and the L2 line (the block body on the
-   table in device memory) at every height of the tool; the launcher's
-   refusals (a table off the boundary, lanes % 8 != 0, a plan that is not
-   the plan function's, a multicast cluster of 4, a cluster of 16, the
-   wrong form);
+   (``gather_phase``; the forms of ``gather_slab_plan``: the device form
+   for every single gather and every chain shorter than its staged form's
+   break-even, and for longer chains the block form, multicast lane slabs
+   and lane columns): the gather held to its plain version and to
+   np.take_along_axis at 64, 512, 1024, 4096 and 16384 rows, both chains
+   ("chain" and "sweep") at 256 to 16384 rows (k = 1, 68 and the staged
+   form's shortest chain, also on the L2 line: the device form at any k),
+   the gather and the chains on output rows that are not the table's
+   ((512, 37), (1024, 333), (4096, 1001), (7169, 50), (16384, 777)), and
+   tables off the 16-byte boundary; the launcher's refusals (a table off
+   the boundary for a tensor map, lanes % 8 != 0 at a multicast height, a
+   plan that is not the plan function's, a multicast cluster of 4, a
+   cluster of 16, a form the height or the chain does not take, a staged
+   form below its shortest chain);
    the select sweep to its plain version at P = 64, 256, 1024 (k = 3) and,
    at k = 1026, to the gather chain on its tile, then the tool's lines
-   (microseconds a gather by table height and form beside the L2 line, a
-   sweep step beside a gather on the same tile) with the launch counts of
-   that run, and the row's times (the gather alone at 4096 rows,
-   torch.gather, the L2 line, an empty kernel and the 4 MB copy idx -> out,
-   each in a CUDA graph of 100);
+   (at 256 to 32768 rows: microseconds a gather of the staged form and of
+   the L2 line, the device time of each one's launch at the form's
+   shortest chain, the chain length where they break even, the plan's
+   launch at k = 4 and 68 beside the L2 line's; a sweep step beside a
+   gather on the same tile and the L2 line) with the launch counts of that
+   run, and the row's times (the gather alone at 4096 rows, torch.gather,
+   an empty kernel and the 4 MB copy idx -> out, each in a CUDA graph of
+   100);
    T3, the identity (``identity_phase``): == its input and == clone() at
    (3, 2160, 1920), an odd size, a view off the 16-byte boundary and 15
    bytes, and pairs of views into outputs at chosen offsets that agree and
-   disagree mod 16 (the bulk form and the shifted one; the bytes around
-   each output untouched), one 100 x 1080p plane timed beside clone() (GB/s
-   beside the 3.35 TB/s of the bounds) in the bulk form and in the shifted
-   form (the plane less its first byte), the layout harness at
-   3 x 100 frames (temporary bytes over the arguments') and its chain
-   through K4 at 3 x 16;
+   disagree mod 16 (the stride form and the shifted one, heads and tails;
+   the bytes around each output untouched), the launcher's refusals, one
+   100 x 1080p plane timed beside clone() (GB/s beside the 3.35 TB/s of the
+   bounds) in the stride form and in the shifted form (the plane less its
+   first byte), the device events of one traced clone() and kernel call
+   (what clone() runs as on the card; traced in phase 6), the layout harness at 3 x 100
+   frames (temporary bytes over the arguments') and its chain through K4
+   at 3 x 16;
 12. K2 and K8 over thread-block clusters (one frame on n blocks whose ranks
    search contiguous slices of the palette, ``ops.wavefront.
    scan_cluster_plan``): both held to scan_plain / scan_idx_plain bitwise
@@ -2658,7 +2667,7 @@ def halftone_twin(frame, pal, screen, cell_idx, n_cells):
     return pal[idx].astype(np.int32).astype(np.uint8).reshape(frame.shape)
 
 
-def transform_phase(torch, dev, card, frames16, palette32, rows, errs):
+def transform_phase(torch, dev, card, frames16, palette32, identity_events, rows, errs):
     """Phase 11; adds the float32 times to K4's row and returns the
     kernels-line rows of the gather probe and the identity."""
     from PIL import Image
@@ -2853,20 +2862,22 @@ def transform_phase(torch, dev, card, frames16, palette32, rows, errs):
     del rec, batch_t
 
     return [gather_phase(torch, dev, card, errs),
-            identity_phase(torch, dev, card, frames16, errs)]
+            identity_phase(torch, dev, card, frames16, identity_events, errs)]
 
 
 def gather_phase(torch, dev, card, errs):
-    """Phase 11's T1: the gather in its three forms (``gather_slab_plan``:
-    block, multicast, distributed) == its plain version and
-    np.take_along_axis at every table height of the tool, its chains at
-    k = 1 and 68 in both updates, output rows that are not the table's, a
-    table off the 16-byte boundary; the L2 line (``gather_chain_l2``, the
-    block body on the table in device memory) likewise; the launcher's
-    refusals; the select sweep == the gather on its tile; the tool's lines
-    with their launch counts; the row's times beside the floor (an empty
-    kernel, a 4 MB copy) and the L2 line in CUDA graphs of 100. Returns the
-    kernels-line row of T1."""
+    """Phase 11's T1: the gather in the forms of ``gather_slab_plan`` (the
+    device form for every single gather and every chain below its staged
+    form's shortest chain; block, multicast and column for longer chains)
+    == its plain version and np.take_along_axis at every table height of
+    the tool, its chains at k = 1, 68 and the staged form's shortest chain
+    in both updates, output rows that are not the table's, a table off the
+    16-byte boundary; the L2 line (``gather_chain_l2``, the device form at
+    any k) beside every chain; the launcher's refusals; the select sweep
+    == the gather on its tile; the tool's lines with their launch counts;
+    the row's times beside torch.gather and the floor (an empty kernel, a
+    4 MB copy) in CUDA graphs of 100. Returns the kernels-line row of
+    T1."""
     from dither_pie_tpu_torch.kernels import build
     from dither_pie_tpu_torch.tools import gather_probe as gp
 
@@ -2876,73 +2887,103 @@ def gather_phase(torch, dev, card, errs):
     t0 = time.perf_counter()
     forms = {}
 
-    def form_of(tbl, idx):
-        """The default plan's form, recorded by table height."""
-        plan = gp.gather_slab_plan(tbl.shape[0], idx.shape[0], tbl.shape[1])
-        forms[(tbl.shape[0], plan.form)] = plan.cluster
-        return plan
+    def chain_ks(tbl, idx, ks, update):
+        """The chain lengths to hold at this height: ``ks`` and the staged
+        form's shortest chain, each plan's form recorded by (table height,
+        k)."""
+        rows, lanes = tbl.shape
+        ks = sorted(set(ks) | {gp.stage_min_k(rows, lanes)})
+        for k in ks:
+            forms[(rows, k)] = gp.gather_slab_plan(rows, idx.shape[0], lanes, k, update).form
+        return ks
 
-    # The plan's forms (gather_chain) and the L2 line (gather_chain_l2).
-    lines = (("gather_probe", gp.gather_chain, ""), ("gather_probe_l2", gp.gather_chain_l2,
-                                                     " (L2 line)"))
+    # The single gather in the plan's form (the device form: the L2 line's
+    # launch at k = 1).
     for n_rows in gp.CHECK_ROWS:
         tbl_np, idx_np = gp.gather_inputs(n_rows)
         tbl, idx = on_card(tbl_np), on_card(idx_np)
-        form_of(tbl, idx)
-        for key, fn, what in lines:
-            got = fn(tbl, idx)
-            hold(torch, key, got, gp.gather_chain_plain(tbl, idx), errs,
-                 f"gather, rows={n_rows}{what}")
-            check(np.array_equal(got.cpu().numpy(), np.take_along_axis(tbl_np, idx_np, axis=0)),
-                  f"gather rows={n_rows}{what} != np.take_along_axis")
+        forms[(n_rows, 1)] = gp.gather_slab_plan(n_rows, n_rows, gp.LF, 1, "none").form
+        got = gp.gather_chain(tbl, idx)
+        hold(torch, "gather_probe", got, gp.gather_chain_plain(tbl, idx), errs,
+             f"gather, rows={n_rows}")
+        check(np.array_equal(got.cpu().numpy(), np.take_along_axis(tbl_np, idx_np, axis=0)),
+              f"gather rows={n_rows} != np.take_along_axis")
+    # The chains in the plan's forms and on the L2 line.
     for n_rows in gp.CHAIN_ROWS:
         tbl, idx = (on_card(a) for a in gp.chain_inputs(n_rows))
-        form_of(tbl, idx)
         for update in ("chain", "sweep"):
-            for k in (1, 68):
+            for k in chain_ks(tbl, idx, (1, 68), update):
                 want = gp.gather_chain_plain(tbl, idx, k, update)
-                for key, fn, what in lines:
-                    hold(torch, key, fn(tbl, idx, k, update), want, errs,
-                         f"gather {update}, rows={n_rows}, k={k}{what}")
+                hold(torch, "gather_probe", gp.gather_chain(tbl, idx, k, update), want,
+                     errs, f"gather {update}, rows={n_rows}, k={k}")
+                if k > 1:
+                    hold(torch, "gather_probe", gp.gather_chain_l2(tbl, idx, k, update), want,
+                         errs, f"gather {update}, rows={n_rows}, k={k} (L2 line)")
     # Output rows that are not the table's, nor a multiple of 8.
     rng = np.random.RandomState(11)
     for n_rows, n in ((512, 37), (1024, 333), (4096, 1001), (7169, 50), (16384, 777)):
         tbl_np = rng.randint(0, n_rows, (n_rows, gp.LF)).astype(np.int32)
         idx_np = rng.randint(0, n_rows, (n, gp.LF)).astype(np.int32)
         tbl, idx = on_card(tbl_np), on_card(idx_np)
-        form_of(tbl, idx)
         got = gp.gather_chain(tbl, idx)
         hold(torch, "gather_probe", got, gp.gather_chain_plain(tbl, idx), errs,
              f"gather, rows={n_rows}, n={n}")
         check(np.array_equal(got.cpu().numpy(), np.take_along_axis(tbl_np, idx_np, axis=0)),
               f"gather rows={n_rows} n={n} != np.take_along_axis")
-        for update, k in (("chain", 68),) + ((("sweep", 68),) if n_rows & (n_rows - 1) == 0
-                                              else ()):
-            hold(torch, "gather_probe", gp.gather_chain(tbl, idx, k, update),
-                 gp.gather_chain_plain(tbl, idx, k, update), errs,
-                 f"gather {update}, rows={n_rows}, n={n}, k={k}")
-    # A table off the 16-byte boundary goes as a fresh copy; the launcher
-    # itself refuses it, a width that is not whole lane groups, a plan that
-    # is not the plan function's: among them a multicast cluster of 4 and a
-    # cluster above 8.
-    tbl, idx = (on_card(a) for a in gp.gather_inputs(4096))
-    shifted = torch.empty(tbl.numel() + 1, dtype=torch.int32, device=dev)[1:].view(tbl.shape)
-    shifted.copy_(tbl)
-    hold(torch, "gather_probe", gp.gather_chain(shifted, idx), gp.gather_chain_plain(tbl, idx),
-         errs, "gather, a table 4 bytes off the 16-byte boundary")
-    plan = gp.gather_slab_plan(4096, 4096, gp.LF)
-    narrow = tbl[:, :100].contiguous()
-    refusals = {"a table off the 16-byte boundary": (shifted, idx, plan),
-                "lanes % 8 != 0": (narrow, idx[:, :100].contiguous(), plan),
-                "a plan that is not the plan function's":
-                    (tbl, idx, dataclasses.replace(plan, rows_per_block=plan.rows_per_block + 1)),
-                "a multicast cluster of 4": (tbl, idx, dataclasses.replace(plan, cluster=4)),
-                "a cluster of 16": (tbl, idx, dataclasses.replace(plan, cluster=16)),
-                "a distributed plan for a multicast table":
-                    (tbl, idx, dataclasses.replace(plan, form="distributed", cluster=8))}
-    for what, (t, i, pl) in refusals.items():
+        for update in ("chain",) + (("sweep",) if n_rows & (n_rows - 1) == 0 else ()):
+            for k in chain_ks(tbl, idx, (68,), update):
+                want = gp.gather_chain_plain(tbl, idx, k, update)
+                hold(torch, "gather_probe", gp.gather_chain(tbl, idx, k, update), want,
+                     errs, f"gather {update}, rows={n_rows}, n={n}, k={k}")
+    # A table off the 16-byte boundary: the multicast form takes a fresh
+    # copy, the others read it where it lies. The launcher itself refuses
+    # it for a tensor map, a width that is not whole lane groups at a
+    # multicast height, a plan that is not the plan function's (among them
+    # a multicast cluster of 4 and a cluster above 8, a form the height or
+    # the chain does not take, a staged form below its shortest chain); it
+    # takes the device form at any k (the L2 line).
+    def shifted_copy(t):
+        out = torch.empty(t.numel() + 1, dtype=torch.int32, device=dev)[1:].view(t.shape)
+        return out.copy_(t)
+
+    for n_rows in (4096, 16384):
+        tbl, idx = (on_card(a) for a in gp.chain_inputs(n_rows))
+        off = shifted_copy(tbl)
+        for k in chain_ks(tbl, idx, (1, 68), "chain"):
+            hold(torch, "gather_probe", gp.gather_chain(off, idx, k, "chain"),
+                 gp.gather_chain_plain(tbl, idx, k, "chain"), errs,
+                 f"gather chain, rows={n_rows}, k={k}, a table 4 bytes off the 16-byte "
+                 f"boundary")
+    tbl, idx = (on_card(a) for a in gp.chain_inputs(4096))
+    shifted = shifted_copy(tbl)
+    plan = gp.gather_slab_plan(4096, 4096, gp.LF, 68, "chain")
+    tall, tall_idx = (on_card(a) for a in gp.chain_inputs(16384))
+    column = gp.gather_slab_plan(16384, 16384, gp.LF, 68, "chain")
+    low, low_idx = (on_card(a) for a in gp.chain_inputs(256))
+    block_k = gp.stage_min_k(256, gp.LF)
+    block = gp.gather_slab_plan(256, 256, gp.LF, block_k, "chain")
+    refusals = {
+        "a table off the 16-byte boundary": (shifted, idx, 68, plan),
+        "lanes % 8 != 0": (tbl[:, :100].contiguous(), idx[:, :100].contiguous(), 68, plan),
+        "a plan that is not the plan function's":
+            (tbl, idx, 68, dataclasses.replace(plan, rows_per_block=plan.rows_per_block + 1)),
+        "a multicast cluster of 4": (tbl, idx, 68, dataclasses.replace(plan, cluster=4)),
+        "a cluster of 16": (tbl, idx, 68, dataclasses.replace(plan, cluster=16)),
+        "a column plan for a multicast table":
+            (tbl, idx, 68, dataclasses.replace(plan, form="column", cluster=1)),
+        "a multicast plan for a column table":
+            (tall, tall_idx, 68, dataclasses.replace(column, form="multicast", cluster=2)),
+        "a staged plan for a single gather": (tbl, idx, 1, plan),
+        f"the block form below k = {block_k}": (low, low_idx, block_k - 1, block),
+    }
+    column_k = gp.stage_min_k(16384, gp.LF)
+    if column_k > 2:
+        refusals[f"the column form below k = {column_k}"] = (tall, tall_idx, column_k - 1,
+                                                             column)
+    for what, (t, i, k, pl) in refusals.items():
         try:
-            gp.launch_gather(t, i, torch.empty_like(i), 1, "none", pl)
+            gp.launch_gather(t, i, torch.empty_like(i), k, "none" if k == 1 else "chain", pl)
+            sync(torch, dev)
             refused = False
         except RuntimeError:
             refused = True
@@ -2950,11 +2991,12 @@ def gather_phase(torch, dev, card, errs):
     sync(torch, dev)
     log(f"[11] kernel == plain, bitwise: the gather at rows {gp.CHECK_ROWS} (== "
         f"np.take_along_axis), the chains \"chain\" and \"sweep\" at rows {gp.CHAIN_ROWS} "
-        f"(k = 1 and 68), each also on the L2 line, the gather and both chains at "
-        f"(rows, n) = (512, 37), (1024, 333), (4096, 1001), (7169, 50), (16384, 777), and "
-        f"a table off the 16-byte boundary; the launcher refuses "
-        f"{', '.join(refusals)}; forms by table height "
-        f"{', '.join(f'{r}: {f} C={c}' for (r, f), c in sorted(forms.items()))} "
+        f"(k = 1, 68 and the staged form's shortest chain, by (form, last row, k) "
+        f"{gp.STAGE_BANDS}; each chain also "
+        f"on the L2 line), the gather and the chains at (rows, n) = (512, 37), (1024, 333), "
+        f"(4096, 1001), (7169, 50), (16384, 777), and tables off the 16-byte boundary at 4096 "
+        f"and 16384 rows; the launcher refuses {', '.join(refusals)}; forms by (table height, "
+        f"k) {', '.join(f'({r}, {k}): {f}' for (r, k), f in sorted(forms.items()))} "
         f"({time.perf_counter() - t0:.1f} s)")
     k_hi = gp.SWEEP_K[0] + gp.SWEEP_K[1] * 64
     for p in gp.SWEEP_SIZES:
@@ -2971,31 +3013,30 @@ def gather_phase(torch, dev, card, errs):
     # The tool's lines, with the launch counts of its run.
     build.reset_launch_counts()
     checks = {n_rows: gp.check_gather(n_rows, dev) for n_rows in gp.CHECK_ROWS}
-    chains = {str(n_rows): gp.probe_chain(n_rows, 64, dev) for n_rows in gp.CHAIN_ROWS}
+    chains = {str(n_rows): gp.probe_chain(n_rows, 64, dev) for n_rows in gp.LINE_ROWS}
     sweeps = {str(p): gp.probe_sweep(p, 64, dev) for p in gp.SWEEP_SIZES}
     gather_launches = build.LAUNCHES["gather_probe"]
     sweep_launches = build.LAUNCHES["gather_probe_sweep"]
-    l2_launches = build.LAUNCHES["gather_probe_l2"]
-    check(set(build.LAUNCHES) == {"gather_probe", "gather_probe_sweep", "gather_probe_l2"}
-          and min(gather_launches, sweep_launches, l2_launches) >= 1,
+    check(set(build.LAUNCHES) == {"gather_probe", "gather_probe_sweep"}
+          and min(gather_launches, sweep_launches) >= 1,
           f"the gather probe launched {dict(build.LAUNCHES)}")
+    # Every form ran in the tool's run: the device form (the gather alone),
+    # each staged form at its heights' shortest chain.
+    check({r["form"] for r in chains.values()} == {"block", "multicast", "column"},
+          f"the tool's chains took the forms {sorted({r['form'] for r in chains.values()})}")
     for n_rows, ok in checks.items():
         check(ok, f"gather rows={n_rows}: WRONG")
         log(f"[11] gather rows={n_rows}: OK exact [{card}]")
     for n_rows, r in chains.items():
-        log(f"[11] gather rows={n_rows}: {r['us_per_op']:.4f} us/op ({r['ns_per_row']:.4f} "
-            f"ns/row), table in {r['memory']}; from L2 {r['l2_us_per_op']:.4f} us/op [{card}]")
+        log(f"[11] {gp.chain_line(r)} [{card}]")
     for p, r in sweeps.items():
         check(r["equal"], f"select sweep P={p} != the gather on its tile")
-        log(f"[11] select-sweep P={p} ({gp.SWEEP_TILE_ROWS}-row tile): "
-            f"{r['sweep_us_per_op']:.4f} us/op; gather on the same tile: "
-            f"{r['gather_us_per_op']:.4f} us/op, sweep / gather "
-            f"{r['sweep_us_per_op'] / r['gather_us_per_op']:.1f}x, outputs equal, the sweep's "
-            f"table in {r['sweep_memory']}, the gather's in {r['memory']} [{card}]")
-    # The row's times: the gather alone on the 4096 x 128 table, each call in
-    # a CUDA graph of 100 (a launch is shorter than its enqueue), beside the
-    # floor: an empty kernel and a coalesced copy of the gather's own idx
-    # and out bytes (4 MB) in the same graph, and beside the L2 line.
+        log(f"[11] {gp.sweep_line(r)} [{card}]")
+    # The row's times: the gather alone on the 4096 x 128 table (the device
+    # form, the L2 line's launch at k = 1), each call in a CUDA graph of 100
+    # (a launch is shorter than its enqueue), beside the floor: an empty
+    # kernel and a coalesced copy of the gather's own idx and out bytes
+    # (4 MB) in the same graph.
     from dither_pie_tpu_torch.tools.time_ed_path import graph_ms
 
     tbl, idx = (on_card(a) for a in gp.gather_inputs(T1_ROWS))
@@ -3004,7 +3045,6 @@ def gather_phase(torch, dev, card, errs):
     ext = build.extension()
     t1_ms = graph_ms(lambda: gp.gather_chain(tbl, idx))
     t1_lib_ms = graph_ms(lambda: torch.gather(tbl, 0, idx64))
-    l2_ms = graph_ms(lambda: gp.gather_chain_l2(tbl, idx))
     empty_ms = graph_ms(lambda: ext.empty_kernel(idx))
     copy_ms = graph_ms(lambda: copy_out.copy_(idx))
     enq_ms, got = cuda_ms(torch, lambda: gp.gather_chain(tbl, idx), 7)
@@ -3014,30 +3054,66 @@ def gather_phase(torch, dev, card, errs):
     check(torch.equal(copy_out, idx), "the floor's copy != idx")
     t1_bound = bound(3 * tbl.numel() * 4, 0)
     t1_bound["library_ms"] = t1_lib_ms
-    plan = gp.gather_slab_plan(T1_ROWS, T1_ROWS, gp.LF)
-    log(f"[11] gather alone, rows={T1_ROWS} x {gp.LF} int32 ({plan.form}, C={plan.cluster}), "
-        f"ms a launch in a CUDA graph of 100: kernel {t1_ms:.5f}, torch.gather on int64 "
-        f"indices {t1_lib_ms:.5f}, the L2 line {l2_ms:.5f}; the floor: an empty kernel "
-        f"{empty_ms:.5f}, the 4 MB copy "
-        f"idx -> out {copy_ms:.5f}; kernel - copy {t1_ms - copy_ms:.5f} ms; enqueued one call "
-        f"at a time (CUDA events) {enq_ms:.5f}; plain PyTorch {t1_plain_ms:.4f}; bound "
-        f"{t1_bound['bound_ms']:.5f} ms by bytes [{card}]")
+    plan = gp.gather_slab_plan(T1_ROWS, T1_ROWS, gp.LF, 1, "none")
+    log(f"[11] gather alone, rows={T1_ROWS} x {gp.LF} int32 ({plan.form} form, the L2 line's "
+        f"launch), ms a launch in a CUDA graph of 100: kernel {t1_ms:.5f}, torch.gather on "
+        f"int64 indices {t1_lib_ms:.5f} (kernel / torch.gather {t1_ms / t1_lib_ms:.3f}); the "
+        f"floor: an empty kernel {empty_ms:.5f}, the 4 MB copy idx -> out {copy_ms:.5f}; "
+        f"kernel - copy {t1_ms - copy_ms:.5f} ms; enqueued one call at a time (CUDA events) "
+        f"{enq_ms:.5f}; plain PyTorch {t1_plain_ms:.4f}; bound {t1_bound['bound_ms']:.5f} ms "
+        f"by bytes [{card}]")
 
     return {"name": "gather_probe", "route": "cuda", "source": PROBE_KERNELS[0][1],
              "replaces": PROBE_KERNELS[0][2], "launches": gather_launches,
-             "sweep_launches": sweep_launches, "l2_launches": l2_launches,
-             "l2_ms": l2_ms, "max_abs_err": errs["gather_probe"],
+             "sweep_launches": sweep_launches, "max_abs_err": errs["gather_probe"],
              "ms": t1_ms, "plain_ms": t1_plain_ms, "enqueued_ms": enq_ms,
              "empty_kernel_ms": empty_ms, "copy_ms": copy_ms, "form": plan.form,
-             "cluster": plan.cluster, "chain": chains, "sweep": sweeps, **t1_bound}
+             "chain": chains, "sweep": sweeps, **t1_bound}
 
 
-def identity_phase(torch, dev, card, frames16, errs):
+def identity_plane(torch, dev, frames16):
+    """The (3, BIG_BATCH*FULL_H, FULL_W) u8 plane the identity is timed on:
+    the 16 frames rolled along x to BIG_BATCH frames, planarised."""
+    from dither_pie_tpu_torch.tools import layout_repro as lr
+
+    frames = torch.from_numpy(np.ascontiguousarray(frames16)).to(dev)
+    return lr.planarize(torch.cat([frames.roll(37 * k, dims=2)
+                                   for k in range(-(-BIG_BATCH // BATCH))])[:BIG_BATCH])
+
+
+def trace_identity(torch, dev, card, frames16):
+    """One traced call of clone() and of the identity kernel on phase 11's
+    plane: the device events in order, each as its category, name and ms
+    ("no device event" if the trace holds none). Traced in phase 6: a
+    trace taken late in the run loses its device records."""
+    from dither_pie_tpu_torch.kernels import build
+    from dither_pie_tpu_torch.tools import layout_repro as lr
+
+    plane = identity_plane(torch, dev, frames16)
+    lr.identity_copy(plane)  # built and warm
+    trace_path = build.BUILD_DIR / "traces" / "phase6-identity.json"
+    try:
+        traced_call(torch, lambda: (plane.clone(), lr.identity_copy(plane)), trace_path)
+        trace = json.loads(trace_path.read_text())["traceEvents"]
+        events = [f"{e.get('cat')} \"{e.get('name')}\" {float(e['dur']) / 1e3:.3f} ms"
+                  for e in sorted(trace, key=lambda e: float(e.get("ts", 0)))
+                  if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+    except (RuntimeError, OSError, KeyError, ValueError) as e:
+        events = [f"not traced ({e})"]
+    events = events or ["no device event"]
+    log(f"[6-identity] traced clone() then the identity kernel on one {tuple(plane.shape)} u8 "
+        f"plane (torch.profiler): device events {'; '.join(events)} [{card}]")
+    return events
+
+
+def identity_phase(torch, dev, card, frames16, identity_events, errs):
     """Phase 11's T3: the identity kernel == its input == clone() at odd
     sizes, views off the boundary, pairs of views into offset outputs (the
-    bulk form and the shifted one), the timed 100 x 1080p plane in each
-    form beside clone(), and the layout harness and its chain through K4.
-    Returns the kernels-line row of the identity."""
+    stride form and the shifted one, head and tail), the launcher's
+    refusals, the timed 100 x 1080p plane in each form beside clone(), what
+    clone() and the kernel run as on the card (``identity_events``, phase
+    6's trace), and the layout harness and its chain through K4. Returns
+    the kernels-line row of the identity."""
     from dither_pie_tpu_torch.kernels import build
     from dither_pie_tpu_torch.tools import layout_repro as lr
 
@@ -3057,7 +3133,7 @@ def identity_phase(torch, dev, card, frames16, errs):
         hold(torch, "identity", got, x, errs, what)
         hold(torch, "identity", got, lr.identity_plain(x), errs, f"{what}, against clone()")
     # Pairs of views into outputs at chosen offsets: agreeing mod 16 off the
-    # boundary (a head, the bulk body, a tail) and disagreeing (the shifted
+    # boundary (a head, the stride body, a tail) and disagreeing (the shifted
     # form), the bytes around each output untouched.
     t3_pairs = 0
     for n in (1_000_003, 4_000_037, 47, 15):
@@ -3071,9 +3147,26 @@ def identity_phase(torch, dev, card, frames16, errs):
                   bool((buf[16 + out_off + n:] == 0xA5).all()),
                   f"identity wrote outside its output ({n} bytes, {in_off}, {out_off})")
             t3_pairs += 1
-    plane = lr.planarize(torch.cat(
-        [on_card(frames16).roll(37 * k, dims=2)
-         for k in range(-(-BIG_BATCH // BATCH))])[:BIG_BATCH])
+    # The launcher refuses a plan that is not the plan function's.
+    x = flat_two[:4_000_037]
+    out = torch.empty_like(x)
+    plan = lr.identity_plan(x.numel(), 0, 0, 64)
+    refusals = {"a span in the stride form": dataclasses.replace(plan, span=16384),
+                "the shifted form for agreeing offsets": dataclasses.replace(plan,
+                                                                             form="shifted"),
+                "more blocks than 256-word steps": dataclasses.replace(
+                    plan, blocks=-(-plan.body // 16 // 256) + 1),
+                "a wrong head": dataclasses.replace(plan, head=1),
+                "128 threads": dataclasses.replace(plan, threads=128)}
+    for what, pl in refusals.items():
+        try:
+            lr._launch(x, out, pl)
+            sync(torch, dev)
+            refused = False
+        except RuntimeError:
+            refused = True
+        check(refused, f"the identity launcher took {what}")
+    plane = identity_plane(torch, dev, frames16)
     t3_ms, got = cuda_ms(torch, lambda: lr.identity_copy(plane), 7)
     t3_plain_ms, want = cuda_ms(torch, lambda: lr.identity_plain(plane), 7)
     hold(torch, "identity", got, want, errs, f"the timed {BIG_BATCH}x{FULL_H}x{FULL_W} plane")
@@ -3083,14 +3176,18 @@ def identity_phase(torch, dev, card, frames16, errs):
     off_by_one = plane.view(-1)[1:]
     shifted_ms, got = cuda_ms(torch, lambda: lr.identity_copy(off_by_one), 7)
     hold(torch, "identity", got, off_by_one, errs, "the timed plane 1 byte off, shifted form")
+    log(f"[11] what clone() and the identity kernel run as on the card: phase 6's line "
+        f"[6-identity] (a trace taken late in the run loses its device records): "
+        f"{'; '.join(identity_events)} [{card}]")
     t3_bound = bound(2 * plane.numel(), 0)
     t3_bound["library_ms"] = t3_plain_ms
     gbs = 2 * plane.numel() / t3_ms / 1e6
     log(f"[11] identity == input == clone(), bitwise: (3, {2 * FULL_H}, {FULL_W}), an odd "
         f"size, a view off the 16-byte boundary, 15 bytes, {t3_pairs} pairs of views into "
-        f"offset outputs (agreeing and disagreeing mod 16); one "
+        f"offset outputs (agreeing and disagreeing mod 16); the launcher refuses "
+        f"{', '.join(refusals)}; one "
         f"{BIG_BATCH}x{FULL_H}x{FULL_W} plane ({plane.numel() / 1e6:.1f} MB): kernel "
-        f"(bulk) {t3_ms:.3f} ms = {gbs:.1f} GB/s read + written "
+        f"(stride) {t3_ms:.3f} ms = {gbs:.1f} GB/s read + written "
         f"({gbs / (PEAK_BYTES_PER_S / 1e9):.3f} of {PEAK_BYTES_PER_S / 1e12:.2f} TB/s), "
         f"shifted (1 byte off) {shifted_ms:.3f} ms, clone() "
         f"{t3_plain_ms:.3f} ms = {2 * plane.numel() / t3_plain_ms / 1e6:.1f} GB/s, bound "
@@ -3122,7 +3219,8 @@ def identity_phase(torch, dev, card, frames16, errs):
     return {"name": "identity", "route": "cuda", "source": PROBE_KERNELS[1][1],
             "replaces": PROBE_KERNELS[1][2], "launches": identity_launches,
             "max_abs_err": errs["identity"], "ms": t3_ms, "plain_ms": t3_plain_ms,
-            "gb_per_s": gbs, "shifted_ms": shifted_ms, **t3_bound}
+            "gb_per_s": gbs, "shifted_ms": shifted_ms, "clone_event": identity_events[0],
+            **t3_bound}
 
 
 # ---------------------------------------------------------------------------
@@ -5484,6 +5582,9 @@ def run(torch, dev, card, seed=0) -> int:
             d.apply_dithering_batch(frames16)
             report_trace(torch, tag, f"apply_dithering_batch {what}",
                          lambda: d.apply_dithering_batch(frames16), frames16.nbytes, card)
+    # Phase 11's clone() and identity kernel are traced here for the same
+    # reason.
+    identity_events = trace_identity(torch, dev, card, frames16)
     # Phase 18's config 5 is traced here for the same reason, before the
     # video leg: traced after it, its frames' H2D copy went missing from
     # the trace (seven config-5 traces in a row all keep it).
@@ -5513,7 +5614,8 @@ def run(torch, dev, card, seed=0) -> int:
                                    errs))
 
     # 11. Wavelet and halftone, K4 on float32 frames, the probes T1 and T3.
-    rows.extend(transform_phase(torch, dev, card, frames16, palette, rows, errs))
+    rows.extend(transform_phase(torch, dev, card, frames16, palette, identity_events, rows,
+                                errs))
 
     # 12. K2 and K8 over thread-block clusters.
     cluster_phase(torch, dev, card, frames16, errs)

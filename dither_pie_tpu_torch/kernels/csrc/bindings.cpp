@@ -470,8 +470,7 @@ void gather_chain(torch::Tensor table, torch::Tensor idx, torch::Tensor out,
     plan.grid = as_int(grid, "grid");
     plan.smem_bytes = as_int(smem_bytes, "smem_bytes");
     const c10::cuda::CUDAGuard guard(table.device());
-    check_launch(dpt_gather_chain(table.data_ptr<int32_t>(),
-                                  idx.data_ptr<int32_t>(),
+    check_launch(dpt_gather_chain(table.data_ptr<int32_t>(), idx.data_ptr<int32_t>(),
                                   out.data_ptr<int32_t>(),
                                   as_int(table.size(0), "rows"),
                                   as_int(idx.size(0), "n"),
@@ -479,28 +478,6 @@ void gather_chain(torch::Tensor table, torch::Tensor idx, torch::Tensor out,
                                   as_int(k, "k"), as_int(update, "update"),
                                   plan, current_stream(table)),
                  "gather_chain");
-}
-
-void gather_chain_l2(torch::Tensor table, torch::Tensor idx, torch::Tensor out, int64_t k,
-                     int64_t update) {
-    check_tensor(table, "table", table);
-    check_tensor(idx, "idx", table);
-    check_tensor(out, "out", table);
-    TORCH_CHECK(table.scalar_type() == torch::kInt32 && table.dim() == 2,
-                "table must be (rows, lanes) int32");
-    TORCH_CHECK(idx.scalar_type() == torch::kInt32 && idx.dim() == 2 &&
-                    idx.size(1) == table.size(1),
-                "idx must be (n, lanes) int32");
-    TORCH_CHECK(out.scalar_type() == torch::kInt32 &&
-                    out.sizes() == idx.sizes(),
-                "out must be (n, lanes) int32");
-    const c10::cuda::CUDAGuard guard(table.device());
-    check_launch(dpt_gather_chain_l2(table.data_ptr<int32_t>(), idx.data_ptr<int32_t>(),
-                                     out.data_ptr<int32_t>(), as_int(table.size(0), "rows"),
-                                     as_int(idx.size(0), "n"), as_int(table.size(1), "lanes"),
-                                     as_int(k, "k"), as_int(update, "update"),
-                                     current_stream(table)),
-                 "gather_chain_l2");
 }
 
 void empty_kernel(torch::Tensor like) {
@@ -535,8 +512,7 @@ void sweep_chain(torch::Tensor table, torch::Tensor idx, torch::Tensor out,
 }
 
 void identity_u8(torch::Tensor in, torch::Tensor out, int64_t form, int64_t head,
-                 int64_t body, int64_t span, int64_t blocks, int64_t threads, int64_t stages,
-                 int64_t smem_bytes) {
+                 int64_t body, int64_t span, int64_t blocks, int64_t threads) {
     check_tensor(in, "in", in);
     check_tensor(out, "out", in);
     TORCH_CHECK(in.scalar_type() == torch::kUInt8 &&
@@ -550,8 +526,6 @@ void identity_u8(torch::Tensor in, torch::Tensor out, int64_t form, int64_t head
     plan.span = span;
     plan.blocks = blocks;
     plan.threads = as_int(threads, "threads");
-    plan.stages = as_int(stages, "stages");
-    plan.smem_bytes = as_int(smem_bytes, "smem_bytes");
     const c10::cuda::CUDAGuard guard(in.device());
     check_launch(dpt_identity_u8(in.data_ptr<uint8_t>(), out.data_ptr<uint8_t>(), in.numel(),
                                  plan, current_stream(in)),
@@ -583,9 +557,11 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
           "indices");
     m.def("gather_chain", &gather_chain,
           "T1: k dependent per-lane table gathers an element, (n, lanes) "
-          "int32, in the plan's form (block, multicast or distributed slabs)");
-    m.def("gather_chain_l2", &gather_chain_l2,
-          "T1's L2 line: the gather's block body on the table in device memory");
+          "int32, in the plan's form (device, block, multicast slabs or lane columns; "
+          "the device form at any k is the L2 line)",
+          py::arg("table"), py::arg("idx"), py::arg("out"), py::arg("k"), py::arg("update"),
+          py::arg("form"), py::arg("cluster"), py::arg("rows_per_block"),
+          py::arg("slab_rows"), py::arg("threads"), py::arg("grid"), py::arg("smem_bytes"));
     m.def("empty_kernel", &empty_kernel,
           "T1's floor: an empty kernel of one warp on the device of `like`");
     m.def("sweep_chain", &sweep_chain,

@@ -179,33 +179,33 @@ int dpt_ordered_fused_f32(const float* img, const float* pal, int P,
 //           == p ? table[p, l] : best; acc = |best + acc + step| mod 255
 //           (rows a power of two).
 // The gather runs as its plan (tools/gather_probe.py `gather_slab_plan`)
-// says, by the form that holds the table in shared memory: block (the
-// table whole in each block, one thread an element), multicast (a block a
-// lane group of 8 lanes, the slab table[:, 8g:8g+8] in every block of a
-// cluster of 2, loaded once a cluster by TMA multicast), distributed (the
-// slab split by rows over a cluster of 8, `slab_rows` a block, read through
-// distributed shared memory). The slab forms take lanes % 8 == 0 and a
-// table on a 16-byte boundary. The launcher computes its own plan and
-// refuses one that differs (cudaErrorInvalidConfiguration).
-// gather_chain_l2 runs the block form's body on the table in device
-// memory, with no plan: the probe's L2 line. The sweep stages the table in
-// dynamic shared memory with use_smem != 0 (it must fit
+// says, in one of four forms: device (one thread an element, the table
+// read where it lies in device memory: every single gather, k = 1, and
+// every chain shorter than its height's staged form's break-even); block
+// (the same with the table staged whole in each block's shared memory);
+// multicast (a block a lane group of 8 lanes, the slab table[:, 8g:8g+8]
+// in every block of a cluster of 2, loaded once a cluster by TMA
+// multicast; lanes % 8 == 0 and a table on a 16-byte boundary); column (a
+// block a lane, the lane's column in its shared memory, filled by ordinary
+// loads from the table). The launcher computes its own plan and refuses
+// one that differs (cudaErrorInvalidConfiguration), except the device
+// form, which it takes at any k: the probe's L2 line. The sweep stages the
+// table in dynamic shared memory with use_smem != 0 (it must fit
 // DPT_PROBE_SMEM_BYTES) and reads device memory otherwise.
 constexpr int DPT_PROBE_SMEM_BYTES = 227 * 1024;
 constexpr int DPT_GATHER_BLOCK = 0;
 constexpr int DPT_GATHER_MULTICAST = 1;
-constexpr int DPT_GATHER_DISTRIBUTED = 2;
+constexpr int DPT_GATHER_COLUMN = 2;
+constexpr int DPT_GATHER_DEVICE = 3;
 struct DptGatherPlan {
     int form, cluster;
-    int rows_per_block;  // output rows a block takes (block form: rows its threads start in)
-    int slab_rows;       // table rows a block holds
+    int rows_per_block;  // output rows a block takes (device, block: rows its threads start in)
+    int slab_rows;       // table rows a block holds (multicast: rounded up to whole boxes)
     int threads, grid, smem_bytes;
 };
-int dpt_gather_chain(const int32_t* table, const int32_t* idx, int32_t* out,
-                     int rows, int n, int lanes, int k, int update,
-                     const DptGatherPlan& plan, void* stream);
-int dpt_gather_chain_l2(const int32_t* table, const int32_t* idx, int32_t* out,
-                        int rows, int n, int lanes, int k, int update, void* stream);
+int dpt_gather_chain(const int32_t* table, const int32_t* idx, int32_t* out, int rows,
+                     int n, int lanes, int k, int update, const DptGatherPlan& plan,
+                     void* stream);
 int dpt_sweep_chain(const int32_t* table, const int32_t* idx, int32_t* out,
                     int rows, int n, int lanes, int k, int use_smem,
                     void* stream);
@@ -214,31 +214,21 @@ int dpt_empty_kernel(void* stream);
 
 // T3: identity copy of n bytes, as the wrapper planned it
 // (tools.layout_repro.identity_plan): `head` bytes one by one until out is
-// 16-byte aligned, a body of `body` bytes in whole 16-byte words, cut into
-// spans of `span` bytes (the last may be shorter; 0 without a body) that
-// `blocks` blocks (at most one a span) take in turn, block b spans b,
-// b + blocks, ..., and the tail after it one by one. The body's form: bulk
-// (TMA bulk copies through a ring of `stages` spans of dynamic shared
-// memory, smem_bytes = stages * (span + 8) with the ring's barriers) where
-// in and out agree mod 16; shifted (aligned stores of funnel-shifted input
-// words) where they do not. The launcher computes the form, head and body
-// from the pointers and refuses a plan that differs
-// (cudaErrorInvalidConfiguration).
-constexpr int DPT_IDENTITY_BULK = 0;
+// 16-byte aligned, a body of `body` bytes in whole 16-byte words, and the
+// tail after it one by one, on `blocks` blocks of `threads` (256). The
+// body's form: stride (a grid-stride loop of 16-byte words; span 0, at
+// most one block a 256 words, a block for each by default) where in and
+// out agree mod 16; shifted (aligned stores of funnel-shifted input words,
+// the body cut into spans of `span` bytes that the blocks, at most one a
+// span, take in turn: block b spans b, b + blocks, ...) where they do not.
+// The launcher computes the form, head and body from the pointers and
+// refuses a plan that differs (cudaErrorInvalidConfiguration).
+constexpr int DPT_IDENTITY_STRIDE = 0;
 constexpr int DPT_IDENTITY_SHIFTED = 1;
 struct DptIdentityPlan {
     int form;
     int64_t head, body, span, blocks;
-    int threads, stages, smem_bytes;
+    int threads;
 };
 int dpt_identity_u8(const uint8_t* in, uint8_t* out, int64_t n, const DptIdentityPlan& plan,
                     void* stream);
-
-// Blocks for a grid-stride loop over n elements: enough to fill the card's
-// 132 SMs many times over, never 0.
-inline int dpt_grid_blocks(int64_t n, int threads) {
-    int64_t blocks = (n + threads - 1) / threads;
-    if (blocks < 1) blocks = 1;
-    if (blocks > 132 * 64) blocks = 132 * 64;
-    return (int)blocks;
-}

@@ -22,11 +22,11 @@ the identity kernel (``kernels/csrc/identity.cu``), and prints
   median time), beside ``Tensor.clone()``'s: the measured copy ceiling of
   this card.
 
-``--sweep`` times the identity kernel's bulk plans on one
-(3, batch*1080, 1920) plane into one output, at several (blocks an SM,
-stages, bytes a span), with ``clone()`` first and last, each the median of
-5 runs of 20 launches in a row (``time_ed_path.loop_ms``), every output
-held to the plane bitwise.
+``--sweep`` times the identity kernel's stride form on one
+(3, batch*1080, 1920) plane into one output at several grid sizes (blocks
+an SM, and a block for every 256 words, the default), with ``clone()``
+first and last, each the median of 5 runs of 20 launches in a row
+(``time_ed_path.loop_ms``), every output held to the plane bitwise.
 
 ``--chain`` is the harness that failed originally: the batches chained
 through the ordered kernel K4 (``ordered_dither_fused``, a random 16-colour
@@ -40,11 +40,12 @@ measurement needs a CUDA device.
 
 The kernel's launch is planned here (``identity_plan``): a head of up to 15
 bytes that brings the output to a 16-byte boundary, a body of whole 16-byte
-words cut into contiguous spans that a persistent grid of a few blocks an
-SM takes in turn (block b spans b, b + G, ...), and a tail of up to 15
-bytes. Where input and output agree mod 16 the body goes through TMA bulk
-copies, a ring of a few spans of shared memory a block; where they
-disagree, through the shifted form. The kernel refuses any other plan.
+words, and a tail of up to 15 bytes. Where input and output agree mod 16
+the body goes through the stride form, a grid-stride loop of 16-byte words
+whose grid by default covers the body in one step; where they disagree,
+through the shifted form, whose spans a persistent grid of a few blocks an
+SM takes in turn (block b spans b, b + G, ...). The kernel refuses any
+other plan.
 """
 
 from __future__ import annotations
@@ -70,65 +71,66 @@ from dither_pie_tpu_torch.tools.time_ed_path import loop_ms  # noqa: E402
 FULL_H, FULL_W = 1080, 1920
 
 
-# The body's forms, in the kernel's order: TMA bulk copies through a
-# shared-memory ring where input and output agree mod 16, the shifted form
-# where they disagree.
-IDENTITY_FORMS = ("bulk", "shifted")
-# Blocks an SM of the persistent grid, bytes of a span, the bulk ring's
-# stages (one span each): the fastest of ``--sweep`` on an H100 (PERF.md).
-# Threads a block, by form (bulk: one warp, its lane 0 drives the ring).
-IDENTITY_BLOCKS_PER_SM = 4
+# The body's forms, in the kernel's order: a grid-stride loop of 16-byte
+# words where input and output agree mod 16, the shifted form where they
+# disagree.
+IDENTITY_FORMS = ("stride", "shifted")
+# The grid of each form, in blocks an SM: the stride form's ALL_STEPS is a
+# block for every 256 words of the body, each thread one word (on an H100
+# as fast as clone(), and grids of 4 to 512 blocks an SM that loop were
+# 1-6 % slower: ``--sweep``, PERF.md); the shifted form's persistent grid.
+# Bytes of a shifted span, threads a block.
+ALL_STEPS = 0
+IDENTITY_BLOCKS_PER_SM = {"stride": ALL_STEPS, "shifted": 4}
 IDENTITY_SPAN = 16384
-IDENTITY_STAGES = 3
-IDENTITY_THREADS = {"bulk": 32, "shifted": 256}
-_SMEM_BYTES_MAX = 227 * 1024  # dynamic shared memory a block may have
+IDENTITY_THREADS = 256
+_MAX_GRID = (1 << 31) - 1
 
 
 @dataclass(frozen=True)
 class IdentityPlan:
     """One launch of the identity kernel: ``head`` bytes one by one until the
-    output is 16-byte aligned, ``body`` bytes of whole 16-byte words in
-    spans of ``span`` bytes (the last may be shorter; 0 without a body),
-    which ``blocks`` blocks of ``threads`` take in turn (block b spans b,
-    b + blocks, ...), the rest one by one; the body's ``form``, and for the
-    bulk form the ring's ``stages`` of one span each and its dynamic shared
-    memory (the ring and an 8-byte barrier a stage)."""
+    output is 16-byte aligned, ``body`` bytes of whole 16-byte words, the
+    rest one by one, on ``blocks`` blocks of ``threads``; the body's
+    ``form``, and for the shifted form its spans of ``span`` bytes (the
+    last may be shorter; 0 in the stride form and without a body), which
+    the blocks take in turn (block b spans b, b + blocks, ...)."""
 
     form: str
     head: int
     body: int
     span: int
     blocks: int
-    threads: int
-    stages: int = 0
-    smem_bytes: int = 0
+    threads: int = IDENTITY_THREADS
+
+
+def identity_form(in_mod16: int, out_mod16: int) -> str:
+    """The body's form for an input and an output at these offsets mod 16."""
+    return IDENTITY_FORMS[in_mod16 != out_mod16]
 
 
 def identity_plan(n: int, in_mod16: int, out_mod16: int, blocks: int,
-                  stages: int = IDENTITY_STAGES, span: int = IDENTITY_SPAN) -> IdentityPlan:
+                  span: int = IDENTITY_SPAN) -> IdentityPlan:
     """The launch that copies ``n`` bytes from an input ``in_mod16`` bytes past
     a 16-byte boundary to an output ``out_mod16`` bytes past one, over at
-    most ``blocks`` blocks (a few an SM): the bulk form where the two agree
-    mod 16, the shifted form where they disagree. The body is cut on
-    16-byte boundaries into spans of ``span`` bytes, at most one block a
-    span."""
+    most ``blocks`` blocks: the stride form where the two agree mod 16, at
+    most one block a 256 words of the body; the shifted form where they
+    disagree, the body cut on 16-byte boundaries into spans of ``span``
+    bytes, at most one block a span."""
     if n < 0 or blocks < 1 or not (0 <= in_mod16 < 16 and 0 <= out_mod16 < 16):
         raise ValueError(f"no identity plan for n={n} offsets {in_mod16}, {out_mod16} "
                          f"blocks={blocks}")
     if span % 16 or span < 16:
         raise ValueError(f"spans are whole 16-byte words, got {span}")
-    form = IDENTITY_FORMS[in_mod16 != out_mod16]
+    form = identity_form(in_mod16, out_mod16)
     head = min(n, -out_mod16 % 16)
     body = (n - head) // 16 * 16
-    if not body:
+    if form == "stride" or not body:
         span = 0
-    used = min(blocks, -(-body // span)) if body else 1
-    if form != "bulk":
-        return IdentityPlan(form, head, body, span, used, IDENTITY_THREADS[form])
-    smem = stages * (span + 8)
-    if stages < 2 or stages > 32 or smem > _SMEM_BYTES_MAX:
-        raise ValueError(f"no bulk ring of {stages} stages of {span} bytes")
-    return IdentityPlan(form, head, body, span, used, IDENTITY_THREADS[form], stages, smem)
+    if not body:
+        return IdentityPlan(form, head, body, span, 1)
+    units = -(-body // 16 // IDENTITY_THREADS) if form == "stride" else -(-body // span)
+    return IdentityPlan(form, head, body, span, min(blocks, units))
 
 
 def identity_plain(x: torch.Tensor) -> torch.Tensor:
@@ -138,12 +140,15 @@ def identity_plain(x: torch.Tensor) -> torch.Tensor:
 
 def _launch(x: torch.Tensor, out: torch.Tensor, plan: IdentityPlan) -> None:
     build.extension().identity_u8(x, out, IDENTITY_FORMS.index(plan.form), plan.head,
-                                  plan.body, plan.span, plan.blocks, plan.threads,
-                                  plan.stages, plan.smem_bytes)
+                                  plan.body, plan.span, plan.blocks, plan.threads)
     build.LAUNCHES["identity"] += 1
 
 
 def _grid(x: torch.Tensor, blocks_per_sm: int) -> int:
+    """At most ``blocks_per_sm`` blocks on each SM of ``x``'s card; as many
+    as the plan can use for ALL_STEPS."""
+    if blocks_per_sm == ALL_STEPS:
+        return _MAX_GRID
     return blocks_per_sm * torch.cuda.get_device_properties(x.device).multi_processor_count
 
 
@@ -162,8 +167,9 @@ def identity_copy(x: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.
     if out is None:
         out = torch.empty_like(x)
     if x.numel():
-        _launch(x, out, identity_plan(x.numel(), x.data_ptr() % 16, out.data_ptr() % 16,
-                                      _grid(x, IDENTITY_BLOCKS_PER_SM)))
+        in16, out16 = x.data_ptr() % 16, out.data_ptr() % 16
+        blocks = _grid(x, IDENTITY_BLOCKS_PER_SM[identity_form(in16, out16)])
+        _launch(x, out, identity_plan(x.numel(), in16, out16, blocks))
     return out
 
 
@@ -247,31 +253,29 @@ def copy_rate(batch: int, device, h: int = FULL_H, w: int = FULL_W) -> Dict[str,
             "clone_gb_s": moved / clone_ms / 1e6, "bytes": plane.numel()}
 
 
-# The bulk plans ``--sweep`` times: (blocks an SM, stages, bytes a span),
-# each ring fitting the SM's shared memory that many times.
-SWEEP_BULK = ((1, 12, 16384), (1, 6, 32768), (1, 3, 65536), (2, 6, 16384), (2, 3, 32768),
-              (3, 4, 16384), (4, 3, 16384), (4, 6, 8192), (8, 3, 8192), (8, 6, 4096),
-              (16, 3, 4096))
+# The stride form's grid sizes ``--sweep`` times, in blocks an SM.
+SWEEP_BLOCKS_PER_SM = (4, 16, 64, 128, 256, 512, ALL_STEPS)
 
 
 def sweep(batch: int, device, card: str) -> bool:
-    """Print the time of each swept plan beside ``clone()``'s; False if an
-    output differs from the plane."""
+    """Print the time of the stride form at each grid size beside
+    ``clone()``'s; False if an output differs from the plane."""
     gen = torch.Generator(device).manual_seed(0)
     plane = planarize(torch.randint(0, 256, (batch, FULL_H, FULL_W, 3), dtype=torch.uint8,
                                     device=device, generator=gen))
     out = torch.empty_like(plane)
 
-    def bulk(k, s, sp):
-        plan = identity_plan(plane.numel(), 0, 0, _grid(plane, k), s, sp)
-        return lambda: (_launch(plane, out, plan), out)[1]
+    def stride(k):
+        plan = identity_plan(plane.numel(), 0, 0, _grid(plane, k))
+        what = "a block a step" if k == ALL_STEPS else f"{k} blocks an SM"
+        return (f"stride, {what} ({plan.blocks} blocks)",
+                lambda: (_launch(plane, out, plan), out)[1])
 
     cases = [("clone()", lambda: plane.clone())]
-    cases += [(f"bulk {k} blocks an SM, {s} stages, spans of {sp} B", bulk(k, s, sp))
-              for k, s, sp in SWEEP_BULK]
+    cases += [stride(k) for k in SWEEP_BLOCKS_PER_SM]
     cases.append(cases[0])
-    print(f"identity sweep: {len(SWEEP_BULK)} bulk plans between two clone() [{card}]",
-          flush=True)
+    print(f"identity sweep: the stride form at {len(SWEEP_BLOCKS_PER_SM)} grid sizes between "
+          f"two clone() [{card}]", flush=True)
     ok = True
     for label, fn in cases:
         ms = loop_ms(fn, 20)

@@ -47,20 +47,25 @@ min, max) milliseconds of CUDA events after one warm-up:
   16384 colours, 9 runs each, beside the one PyTorch call that computes it,
   ``pal_u8[idx.as_strided(...)]``, each held to both;
 * the probes T1 and T3 beside their library calls: T1's gather
-  (``gather_probe.gather_chain``) on the 4096 x 128 int32 table against
-  ``torch.gather`` on the same int64 indices and a 4 MB copy ``idx -> out``
-  (``copy_``, the floor of the gather's own bytes), T1's microseconds a
-  dependent gather at 256, 1024, 4096 and 16384 rows with the form that
-  holds each table and, where the tree has it, the L2 line beside it
-  (``gather_chain_l2``, the table read from device memory), and T3's identity
-  (``layout_repro.identity_copy``) on one 100 x 1080p plane against
-  ``clone()``. A T1 launch is shorter than its Python enqueue, so both T1
-  forms are timed as a CUDA graph of 100 launches (device time a launch,
-  the graph's gaps between kernels included), and also as 100 launches
-  enqueued from Python; T3 as 20 launches in a row. Each output is held to
-  its library call's bitwise. T3 runs in turns, clone(), kernel, kernel,
-  clone(); then the plane less its first byte into a fresh output (input
-  and output disagree mod 16).
+  (``gather_probe.gather_chain``, k = 1, with the form its plan takes) on
+  the 4096 x 128 int32 table against ``torch.gather`` on the same int64
+  indices (and their ratio) and a 4 MB copy ``idx -> out`` (``copy_``, the
+  floor of the gather's own bytes), T1's microseconds a dependent gather
+  at 256, 1024, 4096 and 16384 rows with the form the plan takes for a
+  chain at each height and, where the tree has it, the L2 line beside it
+  (``gather_chain_l2``, the table read from device memory; a tree with the
+  chain-aware plan times each staged form from its shortest chain and adds
+  the device time of that launch of each, where the two break even, and
+  the plan's launch at k = 4 and 68 beside the L2 line's), and T3's identity
+  (``layout_repro.identity_copy``, the tree's aligned form) on one 100 x
+  1080p plane against ``clone()``. A T1 launch is shorter than its Python
+  enqueue, so both T1 forms are timed as a CUDA graph of 100 launches
+  (device time a launch, the graph's gaps between kernels included), and
+  also as 100 launches enqueued from Python; T3 as 20 launches in a row.
+  Each output is held to its library call's bitwise. T3 runs in turns,
+  clone(), kernel, kernel, clone(), and prints the kernel's time over
+  clone()'s; then the plane less its first byte into a fresh output (input
+  and output disagree mod 16: the shifted form).
 
 Every line carries the cluster size the launch ran with ("n"; "-" for a
 tree whose scan has no clusters). It prints the card's name and power
@@ -74,6 +79,9 @@ P = 2048 (K8, 480p), 3 runs each, on 8 of the frames (8 clusters of 8
 blocks are resident together, 16 are not), holds each output to the n = 1
 output bitwise, and fits t(P, n) / D = c_n + k_n * P / n by least squares
 per n: c_n - c_1 is what the cluster barrier and the merge add to a step.
+
+``--probes`` prints only T1's and T3's lines (the card's line, the build,
+then ``probe_lines``), for runs that compare the probes alone.
 
 It needs a CUDA device and fails without one. Frames and palettes are
 random (seeded): the scan's time does not depend on the data.
@@ -123,6 +131,8 @@ def main() -> int:
     rng = np.random.RandomState(0)
     frames = torch.from_numpy(
         rng.randint(0, 256, (16, 1080, 1920, 3)).astype(np.uint8)).to(dev)
+    if "--probes" in sys.argv[1:]:
+        return 1 if probe_lines(tree, card, dev, frames) else 0
     sd = torch.from_numpy(rng.randint(0, 256, (16, 480, 854, 3)).astype(np.uint8)).to(dev)
     pals = {p: torch.from_numpy(rng.randint(0, 256, (p, 3)).astype(np.float32)).to(dev)
             for p in sorted(set(SWEEP_SIZES + SIZES))}
@@ -433,11 +443,19 @@ def search_lines(tree, card, dev, ms) -> bool:
 
 def probe_lines(tree, card, dev, frames) -> bool:
     """T1's and T3's lines; True if an output differs from its library
-    call's."""
+    call's. A tree from before the chain-aware plan (its
+    ``gather_slab_plan`` takes no k) prints its own forms."""
     import torch
 
     from dither_pie_tpu_torch.tools import gather_probe as gp
     from dither_pie_tpu_torch.tools import layout_repro as lr
+
+    chain_aware = hasattr(gp, "chain_line")
+
+    def form(rows, k, update):
+        if chain_aware:
+            return gp.gather_slab_plan(rows, rows, gp.LF, k, update).form
+        return gp.gather_slab_plan(rows, rows, gp.LF).form
 
     tbl, idx = (torch.from_numpy(a).to(dev) for a in gp.gather_inputs(T1_ROWS))
     idx64 = idx.long()
@@ -447,28 +465,37 @@ def probe_lines(tree, card, dev, frames) -> bool:
     same = torch.equal(t1[0](), t1[1]())
     g = [graph_ms(f) for f in t1]
     loop = [loop_ms(f, 100) for f in t1[:2]]
-    print(f"{tree}: T1 gather {tuple(tbl.shape)} int32: kernel {g[0]:.5f} ms, torch.gather "
-          f"{g[1]:.5f} ms, the 4 MB copy idx -> out {g[2]:.5f} ms a launch in a CUDA graph of "
-          f"100; enqueued from Python: kernel {loop[0]:.5f} ms, torch.gather {loop[1]:.5f} ms; "
-          f"== torch.gather {same} [{card}]", flush=True)
+    print(f"{tree}: T1 gather {tuple(tbl.shape)} int32 (k=1, {form(T1_ROWS, 1, 'none')} "
+          f"form): kernel {g[0]:.5f} ms, torch.gather {g[1]:.5f} ms (kernel / torch.gather "
+          f"{g[0] / g[1]:.3f}), the 4 MB copy idx -> out {g[2]:.5f} ms a launch in a CUDA "
+          f"graph of 100; enqueued from Python: kernel {loop[0]:.5f} ms, torch.gather "
+          f"{loop[1]:.5f} ms; == torch.gather {same} [{card}]", flush=True)
     chains = {rows: gp.probe_chain(rows, 64, dev) for rows in T1_CHAIN_ROWS}
-    print(f"{tree}: T1 chain, us a dependent gather: "
-          + ", ".join(f"rows={rows} {r['us_per_op']:.4f} ({r['memory']}"
-                      + (f"; from L2 {r['l2_us_per_op']:.4f}" if "l2_us_per_op" in r else "")
-                      + ")" for rows, r in chains.items()) + f" [{card}]", flush=True)
+    if chain_aware:
+        for rows, r in chains.items():
+            print(f"{tree}: T1 {gp.chain_line(r)} [{card}]", flush=True)
+    else:
+        print(f"{tree}: T1 chain, us a dependent gather: "
+              + ", ".join(f"rows={rows} {r['us_per_op']:.4f} ({form(rows, 2, 'chain')}: "
+                          f"{r['memory']}"
+                          + (f"; from L2 {r['l2_us_per_op']:.4f}" if "l2_us_per_op" in r
+                             else "")
+                          + ")" for rows, r in chains.items()) + f" [{card}]", flush=True)
     plane = lr.planarize(torch.cat([frames.roll(37 * k, dims=2) for k in range(7)])[:100])
     kernel = lambda: lr.identity_copy(plane)
-    turns = [("clone()", lambda: plane.clone()), ("kernel", kernel)]
+    turns = [("clone()", lambda: plane.clone()), (f"kernel ({lr.IDENTITY_FORMS[0]})", kernel)]
     same3 = torch.equal(kernel(), plane)
-    parts = [f"{label} {loop_ms(fn, 20):.5f}" for label, fn in turns + turns[::-1]]
+    times = [(label, loop_ms(fn, 20)) for label, fn in turns + turns[::-1]]
+    ratio = (times[1][1] + times[2][1]) / (times[0][1] + times[3][1])
     print(f"{tree}: T3 identity, one {tuple(plane.shape)} u8 plane, ms a launch over 20 in a "
-          f"row, in turns: {', '.join(parts)}; == input {same3} [{card}]", flush=True)
+          f"row, in turns: {', '.join(f'{label} {ms:.5f}' for label, ms in times)}; kernel / "
+          f"clone() {ratio:.4f}; == input {same3} [{card}]", flush=True)
     off = plane.view(-1)[1:]
     shifted = lambda: lr.identity_copy(off)
     same3 &= torch.equal(shifted(), off)
-    print(f"{tree}: T3 identity, the plane less its first byte into a fresh output: kernel "
-          f"{loop_ms(shifted, 20):.5f} ms a launch over 20 in a row; == input {same3} "
-          f"[{card}]", flush=True)
+    print(f"{tree}: T3 identity, the plane less its first byte into a fresh output (shifted "
+          f"form): kernel {loop_ms(shifted, 20):.5f} ms a launch over 20 in a row; == input "
+          f"{same3} [{card}]", flush=True)
     return not (same and same3)
 
 

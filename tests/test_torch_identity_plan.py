@@ -1,19 +1,19 @@
-"""T3's span plan (``tools.layout_repro.identity_plan``) and the two walks
-of ``identity.cu``, held on the CPU.
+"""T3's plan (``tools.layout_repro.identity_plan``) and the two walks of
+``identity.cu``, held on the CPU.
 
 The CUDA kernel does not run here, so this file holds what it is built
 from. The plan cuts n bytes into a head of up to 15 bytes (until the output
-is 16-byte aligned), a body of whole 16-byte words in contiguous spans that
-the blocks take in turn (block b spans b, b + G, ...; 16 KB spans by
-default), and a tail of up to 15 bytes: every byte lies in exactly one
-piece, the body's words are 16-byte aligned in both tensors where they
-agree mod 16, and the bulk ring fits a block's shared memory. Numpy models
-of the kernel's two forms (the bulk ring of TMA copies with its mbarrier
-phases and bulk groups, the shifted form's funnel shifts) copy
-a tensor placed at every pair of offsets mod 16 in a flat byte buffer with
-random bytes around it, read only 16-byte words that hold bytes of the
-input, write every output byte exactly once and nothing else, and equal
-``identity_plain`` (``clone()``) bit for bit.
+is 16-byte aligned), a body of whole 16-byte words, and a tail of up to 15
+bytes: every byte lies in exactly one piece. Where input and output agree
+mod 16 the body goes through the stride form, a grid-stride loop of 16-byte
+words (at most one block a 256 words); where they disagree, through the
+shifted form, whose contiguous spans the blocks take in turn (block b spans
+b, b + G, ...; 16 KB spans by default). Numpy models of the kernel's two
+forms (the grid-stride walk of 16-byte words, the shifted form's funnel
+shifts) copy a tensor placed at every pair of offsets mod 16 in a flat byte
+buffer with random bytes around it, read only 16-byte words that hold bytes
+of the input, write every output byte exactly once and nothing else, and
+equal ``identity_plain`` (``clone()``) bit for bit.
 """
 
 import numpy as np
@@ -28,15 +28,20 @@ OFFSETS = [(a, b) for a in range(16) for b in range(16)]
 
 
 def _pieces(plan, n):
-    """The plan's byte ranges [lo, hi): head, the spans in order, tail."""
-    count = -(-plan.body // plan.span) if plan.body else 0
-    spans = [(plan.head + i * plan.span, plan.head + min(plan.body, (i + 1) * plan.span))
-             for i in range(count)]
-    return [(0, plan.head), *spans, (plan.head + plan.body, n)]
+    """The plan's byte ranges [lo, hi): head, the body (the shifted form's
+    spans in order), tail."""
+    if plan.form == "stride" or not plan.body:
+        body = [(plan.head, plan.head + plan.body)] if plan.body else []
+    else:
+        count = -(-plan.body // plan.span)
+        body = [(plan.head + i * plan.span, plan.head + min(plan.body, (i + 1) * plan.span))
+                for i in range(count)]
+    return [(0, plan.head), *body, (plan.head + plan.body, n)]
 
 
 def _block_spans(plan, n, b):
-    """The spans block b takes, in its order: b, b + blocks, ..."""
+    """The spans block b of the shifted form takes, in its order: b,
+    b + blocks, ..."""
     return _pieces(plan, n)[1:-1][b::plan.blocks]
 
 
@@ -44,67 +49,81 @@ def _block_spans(plan, n, b):
 @pytest.mark.parametrize("blocks", (1, 7, 264, 528))
 @pytest.mark.parametrize("n", SIZES)
 def test_plan_puts_every_byte_in_one_piece(n, blocks, span):
-    """For every pair of offsets mod 16: head, spans and tail tile [0, n) in
+    """For every pair of offsets mod 16: head, body and tail tile [0, n) in
     order; the head brings the output to a 16-byte boundary, head and tail
-    are under 16 bytes, the spans are whole 16-byte words, every block has
-    one at least and the grid is at most what was asked for; the blocks'
-    turns take each span once; the form is shifted exactly where the
-    offsets disagree."""
+    are under 16 bytes, the body is whole 16-byte words and the grid is at
+    most what was asked for. The form is stride exactly where the offsets
+    agree: no spans, at most one block a 256 words. Where they disagree the
+    shifted form's spans are whole words, every block has one at least, and
+    the blocks' turns take each span once."""
     for in16, out16 in OFFSETS:
         plan = (lr.identity_plan(n, in16, out16, blocks) if span is None else
                 lr.identity_plan(n, in16, out16, blocks, span=span))
-        assert plan.form == ("shifted" if in16 != out16 else "bulk")
-        assert plan.threads == lr.IDENTITY_THREADS[plan.form]
+        assert plan.form == ("shifted" if in16 != out16 else "stride")
+        assert plan.threads == lr.IDENTITY_THREADS == 256
         pieces = _pieces(plan, n)
         assert pieces[0][0] == 0 and pieces[-1][1] == n
         assert all(a[1] == b[0] and a[0] <= a[1] for a, b in zip(pieces, pieces[1:]))
         assert plan.head < 16 and n - plan.head - plan.body < 16
         assert (out16 + plan.head) % 16 == 0 or plan.head == n
         assert plan.body % 16 == 0 and plan.span % 16 == 0
-        assert (plan.span > 0) == (plan.body > 0)
         assert 1 <= plan.blocks <= blocks
-        if span is None and plan.body:  # the default spans
-            assert plan.span == lr.IDENTITY_SPAN
-        if plan.body:
-            spans = pieces[1:-1]
-            assert plan.blocks <= len(spans)  # no block without work
-            for b in {0, 1, plan.blocks - 1} & set(range(plan.blocks)):
-                # The kernel's count of block b's turns (struct Spans).
-                assert (len(spans) - 1 - b) // plan.blocks + 1 == len(spans[b::plan.blocks])
-            assert all(hi > lo for lo, hi in spans)
-            assert all((hi - lo) == plan.span for lo, hi in spans[:-1])
-            assert all((out16 + lo) % 16 == 0 for lo, _ in spans)
-            if in16 == out16:  # both pointers on the boundary: the bulk form
-                assert all((in16 + lo) % 16 == 0 for lo, _ in spans)
+        if not plan.body:
+            assert (plan.span, plan.blocks) == (0, 1)
+            continue
+        assert all((out16 + lo) % 16 == 0 for lo, _ in pieces[1:-1])
+        if plan.form == "stride":
+            # Both pointers on the boundary; no block without a first word.
+            assert plan.span == 0 and (in16 + plan.head) % 16 == 0
+            assert plan.blocks == min(blocks, -(-plan.body // 16 // 256))
+            continue
+        assert plan.span == (lr.IDENTITY_SPAN if span is None else span)
+        spans = pieces[1:-1]
+        assert plan.blocks <= len(spans)  # no block without work
+        for b in {0, 1, plan.blocks - 1} & set(range(plan.blocks)):
+            # The kernel's count of block b's turns (struct Spans).
+            assert (len(spans) - 1 - b) // plan.blocks + 1 == len(spans[b::plan.blocks])
+        assert all(hi > lo for lo, hi in spans)
+        assert all((hi - lo) == plan.span for lo, hi in spans[:-1])
 
 
 @pytest.mark.parametrize("n", (16, 17, 33, 4095, 65537))
 def test_plan_of_one_word_spans(n):
-    """Spans of one 16-byte word: as many blocks as words at most."""
+    """Shifted spans of one 16-byte word: as many blocks as words at most;
+    the stride form takes at most one block a 256 words whatever the span."""
     for in16, out16 in OFFSETS:
         plan = lr.identity_plan(n, in16, out16, 7, span=16)
         pieces = _pieces(plan, n)
         assert all(a[1] == b[0] for a, b in zip(pieces, pieces[1:]))
-        assert plan.blocks == min(7, plan.body // 16) or not plan.body
+        words = plan.body // 16
+        want = min(7, words if plan.form == "shifted" else -(-words // 256))
+        assert plan.blocks == want or not plan.body
 
 
-def test_plan_forms_and_ring():
-    """The offsets pick the form, the shifted form has no ring, and the
-    ring's shared memory is its stages of one span and their barriers."""
+def test_plan_forms_and_refusals():
+    """The offsets pick the form; the path's own plan of one 100 x 1080p
+    plane on 132 SMs; what no plan takes."""
     plan = lr.identity_plan(1 << 20, 3, 5, 264)
-    assert (plan.form, plan.threads, plan.stages, plan.smem_bytes) == ("shifted", 256, 0, 0)
-    bulk = lr.identity_plan(1 << 20, 3, 3, 264, 6, 32768)
-    assert (bulk.form, bulk.threads) == ("bulk", 32)
-    assert (bulk.stages, bulk.span, bulk.smem_bytes) == (6, 32768, 6 * (32768 + 8))
-    full = lr.identity_plan(622_080_000, 0, 0, 4 * 132)
-    assert (full.form, full.head, full.body, full.blocks, full.span, full.stages) == (
-        "bulk", 0, 622_080_000, 528, lr.IDENTITY_SPAN, lr.IDENTITY_STAGES)
-    for bad in (dict(stages=1), dict(stages=33), dict(span=24), dict(span=0),
-                dict(stages=8, span=32768)):
+    assert (plan.form, plan.threads, plan.span, plan.blocks) == ("shifted", 256, 16384, 64)
+    stride = lr.identity_plan(1 << 20, 3, 3, 264, 32768)
+    assert (stride.form, stride.threads, stride.head, stride.span) == ("stride", 256, 13, 0)
+    assert stride.body == ((1 << 20) - 13) // 16 * 16 and stride.blocks == 256
+    sms = 132
+    assert lr.IDENTITY_BLOCKS_PER_SM["stride"] == lr.ALL_STEPS
+    full = lr.identity_plan(622_080_000, 0, 0, (1 << 31) - 1)  # a block a step
+    assert (full.form, full.head, full.body, full.blocks, full.span) == (
+        "stride", 0, 622_080_000, 622_080_000 // 16 // 256, 0)
+    looping = lr.identity_plan(622_080_000, 0, 0, 64 * sms)
+    assert (looping.blocks, looping.span) == (64 * sms, 0)
+    off = lr.identity_plan(622_079_999, 1, 0, lr.IDENTITY_BLOCKS_PER_SM["shifted"] * sms)
+    assert (off.form, off.head, off.body, off.blocks, off.span) == (
+        "shifted", 0, 622_079_984, 4 * sms, lr.IDENTITY_SPAN)
+    for bad in (dict(span=24), dict(span=0), dict(span=8), dict(blocks=0)):
         with pytest.raises(ValueError):
-            lr.identity_plan(1 << 20, 0, 0, 264, **bad)
-    with pytest.raises(ValueError):
-        lr.identity_plan(10, 16, 0, 1)
+            lr.identity_plan(1 << 20, 0, 0, **{"blocks": 264, **bad})
+    for args in ((10, 16, 0, 1), (10, 0, -1, 1), (-1, 0, 0, 1)):
+        with pytest.raises(ValueError):
+            lr.identity_plan(*args)
 
 
 def _copy_bytes(src, dst, lo, hi):
@@ -120,47 +139,26 @@ def _words_at(mem, first, count):
     return mem.words(first + 16 * np.arange(count))
 
 
-def _bulk_block(src, dst, plan, spans):
-    """The ring of one block over its spans in turn: span k goes to stage
-    k % S; one thread starts the loads of spans 0 .. S-1, then for each
-    span waits for its stage's barrier phase, stores it (one bulk group)
-    and, once the group before has read its stage, refills that stage. The
-    events are replayed in order: a stage is read back out only after its
-    load, and loaded again only after the store of its last span has read
-    it."""
-    stages = plan.stages
-    count = len(spans)
-    ring = [None] * stages  # (span, its bytes) a stage holds
-    phase = [0] * stages    # completed phases of each stage's barrier
-    read = set()            # spans whose store has read their stage
-
-    def load(k):
-        st = k % stages
-        assert ring[st] is None or ring[st][0] in read, "stage refilled before its store read it"
-        lo, hi = spans[k]
-        assert k == count - 1 or hi - lo == plan.span  # only the last may be short
-        a_in, a_out = src.offset + lo, dst.offset + lo
-        assert a_in % 16 == 0 and a_out % 16 == 0 and (hi - lo) % 16 == 0 and hi > lo
-        ring[st] = (k, _words_at(src, a_in, (hi - lo) // 16))
-        phase[st] += 1  # complete_tx: the bytes arrived
-
-    stored = []
-    for k in range(min(count, stages)):
-        load(k)
-    for k in range(count):
-        st = k % stages
-        # try_wait.parity (k / S) & 1 returns once phase k / S of the
-        # stage's barrier has completed: the load of span k, and no later.
-        assert phase[st] == k // stages + 1, "waited on the wrong phase"
-        held, words = ring[st]
-        assert held == k
-        addr = dst.offset + spans[k][0] + 16 * np.arange(len(words))
-        dst.store(addr, words, np.zeros(len(addr), np.int64), np.full(len(addr), 16))
-        stored.append(k)
-        if k >= 1 and k - 1 + stages < count:
-            read.update(stored[:-1])  # wait_group.read 1: all but the newest group
-            load(k - 1 + stages)
-    read.update(stored)  # wait_group 0 before the block ends
+def _stride_walk(src, dst, plan):
+    """The stride form: thread t of block b copies body words b*256 + t,
+    then that plus the grid's 256*blocks threads, and so on, one aligned
+    16-byte load and store each; the words of each step of the grid are
+    replayed together."""
+    words = plan.body // 16
+    threads = plan.threads * plan.blocks
+    a_in, a_out = src.offset + plan.head, dst.offset + plan.head
+    assert a_in % 16 == 0 and a_out % 16 == 0
+    seen = np.zeros(words, np.int64)
+    for step in range(-(-words // threads)):
+        for b in range(plan.blocks):
+            i = step * threads + b * plan.threads + np.arange(plan.threads)
+            i = i[i < words]
+            if not i.size:
+                continue
+            np.add.at(seen, i, 1)
+            dst.store(a_out + 16 * i, _words_at(src, a_in + 16 * i[0], len(i)),
+                      np.zeros(len(i), np.int64), np.full(len(i), 16))
+    assert np.all(seen == 1)  # every word by one thread, once
 
 
 def _shifted_block(src, dst, plan, spans):
@@ -192,43 +190,49 @@ def identity_model(x: np.ndarray, in_off: int, out_off: int, plan, seed=0):
     dst = Memory(rng, None, out_off, n)
     _copy_bytes(src, dst, 0, plan.head)
     _copy_bytes(src, dst, plan.head + plan.body, n)
-    walk = {"bulk": _bulk_block, "shifted": _shifted_block}
-    for b in range(plan.blocks if plan.body else 0):
-        walk[plan.form](src, dst, plan, _block_spans(plan, n, b))
+    if plan.form == "stride":
+        if plan.body:
+            _stride_walk(src, dst, plan)
+    else:
+        for b in range(plan.blocks if plan.body else 0):
+            _shifted_block(src, dst, plan, _block_spans(plan, n, b))
     return dst.tensor(np.uint8, x.shape)
 
 
-def _hold(n, in_off, out_off, blocks, stages=3, span=64, seed=0):
+def _hold(n, in_off, out_off, blocks, span=64, seed=0):
     x = np.random.RandomState(n + 17 * in_off + out_off).randint(0, 256, n).astype(np.uint8)
-    plan = lr.identity_plan(n, in_off % 16, out_off % 16, blocks, stages, span)
+    plan = lr.identity_plan(n, in_off % 16, out_off % 16, blocks, span)
     got = identity_model(x, in_off, out_off, plan, seed)
     want = lr.identity_plain(torch.from_numpy(x)).numpy()
     assert got.shape == want.shape and np.array_equal(got, want)
 
 
-@pytest.mark.parametrize("ring", ((3, 64), (2, 160), (4, 96)), ids=lambda v: f"{v[0]}x{v[1]}")
+@pytest.mark.parametrize("grid", (1, 2, 3), ids=lambda v: f"grid{v}")
 @pytest.mark.parametrize("in_off", range(16))
-def test_model_copy_equals_clone(in_off, ring):
+def test_model_copy_equals_clone(in_off, grid):
     """Every pair of offsets mod 16 (each output offset against this input
-    offset), at sizes around the word and the ring: short spans and few
-    stages, so each block takes many spans in turn and its ring wraps many
-    times."""
-    stages, span = ring
+    offset), at sizes around the word and around a step of a small grid
+    (1 to 3 blocks: each thread takes many words in turn), and short
+    shifted spans that each block takes many of."""
     for out_off in range(16):
         for n in (0, 1, 15, 16, 17, 47, 1000, 4099):
-            _hold(n, in_off + 32, out_off + 48, 3, stages, span)
-        _hold(20_011, in_off, out_off, 5, stages, span)
-        _hold(9_001, in_off, out_off, 4, stages, span)
+            _hold(n, in_off + 32, out_off + 48, grid)
+        _hold(20_011, in_off, out_off, grid + 2)
+        _hold(9_001, in_off, out_off, grid + 1, 160)
 
 
 @pytest.mark.parametrize("offsets", [(0, 0), (5, 5), (3, 11), (15, 0)],
                          ids=lambda v: f"in{v[0]}-out{v[1]}")
 def test_model_copy_of_megabytes_equals_clone(offsets):
-    """A few MB with the path's own plan (528 blocks, the default ring and
-    spans), and with spans of a few KB that each block takes many of."""
+    """A few MB with the path's own plan (a block a step in the stride
+    form, 4 an SM of 132 and 16 KB spans in the shifted form), and with a
+    grid of a few blocks (spans of a few KB) that each take many steps."""
     in_off, out_off = offsets
-    _hold(3 * 2 ** 20 + 5, in_off, out_off, 528, lr.IDENTITY_STAGES, lr.IDENTITY_SPAN)
-    _hold(3 * 2 ** 20 + 5, in_off, out_off, 96, 4, 4096)
+    form = lr.identity_form(in_off % 16, out_off % 16)
+    per_sm = lr.IDENTITY_BLOCKS_PER_SM[form]
+    _hold(3 * 2 ** 20 + 5, in_off, out_off,
+          (1 << 31) - 1 if per_sm == lr.ALL_STEPS else per_sm * 132, lr.IDENTITY_SPAN)
+    _hold(3 * 2 ** 20 + 5, in_off, out_off, 96, 4096)
 
 
 def test_identity_copy_into_an_offset_output_on_the_cpu():
