@@ -36,7 +36,11 @@ a non-zero exit code and no result line:
    frames' host-to-device copy), then the same call with the k-means-256
    palette of phase 8 traced likewise, and (for phase 11) clone() and the
    identity kernel on one 100 x 1080p plane; each number is printed beside
-   the card's name and power limit;
+   the card's name and power limit; K1 and K3 also beside the one PyTorch
+   call that computes each (``library_lines``): a copy_ of the frames into
+   the strided view of a zeroed stream, and pal_u8[idx.as_strided(...)]
+   over the index stream of the same scan, each equal to its kernel
+   bitwise;
 7. the ordered path on the pico8 palette: K4 held to its plain version
    bitwise (colours, and indices where P <= 256) at B=3 37x53 with
    P in {2, 16, 33, 300}, on flat frames of exact ties, at 16 x 1080p
@@ -110,7 +114,8 @@ a non-zero exit code and no result line:
    gather's ns a pixel, the verdict and the path the facade then takes; then
    the times: K5, K6 and K3's planar layout beside their plain versions (K5
    also beside the one PyTorch call that computes it, its library_ms, and
-   that call's uint16 form where this torch casts to uint16 on CUDA), the
+   that call's uint16 form where this torch casts to uint16 on CUDA; K6
+   beside a copy_ of the planes into the strided view of a zeroed stream), the
    batch walls of the index
    and planar paths beside their RGB and NHWC walls, and inside the index
    walls the device-to-host copy, the host unpack and the host palette
@@ -367,13 +372,33 @@ a non-zero exit code and no result line:
    state, the metrics of two steps held to phase 19 (a)'s rtol 1e-4 and
    the state to its parameter and u/v limits, G's L1 gradient one device
    against the mesh's reduction and both against float64, ms a step and
-   peak memory of each, and a mesh resume at dim 8, bitwise; and what the
+   peak memory of each, and a mesh resume at dim 8, bitwise;
+23. the Riemersma scan R1 (ops/riemersma_scan.py, kernels/csrc/
+   riemersma_scan.cu; DITHER_PIE_TPU_RIEMERSMA=scan): R1 compiled alone,
+   its registers and no FFMA in its SASS (where cuobjdump is present);
+   (a) R1 == its plain version bitwise, and == the golden engine's
+   ed_riemersma_f32 up to 4096 colours, at B x HxW = 3 x 13x22, 2 x 37x53
+   and 1 x 1x97, P in (2, 16, 32, 300, 4100) (both search branches; 4100
+   needs more than 48 KB of shared memory), u8 frames and float32 frames in
+   -8..263, and tests/test_riemersma_scan.py's adversarial four-colour
+   frame; (b) the main path under the switch: ImageDitherer(RIEMERSMA,
+   k-means-32).apply_dithering_batch on the 16 1080p frames and
+   apply_dithering on one PIL 1080p image, with the launch counts set to 0
+   before and read after (riemersma_scan twice), every frame == phase 16's
+   golden float32 twin bitwise; (c) the switch unset: == the host engine's
+   output, nothing launched; (d) R1 on the 16 frames (median of 3, CUDA
+   events, held to (b)'s output), the host engine's wall (median of 3), us
+   a curve step, the bound and the chain estimate, and R1 and its plain
+   version at 3 x 37x53. R1's row joins the kernels line with ``host_ms``,
+   ``us_per_step``, ``small_ms`` and ``plain_shape`` (its plain version
+   runs only at that small shape), and the line before it says what the
    whole run took of its 1200 s limit.
 
 Phases 1-8 run with DITHER_PIE_TPU_INDEX_TRANSFER=0 (the RGB path, whatever
 the link probe would say); phases 9 to 11 set it as each check needs.
-Phases 1-21 run with DITHER_PIE_TPU_AUTO_MESH=0 (one device, however many
-are visible); phase 22 sets it as each check needs.
+Phases 1-21 and 23 run with DITHER_PIE_TPU_AUTO_MESH=0 (one device, however
+many are visible); phase 22 sets it as each check needs.
+DITHER_PIE_TPU_RIEMERSMA is unset (the host engine) outside phase 23.
 DITHER_PIE_TPU_DENSE_SEARCH is unset (the exact search) outside phase 10's
 main paths and phase 6's one score-mode trace. Phases 3-9 hold K1 and K6
 themselves (``skew_gather``, ``skew_planar_gather``) where they hold a skew
@@ -749,6 +774,38 @@ def report_trace(torch, tag, what, fn, frame_bytes, card):
         f"{1 - t_busy / t_wall:.4f}, H2D {h2d_bytes} bytes, D2H {d2h_bytes} bytes; device "
         f"time by name: "
         f"{events} [{card}]")
+
+
+def library_lines(torch, card, twf, batch_t, pal_t, geom, stream, col, rows, errs):
+    """Phase 6's library calls, timed here and used nowhere in the port,
+    each held bitwise to its kernel on the 16-frame batch: K1's stream as
+    one copy_ of the frames into a strided view of a zeroed stream (the
+    zero fill is set-up), and K3's colours as ``pal_u8[idx.as_strided(...)]``
+    over the index stream of the same scan (K9's library call; the
+    truncated u8 palette table is set-up). Sets the rows' library_ms."""
+    s = geom.s
+    bh = BATCH * FULL_H
+    lib_stream = torch.zeros_like(stream)
+    view = lib_stream.as_strided((BATCH, FULL_H, FULL_W, 3),
+                                 (FULL_H, s * 3 * bh + 1, 3 * bh, bh))
+    k1_ms, _ = cuda_ms(torch, lambda: view.copy_(batch_t), 5)
+    hold(torch, "skew", lib_stream, stream, errs,
+         "copy_ into the strided view of a zeroed stream, against K1")
+    idx = twf.scan_idx(stream, pal_t, geom, FULL_W)
+    pal_u8 = pal_t.to(torch.int32).to(torch.uint8)
+    idx_view = idx.as_strided((BATCH, FULL_H, FULL_W), (FULL_H, s * bh + 1, bh))
+    k3_ms, k3_lib = cuda_ms(torch, lambda: pal_u8[idx_view], 5)
+    hold(torch, "unskew_unpack", k3_lib, twf.unskew_unpack(col, s, FULL_H, FULL_W), errs,
+         "pal_u8[idx.as_strided(...)] of the index stream, against K3")
+    for row in rows:
+        if row["name"] == "skew":
+            row["library_ms"] = k1_ms
+        elif row["name"] == "unskew_unpack":
+            row["library_ms"] = k3_ms
+    log(f"[6] library calls on the {BATCH}x{FULL_H}x{FULL_W} FS k-means-{N_COLORS} batch, "
+        f"each equal to its kernel bitwise: K1 as stream.as_strided(...).copy_(frames) "
+        f"{k1_ms:.3f} ms, K3 as pal_u8[idx.as_strided(...)] {k3_ms:.3f} ms [{card}]")
+    del lib_stream, idx, k3_lib
 
 
 # ---------------------------------------------------------------------------
@@ -1649,9 +1706,10 @@ def transfer_phase(torch, dev, card, lib, frames16, frame0, palette32, palette16
         log(f"[9] {key}{layout}: kernel {ms:.3f} ms, plain PyTorch {plain_ms:.3f} ms per "
             f"{BATCH}x{FULL_H}x{FULL_W} FS k-means-32 batch, bound {bnd['bound_ms']:.4f} ms by "
             f"{bnd['bound_by']}, outputs equal bitwise [{card}]")
-    # One PyTorch call computes K5 (and none K3 or K6, for their shifts and
-    # zero fill): a strided view of the stream and its narrowing copy. Timed
-    # here, used nowhere in the port.
+    # One PyTorch call computes K5: a strided view of the stream and its
+    # narrowing copy; and one K6 into a zeroed stream: a copy_ of the planes
+    # into its strided view (K3's is phase 6's). Timed here, used nowhere in
+    # the port.
     check(idx_stream.is_contiguous(), "the index stream is not contiguous")
     bh = BATCH * FULL_H
     lib_ms, lib_out = cuda_ms(
@@ -1665,6 +1723,17 @@ def transfer_phase(torch, dev, card, lib, frames16, frame0, palette32, palette16
     del lib_out
     hold(torch, "skew_planar", measured["skew_planar"][3], stream, errs,
          f"against K1's stream, {BATCH}x{FULL_H}x{FULL_W}")
+    k6_lib = torch.zeros_like(stream)
+    k6_view = k6_lib.as_strided((3 * BATCH, FULL_H, FULL_W),
+                                (FULL_H, fs.s * 3 * bh + 1, 3 * bh))
+    k6_lib_ms, _ = cuda_ms(torch, lambda: k6_view.copy_(rows3), 5)
+    hold(torch, "skew_planar", k6_lib, measured["skew_planar"][3], errs,
+         "copy_ of the planes into the strided view of a zeroed stream, against K6")
+    measured["skew_planar"][2]["library_ms"] = k6_lib_ms
+    log(f"[9] skew_planar as one PyTorch call into a zeroed stream, stream.as_strided((R, H, "
+        f"W), (H, s*R*H + 1, R*H)).copy_(planes): {k6_lib_ms:.3f} ms, equal to the kernel "
+        f"bitwise [{card}]")
+    del k6_lib
     hold(torch, "unskew_unpack", measured["unskew_unpack"][3],
          twf.unskew_unpack(col_stream, fs.s, FULL_H, FULL_W).permute(3, 0, 1, 2).contiguous(),
          errs, f"planar layout against NHWC transposed, {BATCH}x{FULL_H}x{FULL_W}")
@@ -3660,13 +3729,14 @@ def golden_frames(fn, frames):
         return list(ex.map(fn, frames))
 
 
-def host_engine_phase(torch, dev, card, lib, frames16, frame0, palette):
+def host_engine_phase(torch, dev, card, lib, frames16, frame0, palette, golds_by_label=None):
     """The port's host engine, built from dither_pie_tpu_torch/native/
     ed_scan.cpp: FS, Stucki and Ostromoukhov serpentine and Riemersma on
     the 16 1080p frames at k-means-32 through apply_dithering_batch, every
     frame == the golden engine's float32 twin; one serpentine 1080p image
     through apply_dithering == the golden engine's float64 ed_fixed. Returns
-    {label: fps}."""
+    {label: fps}; ``golds_by_label`` (a dict) keeps each mode's golden
+    frames."""
     from PIL import Image
 
     import dither_pie_tpu_torch as dpt
@@ -3696,6 +3766,8 @@ def host_engine_phase(torch, dev, card, lib, frames16, frame0, palette):
                               list(frames16))
         idents = [identity(o, g) for o, g in zip(out, golds)]
         check(all(v == 1.0 for v in idents), f"{label}: golden identity {idents}")
+        if golds_by_label is not None:
+            golds_by_label[label] = golds
         fps[label] = BATCH / walls[1]
         log(f"[16] {label} k-means-{N_COLORS}, {BATCH}x{FULL_H}x{FULL_W} through "
             f"apply_dithering_batch: all {BATCH} frames == the golden engine's float32 twin "
@@ -5303,6 +5375,193 @@ def mesh_phase(torch, dev, card, lib, frames16, palette, out16, rows):
         f"{time.perf_counter() - t_phase:.1f} s [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the Riemersma scan R1 (DITHER_PIE_TPU_RIEMERSMA=scan)
+# ---------------------------------------------------------------------------
+
+RIEMERSMA_KERNEL = ("riemersma_scan", "dither_pie_tpu_torch/kernels/csrc/riemersma_scan.cu",
+                    "dither_pie_tpu/ops/riemersma_scan.py:134")
+RIEMERSMA_SHAPES = ((3, 13, 22), (2, 37, 53), (1, 1, 97))  # (B, H, W) of (a)
+RIEMERSMA_PALETTES = (2, 16, 32, 300, 4100)  # both search branches; 4100 > 48 KB of smem
+RIEMERSMA_REPS = 3
+# The dependent path of one curve step in R1's SASS (P <= 32, read from
+# cuobjdump -sass of riemersma_scan.cu): 12 fixed-latency instructions
+# (FADD, FMUL, FADD, FADD of the distance; the IMAD.U32 and ISETP around
+# the reductions; VOTE and BREV; FADD, FMUL, FADD, FMNMX, FMNMX of the
+# error and the receive) taken at 4 cycles, and REDUX.MIN, FLO and
+# SHFL.IDX taken at 30 cycles each: ~140 cycles, at the H100's 1.98 GHz
+# boost clock. An estimate from assumed latencies, not a measurement.
+RIEMERSMA_STEP_US = 140 / 1.98e9 * 1e6
+
+
+def riemersma_env(value):
+    return env_var("DITHER_PIE_TPU_RIEMERSMA", value)
+
+
+def adversarial_riemersma():
+    """tests/test_riemersma_scan.py's adversarial content: a random 24x30
+    frame against black, white, red and blue."""
+    rng = np.random.RandomState(0)
+    arr = rng.randint(0, 256, (24, 30, 3), dtype=np.uint8)
+    pal = np.array([(0, 0, 0), (255, 255, 255), (255, 0, 0), (0, 0, 255)], np.float32)
+    return arr[None], pal
+
+
+def r1_sass_check():
+    """R1's source compiled alone with the build's flags: the ptxas lines
+    and the count of FFMA in its SASS (None where cuobjdump is missing)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from dither_pie_tpu_torch.kernels import build
+
+    report = build.ptxas_report(["riemersma_scan.cu"])
+    tool = Path(CUDA_HOME) / "bin" / "cuobjdump"
+    if not tool.exists():
+        return report, None
+    sass = subprocess.run([str(tool), "-sass", str(build.BUILD_DIR / "ptxas" /
+                                                   "riemersma_scan.cu.o")],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    return report, len(re.findall(r"\bFFMA\b", sass))
+
+
+def riemersma_phase(torch, dev, card, lib, frames16, frame0, palette, golds16, rows):
+    """Phase 23: R1 (``ops.riemersma_scan``) == its plain version bitwise
+    at small shapes; the facade under DITHER_PIE_TPU_RIEMERSMA=scan on the
+    16 1080p k-means-32 frames == the golden float32 twin (``golds16``,
+    phase 16's) with its own launch counts; unset == the host engine; the
+    times. Appends R1's row to ``rows``."""
+    from PIL import Image
+
+    import dither_pie_tpu_torch as dpt
+    from dither_pie_tpu_torch.kernels import build
+    from dither_pie_tpu_torch.ops import riemersma_scan as rs
+
+    t_phase = time.perf_counter()
+    report, ffma = r1_sass_check()
+    regs = sorted(set(re.findall(r"Used (\d+) registers", report)))
+    check(ffma in (None, 0), f"R1's SASS holds {ffma} FFMA: the bit contract needs none")
+    log(f"[23] R1 compiled alone: {regs} registers, no spills: "
+        f"{'spill' not in report or ' 0 bytes spill stores' in report}; FFMA in its SASS: "
+        f"{'cuobjdump missing, not counted' if ffma is None else ffma}")
+
+    # (a) R1 == plain, bitwise; the golden twin too up to its 4096 colours.
+    rng = np.random.RandomState(23)
+    err = 0.0
+    count = 0
+
+    def hold_r1(frames, pal, what):
+        nonlocal err, count
+        b, h, w, _ = frames.shape
+        ft = torch.from_numpy(frames).to(dev)
+        pt = torch.from_numpy(pal).to(dev)
+        order, wt = rs.path_maps(h, w)
+        got = rs.riemersma_scan(ft, pt)
+        want = rs.riemersma_scan_plain(ft, pt, torch.from_numpy(order.copy()).to(dev),
+                                       torch.from_numpy(wt.copy()).to(dev))
+        e = (got.to(torch.int16) - want.to(torch.int16)).abs().max().item()
+        err = max(err, float(e))
+        check(torch.equal(got, want), f"R1 != plain, {what} (max abs err {e})")
+        if len(pal) <= 4096:
+            got_np = got.cpu().numpy()
+            for i in range(b):
+                gold = golden_mode_frame(lib, frames[i], pal, "riemersma")
+                check(np.array_equal(got_np[i], gold), f"R1 != the golden twin, {what}, frame {i}")
+        count += 1
+
+    for b, h, w in RIEMERSMA_SHAPES:
+        for p in RIEMERSMA_PALETTES:
+            pal = unique_palette(rng, p)
+            hold_r1(rng.randint(0, 256, (b, h, w, 3)).astype(np.uint8), pal,
+                    f"u8 B={b} {h}x{w} P={p}")
+            hold_r1(rng.uniform(-8.0, 263.0, (b, h, w, 3)).astype(np.float32), pal,
+                    f"float32 B={b} {h}x{w} P={p}")
+    adv, adv_pal = adversarial_riemersma()
+    hold_r1(adv, adv_pal, "adversarial four colours, u8")
+    hold_r1(adv.astype(np.float32), adv_pal, "adversarial four colours, float32")
+    sync(torch, dev)
+    log(f"[23] R1 == plain bitwise (and == the golden twin where P <= 4096): B x HxW in "
+        f"{RIEMERSMA_SHAPES}, P in {RIEMERSMA_PALETTES}, u8 and float32 (in -8..263), and "
+        f"the adversarial four-colour frame: {count} comparisons "
+        f"({time.perf_counter() - t_phase:.1f} s)")
+
+    # (b) The main path under the switch.
+    pal_np = np.asarray(palette, np.float32)
+    d = dpt.ImageDitherer(num_colors=N_COLORS, dither_mode=dpt.DitherMode.RIEMERSMA,
+                          palette=palette, device=dev)
+    t0 = time.perf_counter()
+    rs.device_maps(FULL_H, FULL_W, dev)
+    sync(torch, dev)
+    maps_s = time.perf_counter() - t0
+    with riemersma_env("scan"):
+        build.reset_launch_counts()
+        out = d.apply_dithering_batch(frames16)
+        out_pil = np.asarray(d.apply_dithering(Image.fromarray(frame0)))
+        sync(torch, dev)
+        launches = dict(build.LAUNCHES)
+    check(launches == {"riemersma_scan": 2},
+          f"the scan's main path launched {launches}, expected riemersma_scan twice")
+    check(out.shape == frames16.shape and out.dtype == np.uint8,
+          f"scan batch output {out.shape} {out.dtype}")
+    idents = [identity(o, g) for o, g in zip(out, golds16)]
+    check(all(v == 1.0 for v in idents), f"scan batch != the golden twin: identity {idents}")
+    gold0 = golden_mode_frame(lib, frame0, pal_np, "riemersma")
+    check(np.array_equal(out_pil, gold0),
+          f"scan apply_dithering != the golden twin (identity {identity(out_pil, gold0)})")
+    log(f"[23] DITHER_PIE_TPU_RIEMERSMA=scan, k-means-{N_COLORS}: apply_dithering_batch of "
+        f"{BATCH}x{FULL_H}x{FULL_W} == the golden float32 twin bitwise on every frame, "
+        f"apply_dithering(PIL {FULL_W}x{FULL_H}) too; launches {launches}; the curve's maps "
+        f"on the card in {maps_s:.3f} s [{card}]")
+
+    # (c) The switch unset: the host engine, as before.
+    with riemersma_env(None):
+        build.reset_launch_counts()
+        host_out = d.apply_dithering_batch(frames16)
+        check(dict(build.LAUNCHES) == {},
+              f"the host engine's path launched {dict(build.LAUNCHES)}")
+        walls = []
+        for _ in range(RIEMERSMA_REPS):
+            t0 = time.perf_counter()
+            d.apply_dithering_batch(frames16)
+            walls.append(time.perf_counter() - t0)
+    check(all(np.array_equal(o, g) for o, g in zip(host_out, golds16)),
+          "the switch unset: apply_dithering_batch != the host engine's golden twin")
+    host_ms = statistics.median(walls) * 1e3
+
+    # (d) The times, R1's held to the main path's output.
+    frames_t = torch.from_numpy(frames16).to(dev)
+    pal_t = torch.from_numpy(pal_np).to(dev)
+    ms, got = cuda_ms(torch, lambda: rs.riemersma_scan(frames_t, pal_t), RIEMERSMA_REPS)
+    check(np.array_equal(got.cpu().numpy(), out), "the timed R1 != the main path's output")
+    n_steps = FULL_H * FULL_W
+    b, h, w = SMALL
+    small = torch.from_numpy(rng.randint(0, 256, (b, h, w, 3)).astype(np.uint8)).to(dev)
+    order, wt = rs.path_maps(h, w)
+    order_t, wt_t = (torch.from_numpy(order.copy()).to(dev),
+                     torch.from_numpy(wt.copy()).to(dev))
+    small_ms, small_out = cuda_ms(torch, lambda: rs.riemersma_scan(small, pal_t), 3)
+    plain_ms, plain_out = cuda_ms(
+        torch, lambda: rs.riemersma_scan_plain(small, pal_t, order_t, wt_t), 1, warmup=False)
+    check(torch.equal(small_out, plain_out), f"R1 != plain on the timed {b}x{h}x{w} batch")
+    n_px = BATCH * n_steps
+    bnd = bound(n_px * 3 + N_COLORS * 12 + n_steps * 5 + n_px * 3,
+                BATCH * n_steps * (8 * N_COLORS + 3 + 4 * 3 * 2))
+    bnd["chain_bound_ms"] = n_steps * RIEMERSMA_STEP_US * 1e-3
+    log(f"[23] R1 {BATCH}x{FULL_H}x{FULL_W} u8 k-means-{N_COLORS}: {ms:.3f} ms (median of "
+        f"{RIEMERSMA_REPS}, CUDA events) -> {BATCH / ms * 1e3:.3f} fps, "
+        f"{ms * 1e3 / n_steps:.5f} us a curve step; the host engine through "
+        f"apply_dithering_batch {host_ms:.3f} ms (median of {RIEMERSMA_REPS} walls) -> "
+        f"{BATCH / host_ms * 1e3:.3f} fps; R1 / host {ms / host_ms:.3f}; bound "
+        f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']}, chain {bnd['chain_bound_ms']:.3f} ms "
+        f"(N x {RIEMERSMA_STEP_US:.4f} us); at {b}x{h}x{w} R1 {small_ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms [{card}]")
+    rows.append({"name": RIEMERSMA_KERNEL[0], "route": "cuda", "source": RIEMERSMA_KERNEL[1],
+                 "replaces": RIEMERSMA_KERNEL[2], "launches": launches["riemersma_scan"],
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                 "plain_shape": [b, h, w], "small_ms": small_ms, "host_ms": host_ms,
+                 "us_per_step": ms * 1e3 / n_steps, **bnd})
+    log(f"[23] phase 23 took {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
 def main() -> int:
     import argparse
 
@@ -5331,7 +5590,7 @@ def sync(torch, dev):
 
 
 def run(torch, dev, card, seed=0) -> int:
-    """Phases 1-22 on ``dev``; prints the result lines and returns 0, or
+    """Phases 1-23 on ``dev``; prints the result lines and returns 0, or
     raises on the first failure. ``seed`` makes phase 17's video frames."""
     from PIL import Image
 
@@ -5351,6 +5610,7 @@ def run(torch, dev, card, seed=0) -> int:
     # the mesh as each check needs.
     os.environ["DITHER_PIE_TPU_AUTO_MESH"] = "0"
     os.environ.pop("DITHER_PIE_TPU_DENSE_SEARCH", None)  # the exact search
+    os.environ.pop("DITHER_PIE_TPU_RIEMERSMA", None)  # the host engine
 
     # 1. The card.
     log(f"[1] card: {card}; torch {torch.__version__}, CUDA "
@@ -5547,6 +5807,7 @@ def run(torch, dev, card, seed=0) -> int:
                      "replaces": replaces, "launches": launches.get(key, 0),
                      "max_abs_err": errs[key], "ms": ms,
                      "plain_ms": plain_ms, **cluster, **bounds[key]})
+    library_lines(torch, card, twf, batch_t, pal_t, geom, stream, col, rows, errs)
 
     # One traced call: how much of the wall time the device is busy.
     report_trace(torch, 6, "apply_dithering_batch FS",
@@ -5631,7 +5892,8 @@ def run(torch, dev, card, seed=0) -> int:
 
     # 16. The host engine: serpentine scans and Riemersma.
     t0 = time.perf_counter()
-    fps_host = host_engine_phase(torch, dev, card, lib, frames16, frame0, palette)
+    host_golds = {}
+    fps_host = host_engine_phase(torch, dev, card, lib, frames16, frame0, palette, host_golds)
     log(f"[16] phase 16 took {time.perf_counter() - t0:.1f} s")
 
     # 17. The streaming video pipeline (the RGB path, as phases 1-8).
@@ -5657,13 +5919,18 @@ def run(torch, dev, card, seed=0) -> int:
     # RGB path, as phases 1-8).
     with index_transfer("0"):
         mesh_phase(torch, dev, card, lib, frames16, palette, out16, rows)
+
+    # 23. The Riemersma scan R1 under DITHER_PIE_TPU_RIEMERSMA=scan.
+    with index_transfer("0"):
+        riemersma_phase(torch, dev, card, lib, frames16, frame0, palette,
+                        host_golds["Riemersma"], rows)
     for row in rows:
         if row["name"] in ("ed_scan", "ed_scan_idx", "skew", "unskew_unpack", "skew_planar",
                            "ordered_fused", "unskew_idx", "unskew_select", "identity",
                            "skew_transpose"):
             row["max_abs_err"] = max(row["max_abs_err"], errs.get(row["name"], 0.0))
     took = time.perf_counter() - t_run
-    log(f"[22] the whole run took {took:.1f} s, {took / RUN_LIMIT_S:.2f} of its "
+    log(f"[23] the whole run took {took:.1f} s, {took / RUN_LIMIT_S:.2f} of its "
         f"{RUN_LIMIT_S} s limit")
 
     print(json.dumps({"kernels": rows}), flush=True)

@@ -36,6 +36,11 @@ flip) or ``auto`` (batches run both on the first call and keep the score
 search only if its output matches the exact one perceptually; single images
 stay exact). It is read here; the entry points in ``ops/`` take an argument.
 
+``DITHER_PIE_TPU_RIEMERSMA=scan``, read at each call as in the JAX
+package, runs RIEMERSMA on the ditherer's device through the scan R1
+(``ops/riemersma_scan.py``) instead of the host engine; unset or any other
+value keeps the host engine.
+
 With more than one local device (or ``DITHER_PIE_TPU_AUTO_MESH=1``; ``=0``
 turns it off) ``apply_dithering_batch`` shards the batch over every local
 device, as the JAX package does (``parallel/auto.py``): the ordered family,
@@ -67,6 +72,7 @@ from dither_pie_tpu_torch.ops import ed_kernels as _ed_kernels
 from dither_pie_tpu_torch.ops import halftone as _halftone
 from dither_pie_tpu_torch.ops import idxpack as _idxpack
 from dither_pie_tpu_torch.ops import ordered as _ordered
+from dither_pie_tpu_torch.ops import riemersma_scan as _riemersma_scan
 from dither_pie_tpu_torch.ops import wavefront as _wf
 from dither_pie_tpu_torch.ops import wavelet as _wavelet
 from dither_pie_tpu_torch.parallel import auto as _auto
@@ -715,19 +721,30 @@ class AdaptiveVarianceDitherStrategy(_WavefrontDitherStrategy):
 
 class RiemersmaDitherStrategy(BaseDitherStrategy):
     """Error diffusion along a Hilbert curve: one dependency chain through
-    the frame, so it runs on the host engine (no parameters, as the
-    reference), as in the JAX package. A single image takes the float64
-    engine, a batch the float32 twin, one thread a frame; ``device`` is
-    accepted and no frame moves to it."""
+    the frame (no parameters, as the reference). By default it runs on the
+    host engine, as in the JAX package: a single image on the float64
+    engine, a batch on the float32 twin, one thread a frame, and no frame
+    moves to ``device``. ``DITHER_PIE_TPU_RIEMERSMA=scan``, read at each
+    call, runs the scan R1 on ``device`` instead (``ops/riemersma_scan.py``;
+    its plain version on a CPU device): a single image as a batch of one,
+    bitwise the float32 twin's output up to 4096 colours. The default is
+    the JAX package's, which chose the host on a TPU measurement; the
+    switch is there to measure the scan (``tools/riemersma_ab.py``)."""
 
     def __init__(self, device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
 
     def dither(self, pixels, palette_arr, image_size):
         img, pal = _host_frame(pixels, palette_arr, image_size)
+        if os.environ.get("DITHER_PIE_TPU_RIEMERSMA") == "scan":
+            out = _riemersma_scan.riemersma_scan_batch(img[None], pal, self.device)[0]
+            return out.astype(np.float32).reshape(-1, 3)
         return _ed_host.ed_riemersma(img, pal).reshape(-1, 3)
 
     def dither_batch(self, images, palette_arr):
+        if os.environ.get("DITHER_PIE_TPU_RIEMERSMA") == "scan":
+            return _riemersma_scan.riemersma_scan_batch(
+                images, _palette_array(palette_arr), self.device)
         return _host_batch(_ed_host.ed_riemersma_fast, images, palette_arr)
 
 

@@ -36,7 +36,7 @@ import torch
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("bindings.cpp", "skew.cu", "ed_scan.cu", "unskew_unpack.cu", "ordered.cu",
-           "search_probe.cu", "gather_probe.cu", "identity.cu")
+           "search_probe.cu", "gather_probe.cu", "identity.cu", "riemersma_scan.cu")
 EXT_NAME = "dither_pie_tpu_torch_kernels"
 NVCC_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "--fmad=false"]
 CXX_FLAGS = ["-O3"]
@@ -64,7 +64,7 @@ def on_cuda(t: torch.Tensor) -> bool:
 def extension() -> ModuleType:
     """The compiled kernel module (``skew`` (K1, K6, K7), ``ed_scan``,
     ``unskew`` (K3, K5 and K9), ``ordered_fused``, ``search_probe``, ``gather_chain``, ``sweep_chain``,
-    ``identity_u8``), built on the first call."""
+    ``identity_u8``, ``riemersma_scan`` (R1)), built on the first call."""
     global _ext
     with _lock:
         if _ext is None:

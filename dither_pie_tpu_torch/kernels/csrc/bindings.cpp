@@ -3,7 +3,8 @@
 // contiguity, launches on PyTorch's current stream of the tensor's device,
 // and raises if the launch is refused. Outputs and scratch are allocated
 // by the Python wrappers in dither_pie_tpu_torch/ops/wavefront.py (K1-K3,
-// K5-K9), dither_pie_tpu_torch/ops/ordered_fused.py (K4) and the probes in
+// K5-K9), dither_pie_tpu_torch/ops/ordered_fused.py (K4),
+// dither_pie_tpu_torch/ops/riemersma_scan.py (R1) and the probes in
 // dither_pie_tpu_torch/tools/ (proto_mxu_search.py, gather_probe.py,
 // layout_repro.py).
 
@@ -532,6 +533,39 @@ void identity_u8(torch::Tensor in, torch::Tensor out, int64_t form, int64_t head
                  "identity_u8");
 }
 
+// R1 on (B, H, W, 3) uint8 or float32 frames along the curve's order and
+// receiver masks into (B, H, W, 3) uint8 colours.
+void riemersma_scan(torch::Tensor frames, torch::Tensor pal, torch::Tensor order,
+                    torch::Tensor mask, torch::Tensor out) {
+    check_tensor(frames, "frames", frames);
+    check_tensor(pal, "pal", frames);
+    check_tensor(order, "order", frames);
+    check_tensor(mask, "mask", frames);
+    check_tensor(out, "out", frames);
+    TORCH_CHECK(frames.dim() == 4 && frames.size(3) == 3, "frames must be (B, H, W, 3)");
+    const bool f32 = frames.scalar_type() == torch::kFloat32;
+    TORCH_CHECK(f32 || frames.scalar_type() == torch::kUInt8,
+                "frames must be uint8 or float32");
+    TORCH_CHECK(pal.scalar_type() == torch::kFloat32 && pal.dim() == 2 && pal.size(1) == 3 &&
+                    pal.size(0) >= 1 && pal.size(0) <= DPT_RIEMERSMA_MAX_PALETTE,
+                "pal must be (P, 3) float32 with 1 <= P <= ", DPT_RIEMERSMA_MAX_PALETTE);
+    const int64_t hw = frames.size(1) * frames.size(2);
+    TORCH_CHECK(order.scalar_type() == torch::kInt32 && order.dim() == 1 &&
+                    order.size(0) >= 1 && order.size(0) <= hw,
+                "order must be (N,) int32 with 1 <= N <= H*W");
+    TORCH_CHECK(mask.scalar_type() == torch::kUInt8 && mask.sizes() == order.sizes(),
+                "mask must be (N,) uint8");
+    TORCH_CHECK(out.scalar_type() == torch::kUInt8 && out.sizes() == frames.sizes(),
+                "out must be uint8 of the frames' shape");
+    const c10::cuda::CUDAGuard guard(frames.device());
+    check_launch(dpt_riemersma_scan(frames.data_ptr(), f32 ? 1 : 0, pal.data_ptr<float>(),
+                                    as_int(pal.size(0), "P"), order.data_ptr<int32_t>(),
+                                    mask.data_ptr<uint8_t>(), as_int(order.size(0), "N"),
+                                    as_int(frames.size(0), "B"), hw,
+                                    out.data_ptr<uint8_t>(), current_stream(frames)),
+                 "riemersma_scan");
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
     m.def("skew", &skew,
           "K1 / K6 / K7: (B,H,W,3) frames or (R,H,W) planes -> (D,3B,H) or "
@@ -569,4 +603,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
           "(n, lanes) int32");
     m.def("identity_u8", &identity_u8,
           "T3: identity copy of a uint8 tensor, as its plan cuts it");
+    m.def("riemersma_scan", &riemersma_scan,
+          "R1: Riemersma along the Hilbert curve, (B,H,W,3) uint8 or float32 frames -> "
+          "(B,H,W,3) uint8 colours, a warp a frame");
 }
