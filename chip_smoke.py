@@ -375,11 +375,13 @@ a non-zero exit code and no result line:
    peak memory of each, and a mesh resume at dim 8, bitwise;
 23. the Riemersma scan R1 (ops/riemersma_scan.py, kernels/csrc/
    riemersma_scan.cu; DITHER_PIE_TPU_RIEMERSMA=scan): R1 compiled alone,
-   its registers and no FFMA in its SASS (where cuobjdump is present);
-   (a) R1 == its plain version bitwise, and == the golden engine's
+   its registers and spills by instantiation (both warp roles share them)
+   and no FFMA in its SASS (where cuobjdump is present); R1's latency
+   probe (tools/riemersma_ab.py ``latency``) and the chain estimate from
+   it; (a) R1 == its plain version bitwise, and == the golden engine's
    ed_riemersma_f32 up to 4096 colours, at B x HxW = 3 x 13x22, 2 x 37x53
-   and 1 x 1x97, P in (2, 16, 32, 300, 4100) (both search branches; 4100
-   needs more than 48 KB of shared memory), u8 frames and float32 frames in
+   and 1 x 1x97, P in (2, 16, 32, 256, 300, 4100) (the three search forms;
+   4100 needs more than 48 KB of shared memory), u8 frames and float32 frames in
    -8..263, and tests/test_riemersma_scan.py's adversarial four-colour
    frame; (b) the main path under the switch: ImageDitherer(RIEMERSMA,
    k-means-32).apply_dithering_batch on the 16 1080p frames and
@@ -390,7 +392,8 @@ a non-zero exit code and no result line:
    events, held to (b)'s output), the host engine's wall (median of 3), us
    a curve step, the bound and the chain estimate, and R1 and its plain
    version at 3 x 37x53. R1's row joins the kernels line with ``host_ms``,
-   ``us_per_step``, ``small_ms`` and ``plain_shape`` (its plain version
+   ``us_per_step``, ``chain_us``, ``latency_cycles``, ``sm_ghz``,
+   ``small_ms`` and ``plain_shape`` (its plain version
    runs only at that small shape), and the line before it says what the
    whole run took of its 1200 s limit.
 
@@ -5382,16 +5385,11 @@ def mesh_phase(torch, dev, card, lib, frames16, palette, out16, rows):
 RIEMERSMA_KERNEL = ("riemersma_scan", "dither_pie_tpu_torch/kernels/csrc/riemersma_scan.cu",
                     "dither_pie_tpu/ops/riemersma_scan.py:134")
 RIEMERSMA_SHAPES = ((3, 13, 22), (2, 37, 53), (1, 1, 97))  # (B, H, W) of (a)
-RIEMERSMA_PALETTES = (2, 16, 32, 300, 4100)  # both search branches; 4100 > 48 KB of smem
+RIEMERSMA_PALETTES = (2, 16, 32, 256, 300, 4100)  # the 3 search forms; 4100 > 48 KB of smem
 RIEMERSMA_REPS = 3
-# The dependent path of one curve step in R1's SASS (P <= 32, read from
-# cuobjdump -sass of riemersma_scan.cu): 12 fixed-latency instructions
-# (FADD, FMUL, FADD, FADD of the distance; the IMAD.U32 and ISETP around
-# the reductions; VOTE and BREV; FADD, FMUL, FADD, FMNMX, FMNMX of the
-# error and the receive) taken at 4 cycles, and REDUX.MIN, FLO and
-# SHFL.IDX taken at 30 cycles each: ~140 cycles, at the H100's 1.98 GHz
-# boost clock. An estimate from assumed latencies, not a measurement.
-RIEMERSMA_STEP_US = 140 / 1.98e9 * 1e6
+# R1's chain estimate a step comes from this run: its latency probe's
+# cycles of each kind of instruction on the step's dependent path, read from
+# the SASS (tools/riemersma_ab.py STEP_PATH), at the SM clock the probe saw.
 
 
 def riemersma_env(value):
@@ -5409,7 +5407,10 @@ def adversarial_riemersma():
 
 def r1_sass_check():
     """R1's source compiled alone with the build's flags: the ptxas lines
-    and the count of FFMA in its SASS (None where cuobjdump is missing)."""
+    and the count of FFMA in its SASS (None where cuobjdump is missing).
+    Both warp roles of a kernel share its one register allocation (no
+    setmaxnreg), so ptxas's registers and spills of each instantiation are
+    the chain warp's and the producer's alike."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     from dither_pie_tpu_torch.kernels import build
@@ -5436,13 +5437,37 @@ def riemersma_phase(torch, dev, card, lib, frames16, frame0, palette, golds16, r
     from dither_pie_tpu_torch.kernels import build
     from dither_pie_tpu_torch.ops import riemersma_scan as rs
 
+    from dither_pie_tpu_torch.tools import riemersma_ab
+
     t_phase = time.perf_counter()
     report, ffma = r1_sass_check()
-    regs = sorted(set(re.findall(r"Used (\d+) registers", report)))
+    kernels = re.findall(r"Compiling entry function '(\w+)'", report)
+    regs = re.findall(r"Used (\d+) registers", report)
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", report)
+
+    def kernel_name(mangled):
+        m = re.search(r"riemersma_kernelI([hf])Li(\d+)E", mangled)
+        if m is None:
+            return "latency probe" if "latency" in mangled else mangled
+        return f"R1<{'uint8' if m[1] == 'h' else 'float'}, {m[2]} colours a lane>"
+
+    roles = "; ".join(f"{kernel_name(k)} {r} registers, spills {st}/{ld} B"
+                      for k, r, (st, ld) in zip(kernels, regs, spills))
     check(ffma in (None, 0), f"R1's SASS holds {ffma} FFMA: the bit contract needs none")
-    log(f"[23] R1 compiled alone: {regs} registers, no spills: "
-        f"{'spill' not in report or ' 0 bytes spill stores' in report}; FFMA in its SASS: "
+    log(f"[23] R1 compiled alone, per instantiation (the chain and producer warps share "
+        f"its allocation): {roles}; FFMA in its SASS: "
         f"{'cuobjdump missing, not counted' if ffma is None else ffma}")
+    ext = build.extension()
+    for p in RIEMERSMA_PALETTES + (rs.MAX_PALETTE,):
+        check(ext.riemersma_smem_bytes(p) == rs.smem_bytes(p),
+              f"R1's shared memory at {p} colours: {ext.riemersma_smem_bytes(p)} bytes, "
+              f"ops.riemersma_scan.smem_bytes says {rs.smem_bytes(p)}")
+    lat = riemersma_ab.latency(dev)
+    step_us = riemersma_ab.chain_us(lat)
+    log("[23] R1's latency probe (cycles, one warp, dependent chains): " + ", ".join(
+        f"{k} {lat[k]:.3f}" for k in riemersma_ab.LATENCY_KINDS) + f"; SM clock "
+        f"{lat['ghz']:.4f} GHz; the step's dependent path {riemersma_ab.STEP_PATH} -> "
+        f"{step_us:.5f} us [{card}]")
 
     # (a) R1 == plain, bitwise; the golden twin too up to its 4096 colours.
     rng = np.random.RandomState(23)
@@ -5545,20 +5570,22 @@ def riemersma_phase(torch, dev, card, lib, frames16, frame0, palette, golds16, r
     n_px = BATCH * n_steps
     bnd = bound(n_px * 3 + N_COLORS * 12 + n_steps * 5 + n_px * 3,
                 BATCH * n_steps * (8 * N_COLORS + 3 + 4 * 3 * 2))
-    bnd["chain_bound_ms"] = n_steps * RIEMERSMA_STEP_US * 1e-3
+    bnd["chain_bound_ms"] = n_steps * step_us * 1e-3
     log(f"[23] R1 {BATCH}x{FULL_H}x{FULL_W} u8 k-means-{N_COLORS}: {ms:.3f} ms (median of "
         f"{RIEMERSMA_REPS}, CUDA events) -> {BATCH / ms * 1e3:.3f} fps, "
         f"{ms * 1e3 / n_steps:.5f} us a curve step; the host engine through "
         f"apply_dithering_batch {host_ms:.3f} ms (median of {RIEMERSMA_REPS} walls) -> "
         f"{BATCH / host_ms * 1e3:.3f} fps; R1 / host {ms / host_ms:.3f}; bound "
         f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']}, chain {bnd['chain_bound_ms']:.3f} ms "
-        f"(N x {RIEMERSMA_STEP_US:.4f} us); at {b}x{h}x{w} R1 {small_ms:.3f} ms, plain "
+        f"(N x {step_us:.5f} us, measured latencies); at {b}x{h}x{w} R1 {small_ms:.3f} ms, plain "
         f"{plain_ms:.3f} ms [{card}]")
     rows.append({"name": RIEMERSMA_KERNEL[0], "route": "cuda", "source": RIEMERSMA_KERNEL[1],
                  "replaces": RIEMERSMA_KERNEL[2], "launches": launches["riemersma_scan"],
                  "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                  "plain_shape": [b, h, w], "small_ms": small_ms, "host_ms": host_ms,
-                 "us_per_step": ms * 1e3 / n_steps, **bnd})
+                 "us_per_step": ms * 1e3 / n_steps, "chain_us": step_us,
+                 "latency_cycles": {k: lat[k] for k in riemersma_ab.LATENCY_KINDS},
+                 "sm_ghz": lat["ghz"], **bnd})
     log(f"[23] phase 23 took {time.perf_counter() - t_phase:.1f} s [{card}]")
 
 

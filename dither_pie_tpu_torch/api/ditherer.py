@@ -725,26 +725,38 @@ class RiemersmaDitherStrategy(BaseDitherStrategy):
     host engine, as in the JAX package: a single image on the float64
     engine, a batch on the float32 twin, one thread a frame, and no frame
     moves to ``device``. ``DITHER_PIE_TPU_RIEMERSMA=scan``, read at each
-    call, runs the scan R1 on ``device`` instead (``ops/riemersma_scan.py``;
-    its plain version on a CPU device): a single image as a batch of one,
-    bitwise the float32 twin's output up to 4096 colours. The default is
-    the JAX package's, which chose the host on a TPU measurement; the
-    switch is there to measure the scan (``tools/riemersma_ab.py``)."""
+    call, runs the scan instead, bitwise the float32 twin's output up to
+    4096 colours, as uint8 colours: on a CUDA device R1
+    (``ops/riemersma_scan.py``), a single image as a batch of one; on a CPU
+    device the float32 twin itself up to its ``F32_TWIN_MAX_PAL`` colours
+    (the same bits, where the JAX package runs its compiled ``lax.scan``),
+    and the scan's plain loop above them. The default is the JAX
+    package's, which chose the host on a TPU measurement; the switch is
+    there to measure the scan (``tools/riemersma_ab.py``)."""
 
     def __init__(self, device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
 
+    def _twin_route(self, pal: np.ndarray) -> bool:
+        """The switch's CPU route: the float32 twin where it serves."""
+        return self.device.type == "cpu" and pal.shape[0] <= _ed_host.F32_TWIN_MAX_PAL
+
     def dither(self, pixels, palette_arr, image_size):
         img, pal = _host_frame(pixels, palette_arr, image_size)
         if os.environ.get("DITHER_PIE_TPU_RIEMERSMA") == "scan":
-            out = _riemersma_scan.riemersma_scan_batch(img[None], pal, self.device)[0]
+            if self._twin_route(pal):
+                out = _ed_host.ed_riemersma_fast(img, pal).astype(np.uint8)
+            else:
+                out = _riemersma_scan.riemersma_scan_batch(img[None], pal, self.device)[0]
             return out.astype(np.float32).reshape(-1, 3)
         return _ed_host.ed_riemersma(img, pal).reshape(-1, 3)
 
     def dither_batch(self, images, palette_arr):
         if os.environ.get("DITHER_PIE_TPU_RIEMERSMA") == "scan":
-            return _riemersma_scan.riemersma_scan_batch(
-                images, _palette_array(palette_arr), self.device)
+            pal = _palette_array(palette_arr)
+            if self._twin_route(pal):
+                return _host_batch(_ed_host.ed_riemersma_fast, images, pal).astype(np.uint8)
+            return _riemersma_scan.riemersma_scan_batch(images, pal, self.device)
         return _host_batch(_ed_host.ed_riemersma_fast, images, palette_arr)
 
 

@@ -566,6 +566,20 @@ void riemersma_scan(torch::Tensor frames, torch::Tensor pal, torch::Tensor order
                  "riemersma_scan");
 }
 
+// R1's latency probe into `out`, 10 int64 on the card (riemersma_scan.cu).
+void riemersma_latency(torch::Tensor out, int64_t iters) {
+    check_tensor(out, "out", out);
+    TORCH_CHECK(out.scalar_type() == torch::kInt64 && out.numel() == 10,
+                "out must be 10 int64");
+    const c10::cuda::CUDAGuard guard(out.device());
+    check_launch(dpt_riemersma_latency(as_int(iters, "iters"),
+                                       reinterpret_cast<long long*>(out.data_ptr<int64_t>()),
+                                       current_stream(out)),
+                 "riemersma_latency");
+}
+
+int64_t riemersma_smem_bytes(int64_t P) { return dpt_riemersma_smem_bytes(as_int(P, "P")); }
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
     m.def("skew", &skew,
           "K1 / K6 / K7: (B,H,W,3) frames or (R,H,W) planes -> (D,3B,H) or "
@@ -605,5 +619,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
           "T3: identity copy of a uint8 tensor, as its plan cuts it");
     m.def("riemersma_scan", &riemersma_scan,
           "R1: Riemersma along the Hilbert curve, (B,H,W,3) uint8 or float32 frames -> "
-          "(B,H,W,3) uint8 colours, a warp a frame");
+          "(B,H,W,3) uint8 colours, a chain warp and a producer warp a frame");
+    m.def("riemersma_latency", &riemersma_latency,
+          "R1's probe: clock64 latencies of its dependent path's instructions, one warp");
+    m.def("riemersma_smem_bytes", &riemersma_smem_bytes,
+          "R1's dynamic shared memory at P colours");
 }

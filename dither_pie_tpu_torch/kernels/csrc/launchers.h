@@ -233,14 +233,17 @@ struct DptIdentityPlan {
 int dpt_identity_u8(const uint8_t* in, uint8_t* out, int64_t n, const DptIdentityPlan& plan,
                     void* stream);
 
-// R1: Riemersma error diffusion along the Hilbert curve, one warp a frame
-// (B blocks of 32 threads). `frames` is (B, hw, 3) uint8, or float32 with
-// frames_is_f32; `order` (N,) the curve's linear pixel indices, `mask` (N,)
-// its receiver masks (ops/riemersma_scan.py); `out` (B, hw, 3) uint8.
-// Dynamic shared memory: dpt_riemersma_smem_bytes(P), 12 bytes a colour and
-// the staging ring; above 48 KB the launcher raises the kernel's limit.
+// R1: Riemersma error diffusion along the Hilbert curve, a block of two
+// warps a frame (B blocks of 64 threads: the chain warp and the producer
+// warp). `frames` is (B, hw, 3) uint8, or float32 with frames_is_f32;
+// `order` (N,) the curve's linear pixel indices, `mask` (N,) its receiver
+// masks (ops/riemersma_scan.py); `out` (B, hw, 3) uint8. Dynamic shared
+// memory: dpt_riemersma_smem_bytes(P), the staging ring and 12 bytes a
+// colour; above 48 KB the launcher raises the kernel's limit.
 constexpr int DPT_RIEMERSMA_MAX_PALETTE = 16384;
 int dpt_riemersma_smem_bytes(int P);
 int dpt_riemersma_scan(const void* frames, int frames_is_f32, const float* pal, int P,
                        const int32_t* order, const uint8_t* mask, int N, int B, int64_t hw,
                        uint8_t* out, void* stream);
+// R1's latency probe: one warp; `out` 10 int64 (riemersma_scan.cu).
+int dpt_riemersma_latency(int iters, long long* out, void* stream);

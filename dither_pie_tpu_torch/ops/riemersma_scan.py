@@ -7,8 +7,11 @@ through the frame, with no 2-D wavefront. The facade runs it on the host
 engine (``ops/ed_host.py``); ``DITHER_PIE_TPU_RIEMERSMA=scan`` sends it
 here instead, as in the JAX package, where a ``lax.scan`` over the curve
 carries the batch in the vector lanes. On the card the chain is the kernel
-R1 (``kernels/csrc/riemersma_scan.cu``): one warp a frame, the palette in
-shared memory, the search split across the lanes.
+R1 (``kernels/csrc/riemersma_scan.cu``): a block of two warps a frame, a
+chain warp that runs the steps with the search split across its lanes,
+and a producer warp that stages the curve into a ring of chunks in shared
+memory and writes the chosen colours out (``staged_records`` models what
+it stages).
 
 Exact semantics, bit for bit those of the host engine's float32 twin
 (``ed_host.ed_riemersma_fast``, ``native/ed_scan.cpp`` ``ed_riemersma_f32``)
@@ -51,6 +54,59 @@ FS_WEIGHTS = (np.float32(7 / 16), np.float32(1 / 16),
 
 # Largest palette R1 takes: 12 bytes of shared memory a colour, 192 KB.
 MAX_PALETTE = 16384
+# R1's staging (riemersma_scan.cu): chunks of R1_CHUNK curve steps, a ring
+# of R1_SLOTS of them in shared memory, a 32-byte record a step.
+R1_CHUNK = 160
+R1_SLOTS = 4
+
+# R1's search form by palette size: colours a lane in registers up to
+# 32 x R1_REG_COLOURS colours, then shared memory in passes of R1_PAL_ALIGN.
+R1_REG_COLOURS = 16
+R1_PAL_ALIGN = 128
+
+
+def colours_a_lane(p: int) -> int:
+    """R1's search form at ``p`` colours, as riemersma_scan.cu's: 1, 8 or
+    R1_REG_COLOURS colours a lane in registers, or 0 for shared memory."""
+    return 1 if p <= 32 else 8 if p <= 256 else R1_REG_COLOURS if p <= 32 * R1_REG_COLOURS else 0
+
+
+def smem_bytes(p: int) -> int:
+    """R1's dynamic shared memory at ``p`` colours, as
+    ``dpt_riemersma_smem_bytes``: 2 x R1_SLOTS mbarriers, the head's five
+    16-byte records, R1_SLOTS slots of R1_CHUNK (32-byte record, order,
+    chosen index), then the palette's three float planes as far as the
+    search form reads (32 x its colours a lane, or ``p`` rounded up to
+    R1_PAL_ALIGN colours), +inf past ``p``."""
+    ring = 2 * R1_SLOTS * 8 + 5 * 16 + R1_SLOTS * R1_CHUNK * (32 + 4 + 4)
+    npl = colours_a_lane(p)
+    padded = 32 * npl if npl else -(-p // R1_PAL_ALIGN) * R1_PAL_ALIGN
+    return ring + 3 * padded * 4
+
+
+def staged_records(frame: np.ndarray, order: np.ndarray, mask: np.ndarray):
+    """numpy model of what R1's producer stages for one (H, W, 3) frame:
+    (head (5, 4) float32, records (C * R1_CHUNK, 8) float32, orders
+    (C * R1_CHUNK,) int32) over the C whole chunks that cover the N curve
+    steps. The head holds the pixels of steps 0..4; record t holds step t's
+    four receiver weights (the d-th set bit k of its mask puts
+    ``FS_WEIGHTS[k]`` in column d - 1) and the pixel of step t + 5, zeros
+    past the curve; orders are -1 past it."""
+    n = order.shape[0]
+    c = -(-n // R1_CHUNK)
+    flat = frame.reshape(-1, 3).astype(np.float32)
+    px = np.zeros((c * R1_CHUNK + 5, 4), np.float32)
+    px[:n, :3] = flat[order]
+    rec = np.zeros((c * R1_CHUNK, 8), np.float32)
+    d = np.zeros(n, np.int64)
+    for k in range(4):
+        on = (mask >> k) & 1 == 1
+        rec[np.flatnonzero(on), d[on]] = FS_WEIGHTS[k]
+        d += on
+    rec[:, 4:] = px[5:]
+    orders = np.full(c * R1_CHUNK, -1, np.int32)
+    orders[:n] = order
+    return px[:5].copy(), rec, orders
 
 
 @functools.lru_cache(maxsize=8)

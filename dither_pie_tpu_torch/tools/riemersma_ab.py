@@ -20,11 +20,18 @@ batch; ``--quick`` keeps the first shape. For each shape it prints:
 * the scan's microseconds a curve step: its time over the N steps of one
   frame's chain (the frames run side by side).
 
-Then, on a CUDA device and without ``--quick``, the frames-a-launch sweep of
-the scan alone at 1080p: B = 4, 16, 66 and 132 random uint8 frames made on
-the card, fps and microseconds a step, the first and last frame held to the
-host engine. The maps of each shape are built before any timing (their
-time is printed apart). The card's name and power limit head the output.
+Then, on a CUDA device and without ``--quick``: 16 frames at 1080p against
+256 distinct random colours (a GIF palette; R1's register search), and the
+frames-a-launch sweep of the scan alone at 1080p: B = 4, 16, 66, 132 and
+264 random uint8 frames made on the card (264: two chains an SM), fps and
+microseconds a step, the first and last frame held to the host engine. The
+maps of each shape are built before any timing (their time is printed
+apart). The card's name and power limit head the output.
+
+``--latency`` runs R1's latency probe first (``latency``: clock64 cycles of
+each kind of instruction on the step's dependent path, and the SM clock
+under load from ``%globaltimer``) and prints the chain estimate
+``chain_us`` built from them.
 """
 
 from __future__ import annotations
@@ -49,8 +56,47 @@ from dither_pie_tpu_torch.ops import riemersma_scan as rs  # noqa: E402
 from dither_pie_tpu_torch.tools.proto_mxu_search import card_line  # noqa: E402
 
 SHAPES = ((240, 320, 8), (480, 640, 8), (1080, 1920, 4), (1080, 1920, 16))
-SWEEP = (4, 16, 66, 132)  # frames a launch at 1080p
+SWEEP = (4, 16, 66, 132, 264)  # frames a launch at 1080p; 264: two chains an SM
 REPS = 3
+
+
+WIDE_COLOURS = 256  # the 256-colour shape's palette
+LATENCY_ITERS = 2048
+# The dependent path of one step of R1 at <= 32 colours on uint8 frames, by
+# kind of instruction, as its SASS shows it (riemersma_scan.cu, NPL = 1):
+# FADD, FMUL, FADD, FADD of the distance; REDUX.MIN of its bits and the move
+# out of the uniform register; ISETP, VOTE and FLO of the lanes at the
+# minimum; SHFL.IDX of the winning lane's candidate, which is the next
+# step's working value.
+STEP_PATH = {"fadd": 4, "redux": 1, "vote_flo": 1, "shfl": 1}
+LATENCY_KINDS = ("fadd", "receive", "redux", "vote_flo", "shfl", "lds")
+
+
+def latency(dev: torch.device, iters: int = LATENCY_ITERS) -> dict:
+    """R1's latency probe on the card: cycles of one instruction (or
+    group: ``receive`` is FADD, FMNMX, FMNMX; ``vote_flo`` ISETP, VOTE and
+    FLO, the highest lane of a ballot; ``redux`` REDUX.MIN and the move of
+    its uniform result) in a dependent chain of one warp, by kind, and the
+    SM clock in GHz under the probe (clock64 cycles over %globaltimer
+    nanoseconds). Counted in ``build.LAUNCHES["riemersma_latency"]``."""
+    from dither_pie_tpu_torch.kernels import build
+
+    if dev.type != "cuda":
+        raise ValueError("the latency probe runs on the card only")
+    out = torch.zeros(10, dtype=torch.int64, device=dev)
+    build.extension().riemersma_latency(out, iters)
+    build.LAUNCHES["riemersma_latency"] += 1
+    vals = out.cpu().tolist()
+    n = vals[9]
+    lat = {k: vals[i] / n for i, k in enumerate(LATENCY_KINDS)}
+    lat["ghz"] = vals[6] / vals[7]
+    return lat
+
+
+def chain_us(lat: dict) -> float:
+    """Microseconds of one step's dependent path (``STEP_PATH``) at the
+    probe's latencies and clock."""
+    return sum(lat[k] * n for k, n in STEP_PATH.items()) / lat["ghz"] * 1e-3
 
 
 def palette16(rng: np.random.RandomState) -> np.ndarray:
@@ -112,6 +158,8 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default="cuda", help="cuda (R1) or cpu (plain version)")
     parser.add_argument("--quick", action="store_true", help="only 240x320 x 8")
     parser.add_argument("--seed", type=int, default=0, help="seed of palette and frames")
+    parser.add_argument("--latency", action="store_true",
+                        help="run R1's latency probe first (card only)")
     args = parser.parse_args(argv)
     dev = resolve_device(args.device)
     card = card_line() if dev.type == "cuda" else "cpu: plain version, host clock"
@@ -123,6 +171,11 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         build.extension()
         print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
+        if args.latency:
+            lat = latency(dev)
+            print("latency (cycles): " + ", ".join(f"{k} {lat[k]:.2f}" for k in LATENCY_KINDS)
+                  + f"; SM clock {lat['ghz']:.4f} GHz; step path {STEP_PATH} -> "
+                  f"{chain_us(lat):.5f} us a step [{card}]", flush=True)
 
     rng = np.random.RandomState(args.seed)
     pal = palette16(rng)
@@ -141,6 +194,16 @@ def main(argv=None) -> int:
     if dev.type != "cuda" or args.quick:
         return 0
     h, w = 1080, 1920
+    wide = np.unique(rng.randint(0, 256, (4 * WIDE_COLOURS, 3)), axis=0)
+    wide = wide[rng.permutation(len(wide))[:WIDE_COLOURS]].astype(np.float32)
+    images = rng.randint(0, 256, (16, h, w, 3)).astype(np.uint8)
+    ms, out = scan_ms(torch.from_numpy(images).to(dev), torch.from_numpy(wide).to(dev))
+    ref_ms, ref = host_ms(images, wide)
+    print(f"{h}x{w} batch 16 uint8, {WIDE_COLOURS} colours: scan {16 / ms * 1e3:.3f} fps "
+          f"({ms:.3f} ms, {ms * 1e3 / (h * w):.5f} us a step), host engine "
+          f"{16 / ref_ms * 1e3:.3f} fps ({ref_ms:.3f} ms) -> the scan is {ref_ms / ms:.3f}x "
+          f"the host; identity {identity(out.cpu().numpy(), ref)} [{card}]", flush=True)
+    del images, out, ref
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     for b in SWEEP:

@@ -13,8 +13,13 @@ standard is the JAX tests' own: bitwise at the three shapes where
 and ``assert_perceptually_matched(min_identical=0.99)`` on the adversarial
 four-colour content, because XLA:CPU contracts the scan's ``a*b + c`` into
 FMA and flips rare near ties there (ROADMAP C2); on that content the plain
-version is also held to the host engine bitwise. Inputs come from numpy
-seeds.
+version is also held to the host engine bitwise. R1's staging
+(``staged_records``) is held to ``path_maps`` and the frame exactly, and
+``r1_model``, a numpy float32 model of R1's walk (whole chunks, the ring,
+the three search forms with their lane split, merges and tie rule), to the
+plain version bitwise. Under the switch a CPU device runs the float32 twin
+itself (bitwise, a 1080p frame) up to 4096 colours and the plain loop
+above. Inputs come from numpy seeds.
 """
 
 import numpy as np
@@ -229,3 +234,203 @@ def test_wrapper_routes_and_refuses():
     assert order.dtype == torch.int32 and mask.dtype == torch.uint8
     np.testing.assert_array_equal(order.numpy(), tscan.path_maps(7, 9)[0])
     np.testing.assert_array_equal(mask.numpy(), tscan.receiver_masks(7, 9))
+
+
+# ---------------------------------------------------------------------------
+# R1's staging and walk (riemersma_scan.cu), modelled in numpy: the
+# producer's records, the chain's whole chunks with the ring rotated by
+# renaming, and the three search forms with their lane split and merges.
+# ---------------------------------------------------------------------------
+
+_INF = np.float32(np.inf)
+
+
+def _dist(v, pr, pg, pb):
+    dr, dg, db = v[0] - pr, v[1] - pg, v[2] - pb
+    return (dr * dr + dg * dg) + db * db
+
+
+def _pick(v, pal):
+    """R1's pick for working value v (3,) float32: index and error. Colour
+    c lies in lane 31 - c mod 32."""
+    p = pal.shape[0]
+    lanes = np.arange(32)
+    c0 = 31 - lanes
+    if p <= 32:  # a colour a lane, +inf past P; the highest lane at the minimum
+        col = np.full((32, 3), _INF, np.float32)
+        col[c0 < p] = pal[c0[c0 < p]]
+        d = _dist(v, col[:, 0], col[:, 1], col[:, 2])
+        key = d.view(np.uint32)
+        src = int(lanes[key == key.min()].max())
+        return 31 - src, v - col[src]
+    if p <= 512:  # 8 or 16 colours 31 - lane + 32 j in registers, a tree of strict compares
+        npl = tscan.colours_a_lane(p)
+        c = c0[None] + 32 * np.arange(npl)[:, None]  # (npl, 32)
+        col = np.full((npl, 32, 3), _INF, np.float32)
+        col[c < p] = pal[c[c < p]]
+        d = _dist(v, col[..., 0], col[..., 1], col[..., 2])
+        j_of = np.repeat(np.arange(npl)[:, None], 32, 1)
+        span = 1
+        while span < npl:
+            for j in range(0, npl, 2 * span):
+                up = d[j + span] < d[j]
+                d[j] = np.where(up, d[j + span], d[j])
+                j_of[j] = np.where(up, j_of[j + span], j_of[j])
+            span *= 2
+        best, best_i = d[0], c0 + 32 * j_of[0]
+    else:  # four running minima over colours c0 + 32 a + 128 i, +inf padding
+        pp = -(-p // 128) * 128
+        padded = np.full((pp, 3), _INF, np.float32)
+        padded[:p] = pal
+        best = np.empty((4, 32), np.float32)
+        ib = np.empty((4, 32), np.int64)
+        for a in range(4):
+            c = c0 + 32 * a
+            best[a], ib[a] = _dist(v, *padded[c].T), c
+        for base in range(128, pp, 128):
+            for a in range(4):
+                c = base + c0 + 32 * a
+                dd = _dist(v, *padded[c].T)
+                take = dd < best[a]
+                best[a], ib[a] = np.where(take, dd, best[a]), np.where(take, c, ib[a])
+        for span in (1, 2):
+            for a in range(0, 4, 2 * span):
+                up = (best[a + span] < best[a]) | ((best[a + span] == best[a])
+                                                   & (ib[a + span] < ib[a]))
+                best[a] = np.where(up, best[a + span], best[a])
+                ib[a] = np.where(up, ib[a + span], ib[a])
+        best, best_i = best[0], ib[0]
+    key = best.view(np.uint32)
+    at_min = key == key.min()
+    # one lane at the minimum: its index; lanes that tie: the lowest index
+    idx = int(best_i[at_min].min()) if at_min.sum() > 1 else int(best_i[at_min][0])
+    return idx, v - pal[idx]
+
+
+def r1_model(frame, pal):
+    """numpy model of one frame through R1: (H, W, 3) -> (H, W, 3) uint8."""
+    h, w, _ = frame.shape
+    order, mask = tscan.path_maps(h, w)[0], tscan.receiver_masks(h, w)
+    head, rec, orders = tscan.staged_records(frame, order, mask)
+    select = frame.dtype != np.uint8
+    ring = head[:, :3].copy()
+    picks = np.empty(rec.shape[0], np.int64)
+    for t in range(rec.shape[0]):  # whole chunks, past the curve too
+        k = t % 5
+        idx, e = _pick(ring[k], pal)
+        for d in range(1, 5):
+            wt = rec[t, d - 1]
+            q = ring[(k + d) % 5]
+            v = np.minimum(np.maximum(q + e * wt, np.float32(0)), np.float32(255))
+            ring[(k + d) % 5] = v if (not select or wt > 0) else q
+        ring[k] = rec[t, 4:7]
+        picks[t] = idx
+    n = order.shape[0]
+    out = np.zeros((h * w, 3), np.uint8)
+    out[orders[:n]] = pal[picks[:n]].astype(np.uint8)
+    return out.reshape(h, w, 3)
+
+
+@pytest.mark.parametrize("shape", [(13, 22), (1, 97), (17, 19), (1, 1)], ids=str)
+def test_staged_records(shape):
+    """The producer's records: weights decode the masks to path_maps' rows,
+    the pixel of step t + 5 rides in record t, zeros and order -1 past the
+    curve, the head holds steps 0..4, whole chunks."""
+    h, w = shape
+    frame = _frames(1, h, w, "u8", 3)[0]
+    order, wt = tscan.path_maps(h, w)
+    head, rec, orders = tscan.staged_records(frame, order, tscan.receiver_masks(h, w))
+    n = order.shape[0]
+    assert rec.shape[0] % tscan.R1_CHUNK == 0 and 0 <= rec.shape[0] - n < tscan.R1_CHUNK
+    px = frame.reshape(-1, 3)[order].astype(np.float32)
+    np.testing.assert_array_equal(_bits(rec[:n, :4]), _bits(wt))
+    assert not rec[n:].any() and not rec[:, 7].any() and not head[:, 3].any()
+    np.testing.assert_array_equal(rec[:max(n - 5, 0), 4:7], px[5:])
+    np.testing.assert_array_equal(head[:min(n, 5), :3], px[:5])
+    assert not head[n:].any()
+    np.testing.assert_array_equal(orders[:n], order)
+    assert (orders[n:] == -1).all()
+
+
+def test_smem_bytes():
+    """R1's shared memory: the ring and 12 bytes a colour (the palette
+    padded as far as its search form reads: 32, 256, 512 colours, then
+    whole 128-colour passes), inside the H100's 232,448 bytes a block at
+    MAX_PALETTE colours; the four slots hold four chunks of 32-byte
+    records, orders and indices."""
+    ring = 2 * tscan.R1_SLOTS * 8 + 80 + tscan.R1_SLOTS * tscan.R1_CHUNK * 40
+    assert tscan.smem_bytes(1) == tscan.smem_bytes(32) == ring + 12 * 32
+    assert tscan.smem_bytes(33) == tscan.smem_bytes(256) == ring + 12 * 256
+    assert tscan.smem_bytes(300) == tscan.smem_bytes(512) == ring + 12 * 512
+    assert tscan.smem_bytes(513) == tscan.smem_bytes(640) == ring + 12 * 640
+    assert tscan.smem_bytes(tscan.MAX_PALETTE) <= 232448  # an H100 block's most
+    assert tscan.R1_CHUNK % 5 == 0 and tscan.R1_CHUNK % 32 == 0
+
+
+@pytest.mark.parametrize("dtype", ["u8", "f32"])
+@pytest.mark.parametrize("p", [2, 32, 33, 256, 257, 300, 513, 700])
+def test_r1_model_equals_plain(p, dtype):
+    """The model of R1's walk and search forms == the plain version, at
+    each form's edges (32 / 33, 256 / 257, 512 / 513 colours)."""
+    rng = np.random.RandomState(p)
+    pal = rng.randint(0, 256, (p, 3)).astype(np.float32)
+    frames = (rng.randint(0, 256, (1, 13, 22, 3)).astype(np.uint8) if dtype == "u8"
+              else rng.uniform(-8.0, 263.0, (1, 13, 22, 3)).astype(np.float32))
+    np.testing.assert_array_equal(r1_model(frames[0], pal), _plain(frames, pal)[0])
+
+
+@pytest.mark.parametrize(
+    "case", ["duplicates", "duplicates_300", "equidistant_flat", "equidistant_pairs"])
+def test_r1_model_ties(case):
+    """Exact ties go to the lower palette index in every search form."""
+    frames, pal = _tie_case(case)
+    np.testing.assert_array_equal(r1_model(frames[0], pal), _plain(frames[:1], pal)[0])
+
+
+def test_switch_cpu_route_is_the_twin(monkeypatch):
+    """DITHER_PIE_TPU_RIEMERSMA=scan on a CPU device, 1080p: the float32
+    twin's bits as uint8, batch and single image, and the plain loop never
+    runs."""
+    monkeypatch.setenv("DITHER_PIE_TPU_RIEMERSMA", "scan")
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain loop ran")
+
+    monkeypatch.setattr(tscan, "riemersma_scan_plain", refuse)
+    rng = np.random.RandomState(19)
+    pal = np.unique(rng.randint(0, 256, (64, 3)), axis=0)[:32].astype(np.float32)
+    frame = rng.uniform(0.0, 255.0, (1080, 1920, 3)).astype(np.float32)
+    want = thost.ed_riemersma_fast(frame.copy(), pal).astype(np.uint8)
+    strategy = tdpt.RiemersmaDitherStrategy(device="cpu")
+    out = strategy.dither_batch(frame[None], pal)
+    assert out.dtype == np.uint8 and out.shape == (1, 1080, 1920, 3)
+    np.testing.assert_array_equal(out[0], want)
+    single = strategy.dither(frame.reshape(-1, 3).copy(), pal, (1080, 1920))
+    assert single.dtype == np.float32
+    np.testing.assert_array_equal(single.reshape(1080, 1920, 3), want.astype(np.float32))
+
+
+def test_switch_cpu_route_above_twin_runs_plain(monkeypatch):
+    """Above F32_TWIN_MAX_PAL colours the twin hands over to float64, so
+    the switch keeps the scan's plain loop there."""
+    monkeypatch.setenv("DITHER_PIE_TPU_RIEMERSMA", "scan")
+    rng = np.random.RandomState(20)
+    p = thost.F32_TWIN_MAX_PAL + 4
+    pal = np.unique(rng.randint(0, 256, (2 * p, 3)), axis=0)[:p].astype(np.float32)
+    frames = _frames(2, 3, 4, "u8", 9)
+    want = _plain(frames, pal)
+    calls = []
+    plain = tscan.riemersma_scan_plain
+
+    def counted(*a, **k):
+        calls.append(1)
+        return plain(*a, **k)
+
+    monkeypatch.setattr(tscan, "riemersma_scan_plain", counted)
+    strategy = tdpt.RiemersmaDitherStrategy(device="cpu")
+    out = strategy.dither_batch(frames, pal)
+    assert calls == [1] and out.dtype == np.uint8
+    np.testing.assert_array_equal(out, want)
+    single = strategy.dither(frames[0].reshape(-1, 3), pal, (3, 4))
+    assert calls == [1, 1]
+    np.testing.assert_array_equal(single.reshape(3, 4, 3), want[0].astype(np.float32))
