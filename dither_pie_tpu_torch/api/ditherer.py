@@ -62,6 +62,8 @@ from PIL import Image
 
 from dither_pie_tpu_torch import convert
 from dither_pie_tpu_torch.api import linkspeed as _linkspeed
+from dither_pie_tpu_torch.api import transfer as _transfer
+from dither_pie_tpu_torch.api.profiling import count, stage
 from dither_pie_tpu_torch.api.runtime import DeviceLike, resolve_device
 from dither_pie_tpu_torch.core import colors as _colors
 from dither_pie_tpu_torch.core import palette as _palette
@@ -198,10 +200,24 @@ def _palette_tensor(palette_arr, device: torch.device) -> torch.Tensor:
     return convert.palette_to_torch(_palette_array(palette_arr), device)
 
 
+def _one_frame_as_batch(dither_batch, pixels, palette_arr, image_size,
+                        dtype) -> np.ndarray:
+    """``dither`` through ``dither_batch``: the (N, 3) pixels as one (1, H,
+    W, 3) frame of ``dtype``, the output back as (N, 3) float32."""
+    h, w = image_size
+    with stage("facade.host_in"):
+        img = np.asarray(pixels).astype(dtype, copy=False).reshape(1, h, w, 3)
+    out = dither_batch(img, palette_arr)
+    with stage("facade.host_out"):
+        return out.astype(np.float32).reshape(-1, 3)
+
+
 def _frames_tensor(images, device: torch.device) -> torch.Tensor:
     """(B, H, W, 3) frames on ``device``: uint8 stays uint8, anything else
-    becomes float32."""
-    return torch.from_numpy(np.ascontiguousarray(_sharding.host_frames(images))).to(device)
+    becomes float32 (a host copy, float32 frames included)."""
+    with stage("facade.host_in"):
+        frames = np.ascontiguousarray(_sharding.host_frames(images))
+    return _transfer.to_device(frames, device)
 
 
 class _ScreenDitherStrategy(BaseDitherStrategy):
@@ -216,9 +232,8 @@ class _ScreenDitherStrategy(BaseDitherStrategy):
     def dither(self, pixels, palette_arr, image_size):
         # The pixels are integer-valued (8-bit sRGB or 8-bit linear): cast
         # to uint8 here so the card gets a quarter of the bytes.
-        h, w = image_size
-        img = np.asarray(pixels).astype(np.uint8).reshape(1, h, w, 3)
-        return self.dither_batch(img, palette_arr).astype(np.float32).reshape(-1, 3)
+        return _one_frame_as_batch(self.dither_batch, pixels, palette_arr, image_size,
+                                   np.uint8)
 
     def dither_batch(self, images, palette_arr):
         _, h, w, _ = np.shape(images)
@@ -227,7 +242,7 @@ class _ScreenDitherStrategy(BaseDitherStrategy):
         if out is not None:
             return out
         frames = _frames_tensor(images, self.device)
-        return _ordered.dispatch_ordered_batch(frames, pal, screen).cpu().numpy()
+        return _transfer.to_host(_ordered.dispatch_ordered_batch(frames, pal, screen))
 
     def dither_batch_indices(self, images, palette_arr, planar=False):
         """Host (B, H, W) uint8 palette indices from K4's index output, or
@@ -505,10 +520,11 @@ class _WavefrontDitherStrategy(BaseDitherStrategy):
         palette_key = None
         if dense_search == "auto":
             palette_key = np.asarray(palette_arr, dtype=np.float32).tobytes()
-        out = _wf.ed_batch_wavefront(
-            _frames_tensor(images, self.device), pal, self.mode, planar=planar,
-            return_indices=return_indices, dense_search=dense_search,
-            palette_key=palette_key, **args)
+        frames = _frames_tensor(images, self.device)
+        with stage("ops.ed_dispatch"):
+            out = _wf.ed_batch_wavefront(
+                frames, pal, self.mode, planar=planar, return_indices=return_indices,
+                dense_search=dense_search, palette_key=palette_key, **args)
         return out, pal
 
     def dither(self, pixels, palette_arr, image_size):
@@ -518,9 +534,11 @@ class _WavefrontDitherStrategy(BaseDitherStrategy):
         # One float32 frame; as in the JAX package a single image never
         # enters the first-batch gate.
         h, w = image_size
-        img = np.asarray(pixels, dtype=np.float32).reshape(1, h, w, 3)
-        out = self._on_device(img, palette_arr, gate=False)[0].cpu().numpy()
-        return out[0].astype(np.float32).reshape(-1, 3)
+        with stage("facade.host_in"):
+            img = np.asarray(pixels, dtype=np.float32).reshape(1, h, w, 3)
+        out = _transfer.to_host(self._on_device(img, palette_arr, gate=False)[0])
+        with stage("facade.host_out"):
+            return out[0].astype(np.float32).reshape(-1, 3)
 
     def dither_batch(self, images, palette_arr):
         if self.serpentine:
@@ -535,7 +553,7 @@ class _WavefrontDitherStrategy(BaseDitherStrategy):
                                      **args)
         if out is not None:
             return out
-        return self._on_device(images, palette_arr, args=args)[0].cpu().numpy()
+        return _transfer.to_host(self._on_device(images, palette_arr, args=args)[0])
 
     def dither_batch_planar(self, planes, palette_arr):
         """(3, B, H, W) channel-major planes in, planes out: the layout of
@@ -543,7 +561,7 @@ class _WavefrontDitherStrategy(BaseDitherStrategy):
         if self.serpentine:
             raise RuntimeError("planar batches require the wavefront kernels, and a "
                                "serpentine scan has none: ask supports_planar_batch() first")
-        return self._on_device(planes, palette_arr, planar=True)[0].cpu().numpy()
+        return _transfer.to_host(self._on_device(planes, palette_arr, planar=True)[0])
 
     def dither_batch_indices(self, images, palette_arr, planar=False):
         """Host (B, H, W) palette indices, uint8 up to 256 colours and
@@ -886,9 +904,8 @@ class WaveletDitherStrategy(BaseDitherStrategy):
             self.wavelet, self.subband_quant, return_indices)
 
     def dither(self, pixels, palette_arr, image_size):
-        h, w = image_size
-        img = np.asarray(pixels, dtype=np.float32).reshape(1, h, w, 3)
-        return self.dither_batch(img, palette_arr).astype(np.float32).reshape(-1, 3)
+        return _one_frame_as_batch(self.dither_batch, pixels, palette_arr, image_size,
+                                   np.float32)
 
     def dither_batch(self, images, palette_arr):
         # Over the local mesh where it is on: the noise and the thresholds
@@ -899,12 +916,12 @@ class WaveletDitherStrategy(BaseDitherStrategy):
                                       _palette_array(palette_arr), *noise, device=self.device)
         if out is not None:
             return out
-        return self._on_device(images, palette_arr, False, noise).cpu().numpy()
+        return _transfer.to_host(self._on_device(images, palette_arr, False, noise))
 
     def dither_batch_indices(self, images, palette_arr, planar=False):
         if planar or len(palette_arr) > 256:
             return None  # NHWC-only; u8 index stream
-        return self._on_device(images, palette_arr, True).cpu().numpy()
+        return _transfer.to_host(self._on_device(images, palette_arr, True))
 
 
 # -------------------- Halftone --------------------
@@ -994,9 +1011,8 @@ class HalftoneDitherStrategy(BaseDitherStrategy):
                   torch.from_numpy(cell_idx).to(self.device), n_cells)
 
     def dither(self, pixels, palette_arr, image_size):
-        h, w = image_size
-        img = np.asarray(pixels, dtype=np.float32).reshape(1, h, w, 3)
-        return self.dither_batch(img, palette_arr).astype(np.float32).reshape(-1, 3)
+        return _one_frame_as_batch(self.dither_batch, pixels, palette_arr, image_size,
+                                   np.float32)
 
     def dither_batch(self, images, palette_arr):
         # Over the local mesh where it is on: the screen and the cell layout
@@ -1008,14 +1024,14 @@ class HalftoneDitherStrategy(BaseDitherStrategy):
                                       device=self.device)
         if out is not None:
             return out
-        return self._on_device(images, palette_arr,
-                               _halftone.halftone_dither_batch).cpu().numpy()
+        return _transfer.to_host(self._on_device(images, palette_arr,
+                                                 _halftone.halftone_dither_batch))
 
     def dither_batch_indices(self, images, palette_arr, planar=False):
         if planar or len(palette_arr) > 256:
             return None  # NHWC-only; u8 index stream
-        return self._on_device(images, palette_arr,
-                               _halftone.halftone_dither_batch_indices).cpu().numpy()
+        return _transfer.to_host(self._on_device(images, palette_arr,
+                                                 _halftone.halftone_dither_batch_indices))
 
 
 class ColorReducer:
@@ -1125,12 +1141,14 @@ class ImageDitherer:
 
     def apply_dithering_array(self, arr_srgb_8: np.ndarray) -> np.ndarray:
         """(H, W, 3) uint8 in, (H, W, 3) uint8 out. Core of apply_dithering."""
+        count("facade.frames")
         if self.use_gamma:
-            arr_01 = arr_srgb_8.astype(np.float32) / 255.0
-            arr_lin_01 = _colors.srgb_to_linear_np(arr_01)
-            # Reference quirk: quantizes the LINEAR image to 8 bits before
-            # dithering.
-            arr_for_dith = np.clip(arr_lin_01 * 255.0, 0, 255).astype(np.uint8)
+            with stage("facade.host_in"):
+                arr_01 = arr_srgb_8.astype(np.float32) / 255.0
+                arr_lin_01 = _colors.srgb_to_linear_np(arr_01)
+                # Reference quirk: quantizes the LINEAR image to 8 bits
+                # before dithering.
+                arr_for_dith = np.clip(arr_lin_01 * 255.0, 0, 255).astype(np.uint8)
             if self.palette is None:
                 self.palette = _palette.median_cut_palette(arr_for_dith, self.num_colors)
         else:
@@ -1140,11 +1158,13 @@ class ImageDitherer:
 
         palette_arr = self._palette_for_dither()
         h, w, _ = arr_for_dith.shape
-        flat_pixels = arr_for_dith.reshape(-1, 3).astype(np.float32)
+        with stage("facade.host_in"):
+            flat_pixels = arr_for_dith.reshape(-1, 3).astype(np.float32)
 
         strategy = self._get_dither_strategy(self.dither_mode or DitherMode.NONE)
         dithered_flat = strategy.dither(flat_pixels, palette_arr, (h, w))
-        return self._from_dither(dithered_flat.reshape(h, w, 3).astype(np.uint8))
+        with stage("facade.host_out"):
+            return self._from_dither(dithered_flat.reshape(h, w, 3).astype(np.uint8))
 
     def supports_planar_batch(self) -> bool:
         """True when ``apply_dithering_batch(..., planar=True)`` is
@@ -1190,9 +1210,11 @@ class ImageDitherer:
         if self.palette is None:
             raise ValueError("apply_dithering_batch requires a palette; "
                              "compute one from the first frame first")
+        count("facade.frames", np.shape(arrs_srgb_8)[1 if planar else 0])
         if self.use_gamma:
-            lin = _colors.srgb_to_linear_np(arrs_srgb_8.astype(np.float32) / 255.0)
-            work = np.clip(lin * 255.0, 0, 255).astype(np.uint8)
+            with stage("facade.host_in"):
+                lin = _colors.srgb_to_linear_np(arrs_srgb_8.astype(np.float32) / 255.0)
+                work = np.clip(lin * 255.0, 0, 255).astype(np.uint8)
         else:
             work = arrs_srgb_8
         palette_arr = self._palette_for_dither()
@@ -1203,11 +1225,12 @@ class ImageDitherer:
                 and _linkspeed.index_transfer_wins(self.device)):
             idx = strategy.dither_batch_indices(work, palette_arr, planar=planar)
             if idx is not None:
-                # Truncation, as the device epilogue's float32 -> int cast.
-                pal_u8 = self._from_dither(palette_arr.astype(np.uint8))
-                if planar:
-                    return pal_u8.T[:, idx]  # (3, B, H, W)
-                return pal_u8[idx]  # (B, H, W, 3)
+                with stage("facade.host_out"):
+                    # Truncation, as the device epilogue's float32 -> int cast.
+                    pal_u8 = self._from_dither(palette_arr.astype(np.uint8))
+                    if planar:
+                        return pal_u8.T[:, idx]  # (3, B, H, W)
+                    return pal_u8[idx]  # (B, H, W, 3)
         if planar:
             if not hasattr(strategy, "dither_batch_planar"):
                 raise ValueError(
@@ -1216,11 +1239,15 @@ class ImageDitherer:
             out = strategy.dither_batch_planar(work, palette_arr)
         else:
             out = strategy.dither_batch(work, palette_arr)
-        return self._from_dither(out.astype(np.uint8))
+        with stage("facade.host_out"):
+            return self._from_dither(out.astype(np.uint8))
 
     def apply_dithering(self, image: Image.Image) -> Image.Image:
-        arr = np.array(image.convert("RGB"), dtype=np.uint8)
-        return Image.fromarray(self.apply_dithering_array(arr), "RGB")
+        with stage("facade.host_in"):
+            arr = np.array(image.convert("RGB"), dtype=np.uint8)
+        out = self.apply_dithering_array(arr)
+        with stage("facade.host_out"):
+            return Image.fromarray(out, "RGB")
 
     def _palette_for_dither(self) -> np.ndarray:
         """(P, 3) float32 palette; linearised (not rounded) on the gamma

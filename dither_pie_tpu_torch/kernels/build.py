@@ -16,9 +16,9 @@ compiles the named sources alone with the same flags and prints what
 ptxas reports for each kernel: registers, shared memory, spills.
 
 ``LAUNCHES`` counts the CUDA launches of every kernel in this process, by
-name; each wrapper adds one where it launches its kernel and nowhere else
-(plain-version calls are not counted). ``on_cuda`` is the one rule that
-picks kernel or plain version: the tensor's device.
+name; each wrapper adds one with ``count_launch`` where it launches its
+kernel and nowhere else (plain-version calls are not counted). ``on_cuda``
+is the one rule that picks kernel or plain version: the tensor's device.
 """
 
 from __future__ import annotations
@@ -45,10 +45,19 @@ _lock = threading.Lock()
 _ext: Optional[ModuleType] = None
 
 LAUNCHES: Counter = Counter()
+_launch_lock = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of kernel ``name`` to ``LAUNCHES``, under a lock: the
+    video pipeline's two workers launch at once."""
+    with _launch_lock:
+        LAUNCHES[name] += 1
 
 
 def reset_launch_counts() -> None:
-    LAUNCHES.clear()
+    with _launch_lock:
+        LAUNCHES.clear()
 
 
 def on_cuda(t: torch.Tensor) -> bool:

@@ -27,6 +27,8 @@ import os
 import numpy as np
 import torch
 
+from dither_pie_tpu_torch.api.transfer import to_host
+
 
 def pack_bits_for(p: int) -> int:
     """Bits per pixel the packed stream needs for a P-colour palette, or 0
@@ -77,9 +79,9 @@ def packed_transfer(idx: torch.Tensor, p: int, w: int) -> np.ndarray:
     """The one device-to-host copy of an index tensor: pack on the device
     when the palette qualifies and ``DITHER_PIE_TPU_INDEX_PACK`` allows,
     copy the packed bytes, unpack on the host; otherwise copy the indices
-    as they are. Returns host (B, H, w) indices of ``idx``'s dtype either
-    way."""
+    as they are. Either copy goes through ``api.transfer.to_host``. Returns
+    host (B, H, w) indices of ``idx``'s dtype either way."""
     bpp = pack_bits_for(p)
     if not bpp or not pack_enabled() or idx.dtype != torch.uint8:
-        return idx.cpu().numpy()
-    return unpack_indices_host(pack_indices_device(idx, bpp).cpu().numpy(), bpp, w)
+        return to_host(idx)
+    return unpack_indices_host(to_host(pack_indices_device(idx, bpp)), bpp, w)

@@ -147,5 +147,5 @@ def ordered_dither_fused(images: torch.Tensor, palette: torch.Tensor,
     build.extension().ordered_fused(frames, palette.contiguous(), screen.contiguous(), out,
                                     return_indices, plan.threads, plan.pixels, plan.frames,
                                     list(plan.grid), plan.smem_bytes)
-    build.LAUNCHES["ordered_fused"] += 1
+    build.count_launch("ordered_fused")
     return out

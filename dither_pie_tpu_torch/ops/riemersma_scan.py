@@ -46,6 +46,7 @@ import functools
 import numpy as np
 import torch
 
+from dither_pie_tpu_torch.api import transfer
 from dither_pie_tpu_torch.kernels import build
 from dither_pie_tpu_torch.ops.hilbert import hilbert_path, next_power_of_two
 
@@ -230,7 +231,7 @@ def riemersma_scan(frames: torch.Tensor, pal: torch.Tensor) -> torch.Tensor:
     order, mask = device_maps(h, w, frames.device)
     out = torch.empty((b, h, w, 3), dtype=torch.uint8, device=frames.device)
     build.extension().riemersma_scan(frames, pal, order, mask, out)
-    build.LAUNCHES["riemersma_scan"] += 1
+    build.count_launch("riemersma_scan")
     return out
 
 
@@ -242,6 +243,6 @@ def riemersma_scan_batch(images, palette, device="cuda") -> np.ndarray:
     images = np.asarray(images)
     if images.dtype != np.uint8:
         images = images.astype(np.float32)
-    frames = torch.from_numpy(np.ascontiguousarray(images)).to(device)
+    frames = transfer.to_device(np.ascontiguousarray(images), device)
     pal = torch.from_numpy(np.ascontiguousarray(palette, np.float32)).to(device)
-    return riemersma_scan(frames, pal).cpu().numpy()
+    return transfer.to_host(riemersma_scan(frames, pal))

@@ -287,7 +287,7 @@ def skew_gather(images: torch.Tensor, s: int) -> torch.Tensor:
     """K1 itself on CUDA frames of either dtype: a shared-memory tile
     transpose (``skew_tile_plan``)."""
     out = _launch_skew(images, s, images.dtype)
-    build.LAUNCHES["skew"] += 1
+    build.count_launch("skew")
     return out
 
 
@@ -320,7 +320,7 @@ def skew_planar_gather(planes: torch.Tensor, s: int) -> torch.Tensor:
     """K6 itself on CUDA planes of either dtype: K1's tile transpose with
     one channel (``skew_tile_plan(..., channels=1)``)."""
     out = _launch_skew(planes, s, planes.dtype)
-    build.LAUNCHES["skew_planar"] += 1
+    build.count_launch("skew_planar")
     return out
 
 
@@ -388,7 +388,7 @@ def skew_transpose(frames: torch.Tensor, s: int,
     if not build.on_cuda(frames):
         return skew_transpose_plain(frames, s, out_dtype)
     out = _launch_skew(frames.contiguous(), s, out_dtype)
-    build.LAUNCHES["skew_transpose"] += 1
+    build.count_launch("skew_transpose")
     return out
 
 
@@ -698,7 +698,7 @@ def launch_scan(stream: torch.Tensor, palette: torch.Tensor, geom: ScanGeometry,
         geom.offsets, geom.weights, geom.columns, MODES.index(geom.mode),
         geom.s, width, geom.lum_factor, geom.col_factor, emit_idx, plan.n,
         list(plan.bounds), geom.ring, plan.hist_smem, plan.smem_bytes)
-    build.LAUNCHES["ed_scan_idx" if emit_idx else "ed_scan"] += 1
+    build.count_launch("ed_scan_idx" if emit_idx else "ed_scan")
     return out
 
 
@@ -928,7 +928,7 @@ def unskew_unpack(col: torch.Tensor, s: int, h: int, w: int,
     out = torch.empty((3, b, h, w) if planar_out else (b, h, w, 3),
                       dtype=torch.uint8, device=col.device)
     launch_unskew(col, out, s, "planar" if planar_out else "nhwc")
-    build.LAUNCHES["unskew_unpack"] += 1
+    build.count_launch("unskew_unpack")
     return out
 
 
@@ -960,7 +960,7 @@ def unskew_idx(idx: torch.Tensor, s: int, h: int, w: int,
         return unskew_idx_plain(idx, s, h, w, dtype)
     out = torch.empty((idx.shape[1], h, w), dtype=dtype, device=idx.device)
     launch_unskew(idx, out, s, "u8" if dtype == torch.uint8 else "u16")
-    build.LAUNCHES["unskew_idx"] += 1
+    build.count_launch("unskew_idx")
     return out
 
 
@@ -988,7 +988,7 @@ def unskew_select(idx: torch.Tensor, palette: torch.Tensor, s: int, h: int,
     out = torch.empty((idx.shape[1], h, w, 3), dtype=torch.uint8,
                       device=idx.device)
     launch_unskew(idx, out, s, "select", palette.contiguous())
-    build.LAUNCHES["unskew_select"] += 1
+    build.count_launch("unskew_select")
     return out
 
 

@@ -50,7 +50,7 @@ import torch
 from PIL import Image
 
 from dither_pie_tpu_torch.api.ditherer import ImageDitherer, PixelizeMethod
-from dither_pie_tpu_torch.api.profiling import stage
+from dither_pie_tpu_torch.api.profiling import count, stage
 from dither_pie_tpu_torch.api.runtime import DeviceLike
 from dither_pie_tpu_torch.parallel.multihost import host_segments
 from dither_pie_tpu_torch.pipeline import ffio
@@ -103,7 +103,8 @@ def _pixelize_frames(arrs: List[np.ndarray], method: Optional[str], max_size: in
 def _prefetch(iterable: Iterable, depth: int) -> Iterator:
     """Pull from ``iterable`` on a background thread through a bounded queue
     so frame decode overlaps the dithering. Worker exceptions re-raise at
-    the consumer."""
+    the consumer. Each get is a ``video.prefetch_get`` span and adds the
+    queue's depth before it to ``video.prefetch_depth``."""
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     done = object()
 
@@ -117,7 +118,11 @@ def _prefetch(iterable: Iterable, depth: int) -> Iterator:
 
     threading.Thread(target=worker, daemon=True).start()
     while True:
-        item = q.get()
+        depth = q.qsize()
+        with stage("video.prefetch_get"):
+            item = q.get()
+        count("video.prefetch_depth", depth)
+        count("video.prefetch_gets")
         if item is done:
             return
         if isinstance(item, BaseException):
@@ -172,29 +177,34 @@ def process_frames(
     last_good: Optional[np.ndarray] = None
     pending_patch = 0  # leading frames that failed before any success
 
-    def run_batch(arrs: List[np.ndarray]) -> List[Optional[np.ndarray]]:
+    def run_batch(arrs: List[np.ndarray], number: int) -> List[Optional[np.ndarray]]:
         # Planar frames are (3, H, W); the batch axis is axis 1 (3, B, H, W).
-        stacked = np.stack(arrs, axis=1) if planar else np.stack(arrs)
+        with stage("video.stack", number):
+            stacked = np.stack(arrs, axis=1) if planar else np.stack(arrs)
         try:
-            with stage("video.dither_batch"):
+            with stage("video.dither_batch", number):
                 out = ditherer.apply_dithering_batch(stacked, planar=planar)
             return [out[:, i] if planar else out[i] for i in range(len(arrs))]
         except Exception as e:
             logger.warning(f"Batch dither failed ({e}); retrying per frame")
+            count("video.batches_retried")
             results: List[Optional[np.ndarray]] = []
-            for arr in arrs:
-                ok = None
-                for _ in range(retries):
-                    try:
-                        if planar:
-                            ok = ditherer.apply_dithering_batch(
-                                arr[:, None], planar=True)[:, 0]
-                        else:
-                            ok = ditherer.apply_dithering_batch(arr[None])[0]
-                        break
-                    except Exception as ee:
-                        logger.error(f"Frame failed: {ee}", exc_info=False)
-                results.append(ok)
+            with stage("video.retry", number):
+                for arr in arrs:
+                    ok = None
+                    for _ in range(retries):
+                        try:
+                            if planar:
+                                ok = ditherer.apply_dithering_batch(
+                                    arr[:, None], planar=True)[:, 0]
+                            else:
+                                ok = ditherer.apply_dithering_batch(arr[None])[0]
+                            break
+                        except Exception as ee:
+                            logger.error(f"Frame failed: {ee}", exc_info=False)
+                    if ok is None:
+                        count("video.frames_failed")
+                    results.append(ok)
             return results
 
     def emit_results(results):
@@ -206,6 +216,7 @@ def process_frames(
                     pending_patch += 1
                     continue
                 logger.warning("Patched failed frame from nearest good frame")
+                count("video.frames_patched")
                 res = last_good.copy()
             else:
                 last_good = res
@@ -216,9 +227,11 @@ def process_frames(
             # Backfill any leading failures with this first good frame.
             for _ in range(pending_patch):
                 done += 1
+                count("video.frames")
                 yield emit.copy()
             pending_patch = 0
             done += 1
+            count("video.frames")
             yield emit
             if progress and total_frames and done % 5 == 0:
                 progress(0.1 + 0.8 * done / total_frames,
@@ -228,42 +241,53 @@ def process_frames(
         with stage("video.pixelize"):
             return _pixelize_frames(arrs, method, max_size, device or "cuda")
 
+    numbers = itertools.count()
     if not overlap:
         for frame in frames:
             batch.append(np.asarray(frame))
             if len(batch) >= batch_size:
-                yield from emit_results(run_batch(pixelized(batch)))
+                yield from emit_results(run_batch(pixelized(batch), next(numbers)))
                 batch.clear()
         if batch:
-            yield from emit_results(run_batch(pixelized(batch)))
+            yield from emit_results(run_batch(pixelized(batch), next(numbers)))
         return
 
     local = threading.local()
 
-    def run_on_own_stream(arrs):
+    def run_on_own_stream(arrs, number):
         if device is None or device.type != "cuda":
-            return run_batch(arrs)
+            return run_batch(arrs, number)
         if not hasattr(local, "stream"):
             local.stream = torch.cuda.Stream(device)
         with torch.cuda.stream(local.stream):
-            return run_batch(arrs)
+            return run_batch(arrs, number)
 
     ex = ThreadPoolExecutor(max_workers=2, thread_name_prefix="dither-batch")
     pending: "collections.deque" = collections.deque()
+
+    def submit(arrs):
+        number = next(numbers)
+        pending.append((number, ex.submit(run_on_own_stream, arrs, number)))
+
+    def oldest_results():
+        number, future = pending.popleft()
+        with stage("video.wait", number):
+            return future.result()
+
     try:
         for frame in frames:
             batch.append(np.asarray(frame))
             if len(batch) >= batch_size:
                 # Pixelize on the main thread (the neural pixelizer's
                 # forward), then hand the dither to the pool.
-                pending.append(ex.submit(run_on_own_stream, pixelized(batch)))
+                submit(pixelized(batch))
                 batch = []
                 while len(pending) > 2:
-                    yield from emit_results(pending.popleft().result())
+                    yield from emit_results(oldest_results())
         if batch:
-            pending.append(ex.submit(run_on_own_stream, pixelized(batch)))
+            submit(pixelized(batch))
         while pending:
-            yield from emit_results(pending.popleft().result())
+            yield from emit_results(oldest_results())
     finally:
         ex.shutdown(wait=False, cancel_futures=True)
 

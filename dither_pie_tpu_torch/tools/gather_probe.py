@@ -302,7 +302,7 @@ def _gather(table: torch.Tensor, idx: torch.Tensor, k: int, update: str,
         table = table.clone()
     out = torch.empty_like(idx)
     launch_gather(table, idx.contiguous(), out, k, update, plan)
-    build.LAUNCHES["gather_probe"] += 1
+    build.count_launch("gather_probe")
     return out
 
 
@@ -348,7 +348,7 @@ def sweep_chain(table: torch.Tensor, idx: torch.Tensor, k: int = 1) -> torch.Ten
     out = torch.empty_like(idx)
     build.extension().sweep_chain(table.contiguous(), idx.contiguous(), out, k,
                                   table_in_smem(table))
-    build.LAUNCHES["gather_probe_sweep"] += 1
+    build.count_launch("gather_probe_sweep")
     return out
 
 

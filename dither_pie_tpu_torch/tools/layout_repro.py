@@ -141,7 +141,7 @@ def identity_plain(x: torch.Tensor) -> torch.Tensor:
 def _launch(x: torch.Tensor, out: torch.Tensor, plan: IdentityPlan) -> None:
     build.extension().identity_u8(x, out, IDENTITY_FORMS.index(plan.form), plan.head,
                                   plan.body, plan.span, plan.blocks, plan.threads)
-    build.LAUNCHES["identity"] += 1
+    build.count_launch("identity")
 
 
 def _grid(x: torch.Tensor, blocks_per_sm: int) -> int:

@@ -183,7 +183,7 @@ def _launch(cur: torch.Tensor, palette: torch.Tensor, iters: int, score: bool,
                       device=cur.device)
     build.extension().search_probe(cur.contiguous(), palette.contiguous(), out,
                                    iters, score, n, list(_wf.palette_slices(pp, n)))
-    build.LAUNCHES["search_probe"] += 1
+    build.count_launch("search_probe")
     return out
 
 
