@@ -1886,11 +1886,11 @@ def transfer_phase(torch, dev, card, lib, frames16, frame0, palette32, palette16
     out_g = drive("(g) FS k-means-32, environment unset", d32, frames16, None,
                   idx_path if verdict else rgb_path, pal32_np)
     check(np.array_equal(out_g, out16_rgb), "(g) output != phase 5's")
-    log(f"[9] (g) link probe (pageable 16 MB copies, best of 2): {mb_s:.1f} MB/s -> index "
-        f"stream {'on' if verdict else 'off'} by default (host gather pal_u8[idx] of one "
-        f"1080x1920 frame, best of 2: {gather_ns:.3f} ns a pixel, so 2 bytes a pixel "
-        f"saved break even at {even:.1f} MB/s); the facade "
-        f"took the {'index' if verdict else 'RGB'} path [{card}]")
+    log(f"[9] (g) link probe (16 MB copies into a pinned block, as the facade's, best "
+        f"of 2): {mb_s:.1f} MB/s -> index stream {'on' if verdict else 'off'} by "
+        f"default (host gather pal_u8[idx] of one 1080x1920 frame, best of 2: "
+        f"{gather_ns:.3f} ns a pixel, so 2 bytes a pixel saved break even at "
+        f"{even:.1f} MB/s); the facade took the {'index' if verdict else 'RGB'} path [{card}]")
 
     for row in rows:
         row["launches"] += totals.get(row["name"], 0)
@@ -5624,6 +5624,7 @@ def run(torch, dev, card, seed=0) -> int:
     t_run = time.perf_counter()
 
     import dither_pie_tpu_torch as dpt
+    from dither_pie_tpu_torch.api import transfer
     from dither_pie_tpu_torch.kernels import build
     from dither_pie_tpu_torch.ops import ed_kernels, wavefront as twf
 
@@ -5783,9 +5784,11 @@ def run(torch, dev, card, seed=0) -> int:
     h2d = host_ms(lambda: torch.from_numpy(frames16).to(dev))
     h2d_pinned = host_ms(lambda: pinned.to(dev, non_blocking=True))
     d2h = host_ms(lambda: batch_t.cpu().numpy())
+    d2h_pinned = host_ms(lambda: transfer.to_host(batch_t))
     log(f"[6] host transfer of one {BATCH}x{FULL_H}x{FULL_W}x3 u8 batch "
         f"({frames16.nbytes / 1e6:.1f} MB): H2D pageable {h2d:.3f} ms, H2D "
-        f"pinned {h2d_pinned:.3f} ms, D2H pageable {d2h:.3f} ms [{card}]")
+        f"pinned {h2d_pinned:.3f} ms, D2H pageable {d2h:.3f} ms, D2H into a "
+        f"pinned block (the facade's, api/transfer.py) {d2h_pinned:.3f} ms [{card}]")
     geom = twf.scan_geometry("floyd_steinberg")
     stream = twf.skew(batch_t, geom.s)
     col = twf.scan(stream, pal_t, geom, FULL_W)
@@ -5956,6 +5959,15 @@ def run(torch, dev, card, seed=0) -> int:
                            "ordered_fused", "unskew_idx", "unskew_select", "identity",
                            "skew_transpose"):
             row["max_abs_err"] = max(row["max_abs_err"], errs.get(row["name"], 0.0))
+    if dev.type == "cuda":
+        # Every CUDA result of the facade is a block of the caching host
+        # allocator, whose cache keeps it page-locked once it is dropped.
+        hs = torch.cuda.host_memory_stats()
+        log(f"[23] pinned host memory the caching allocator holds: "
+            f"{hs['allocated_bytes.current'] / 2**30:.3f} GiB in "
+            f"{hs['allocations.current']} blocks; page-locked {hs['num_host_alloc']} "
+            f"times in {hs['host_alloc_time.total'] / 1e6:.3f} s, freed "
+            f"{hs['num_host_free']}")
     took = time.perf_counter() - t_run
     log(f"[23] the whole run took {took:.1f} s, {took / RUN_LIMIT_S:.2f} of its "
         f"{RUN_LIMIT_S} s limit")

@@ -1240,7 +1240,9 @@ class ImageDitherer:
         else:
             out = strategy.dither_batch(work, palette_arr)
         with stage("facade.host_out"):
-            return self._from_dither(out.astype(np.uint8))
+            # A uint8 result is returned as it is: on a CUDA device, the
+            # pinned block the copy back landed in (``api/transfer.py``).
+            return self._from_dither(out.astype(np.uint8, copy=False))
 
     def apply_dithering(self, image: Image.Image) -> Image.Image:
         with stage("facade.host_in"):

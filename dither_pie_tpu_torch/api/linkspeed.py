@@ -9,8 +9,9 @@ colours) plus one exact palette gather on the host. The index stream saves
     2 bytes / link bandwidth  >  the host gather's time per pixel.
 
 Both sides are measured, once per process: ``d2h_bandwidth_mb_s`` times the
-kind of copy the facade makes (a pageable ``Tensor.cpu()``) and
-``host_gather_ns_per_px`` the kind of gather it makes (``pal_u8[idx]``).
+copy the facade makes (``api/transfer.py``: into a pinned block of the
+caching host allocator) and ``host_gather_ns_per_px`` the kind of gather it
+makes (``pal_u8[idx]``).
 The JAX package compares the bandwidth with a constant, 1000 MB/s, that
 stands for a gather of 2 ns a pixel; this host's gather is measured instead,
 so the break-even follows the host (``break_even_mb_s``).
@@ -29,6 +30,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from dither_pie_tpu_torch.api import transfer
 from dither_pie_tpu_torch.api.runtime import DeviceLike, resolve_device
 
 _PROBE_BYTES = 16 * 1024 * 1024
@@ -43,9 +45,11 @@ _probe_lock = threading.RLock()
 
 def d2h_bandwidth_mb_s(device: DeviceLike) -> Optional[float]:
     """Measured device-to-host bandwidth of ``device`` in MB/s: the best of
-    two pageable 16 MB uint8 copies with distinct contents, each timed
-    after a ``torch.cuda.synchronize``. ``None`` for a CPU device (there is
-    no link). Cached per device for the life of the process."""
+    two 16 MB uint8 copies with distinct contents into a pinned block, as
+    ``transfer.to_host`` copies (the block allocated before the clock
+    starts), each timed after a ``torch.cuda.synchronize``. ``None`` for a
+    CPU device (there is no link). Cached per device for the life of the
+    process."""
     dev = resolve_device(device)
     if dev.type == "cpu":
         return None
@@ -55,9 +59,10 @@ def d2h_bandwidth_mb_s(device: DeviceLike) -> Optional[float]:
             for i in range(2):
                 x = (torch.arange(_PROBE_BYTES, dtype=torch.int32, device=dev)
                      * (i + 40503)).to(torch.uint8)
+                buf = transfer.pinned_block(x)
                 torch.cuda.synchronize(dev)
                 t0 = time.perf_counter()
-                x.cpu()
+                transfer.copy_back(x, buf)
                 best = min(best, time.perf_counter() - t0)
             _cache[dev] = _PROBE_BYTES / best / 1e6
         return _cache[dev]

@@ -31,7 +31,10 @@ use them):
   emitted), ``video.batches_retried``, ``video.frames_failed``,
   ``video.frames_patched``, ``facade.frames`` (frames that entered a dither
   path), ``transfer.h2d_bytes`` and ``transfer.d2h_bytes`` (the frames'
-  bytes to and from the ditherer's device).
+  bytes to and from the ditherer's device), ``transfer.d2h_pinned_bytes``
+  (those of the copy back that landed in a pinned host block) and
+  ``transfer.pinned_blocks_new`` (pinned blocks the caching host allocator
+  page-locked anew for the copy back; flat once its cache is warm).
 
 With ``DITHER_PIE_TPU_TRACE_DIR`` set when the first stage runs, that stage
 starts a ``torch.profiler`` of the host (every thread) and the card, and at

@@ -78,6 +78,7 @@ from its image value over its incoming errors in contributor-scan order
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 import threading
@@ -675,29 +676,76 @@ def launch_capacity(stream: torch.Tensor, palette: torch.Tensor, geom: ScanGeome
         launch_plan(stream, palette, geom, emit_idx, dense_search, n))
 
 
+class ScanTurns:
+    """The order of the scan launches that several CUDA streams enqueue on
+    one card.
+
+    ``launch_plan`` sizes a launch so that all its clusters are resident at
+    once, a rule of one launch. Launches enqueued on two streams may run
+    at the same time and together ask for more clusters than the card
+    holds: two batches of 16 1080p frames at 256 colours ask for 2 x 16
+    clusters of 4, and an H100 holds 30. The clusters that find no room
+    wait for the other launch's to finish, so the later launch's frames
+    come no sooner than if it had waited whole, and its span on the card
+    covers the other's. ``turn`` has it wait whole, on the device, for
+    the last launch enqueued on another stream. Launches that fit
+    together still overlap, and no host thread waits."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        # Card index -> (stream, event after its launch, its clusters).
+        self._last: Dict[int, Tuple[torch.cuda.Stream, torch.cuda.Event, int]] = {}
+
+    @contextlib.contextmanager
+    def turn(self, device: torch.device, clusters: int, capacity: int):
+        """Enqueue the launch made inside the block after the last scan
+        launch of another stream of ``device`` where the two launches'
+        ``clusters`` exceed ``capacity``, the card's count of resident
+        clusters; then record it as the last. A launch captured into a CUDA
+        graph takes no turn."""
+        if torch.cuda.is_current_stream_capturing():
+            yield
+            return
+        stream = torch.cuda.current_stream(device)
+        with self._lock:
+            last = self._last.get(device.index)
+            if last is not None and last[0] != stream and last[2] + clusters > capacity:
+                stream.wait_event(last[1])
+            yield
+            done = torch.cuda.Event()
+            done.record(stream)
+            self._last[device.index] = (stream, done, clusters)
+
+
+scan_turns = ScanTurns()
+
+
 def launch_scan(stream: torch.Tensor, palette: torch.Tensor, geom: ScanGeometry,
                 width: int, aux: Optional[torch.Tensor], emit_idx: bool,
                 dense_search: str, n: Optional[int] = None) -> torch.Tensor:
     """Launch the scan kernel: K8 with ``emit_idx``, else K2; with the
     augmented palette where the score search runs; one frame over a
     cluster of ``launch_plan``'s size (``n`` forces one, for the
-    measurements and checks that compare sizes)."""
+    measurements and checks that compare sizes), in its turn among the
+    card's streams (``scan_turns``)."""
     d_total, rows, h = stream.shape
     b = rows // 3
     dev = stream.device
     score = score_search(dense_search, palette.shape[0])
     plan = launch_plan(stream, palette, geom, emit_idx, dense_search, n)
+    capacity = _capacity_of(stream, palette, geom, emit_idx, dense_search)(plan)
     none = torch.empty(0, dtype=torch.float32, device=dev)
     hist = none if plan.hist_smem else torch.empty(
         (b * plan.n, geom.ring, geom.hist_channels, h), dtype=torch.float32, device=dev)
     out = torch.empty((d_total, b, h), dtype=torch.int32, device=dev)
-    build.extension().ed_scan(
-        stream, palette, convert.augment_palette(palette) if score else none,
-        aux if geom.needs_aux else none,
-        ostro_lut(dev) if geom.mode == "ostromoukhov" else none, hist, out,
-        geom.offsets, geom.weights, geom.columns, MODES.index(geom.mode),
-        geom.s, width, geom.lum_factor, geom.col_factor, emit_idx, plan.n,
-        list(plan.bounds), geom.ring, plan.hist_smem, plan.smem_bytes)
+    with scan_turns.turn(dev, b, capacity):
+        build.extension().ed_scan(
+            stream, palette, convert.augment_palette(palette) if score else none,
+            aux if geom.needs_aux else none,
+            ostro_lut(dev) if geom.mode == "ostromoukhov" else none, hist, out,
+            geom.offsets, geom.weights, geom.columns, MODES.index(geom.mode),
+            geom.s, width, geom.lum_factor, geom.col_factor, emit_idx, plan.n,
+            list(plan.bounds), geom.ring, plan.hist_smem, plan.smem_bytes)
     build.count_launch("ed_scan_idx" if emit_idx else "ed_scan")
     return out
 
