@@ -25,7 +25,12 @@ use them):
   device), ``transfer.h2d``, ``ops.ed_dispatch`` (enqueueing the
   error-diffusion kernels), ``device.wait`` (CUDA only: the stream's work
   before the copy back), ``transfer.d2h``, ``facade.host_out`` (host work
-  after the copy back, up to the facade's return);
+  after the copy back, up to the facade's return); ``video.pixelize`` (the
+  main thread's pixelize stage of a batch) and, inside it,
+  ``neural.host_in`` (the neural pixelizer's resize, crop and uint8
+  concat), ``neural.forward`` (the host's dispatch of C2PGen and AliasNet),
+  ``neural.wait`` (the copy back of the output, the device wait inside it)
+  and ``neural.host_out`` (``upsample4_u8`` and the PIL resizes);
 * counters: ``video.prefetch_depth`` and ``video.prefetch_gets`` (their
   ratio is the mean depth of the decode queue), ``video.frames`` (frames
   emitted), ``video.batches_retried``, ``video.frames_failed``,
@@ -34,7 +39,10 @@ use them):
   bytes to and from the ditherer's device), ``transfer.d2h_pinned_bytes``
   (those of the copy back that landed in a pinned host block) and
   ``transfer.pinned_blocks_new`` (pinned blocks the caching host allocator
-  page-locked anew for the copy back; flat once its cache is warm).
+  page-locked anew for the copy back; flat once its cache is warm),
+  ``neural.frames`` (frames the neural pixelizer pixelized),
+  ``neural.batches`` (its batched forwards) and ``neural.gate_forwards``
+  (forwards its two first-batch gates ran; flat once they have locked).
 
 With ``DITHER_PIE_TPU_TRACE_DIR`` set when the first stage runs, that stage
 starts a ``torch.profiler`` of the host (every thread) and the card, and at

@@ -19,6 +19,15 @@ caller asks for the CPU). The switches, read only here:
   frames instead of the /4 block samples.
 * ``DITHER_PIE_TPU_NEURAL_DS4_STRIDE=0/1``: forbid or force the stride-4
   final conv (unset: the first-batch gate decides).
+
+Spans and counters (``api/profiling.py``): ``neural.host_in`` (the batch
+path's resize, crop and uint8 concat), ``neural.forward`` (the host's
+dispatch of C2PGen and AliasNet, after the copy to the device),
+``neural.wait`` (the copy back, the device wait inside it),
+``neural.host_out`` (``upsample4_u8`` and the PIL resizes); the counters
+``neural.frames`` (frames pixelized), ``neural.batches`` (batched
+forwards) and ``neural.gate_forwards`` (forwards the two first-batch gates
+ran). The copies go through ``api/transfer.py``.
 """
 
 from __future__ import annotations
@@ -32,7 +41,9 @@ import numpy as np
 import torch
 from PIL import Image
 
+from dither_pie_tpu_torch.api.profiling import count, stage
 from dither_pie_tpu_torch.api.runtime import DeviceLike, resolve_device
+from dither_pie_tpu_torch.api.transfer import to_device, to_host
 from dither_pie_tpu_torch.core.fidelity import block_mean_error
 from dither_pie_tpu_torch.models.c2pgen import (
     AliasNet,
@@ -191,12 +202,12 @@ class PixelizationModel:
     def _tensor(self, arr: np.ndarray) -> torch.Tensor:
         """(B, H, W, 3) host array -> (B, 3, H, W) on the device, uint8
         scaled to [-1, 1] there."""
-        t = torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        t = to_device(np.ascontiguousarray(arr), self.device)
         return _maybe_normalize(t).permute(0, 3, 1, 2).contiguous()
 
     @staticmethod
     def _host(t: torch.Tensor) -> np.ndarray:
-        return t.permute(0, 2, 3, 1).contiguous().cpu().numpy()
+        return to_host(t.permute(0, 2, 3, 1).contiguous())
 
     def _style(self) -> torch.Tensor:
         """The (1, 2048) adain code of reference.png, in float32, computed
@@ -227,14 +238,16 @@ class PixelizationModel:
         samples (``aliasnet_forward_ds4``)."""
         precision = precision or _env_precision()
         x = self._tensor(in_t)
-        if ds4 and stride:
-            mid = c2pgen_forward(self.gen, x, adain=self._style(), precision=precision)
-            u8 = _to_u8(aliasnet_forward_ds4(self.alias, mid, precision=precision))
-        else:
-            u8 = _to_u8(self.forward_tensor(x, precision))
-            if ds4:
-                u8 = u8[:, :, 2::4, 2::4]
-        return self._host(u8)
+        with stage("neural.forward"):
+            if ds4 and stride:
+                mid = c2pgen_forward(self.gen, x, adain=self._style(), precision=precision)
+                u8 = _to_u8(aliasnet_forward_ds4(self.alias, mid, precision=precision))
+            else:
+                u8 = _to_u8(self.forward_tensor(x, precision))
+                if ds4:
+                    u8 = u8[:, :, 2::4, 2::4]
+        with stage("neural.wait"):
+            return self._host(u8)
 
     def _gate(self, ref: np.ndarray, cand: np.ndarray, block: int):
         """(passes, mean |u8 delta|, worst frame's block mean error)."""
@@ -268,6 +281,7 @@ class PixelizationModel:
             else:
                 f32 = self.forward_u8(stacked, precision="float32", ds4=ds4)
                 bf16 = self.forward_u8(stacked, precision="bfloat16", ds4=ds4)
+                count("neural.gate_forwards", 2)
                 ok, mean_delta, block_mean = self._gate(f32, bf16, 1 if ds4 else 4)
                 self._video_prec = "bfloat16" if ok else "float32"
                 dense = bf16 if ok else f32
@@ -290,8 +304,10 @@ class PixelizationModel:
             else:
                 if dense is None:
                     dense = self.forward_u8(stacked, precision=self._video_prec, ds4=True)
+                    count("neural.gate_forwards")
                 cand = self.forward_u8(stacked, precision=self._video_prec, ds4=True,
                                        stride=True)
+                count("neural.gate_forwards")
                 if self._video_prec == "float32":
                     ok = bool(np.array_equal(cand, dense))
                     note = "bitwise" if ok else "not bitwise"
@@ -315,10 +331,14 @@ class PixelizationModel:
     def pixelize_image(self, image: Image.Image, max_size: int) -> Image.Image:
         """Upscale to max_size * 4, run the nets, then NEAREST-resize to
         even dimensions at max_size."""
-        img = resize_image_nearest(image.convert("RGB"), max_size * 4)
-        result = deprocess_u8(self.forward_u8(process(img))[0])
-        tw, th = compute_even_dimensions(result.size[0], result.size[1], max_size)
-        return result.resize((tw, th), Image.Resampling.NEAREST)
+        with stage("neural.host_in"):
+            pre = process(resize_image_nearest(image.convert("RGB"), max_size * 4))
+        out = self.forward_u8(pre)[0]
+        count("neural.frames")
+        with stage("neural.host_out"):
+            result = deprocess_u8(out)
+            tw, th = compute_even_dimensions(result.size[0], result.size[1], max_size)
+            return result.resize((tw, th), Image.Resampling.NEAREST)
 
     def pixelize_images_batch(self, images, max_size: int):
         """``pixelize_image`` for same-size frames (the video path): one
@@ -327,14 +347,20 @@ class PixelizationModel:
         whose prepared shapes differ go one at a time."""
         u8_in = os.environ.get("DITHER_PIE_TPU_NEURAL_U8_IN", "1") != "0"
         prep = process_u8 if u8_in else process
-        pre = [prep(resize_image_nearest(im.convert("RGB"), max_size * 4)) for im in images]
-        if len({p.shape for p in pre}) != 1:
+        with stage("neural.host_in"):
+            pre = [prep(resize_image_nearest(im.convert("RGB"), max_size * 4))
+                   for im in images]
+            stacked = np.concatenate(pre, axis=0) if len({p.shape for p in pre}) == 1 else None
+        if stacked is None:
             return [self.pixelize_image(im, max_size) for im in images]
         ds4 = os.environ.get("DITHER_PIE_TPU_NEURAL_DS4", "1") != "0"
-        out = self._gated_batch_forward(np.concatenate(pre, axis=0), ds4=ds4)
+        out = self._gated_batch_forward(stacked, ds4=ds4)
+        count("neural.frames", len(images))
+        count("neural.batches")
         results = []
-        for i in range(len(images)):
-            r = Image.fromarray(upsample4_u8(out[i])) if ds4 else deprocess_u8(out[i])
-            tw, th = compute_even_dimensions(r.size[0], r.size[1], max_size)
-            results.append(r.resize((tw, th), Image.Resampling.NEAREST))
+        with stage("neural.host_out"):
+            for i in range(len(images)):
+                r = Image.fromarray(upsample4_u8(out[i])) if ds4 else deprocess_u8(out[i])
+                tw, th = compute_even_dimensions(r.size[0], r.size[1], max_size)
+                results.append(r.resize((tw, th), Image.Resampling.NEAREST))
         return results
