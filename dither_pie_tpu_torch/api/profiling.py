@@ -36,10 +36,13 @@ use them):
   emitted), ``video.batches_retried``, ``video.frames_failed``,
   ``video.frames_patched``, ``facade.frames`` (frames that entered a dither
   path), ``transfer.h2d_bytes`` and ``transfer.d2h_bytes`` (the frames'
-  bytes to and from the ditherer's device), ``transfer.d2h_pinned_bytes``
-  (those of the copy back that landed in a pinned host block) and
-  ``transfer.pinned_blocks_new`` (pinned blocks the caching host allocator
-  page-locked anew for the copy back; flat once its cache is warm),
+  bytes to and from the ditherer's device), ``transfer.h2d_pinned_bytes``
+  (those of the send that left from a pinned host block: the video
+  pipeline's stacked batches on a CUDA ditherer),
+  ``transfer.d2h_pinned_bytes`` (those of the copy back that landed in a
+  pinned host block) and ``transfer.pinned_blocks_new`` (pinned blocks the
+  caching host allocator page-locked anew for either copy; flat once its
+  cache is warm),
   ``neural.frames`` (frames the neural pixelizer pixelized),
   ``neural.batches`` (its batched forwards) and ``neural.gate_forwards``
   (forwards its two first-batch gates ran; flat once they have locked).
