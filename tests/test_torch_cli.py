@@ -40,6 +40,7 @@ import bench
 from dither_pie_tpu.cli import main as jcli
 from dither_pie_tpu_torch.cli import main as tcli
 from dither_pie_tpu_torch.pipeline import image as timage
+import torch_workers  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 EXAMPLES = ROOT / "examples"

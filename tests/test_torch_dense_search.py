@@ -36,6 +36,7 @@ from dither_pie_tpu_torch.core import fidelity as tfid
 from dither_pie_tpu_torch.kernels import build
 from dither_pie_tpu_torch.ops import wavefront as twf
 from dither_pie_tpu_torch.tools import proto_mxu_search as probe
+import torch_workers  # noqa: F401
 
 
 def _frames(b, h, w, seed, dtype=np.uint8):

@@ -47,6 +47,7 @@ from dither_pie_tpu.core.fidelity import assert_perceptually_matched
 from dither_pie_tpu_torch.api import linkspeed as tlink
 from dither_pie_tpu_torch.core import palette as tpal
 from dither_pie_tpu_torch.ops import idxpack as tpack
+import torch_workers  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -28,6 +28,7 @@ from dither_pie_tpu_torch.kernels import build
 from dither_pie_tpu_torch.ops import adaptive as tad
 from dither_pie_tpu_torch.ops import ed_kernels as tek
 from dither_pie_tpu_torch.ops import wavefront as twf
+import torch_workers  # noqa: F401
 
 MODES = ["ostromoukhov", "hybrid", "perceptual", "adaptive"]
 

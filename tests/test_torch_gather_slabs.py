@@ -37,6 +37,7 @@ import torch
 
 from dither_pie_tpu_torch.tools import gather_probe as gp
 from test_torch_probes import _jax_gather, _jax_gather_chain, _jax_sweep_chain
+import torch_workers  # noqa: F401
 
 SMEM_MAX = 227 * 1024
 ILP = 4  # output rows a thread walks at once (gather_probe.cu SLAB_ILP)

@@ -21,6 +21,7 @@ from dither_pie_tpu.gui import widgets as jwidgets
 from dither_pie_tpu_torch.gui import logic as tlogic
 from dither_pie_tpu_torch.gui import viewmodel as tvm
 from dither_pie_tpu_torch.gui import widgets as twidgets
+import torch_workers  # noqa: F401
 
 PARAM_MODES = [m.value for m in tdpt.DitherMode
                if tdpt.ImageDitherer.get_mode_parameters(m)]

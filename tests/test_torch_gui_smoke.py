@@ -10,6 +10,7 @@ import os
 import numpy as np
 import pytest
 from PIL import Image
+import torch_workers  # noqa: F401
 
 
 def _display_available():

@@ -55,6 +55,7 @@ from dither_pie_tpu_torch.pipeline import pixelize as tpix
 from test_torch_halftone import _explained
 from test_torch_multihost import RecordingWriter, fake_io
 from test_torch_wavelet import FACADE_IDENTITY
+import torch_workers  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 H, W = 48, 64

@@ -33,6 +33,7 @@ import dither_pie_tpu_torch as tdpt
 from dither_pie_tpu.ops import halftone as jhalf
 from dither_pie_tpu_torch.core import palette as tpal
 from dither_pie_tpu_torch.ops import halftone as thalf
+import torch_workers  # noqa: F401
 
 SCREEN_CASES = [
     (37, 53, {}),

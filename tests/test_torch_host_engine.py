@@ -21,6 +21,7 @@ from dither_pie_tpu_torch.native import build as tbuild
 from dither_pie_tpu_torch.ops import ed_host as thost
 from dither_pie_tpu_torch.ops import ed_kernels as tkernels
 from dither_pie_tpu_torch.ops import hilbert as thilbert
+import torch_workers  # noqa: F401
 
 SHAPES = [(37, 53), (64, 48)]
 PALETTES = [2, 16, 256, 4097]

@@ -22,27 +22,30 @@ import torch
 
 from dither_pie_tpu_torch.tools import layout_repro as lr
 from test_torch_skew_tiles import Memory
+import torch_workers  # noqa: F401
 
 SIZES = (0, 1, 15, 16, 17, 31, 32, 33, 4095, 65537, 1_000_003, 4 * 2 ** 20 + 7)
 OFFSETS = [(a, b) for a in range(16) for b in range(16)]
 
 
 def _pieces(plan, n):
-    """The plan's byte ranges [lo, hi): head, the body (the shifted form's
-    spans in order), tail."""
+    """The plan's byte ranges [lo, hi) as two arrays of bounds: head, the
+    body (the shifted form's spans in order), tail."""
     if plan.form == "stride" or not plan.body:
-        body = [(plan.head, plan.head + plan.body)] if plan.body else []
+        count, step = int(plan.body > 0), plan.body
     else:
-        count = -(-plan.body // plan.span)
-        body = [(plan.head + i * plan.span, plan.head + min(plan.body, (i + 1) * plan.span))
-                for i in range(count)]
-    return [(0, plan.head), *body, (plan.head + plan.body, n)]
+        count, step = -(-plan.body // plan.span), plan.span
+    lo = plan.head + step * np.arange(count, dtype=np.int64)
+    hi = np.minimum(lo + step, plan.head + plan.body)
+    return (np.concatenate([[0], lo, [plan.head + plan.body]]),
+            np.concatenate([[plan.head], hi, [n]]))
 
 
 def _block_spans(plan, n, b):
-    """The spans block b of the shifted form takes, in its order: b,
-    b + blocks, ..."""
-    return _pieces(plan, n)[1:-1][b::plan.blocks]
+    """The bounds of the spans block b of the shifted form takes, in its
+    order: b, b + blocks, ..."""
+    lo, hi = _pieces(plan, n)
+    return lo[1:-1][b::plan.blocks], hi[1:-1][b::plan.blocks]
 
 
 @pytest.mark.parametrize("span", (None, 16, 4096, 65_536), ids=lambda v: f"span{v}")
@@ -61,9 +64,9 @@ def test_plan_puts_every_byte_in_one_piece(n, blocks, span):
                 lr.identity_plan(n, in16, out16, blocks, span=span))
         assert plan.form == ("shifted" if in16 != out16 else "stride")
         assert plan.threads == lr.IDENTITY_THREADS == 256
-        pieces = _pieces(plan, n)
-        assert pieces[0][0] == 0 and pieces[-1][1] == n
-        assert all(a[1] == b[0] and a[0] <= a[1] for a, b in zip(pieces, pieces[1:]))
+        lo, hi = _pieces(plan, n)
+        assert lo[0] == 0 and hi[-1] == n
+        assert np.array_equal(hi[:-1], lo[1:]) and np.all(lo <= hi)
         assert plan.head < 16 and n - plan.head - plan.body < 16
         assert (out16 + plan.head) % 16 == 0 or plan.head == n
         assert plan.body % 16 == 0 and plan.span % 16 == 0
@@ -71,20 +74,22 @@ def test_plan_puts_every_byte_in_one_piece(n, blocks, span):
         if not plan.body:
             assert (plan.span, plan.blocks) == (0, 1)
             continue
-        assert all((out16 + lo) % 16 == 0 for lo, _ in pieces[1:-1])
+        assert np.all((out16 + lo[1:-1]) % 16 == 0)
         if plan.form == "stride":
             # Both pointers on the boundary; no block without a first word.
             assert plan.span == 0 and (in16 + plan.head) % 16 == 0
             assert plan.blocks == min(blocks, -(-plan.body // 16 // 256))
             continue
         assert plan.span == (lr.IDENTITY_SPAN if span is None else span)
-        spans = pieces[1:-1]
-        assert plan.blocks <= len(spans)  # no block without work
-        for b in {0, 1, plan.blocks - 1} & set(range(plan.blocks)):
-            # The kernel's count of block b's turns (struct Spans).
-            assert (len(spans) - 1 - b) // plan.blocks + 1 == len(spans[b::plan.blocks])
-        assert all(hi > lo for lo, hi in spans)
-        assert all((hi - lo) == plan.span for lo, hi in spans[:-1])
+        size = hi[1:-1] - lo[1:-1]  # the spans' lengths
+        assert plan.blocks <= size.size  # no block without work
+        # The kernel's count of each block b's turns (struct Spans) is
+        # len(spans[b::blocks]).
+        b = np.arange(plan.blocks)
+        assert np.array_equal((size.size - 1 - b) // plan.blocks + 1,
+                              np.bincount(np.arange(size.size) % plan.blocks))
+        assert np.all(size > 0)
+        assert np.all(size[:-1] == plan.span)
 
 
 @pytest.mark.parametrize("n", (16, 17, 33, 4095, 65537))
@@ -93,8 +98,8 @@ def test_plan_of_one_word_spans(n):
     the stride form takes at most one block a 256 words whatever the span."""
     for in16, out16 in OFFSETS:
         plan = lr.identity_plan(n, in16, out16, 7, span=16)
-        pieces = _pieces(plan, n)
-        assert all(a[1] == b[0] for a, b in zip(pieces, pieces[1:]))
+        lo, hi = _pieces(plan, n)
+        assert np.array_equal(hi[:-1], lo[1:])
         words = plan.body // 16
         want = min(7, words if plan.form == "shifted" else -(-words // 256))
         assert plan.blocks == want or not plan.body
@@ -165,7 +170,7 @@ def _shifted_block(src, dst, plan, spans):
     """The shifted form: output word w of a span is built from the aligned
     input words w and w + 1 around its bytes (r bytes in, r the same for
     the whole copy) by four funnel shifts of 32-bit words."""
-    for lo, hi in spans:
+    for lo, hi in zip(*spans):
         first = src.offset + lo
         r = first % 16
         assert r != 0 and (dst.offset + lo) % 16 == 0

@@ -12,6 +12,7 @@ import torch
 
 from dither_pie_tpu.ops import idxpack as jpack
 from dither_pie_tpu_torch.ops import idxpack as tpack
+import torch_workers  # noqa: F401
 
 BPP_P = [(1, 2), (2, 4), (4, 16)]
 WIDTHS = [1, 7, 8, 13, 128]

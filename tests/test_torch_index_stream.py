@@ -25,6 +25,7 @@ from dither_pie_tpu.ops import ed_host
 from dither_pie_tpu.ops import wavefront as jwf
 from dither_pie_tpu_torch.kernels import build
 from dither_pie_tpu_torch.ops import wavefront as twf
+import torch_workers  # noqa: F401
 
 # (mode, keyword arguments): the five modes, and a fixed variant with s = 3.
 MODE_CASES = [

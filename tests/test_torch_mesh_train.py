@@ -40,6 +40,7 @@ from test_torch_training import (
     np_tree,
     zero_grad_bias,
 )
+import torch_workers  # noqa: F401
 
 CPU = torch.device("cpu")
 DIM = 8

@@ -40,6 +40,7 @@ from dither_pie_tpu_torch.pipeline import ffio
 from dither_pie_tpu_torch.pipeline import resume as rz
 from dither_pie_tpu_torch.pipeline import video as tvideo
 from dither_pie_tpu_torch.pipeline.video import VideoProcessor
+import torch_workers  # noqa: F401
 
 PAL = [(0, 0, 0), (255, 0, 0), (0, 255, 0), (255, 255, 255), (30, 90, 200)]
 

@@ -30,6 +30,7 @@ from dither_pie_tpu_torch.models import convert as tconv
 from dither_pie_tpu_torch.models import inference as tinf
 from dither_pie_tpu_torch.models import layers as tl
 from dither_pie_tpu_torch.models import param_shapes as tps
+import torch_workers  # noqa: F401
 
 SEED = 0
 FRAMES_HW = (40, 56)  # the u8 path's frames

@@ -34,6 +34,7 @@ from dither_pie_tpu_torch.models.pixelizer import NeuralPixelizer
 from dither_pie_tpu_torch.pipeline import image as timage
 from dither_pie_tpu_torch.pipeline import pixelize as tpix
 from dither_pie_tpu_torch.pipeline import video as tvideo
+import torch_workers  # noqa: F401
 
 PAL = [(0, 0, 0), (250, 250, 250), (200, 40, 40), (30, 90, 200), (240, 200, 60)]
 MAX_SIZE = 16

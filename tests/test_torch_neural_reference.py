@@ -37,6 +37,7 @@ from dither_pie_tpu_torch.models import convert, param_shapes  # noqa: E402
 from dither_pie_tpu_torch.models import inference as inf  # noqa: E402
 from dither_pie_tpu_torch.models.pixelizer import NeuralPixelizer  # noqa: E402
 from portbench.references import pixelization as ref  # noqa: E402
+import torch_workers  # noqa: E402, F401
 
 CPU = torch.device("cpu")
 CONFIG = json.loads((ROOT / "portbench" / "configs" / "pix128-atk-km16.json").read_text())
@@ -57,16 +58,6 @@ def _frames(n, seed=0):
                          .read_text())
     traffic.update(height=FRAMES_HW[0], width=FRAMES_HW[1], pool=n)
     return frame_gen.make_pool(traffic, seed, CPU)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def two_threads():
-    """Two intra-op threads: test workers that each spin up a thread a core
-    starve one another's bfloat16 convolutions."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(autouse=True)

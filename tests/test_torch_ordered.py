@@ -28,6 +28,7 @@ from dither_pie_tpu.ops.ordered_pallas import ordered_dither_fused as jfused
 from dither_pie_tpu_torch.kernels import build
 from dither_pie_tpu_torch.ops import ordered as tord
 from dither_pie_tpu_torch.ops import ordered_fused as tof
+import torch_workers  # noqa: F401
 
 # test_fused_ordered.py's four shapes: (B, H, W), P.
 FUSED_CASES = [((2, 40, 56), 16), ((1, 100, 130), 5), ((3, 17, 200), 33),

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from dither_pie_tpu_torch.ops import ordered_fused as tof
+import torch_workers  # noqa: F401
 
 INT_MAX = 2**31 - 1
 M32 = np.uint64(0xFFFFFFFF)

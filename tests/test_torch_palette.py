@@ -18,6 +18,7 @@ import pytest
 import bench
 from dither_pie_tpu.core import palette as jpal
 from dither_pie_tpu_torch.core import palette as tpal
+import torch_workers  # noqa: F401
 
 INERTIA_RATIO_MAX = 1.05
 

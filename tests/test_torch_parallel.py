@@ -34,6 +34,7 @@ from dither_pie_tpu_torch.ops import ordered as tord
 from dither_pie_tpu_torch.ops import wavefront as twf
 from dither_pie_tpu_torch.parallel import auto, mesh as tmesh, sharding as tsharding
 from test_torch_ed_modes import _gates, _golden
+import torch_workers  # noqa: F401
 
 CPU = torch.device("cpu")
 PAL4 = [(0, 0, 0), (255, 255, 255), (200, 40, 40), (30, 90, 200)]

@@ -20,6 +20,7 @@ import torch
 from dither_pie_tpu.ops import wavefront as jwf
 from dither_pie_tpu_torch.kernels import build
 from dither_pie_tpu_torch.ops import wavefront as twf
+import torch_workers  # noqa: F401
 
 MODE_CASES = [
     ("fixed", {"variant": "floyd_steinberg"}),

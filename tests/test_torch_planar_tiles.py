@@ -22,6 +22,7 @@ import torch
 
 from dither_pie_tpu_torch.ops import wavefront as twf
 from test_torch_skew_tiles import HS, PLAN_SHAPES, SMEM_STATIC_MAX, WS, skew_model
+import torch_workers  # noqa: F401
 
 # (R, base offset of the input, of the output): offsets off the 16-byte
 # boundary stand for a contiguous slice such as planes[1:].

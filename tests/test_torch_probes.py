@@ -35,6 +35,7 @@ from dither_pie_tpu.ops.ordered_pallas import ordered_dither_fused as jfused
 from dither_pie_tpu_torch.kernels import build
 from dither_pie_tpu_torch.tools import gather_probe as gp
 from dither_pie_tpu_torch.tools import layout_repro as lr
+import torch_workers  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 LF = gp.LF

@@ -33,6 +33,7 @@ from dither_pie_tpu.ops import riemersma_scan as jscan
 from dither_pie_tpu_torch.kernels import build
 from dither_pie_tpu_torch.ops import ed_host as thost
 from dither_pie_tpu_torch.ops import riemersma_scan as tscan
+import torch_workers  # noqa: F401
 
 SHAPES = [(16, 16), (13, 22), (34, 18), (1, 97), (97, 1), (33, 65)]
 PALETTES = [2, 16, 32, 300]

@@ -16,6 +16,7 @@ import pytest
 
 from dither_pie_tpu_torch.ops import ed_kernels
 from dither_pie_tpu_torch.ops import wavefront as twf
+import torch_workers  # noqa: F401
 
 # Clusters of one scan launch that an H100 holds at once (as
 # cudaOccupancyMaxActiveClusters answered for 16 x 1080p FS),

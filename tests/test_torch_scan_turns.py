@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from dither_pie_tpu_torch.ops import wavefront as twf
+import torch_workers  # noqa: F401
 
 
 class FakeStream:

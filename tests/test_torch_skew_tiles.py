@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from dither_pie_tpu_torch.ops import wavefront as twf
+import torch_workers  # noqa: F401
 
 SMEM_STATIC_MAX = 48 * 1024  # static shared memory a block may have
 # __byte_perm selectors of K3's NHWC store, by the phase (element index mod

@@ -26,6 +26,7 @@ import dither_pie_tpu_torch as tdpt
 from dither_pie_tpu_torch.kernels import build
 from dither_pie_tpu_torch.ops import wavefront as twf
 from test_torch_skew_tiles import skew_model
+import torch_workers  # noqa: F401
 
 DTYPES = {"u8": np.uint8, "f32": np.float32}
 

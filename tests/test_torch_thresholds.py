@@ -20,6 +20,7 @@ from dither_pie_tpu.ops import ordered as jord
 from dither_pie_tpu_torch.core import builtin_palettes as tbp
 from dither_pie_tpu_torch.core import thresholds as tthr
 from dither_pie_tpu_torch.ops import ordered as tord
+import torch_workers  # noqa: F401
 
 
 def _bits(a):

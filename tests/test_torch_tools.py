@@ -46,6 +46,7 @@ from dither_pie_tpu_torch.models import inference as tinf
 from dither_pie_tpu_torch.tools import pixelize as tpixtool
 from dither_pie_tpu_torch.tools import resizer as tres
 from dither_pie_tpu_torch.tools import vid_conc as tvc
+import torch_workers  # noqa: F401
 
 
 def _image(path, h, w, seed=0, mode="RGB"):

@@ -32,6 +32,7 @@ import dither_pie_tpu_torch as tdpt
 from dither_pie_tpu_torch.api import profiling
 from dither_pie_tpu_torch.kernels import build
 from dither_pie_tpu_torch.pipeline import video
+import torch_workers  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PAL = [(0, 0, 0), (250, 250, 250), (200, 40, 40), (30, 90, 200), (240, 200, 60)]

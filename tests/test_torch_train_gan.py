@@ -15,6 +15,7 @@ from PIL import Image
 
 from dither_pie_tpu_torch.models import training as tt
 from dither_pie_tpu_torch.tools.train_gan import _load_image, main
+import torch_workers  # noqa: F401
 
 
 @pytest.fixture()

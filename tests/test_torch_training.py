@@ -40,6 +40,7 @@ from dither_pie_tpu_torch.models import discriminator as td
 from dither_pie_tpu_torch.models import losses as tlosses
 from dither_pie_tpu_torch.models import training as tt
 from dither_pie_tpu_torch.models.p2cgen import P2CGen, p2cgen_forward
+import torch_workers  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 DIM = 8

@@ -25,6 +25,7 @@ import torch
 import dither_pie_tpu_torch as tdpt
 from dither_pie_tpu_torch.api import linkspeed, profiling, transfer
 from dither_pie_tpu_torch.pipeline import video
+import torch_workers  # noqa: F401
 
 PAL = [(0, 0, 0), (250, 250, 250), (200, 40, 40), (30, 90, 200), (240, 200, 60),
        (20, 160, 70), (120, 60, 160), (255, 140, 0)]

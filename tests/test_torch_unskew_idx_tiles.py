@@ -33,6 +33,7 @@ from dither_pie_tpu_torch.kernels import build
 from dither_pie_tpu_torch.ops import wavefront as twf
 from test_torch_skew_tiles import (HS, LAYOUTS, PLAN_SHAPES, SMEM_STATIC_MAX, UNSKEW_U, WS,
                                    check_unskew_cover, hold_unskew, packed_palette)
+import torch_workers  # noqa: F401
 
 KINDS = ("u8", "u16")
 

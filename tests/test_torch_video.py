@@ -44,6 +44,7 @@ from dither_pie_tpu_torch.pipeline import image as timage
 from dither_pie_tpu_torch.pipeline import resume as tresume
 from dither_pie_tpu_torch.pipeline import video as tvideo
 from test_torch_multihost import fake_concat, fake_io, video_config
+import torch_workers  # noqa: F401
 
 PAL = [(0, 0, 0), (250, 250, 250), (200, 40, 40), (30, 90, 200), (240, 200, 60)]
 

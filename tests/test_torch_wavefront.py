@@ -29,6 +29,7 @@ from dither_pie_tpu_torch import convert
 from dither_pie_tpu_torch.kernels import build
 from dither_pie_tpu_torch.ops import ed_kernels as tek
 from dither_pie_tpu_torch.ops import wavefront as twf
+import torch_workers  # noqa: F401
 
 VARIANTS = ["floyd_steinberg", "jjn", "stucki", "burkes", "atkinson",
             "sierra", "sierra_two_row", "sierra_lite"]

@@ -36,6 +36,7 @@ from dither_pie_tpu.ops import wavelet as jwav
 from dither_pie_tpu_torch.api import ditherer as tditherer
 from dither_pie_tpu_torch.core import palette as tpal
 from dither_pie_tpu_torch.ops import wavelet as twav
+import torch_workers  # noqa: F401
 
 FACADE_WAVELETS = ["haar", "db2", "db4", "bior2.2"]
 FACADE_SHAPES = [(40, 56), (33, 47), (64, 80)]
